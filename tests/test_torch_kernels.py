@@ -1,0 +1,161 @@
+"""tpuimg_torch kernel modules against tpuimg, on the CPU.
+
+On a CPU tensor every wrapper runs its plain PyTorch version; these tests hold
+those versions to the JAX package's Pallas kernels (interpret mode on the CPU
+backend, as tests/test_pallas_kernels.py runs them) and to its NumPy oracles.
+The CUDA kernels themselves run in chip_smoke.py and tests/test_torch_cuda.py
+on the card.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tpuimg.core.borders import reflect101_index as jax_reflect101_index
+from tpuimg.kernels.boxsum import enhance_tail_pallas
+from tpuimg.kernels.hist import hist_tiles_fused
+from tpuimg.kernels.lut import clahe_map_full
+from tpuimg.oracle import clahe_ref
+from tpuimg.oracle.numpy_ref import clahe_tile_geometry, clahe_tile_hists_ref
+from tpuimg.ops.histogram import _clahe_front, _map_bank, _tile_coord_runs
+from tpuimg_torch import clahe
+from tpuimg_torch.core.borders import pad_reflect101, reflect101_index
+from tpuimg_torch.core.validate import ParamError
+from tpuimg_torch.kernels.boxsum import enhance_tail, enhance_tail_plain
+from tpuimg_torch.kernels.hist import tile_hist, tile_hist_plain
+from tpuimg_torch.kernels.lut import clahe_map, clahe_map_plain
+
+# the bound of clahe_ref's tile geometry (tpuimg/ops/histogram.py:272): every
+# frame below needs at most pad < n of reflect-101 padding
+HIST_CASES = [((96, 160), (4, 4)), ((130, 390), (2, 3)),
+              ((90, 110), (8, 8))]  # the last one pads 3 rows, 1 column
+
+
+@pytest.mark.parametrize("shape,grid", HIST_CASES)
+def test_tile_hist_plain_matches_pallas_and_oracle(rng, shape, grid):
+    """Bit-exact against hist_tiles_fused (interpret mode) over the same
+    reflect-101 extension, and against the oracle's per-tile counts."""
+    yt, xt = grid
+    h, w = shape
+    img = rng.integers(0, 256, shape, dtype=np.uint8)
+    tw, th, pad_left, pad_top = clahe_tile_geometry(h, w, xt, yt)
+    ys = jax_reflect101_index(np.arange(th * yt) - pad_top, h)
+    xs = jax_reflect101_index(np.arange(tw * xt) - pad_left, w)
+    ext = jnp.asarray(img[np.ix_(ys, xs)])
+    pallas = np.asarray(hist_tiles_fused(ext, yt, xt, th, tw))
+    got = tile_hist_plain(torch.from_numpy(img), yt, xt, th, tw, pad_top,
+                          pad_left).numpy()
+    assert got.dtype == np.int32
+    np.testing.assert_array_equal(got, pallas)
+    np.testing.assert_array_equal(got, clahe_tile_hists_ref(img, xt, yt))
+    assert (got.sum(axis=1) == th * tw).all()
+
+
+@pytest.mark.parametrize("n", [1, 2, 7, 64])
+def test_reflect101_matches_tpuimg(n):
+    x = np.arange(-n + 1, 2 * n - 1)
+    np.testing.assert_array_equal(
+        reflect101_index(torch.from_numpy(x), n).numpy(),
+        jax_reflect101_index(x, n))
+
+
+def test_pad_reflect101_bound(rng):
+    x = torch.from_numpy(rng.random((5, 6), dtype=np.float32))
+    np.testing.assert_array_equal(
+        pad_reflect101(x, 4, 5).numpy(),
+        np.pad(x.numpy(), ((4, 4), (5, 5)), mode="reflect"))
+    with pytest.raises(ParamError, match="pad < n"):
+        pad_reflect101(x, 5, 1)
+
+
+def _tpuimg_map(img, tiles):
+    """tpuimg's CLAHE front end and clahe_map_full f32 blend of img."""
+    h, w = img.shape
+    tables, th, tw, pad_top, pad_left = _clahe_front(
+        jnp.asarray(img), 2.0, tiles, tiles)
+    xinfo = [(x0, x1, tx1) for x0, x1, tx1, _tx2, _ in
+             _tile_coord_runs(w, tiles, tw, pad_left, use_recip=True)]
+    blend = clahe_map_full(
+        jnp.asarray(img), _map_bank(tables, tiles, tiles), xinfo,
+        pad_top=float(pad_top), th=float(th), ytiles=tiles,
+        pad_left=float(pad_left),
+        inv_tw=float(np.float32(1.0) / np.float32(tw)), out_f32=True)
+    return np.array(tables), (th, tw, pad_top, pad_left), np.asarray(blend)
+
+
+@pytest.mark.parametrize("shape,tiles", [((150, 200), 4), ((220, 260), 8)])
+def test_clahe_map_plain_matches_pallas(rng, shape, tiles):
+    """The same tables through both mappings: f32 blends within 1e-3 on
+    the [0, 255] scale (op order differs, KNOWN_DIVERGENCES.md section 3)."""
+    img = rng.integers(0, 256, shape, dtype=np.uint8)
+    tables, geo, ref = _tpuimg_map(img, tiles)
+    got = clahe_map_plain(torch.from_numpy(img), torch.from_numpy(tables),
+                          tiles, tiles, *geo, out_f32=True).numpy()
+    assert got.dtype == np.float32
+    assert np.abs(got - ref).max() <= 1e-3
+    u8 = clahe_map_plain(torch.from_numpy(img), torch.from_numpy(tables),
+                         tiles, tiles, *geo).numpy()
+    np.testing.assert_array_equal(
+        u8, np.clip(np.trunc(got), 0, 255).astype(np.uint8))
+
+
+@pytest.mark.parametrize("shape,tiles", [((128, 128), (4, 4)),
+                                         ((90, 110), (8, 8)),
+                                         ((64, 200), (2, 5)),
+                                         ((256, 384), (16, 16))])
+def test_clahe_u8_within_one_step_of_oracle(rng, shape, tiles):
+    img = rng.integers(0, 256, shape, dtype=np.uint8)
+    xt, yt = tiles
+    for clip in (2.0, 40.0):
+        out = clahe(torch.from_numpy(img), clip, xt, yt).numpy()
+        ref = clahe_ref(img, clip, xt, yt)
+        assert out.dtype == np.uint8
+        assert np.abs(out.astype(int) - ref.astype(int)).max() <= 1
+
+
+@pytest.mark.parametrize("shape", [(96, 150), (200, 260)])
+def test_enhance_tail_plain_matches_pallas(rng, shape):
+    """The bound of tests/test_pallas_kernels.py:353."""
+    f = rng.random(shape, dtype=np.float32)
+    ref = np.asarray(enhance_tail_pallas(f, 2, 1.5, 8, 1e-3))
+    got = enhance_tail_plain(torch.from_numpy(f), 2, 1.5, 8, 1e-3).numpy()
+    assert np.abs(got - ref).max() < 1e-5
+
+
+@pytest.mark.parametrize("rg,r", [(1, 1), (3, 4)])
+def test_enhance_tail_plain_other_radii(rng, rg, r):
+    f = rng.random((70, 90), dtype=np.float32)
+    ref = np.asarray(enhance_tail_pallas(f, rg, 1.2, r, 1e-2))
+    got = enhance_tail_plain(torch.from_numpy(f), rg, 1.2, r, 1e-2).numpy()
+    assert np.abs(got - ref).max() < 1e-5
+
+
+def test_wrappers_take_plain_version_on_cpu(rng):
+    """On a CPU tensor each wrapper returns its plain version's result and
+    launches nothing."""
+    img = torch.from_numpy(rng.integers(0, 256, (90, 110), dtype=np.uint8))
+    before = (tile_hist.launches, clahe_map.launches, enhance_tail.launches)
+    geo = (8, 8, 12, 14, 3, 1)  # ytiles, xtiles, th, tw, pad_top, pad_left
+    assert torch.equal(tile_hist(img, *geo), tile_hist_plain(img, *geo))
+    tables = torch.from_numpy(rng.random((64, 256), dtype=np.float32) * 255)
+    assert torch.equal(clahe_map(img, tables, *geo, out_f32=True),
+                       clahe_map_plain(img, tables, *geo, out_f32=True))
+    f = torch.from_numpy(rng.random((90, 110), dtype=np.float32))
+    assert torch.equal(enhance_tail(f, 2, 1.5, 8, 1e-3),
+                       enhance_tail_plain(f, 2, 1.5, 8, 1e-3))
+    after = (tile_hist.launches, clahe_map.launches, enhance_tail.launches)
+    assert after == before
+
+
+def test_wrappers_refuse_non_cuda_devices():
+    """A tensor that is neither on the CPU nor on a card never runs the
+    plain version: the wrapper raises before any launch."""
+    img = torch.empty((64, 64), dtype=torch.uint8, device="meta")
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        tile_hist(img, 4, 4, 16, 16, 0, 0)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        clahe_map(img, torch.empty((16, 256), device="meta"), 4, 4, 16, 16,
+                  0, 0)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        enhance_tail(torch.empty((64, 64), device="meta"), 2, 1.5, 8, 1e-3)

@@ -1,0 +1,257 @@
+"""tpuimg_torch's enhance pipeline against tpuimg's, on the CPU: end to end,
+through carried-across CLAHE state, the typed errors, the dispatch rules and
+the import boundary."""
+
+import os
+import subprocess
+import sys
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import tpuimg
+import tpuimg_torch
+from tpuimg.core.kernelgen import gaussian_kernel_1d as jax_taps
+from tpuimg.kernels.boxsum import enhance_tail_pallas
+from tpuimg.kernels.lut import clahe_map_full
+from tpuimg.oracle import clahe_ref, gaussian_ref, guided_filter_ref
+from tpuimg.ops.histogram import _clahe_front, _map_bank, _tile_coord_runs
+from tpuimg.pipeline import enhance as jax_enhance
+from tpuimg_torch.core import validate as tv
+from tpuimg_torch.core.kernelgen import gaussian_kernel_1d
+from tpuimg_torch.core.params import carry_enhance_state
+from tpuimg_torch.kernels.boxsum import enhance_tail
+from tpuimg_torch.kernels.hist import tile_hist
+from tpuimg_torch.kernels.lut import clahe_map
+from tpuimg_torch.ops.histogram import _clahe_front as torch_clahe_front
+from tpuimg_torch.pipeline import enhance
+
+SHAPE = (72, 96)
+# every value of tiles {4, 8}, radius {1, 2} and gf_radius {2, 4, 8}; the
+# last case is enhance's defaults. (72, 96) with gf_radius 8 takes the tail
+# kernel's path (72 > 2*(2*8 + 2)); gf_radius 2 and 4 as well.
+PARAMS = [(4, 1, 2), (8, 1, 4), (4, 2, 8), (8, 2, 8)]
+
+
+def _to_u8(q):
+    return np.clip(np.rint(q * 255.0), 0, 255).astype(np.uint8)
+
+
+def _composed_oracle(img, tiles, radius, gf_radius):
+    """cli.py's enhance-autotest reference: the NumPy oracles composed."""
+    eq = clahe_ref(img, 2.0, tiles, tiles)
+    f = eq.astype(np.float32) / np.float32(255.0)
+    sm = gaussian_ref(f, radius, 1.5)
+    return _to_u8(guided_filter_ref(f, sm, gf_radius, 1e-3,
+                                    border="reflect101"))
+
+
+@pytest.mark.parametrize("impl", ["fused", "staged"])
+@pytest.mark.parametrize("tiles,radius,gf_radius", PARAMS)
+def test_enhance_matches_tpuimg_and_oracle(rng, impl, tiles, radius,
+                                           gf_radius):
+    img = rng.integers(0, 256, SHAPE, dtype=np.uint8)
+    args = (2.0, tiles, radius, 1.5, gf_radius, 1e-3)
+    got = enhance(torch.from_numpy(img), *args, impl=impl).numpy()
+    assert got.dtype == np.uint8 and got.shape == SHAPE
+    ref = np.asarray(jax_enhance(img, *args, impl=impl))
+    assert np.abs(got.astype(int) - ref.astype(int)).max() <= 1
+    oracle = _composed_oracle(img, tiles, radius, gf_radius)
+    assert np.abs(got.astype(int) - oracle.astype(int)).max() <= 2
+
+
+def test_enhance_small_frame_composes_gaussian_and_guided(rng):
+    """Below the tail kernel's gate (min(H, W) <= 2*(2*gf_radius + radius))
+    the fused path composes gaussian and guided_filter, as tpuimg does."""
+    img = rng.integers(0, 256, (30, 44), dtype=np.uint8)
+    got = enhance(torch.from_numpy(img), tiles=4).numpy()
+    ref = np.asarray(jax_enhance(img, tiles=4))
+    assert np.abs(got.astype(int) - ref.astype(int)).max() <= 1
+
+
+@pytest.mark.parametrize("shape,tiles", [((150, 200), 4), ((220, 260), 8)])
+def test_carried_state_drives_both_packages(rng, shape, tiles):
+    """tpuimg's _clahe_front state, carried across, goes through both
+    packages' mapping and tail stages: blends within 1e-3, tails within
+    1e-5 of each other, u8 frames within 1 step."""
+    h, w = shape
+    img = rng.integers(0, 256, shape, dtype=np.uint8)
+    tables, th, tw, pad_top, pad_left = _clahe_front(
+        jnp.asarray(img), 2.0, tiles, tiles)
+    st = carry_enhance_state(np.asarray(tables), th, tw, pad_top, pad_left,
+                             h=h, w=w, tiles=tiles)
+    geo = (st.th, st.tw, st.pad_top, st.pad_left)
+    blend = clahe_map(torch.from_numpy(img), st.tables, tiles, tiles, *geo,
+                      out_f32=True)
+    xinfo = [(x0, x1, tx1) for x0, x1, tx1, _tx2, _ in
+             _tile_coord_runs(w, tiles, tw, pad_left, use_recip=True)]
+    jblend = clahe_map_full(
+        jnp.asarray(img), _map_bank(tables, tiles, tiles), xinfo,
+        pad_top=float(pad_top), th=float(th), ytiles=tiles,
+        pad_left=float(pad_left),
+        inv_tw=float(np.float32(1.0) / np.float32(tw)), out_f32=True)
+    assert np.abs(blend.numpy() - np.asarray(jblend)).max() <= 1e-3
+    g, gf = st.gaussian, st.guided
+    q = enhance_tail(blend * (1.0 / 255.0), g.radius, g.sigma, gf.radius,
+                     gf.eps).numpy()
+    jq = np.asarray(enhance_tail_pallas(
+        jblend * jnp.float32(1.0 / 255.0), g.radius, g.sigma, gf.radius,
+        gf.eps))
+    assert np.abs(q - jq).max() < 1e-5
+    assert np.abs(_to_u8(q).astype(int) - _to_u8(jq).astype(int)).max() <= 1
+
+
+def test_carry_round_trips_clahe_front_state(rng):
+    img = rng.integers(0, 256, (90, 110), dtype=np.uint8)
+    tables, th, tw, pad_top, pad_left = _clahe_front(
+        jnp.asarray(img), 2.0, 8, 8)
+    st = carry_enhance_state(np.asarray(tables), th, tw, pad_top, pad_left,
+                             h=90, w=110)
+    np.testing.assert_array_equal(st.tables.numpy(), np.asarray(tables))
+    assert st.tables.dtype == torch.float32
+    # the port's own front end computes the same state, bit for bit
+    own = torch_clahe_front(torch.from_numpy(img), 2.0, 8, 8)
+    np.testing.assert_array_equal(own[0].numpy(), np.asarray(tables))
+    assert own[1:] == (st.th, st.tw, st.pad_top, st.pad_left)
+    assert (st.clahe.clip_limit, st.clahe.xtiles, st.gaussian.radius,
+            st.guided.radius, st.guided.eps) == (2.0, 8, 2, 8, 1e-3)
+    with pytest.raises(tv.ParamError, match="geometry"):
+        carry_enhance_state(np.asarray(tables), th, tw, pad_top, pad_left,
+                            h=96, w=110)
+    with pytest.raises(tv.ShapeError, match="tables"):
+        carry_enhance_state(np.asarray(tables)[:10], th, tw, pad_top,
+                            pad_left, h=90, w=110)
+
+
+@pytest.mark.parametrize("ksize,sigma", [(3, 0.8), (5, 1.5), (17, 3.0),
+                                         (5, 0.0), (9, -1.0), (33, 6.0)])
+def test_gaussian_taps_bit_identical(ksize, sigma):
+    ours = gaussian_kernel_1d(ksize, sigma)
+    theirs = jax_taps(ksize, sigma)
+    assert ours.dtype == theirs.dtype == np.float32
+    assert ours.tobytes() == theirs.tobytes()
+
+
+def _raised(fn):
+    with pytest.raises(ValueError) as info:
+        fn()
+    return type(info.value).__name__, str(info.value)
+
+
+@pytest.mark.parametrize("case", [
+    "float_frame", "tiles_0", "clip_0", "clip_nan", "eps_0", "radius_0",
+    "impl_typo"])
+def test_same_typed_errors_as_tpuimg(case):
+    u8 = np.zeros((64, 64), np.uint8)
+    args, kwargs = {
+        "float_frame": ((u8.astype(np.float32),), {}),
+        "tiles_0": ((u8,), {"tiles": 0}),
+        "clip_0": ((u8,), {"clip_limit": 0.0}),
+        "clip_nan": ((u8,), {"clip_limit": float("nan")}),
+        "eps_0": ((u8,), {"gf_eps": 0}),
+        "radius_0": ((u8,), {"radius": 0}),
+        "impl_typo": ((u8,), {"impl": "fussed"}),
+    }[case]
+    theirs = _raised(lambda: jax_enhance(*args, **kwargs))
+    ours = _raised(lambda: enhance(torch.from_numpy(args[0]), **kwargs))
+    assert ours[0] == theirs[0]
+    assert ours[1] == theirs[1].replace(", 'fused1'", "")  # not ported
+
+
+def test_3d_frame_is_a_shape_error():
+    """tpuimg.clahe refuses a batch with ShapeError (its message points at
+    jax.vmap); the port's clahe and enhance do the same."""
+    batch = np.zeros((2, 64, 64), np.uint8)
+    assert _raised(lambda: tpuimg.clahe(batch, 2.0, 4, 4))[0] == "ShapeError"
+    for fn in (lambda: tpuimg_torch.clahe(torch.from_numpy(batch), 2.0, 4, 4),
+               lambda: enhance(torch.from_numpy(batch))):
+        name, msg = _raised(fn)
+        assert name == "ShapeError" and "single (H, W) image" in msg
+
+
+def test_same_typed_errors_from_the_ops(rng):
+    f = rng.random((32, 32), dtype=np.float32)
+    ours = _raised(lambda: tpuimg_torch.guided_filter(
+        torch.from_numpy(f), torch.from_numpy(f), 4, 0.0,
+        border="reflect101"))
+    assert ours == _raised(lambda: tpuimg.guided_filter(
+        f, f, 4, 0.0, border="reflect101"))
+    ours = _raised(lambda: tpuimg_torch.gaussian(torch.from_numpy(f), 0, 1.0))
+    assert ours == _raised(lambda: tpuimg.gaussian(f, 0, 1.0))
+    u8 = np.zeros((4, 4), np.uint8)
+    ours = _raised(lambda: tpuimg_torch.clahe(torch.from_numpy(u8), 2.0, 40,
+                                              40))
+    assert ours == _raised(lambda: tpuimg.clahe(u8, 2.0, 40, 40))
+    i64 = np.zeros((4, 4), np.int64)
+    ours = _raised(lambda: tv.check_image(torch.from_numpy(i64),
+                                          dtypes=[torch.uint8]))
+    from tpuimg.core.validate import check_image
+
+    assert ours == _raised(lambda: check_image(i64, dtypes=[np.uint8]))
+
+
+def test_box_and_guided_match_tpuimg(rng):
+    I = rng.random((56, 72), dtype=np.float32)
+    p = np.clip(I + 0.1 * rng.standard_normal((56, 72)), 0, 1).astype(
+        np.float32)
+    for r in (1, 4, 8):
+        got = tpuimg_torch.box_filter(torch.from_numpy(I), r,
+                                      border="reflect101").numpy()
+        ref = np.asarray(tpuimg.box_filter(I, r, border="reflect101"))
+        assert np.abs(got - ref).max() < 1e-5
+        got = tpuimg_torch.guided_filter(
+            torch.from_numpy(I), torch.from_numpy(p), r, 1e-3,
+            border="reflect101").numpy()
+        ref = np.asarray(tpuimg.guided_filter(I, p, r, 1e-3,
+                                              border="reflect101"))
+        assert np.abs(got - ref).max() < 1e-4
+    It = torch.from_numpy(I)
+    self_guided = tpuimg_torch.guided_filter(It, It, 4, 1e-2,
+                                             border="reflect101")
+    general = tpuimg_torch.guided_filter(It, It.clone(), 4, 1e-2,
+                                         border="reflect101")
+    assert torch.equal(self_guided, general)
+    sm = tpuimg_torch.gaussian(It, 2, 1.5).numpy()
+    assert np.abs(sm - np.asarray(tpuimg.gaussian(I, 2, 1.5))).max() < 1e-6
+
+
+def test_cpu_dispatch_launches_no_kernel(rng):
+    img = torch.from_numpy(rng.integers(0, 256, (80, 100), dtype=np.uint8))
+    before = (tile_hist.launches, clahe_map.launches, enhance_tail.launches)
+    enhance(img)
+    tpuimg_torch.clahe(img, 2.0, 4, 4)
+    after = (tile_hist.launches, clahe_map.launches, enhance_tail.launches)
+    assert after == before == (0, 0, 0)
+
+
+def test_unported_paths_raise_off_the_cpu():
+    """A tensor off the CPU never runs plain code in place of a kernel:
+    what needs an unported kernel raises NotPortedError naming it. (A meta
+    tensor stands in for a CUDA one; the checks look at the device type.)"""
+    meta_u8 = torch.empty((2160, 3840), dtype=torch.uint8, device="meta")
+    meta_f = torch.empty((64, 64), device="meta")
+    with pytest.raises(tv.NotPortedError, match="gaussian_pallas"):
+        enhance(meta_u8, impl="staged")
+    with pytest.raises(tv.NotPortedError, match="guided_filter_pallas"):
+        enhance(torch.empty((30, 40), dtype=torch.uint8, device="meta"))
+    with pytest.raises(tv.NotPortedError, match="gaussian_pallas"):
+        tpuimg_torch.gaussian(meta_f, 2, 1.5)
+    with pytest.raises(tv.NotPortedError, match="guided_filter_pallas"):
+        tpuimg_torch.guided_filter(meta_f, meta_f, 4, 1e-3,
+                                   border="reflect101")
+    with pytest.raises(tv.NotPortedError, match="shrink"):
+        tpuimg_torch.guided_filter(meta_f, meta_f, 4, 1e-3)
+
+
+def test_import_pulls_in_no_jax_tpuimg_cv2_or_triton():
+    code = ("import sys, tpuimg_torch, tpuimg_torch.pipeline; "
+            "bad = [m for m in ('jax', 'tpuimg', 'cv2', 'triton') "
+            "if m in sys.modules]; print(bad); sys.exit(1 if bad else 0)")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = root
+    proc = subprocess.run([sys.executable, "-c", code], cwd=root, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr

@@ -1,0 +1,134 @@
+"""CLAHE (port of the CLAHE half of ``tpuimg.ops.histogram``).
+
+The reference chain gCalcTileHistsUnroll -> gClipLimit -> gCreateTable ->
+gInterpolateMappingUnroll (Claher::run). The per-tile histograms and the
+bilinear mapping are CUDA kernels (kernels/hist.py, kernels/lut.py) on a
+CUDA tensor; clip/redistribute and the float tables stay plain PyTorch on the
+tensor's device, as they stay XLA glue in the JAX package. Rounding follows
+the CUDA ops: ``__float2int_rz`` -> trunc, float -> u8 assignment ->
+truncation. ``hist_equalize`` is not ported yet.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from tpuimg_torch.core.layout import cdiv
+from tpuimg_torch.core.validate import (
+    ParamError, ShapeError, check_image, check_positive, check_radius)
+from tpuimg_torch.kernels.hist import tile_hist
+
+
+def _clip_redistribute(hists, limit: int):
+    """Vectorized gClipLimit: every bin gets ``steal >> 8`` of the total
+    excess over ``limit``; the residual r = steal & 255 lands one count each
+    on bins (i << 8) // r for i < r, counted in closed form per bin."""
+    excess = torch.clamp(hists - limit, min=0)
+    steal = excess.sum(dim=-1, keepdim=True)
+    clipped = torch.clamp(hists, max=limit)
+    bonus = steal >> 8
+    residual = steal - (bonus << 8)  # in [0, 255]
+    b = torch.arange(256, dtype=steal.dtype, device=hists.device)
+    # #{i : (i << 8) // r == b, 0 <= i < r} = max(0, hi - lo + 1)
+    lo = -torch.div(-b * residual, 256, rounding_mode="floor")
+    hi = torch.div((b + 1) * residual - 1, 256, rounding_mode="floor")
+    extra = torch.where(residual > 0, torch.clamp(hi - lo + 1, min=0), 0)
+    return clipped + bonus + extra
+
+
+def _bilinear_blend(t11, t12, t21, t22, xa, ya):
+    """The 4-LUT bilinear lerp (gInterpolateMappingUnroll). Each product and
+    sum is its own PyTorch op, so nothing is contracted into an FMA; the CUDA
+    mapping kernel rounds the same way with __fmul_rn/__fadd_rn."""
+    xa1 = 1.0 - xa
+    ya1 = 1.0 - ya
+    return (t11 * xa1 + t12 * xa) * ya1 + (t21 * xa1 + t22 * xa) * ya
+
+
+def _blend_to_u8(out):
+    """float -> uchar device assignment: truncate, then clamp."""
+    return torch.clamp(torch.trunc(out), 0.0, 255.0).to(torch.uint8)
+
+
+def _tile_coords(n: int, tiles: int, tsize: int, pad: int, use_recip: bool,
+                 device):
+    """Per-axis interpolation coordinates (the counterpart of tpuimg's
+    ``_tile_coord_runs``, which groups the same values into static runs).
+
+    The reference's f32 math: y uses a true division (``__fdiv_rn``), x a
+    multiply by the host's f32 reciprocal; the tile index truncates toward
+    zero. Returns (t1, t2, frac) with t2 = min(t1 + 1, tiles - 1); frac may be
+    negative at the leading border."""
+    idx = torch.arange(n, dtype=torch.float32, device=device)
+    if use_recip:
+        inv = float(np.float32(1.0) / np.float32(tsize))
+        tf = (idx + pad) * inv - 0.5
+    else:
+        # a tensor divisor: PyTorch's CUDA division by a Python scalar
+        # multiplies by its reciprocal, which is not __fdiv_rn
+        tf = (idx + pad) / torch.full_like(idx, float(tsize)) - 0.5
+    t1f = torch.trunc(tf)
+    t1 = t1f.to(torch.int64)
+    return t1, torch.clamp(t1 + 1, max=tiles - 1), tf - t1f
+
+
+def _clahe_geometry(h: int, w: int, xtiles: int, ytiles: int):
+    """Tile size and centred padding (clahe.cpp:28-38): (th, tw, pad_top,
+    pad_left). Raises ParamError where the reflect-101 extension would need
+    more padding than the frame has."""
+    tw, th = cdiv(w, xtiles), cdiv(h, ytiles)
+    pad_left = (tw * xtiles - w) >> 1
+    pad_top = (th * ytiles - h) >> 1
+    pad_bot = th * ytiles - h - pad_top
+    pad_right = tw * xtiles - w - pad_left
+    if max(pad_top, pad_bot) + 1 > h or max(pad_left, pad_right) + 1 > w:
+        raise ParamError(
+            f"tile grid {xtiles}x{ytiles} needs more reflect padding than the "
+            f"{h}x{w} image can provide (reference dLimitSize has the same "
+            f"validity bound)"
+        )
+    return th, tw, pad_top, pad_left
+
+
+def _clahe_tables(hists, clip_limit: float, th: int, tw: int):
+    """Clip + redistribute (clahe.cpp:87), then the float tables
+    cdf * 255/tile_pixels (gCreateTable): (T, 256) float32."""
+    limit = int(tw * th * clip_limit / 256 + 0.5)
+    hists = _clip_redistribute(hists, limit)
+    fr = float(np.float32(255.0 / (tw * th)))
+    return torch.cumsum(hists, dim=-1).to(torch.float32) * fr
+
+
+def _clahe_front(img, clip_limit: float, xtiles: int, ytiles: int):
+    """Validated CLAHE front end: per-tile clipped tables + mapping geometry.
+
+    Returns (tables (ytiles*xtiles, 256) f32, th, tw, pad_top, pad_left),
+    as ``tpuimg.ops.histogram._clahe_front`` does."""
+    check_image(img, "img", dtypes=[torch.uint8])
+    check_radius(xtiles, name="xtiles")
+    check_radius(ytiles, name="ytiles")
+    check_positive(clip_limit, "clip_limit")
+    if img.ndim != 2:
+        raise ShapeError(
+            f"clahe operates on a single (H, W) image, got shape "
+            f"{tuple(img.shape)}; call it once per frame for a batch"
+        )
+    th, tw, pad_top, pad_left = _clahe_geometry(*img.shape, xtiles, ytiles)
+    hists = tile_hist(img, ytiles, xtiles, th, tw, pad_top, pad_left)
+    return _clahe_tables(hists, clip_limit, th, tw), th, tw, pad_top, pad_left
+
+
+def clahe(img, clip_limit: float = 1.0, xtiles: int = 8, ytiles: int = 8,
+          _out_f32: bool = False):
+    """CLAHE of a uint8 (H, W) image, matching Claher::run.
+
+    ``_out_f32`` (for the enhance pipeline): return the raw bilinear blend
+    in [0, 255] as float32 instead of truncating it to uint8."""
+    from tpuimg_torch.kernels.lut import clahe_map
+
+    img = torch.as_tensor(img).contiguous()
+    tables, th, tw, pad_top, pad_left = _clahe_front(
+        img, clip_limit, xtiles, ytiles)
+    return clahe_map(img, tables, ytiles, xtiles, th, tw,
+                     pad_top, pad_left, out_f32=_out_f32)
