@@ -1,7 +1,7 @@
 """tpuimg_torch's CUDA kernels against their plain PyTorch versions, on the
 card, over shapes and parameters that chip_smoke.py does not reach: tiny
-tiles, unaligned frames, other radii, the shared-memory limit, the error
-paths.
+tiles and frames, unaligned frames, batches, other radii, the shared-memory
+limits, the error paths.
 
 Every test needs a CUDA card and skips without one. On the card, run
 
@@ -16,11 +16,14 @@ import pytest
 import torch
 
 import tpuimg_torch
-from tpuimg_torch.core.validate import NotPortedError
-from tpuimg_torch.kernels import KernelLaunchError
-from tpuimg_torch.kernels.boxsum import enhance_tail, enhance_tail_plain
+from tpuimg_torch.core.validate import ParamError
+from tpuimg_torch.kernels import GAUSS_MAX_RADIUS, KernelLaunchError
+from tpuimg_torch.kernels.boxsum import (
+    enhance_tail, enhance_tail_plain, guided_filter_kernel,
+    guided_filter_plain)
 from tpuimg_torch.kernels.hist import tile_hist, tile_hist_plain
 from tpuimg_torch.kernels.lut import clahe_map, clahe_map_plain
+from tpuimg_torch.kernels.sep_stencil import gaussian_kernel, gaussian_plain
 from tpuimg_torch.ops.histogram import _clahe_geometry, _clahe_tables
 from tpuimg_torch.pipeline import enhance
 
@@ -113,18 +116,147 @@ def test_clahe_on_card_within_one_step_of_cpu(card):
     assert int((got.cpu().int() - ref.int()).abs().max()) <= 1
 
 
+def _launches():
+    return (gaussian_kernel.launches, guided_filter_kernel.launches,
+            guided_filter_kernel.twopass_launches)
+
+
 def test_unported_paths_raise_on_card(card):
+    """What raised NotPortedError before the filters were ported now
+    launches their kernels: staged enhance, enhance under the tail kernel's
+    gate, gaussian and guided_filter."""
     img = torch.from_numpy(_frame((64, 64))).to(card)
     f = img.float() / 255
-    with pytest.raises(NotPortedError):
-        enhance(img, impl="staged")
     small = torch.from_numpy(_frame((30, 40))).to(card)
-    with pytest.raises(NotPortedError):
-        enhance(small)  # 30 <= 2*(2*8 + 2): below the tail kernel's gate
-    with pytest.raises(NotPortedError):
-        tpuimg_torch.gaussian(f, 2, 1.5)
-    with pytest.raises(NotPortedError):
-        tpuimg_torch.guided_filter(f, f, 4, 1e-3, border="reflect101")
+    for call in (lambda: enhance(img, impl="staged"),
+                 lambda: enhance(small),  # 30 <= 2*(2*8 + 2)
+                 lambda: tpuimg_torch.gaussian(f, 2, 1.5),
+                 lambda: tpuimg_torch.guided_filter(f, f, 4, 1e-3,
+                                                    border="reflect101")):
+        before = _launches()
+        out = call()
+        torch.cuda.synchronize()
+        after = _launches()
+        assert out.is_cuda
+        assert after[0] + after[1] > before[0] + before[1]
+
+
+GAUSS_CASES = [((1, 7), 2), ((2, 5), 2), ((3, 9), 4), ((33, 1), 3),
+               ((75, 77), 1), ((200, 131), 7), ((64, 64), 16), ((300, 257), 40),
+               ((129, 130), GAUSS_MAX_RADIUS)]
+
+
+@pytest.mark.parametrize("shape,radius", GAUSS_CASES)
+def test_gaussian_matches_plain(card, shape, radius):
+    g = np.random.default_rng(5)
+    img = torch.from_numpy(g.random(shape, dtype=np.float32)).to(card)
+    got = gaussian_kernel(img, radius, 0.3 * radius + 0.8)
+    ref = gaussian_plain(img, radius, 0.3 * radius + 0.8)
+    assert float((got - ref).abs().max()) <= 1e-5
+
+
+def test_gaussian_batches_and_promotes(card):
+    g = np.random.default_rng(6)
+    frames = g.integers(0, 256, (2, 3, 50, 70), dtype=np.uint8)
+    u8 = torch.from_numpy(frames).to(card)
+    got = tpuimg_torch.gaussian(u8, 2, 1.5)
+    assert got.dtype == torch.float32 and got.shape == (2, 3, 50, 70)
+    ref = gaussian_plain(u8.float(), 2, 1.5)
+    assert float((got - ref).abs().max()) <= 1e-5 * 255
+    f64 = u8.double() / 255
+    ref = tpuimg_torch.gaussian(f64.cpu(), 2, 1.5)
+    got = tpuimg_torch.gaussian(f64, 2, 1.5).cpu()
+    assert float((got - ref).abs().max()) <= 1e-5
+    strided = (u8.float() / 255)[..., ::2]
+    assert not strided.is_contiguous()
+    assert torch.equal(tpuimg_torch.gaussian(strided, 1, 1.0),
+                       gaussian_kernel(strided.contiguous(), 1, 1.0))
+
+
+def test_gaussian_radius_ceiling_raises(card):
+    f = torch.zeros((300, 300), device=card)
+    with pytest.raises(ParamError, match="227 KB"):
+        gaussian_kernel(f, GAUSS_MAX_RADIUS + 1, 30.0)
+
+
+GUIDED_CASES = [((6, 40), 8), ((1, 7), 2), ((3, 9), 4), ((75, 77), 1),
+                ((200, 131), 4), ((150, 170), 8), ((96, 300), 16),
+                ((33, 33), 16)]
+
+
+@pytest.mark.parametrize("variant", ["onepass", "twopass"])
+@pytest.mark.parametrize("shape,radius", GUIDED_CASES)
+def test_guided_matches_plain(card, shape, radius, variant):
+    g = np.random.default_rng(7)
+    I = torch.from_numpy(g.random(shape, dtype=np.float32)).to(card)
+    p = torch.clamp(I + 0.1 * torch.from_numpy(
+        g.standard_normal(shape).astype(np.float32)).to(card), 0, 1)
+    for q, self_guided in ((p, False), (I, True)):
+        got = guided_filter_kernel(I, q, radius, 1e-3, variant=variant,
+                                   self_guided=self_guided)
+        ref = guided_filter_plain(I, q, radius, 1e-3, self_guided)
+        assert bool(torch.isfinite(got).all())
+        assert float((got - ref).abs().max()) <= 1e-4
+
+
+def test_guided_self_equals_general_with_p_is_i(card):
+    g = np.random.default_rng(8)
+    I = torch.from_numpy(g.random((140, 230), dtype=np.float32)).to(card)
+    for r in (1, 8, 16):
+        self_guided = guided_filter_kernel(I, I, r, 1e-2, self_guided=True)
+        general = guided_filter_kernel(I, I.clone(), r, 1e-2)
+        assert torch.equal(self_guided, general)
+
+
+def test_guided_batches_and_cn1_in_one_launch(card):
+    g = np.random.default_rng(9)
+    I = torch.from_numpy(g.random((2, 60, 90), dtype=np.float32)).to(card)
+    p = torch.from_numpy(g.random((3, 2, 60, 90), dtype=np.float32)).to(card)
+    before = _launches()
+    cn1 = tpuimg_torch.guided_filter(I, p, 4, 1e-3, border="reflect101")
+    batch = tpuimg_torch.guided_filter(I, p[0], 4, 1e-3, border="reflect101")
+    assert _launches()[1] == before[1] + 2
+    assert cn1.shape == (3, 2, 60, 90) and batch.shape == (2, 60, 90)
+    ref = guided_filter_plain(I, p, 4, 1e-3)
+    assert float((cn1 - ref).abs().max()) <= 1e-4
+    assert float((batch - ref[0]).abs().max()) <= 1e-4
+    twopass = guided_filter_kernel(I, p, 4, 1e-3, variant="twopass")
+    assert float((twopass - ref).abs().max()) <= 1e-4
+
+
+def test_guided_class_paths_run_plain_on_card(card):
+    """border="shrink" and radius > 16 are XLA in tpuimg and plain PyTorch
+    here, on the card, within 1e-3 / 1e-4 of the CPU run."""
+    g = np.random.default_rng(10)
+    I = g.random((50, 70), dtype=np.float32)
+    p = g.random((50, 70), dtype=np.float32)
+    before = _launches()
+    for kwargs, tol in (({}, 1e-3), ({"border": "reflect101"}, 1e-4)):
+        r = 20 if kwargs else 6
+        got = tpuimg_torch.guided_filter(
+            torch.from_numpy(I).to(card), torch.from_numpy(p).to(card), r,
+            1e-3, **kwargs)
+        ref = tpuimg_torch.guided_filter(torch.from_numpy(I),
+                                         torch.from_numpy(p), r, 1e-3,
+                                         **kwargs)
+        assert got.is_cuda
+        assert float((got.cpu() - ref).abs().max()) <= tol
+    assert _launches() == before
+
+
+@pytest.mark.parametrize("shape,impl", [((270, 480), "staged"),
+                                        ((2161, 3839), "staged"),
+                                        ((32, 48), "fused"), ((8, 8), "fused"),
+                                        ((6, 40), "staged")])
+def test_enhance_filters_on_card_match_cpu(card, shape, impl):
+    frame = _frame(shape, 11)
+    before = _launches()
+    got = enhance(torch.from_numpy(frame).to(card), impl=impl)
+    after = _launches()
+    assert after[0] == before[0] + 1 and after[1] == before[1] + 1
+    ref = enhance(torch.from_numpy(frame), impl=impl)
+    assert got.dtype == torch.uint8 and got.shape == shape
+    assert int((got.cpu().int() - ref.int()).abs().max()) <= 1
 
 
 def test_wrappers_check_their_inputs(card):
@@ -137,6 +269,25 @@ def test_wrappers_check_their_inputs(card):
         enhance_tail(img.double(), 2, 1.5, 8, 1e-3)
     with pytest.raises(ValueError, match="tables"):
         clahe_map(img, torch.zeros((3, 256), device=card), 4, 4, 16, 24, 0, 0)
+    f = img.float()
+    with pytest.raises(ValueError, match="contiguous"):
+        gaussian_kernel(f.t(), 2, 1.5)
+    with pytest.raises(ValueError, match="float32"):
+        gaussian_kernel(img, 2, 1.5)
+    with pytest.raises(ValueError, match="at least 2 dims"):
+        gaussian_kernel(f[0], 2, 1.5)
+    with pytest.raises(ValueError, match="contiguous"):
+        guided_filter_kernel(f.t(), f.t(), 4, 1e-3)
+    with pytest.raises(ValueError, match="float32"):
+        guided_filter_kernel(f, img, 4, 1e-3)
+    with pytest.raises(ValueError, match="shape of I"):
+        guided_filter_kernel(f, f[:10], 4, 1e-3)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        guided_filter_kernel(f, f.cpu(), 4, 1e-3)
+    with pytest.raises(ParamError, match="radius <= 16"):
+        guided_filter_kernel(f, f, 17, 1e-3)
+    with pytest.raises(ParamError, match="variant"):
+        guided_filter_kernel(f, f, 4, 1e-3, variant="threepass")
 
 
 @pytest.mark.parametrize("seed", range(12))
@@ -166,3 +317,13 @@ def test_random_shapes_kernels_match_plain(card, seed):
     got = enhance_tail(f, rg, sigma, r, 1e-3)
     assert float((got - enhance_tail_plain(f, rg, sigma, r, 1e-3))
                  .abs().max()) <= 1e-4
+    # the filters at their own random shapes, any size down to 1x1
+    fh, fw = (int(v) for v in g.integers(1, 400, 2))
+    f = torch.from_numpy(g.random((fh, fw), dtype=np.float32)).to(card)
+    p = torch.from_numpy(g.random((fh, fw), dtype=np.float32)).to(card)
+    got = gaussian_kernel(f, rg, sigma)
+    assert float((got - gaussian_plain(f, rg, sigma)).abs().max()) <= 1e-5
+    for variant in ("onepass", "twopass"):
+        got = guided_filter_kernel(f, p, r, 1e-3, variant=variant)
+        assert float((got - guided_filter_plain(f, p, r, 1e-3))
+                     .abs().max()) <= 1e-4

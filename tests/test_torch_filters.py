@@ -1,0 +1,194 @@
+"""tpuimg_torch's gaussian and guided filter against tpuimg's, on the CPU.
+
+On a CPU tensor the kernel wrappers run their plain versions; these tests
+hold them to the JAX package's Pallas kernels (interpret mode on the CPU
+backend, called directly as tests/test_pallas_kernels.py calls them) and the
+public ops to tpuimg's XLA paths: the shrink border, the C-channel (CN1)
+form, radius > 16, and frames smaller than the reflect-101 halo. Tolerances
+are tpuimg's contracts: gaussian 1e-5, the fused guided filter 1e-4, the
+shrink and CN1 forms 1e-3, enhance 1 step.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import tpuimg
+import tpuimg_torch
+from tpuimg.kernels.boxsum import guided_filter_pallas
+from tpuimg.kernels.sep_stencil import gaussian_pallas
+from tpuimg.pipeline import enhance as jax_enhance
+from tpuimg_torch.kernels.boxsum import guided_filter_kernel
+from tpuimg_torch.kernels.sep_stencil import gaussian_kernel
+
+SHAPE = (70, 150)  # unaligned to every tile and lane width
+
+
+def _pair(rng, shape):
+    I = rng.random(shape, dtype=np.float32)
+    p = np.clip(I + 0.1 * rng.standard_normal(shape), 0, 1).astype(np.float32)
+    return I, p
+
+
+def _maxdiff(got, ref):
+    return float(np.abs(np.asarray(got, np.float64)
+                        - np.asarray(ref, np.float64)).max())
+
+
+@pytest.mark.parametrize("radius,sigma", [(1, 0.8), (2, 1.5), (7, 3.0)])
+def test_gaussian_matches_pallas(rng, radius, sigma):
+    img = rng.random(SHAPE, dtype=np.float32)
+    ref = np.asarray(gaussian_pallas(img, radius, sigma))
+    got = gaussian_kernel(torch.from_numpy(img), radius, sigma).numpy()
+    assert got.dtype == np.float32 and got.shape == SHAPE
+    assert _maxdiff(got, ref) <= 1e-5
+    public = tpuimg_torch.gaussian(torch.from_numpy(img), radius, sigma)
+    assert torch.equal(public, torch.from_numpy(got))
+
+
+def test_gaussian_batch_matches_pallas(rng):
+    img = rng.random((3, 45, 70), dtype=np.float32)
+    ref = np.asarray(gaussian_pallas(img, 2, 1.5))
+    got = tpuimg_torch.gaussian(torch.from_numpy(img), 2, 1.5).numpy()
+    assert got.shape == (3, 45, 70)
+    assert _maxdiff(got, ref) <= 1e-5
+
+
+def test_gaussian_u8_and_f64_promote(rng):
+    """u8 blurs the raw 0..255 values, in float32; the contract holds on
+    the [0, 1] scale of the same frame."""
+    img = rng.integers(0, 256, SHAPE, dtype=np.uint8)
+    ref = np.asarray(gaussian_pallas(img, 2, 1.5))
+    got = tpuimg_torch.gaussian(torch.from_numpy(img), 2, 1.5)
+    assert got.dtype == torch.float32
+    assert _maxdiff(got.numpy() / 255.0, ref / 255.0) <= 1e-5
+    f64 = torch.from_numpy(img.astype(np.float64) / 255.0)
+    got = tpuimg_torch.gaussian(f64, 2, 1.5)
+    assert got.dtype == torch.float32
+    ref = np.asarray(tpuimg.gaussian(img.astype(np.float64) / 255.0, 2, 1.5))
+    assert _maxdiff(got.numpy(), ref) <= 1e-5
+
+
+@pytest.mark.parametrize("variant", ["onepass", "twopass"])
+@pytest.mark.parametrize("self_guided", [False, True])
+@pytest.mark.parametrize("radius", [1, 4, 8, 16])
+def test_guided_matches_pallas(rng, variant, self_guided, radius):
+    I, p = _pair(rng, SHAPE)
+    if self_guided:
+        p = I
+    ref = np.asarray(guided_filter_pallas(I, p, radius, 1e-3, variant=variant,
+                                          self_guided=self_guided))
+    It = torch.from_numpy(I)
+    got = guided_filter_kernel(It, It if self_guided else torch.from_numpy(p),
+                               radius, 1e-3, variant=variant,
+                               self_guided=self_guided).numpy()
+    assert got.shape == SHAPE and np.isfinite(got).all()
+    assert _maxdiff(got, ref) <= 1e-4
+
+
+def test_guided_batch_matches_pallas(rng):
+    I, p = _pair(rng, (2, 40, 90))
+    ref = np.asarray(guided_filter_pallas(I, p, 4, 1e-3))
+    got = tpuimg_torch.guided_filter(torch.from_numpy(I), torch.from_numpy(p),
+                                     4, 1e-3, border="reflect101").numpy()
+    assert got.shape == (2, 40, 90)
+    assert _maxdiff(got, ref) <= 1e-4
+
+
+@pytest.mark.parametrize("radius", [1, 4, 12])
+def test_box_filter_shrink_matches_tpuimg(rng, radius):
+    x = rng.random((2, 33, 57), dtype=np.float32)
+    got = tpuimg_torch.box_filter(torch.from_numpy(x), radius).numpy()
+    ref = np.asarray(tpuimg.box_filter(x, radius))
+    assert _maxdiff(got, ref) <= 1e-3
+    got = tpuimg_torch.box_filter(torch.from_numpy(x), radius,
+                                  border="reflect101").numpy()
+    ref = np.asarray(tpuimg.box_filter(x, radius, border="reflect101"))
+    assert _maxdiff(got, ref) <= 1e-5
+
+
+@pytest.mark.parametrize("radius", [2, 8, 20])
+def test_guided_shrink_matches_tpuimg(rng, radius):
+    """The default border, the reference class path, general and
+    self-guided."""
+    I, p = _pair(rng, (48, 64))
+    It = torch.from_numpy(I)
+    got = tpuimg_torch.guided_filter(It, torch.from_numpy(p), radius,
+                                     1e-3).numpy()
+    assert _maxdiff(got, tpuimg.guided_filter(I, p, radius, 1e-3)) <= 1e-3
+    got = tpuimg_torch.guided_filter(It, It, radius, 1e-2).numpy()
+    assert _maxdiff(got, tpuimg.guided_filter(I, I, radius, 1e-2)) <= 1e-3
+
+
+@pytest.mark.parametrize("border", ["reflect101", "shrink"])
+def test_guided_cn1_matches_tpuimg(rng, border):
+    """A three-channel source with one shared guide."""
+    I = rng.random((40, 56), dtype=np.float32)
+    p = rng.random((3, 40, 56), dtype=np.float32)
+    got = tpuimg_torch.guided_filter(torch.from_numpy(I), torch.from_numpy(p),
+                                     4, 1e-3, border=border).numpy()
+    ref = np.asarray(tpuimg.guided_filter(I, p, 4, 1e-3, border=border))
+    assert got.shape == (3, 40, 56)
+    assert _maxdiff(got, ref) <= 1e-3
+
+
+def test_guided_radius_above_kernel_matches_tpuimg(rng):
+    """radius > 16: tpuimg's XLA chain (cumsum window sums), in both."""
+    I, p = _pair(rng, (60, 80))
+    for q in (p, I):
+        Iq = torch.from_numpy(I)
+        got = tpuimg_torch.guided_filter(
+            Iq, Iq if q is I else torch.from_numpy(q), 20, 1e-3,
+            border="reflect101").numpy()
+        ref = np.asarray(tpuimg.guided_filter(I, q, 20, 1e-3,
+                                              border="reflect101"))
+        assert _maxdiff(got, ref) <= 1e-4
+
+
+@pytest.mark.parametrize("shape,radius", [((1, 7), 2), ((2, 5), 2),
+                                          ((3, 9), 4), ((6, 40), 8)])
+def test_tiny_frames_match_tpuimg(rng, shape, radius):
+    """Frames smaller than the reflect-101 halo: the mirror repeats past
+    each edge, as jnp.pad's does on tpuimg's XLA path."""
+    I, p = _pair(rng, shape)
+    got = tpuimg_torch.gaussian(torch.from_numpy(I), radius, 1.5).numpy()
+    assert _maxdiff(got, tpuimg.gaussian(I, radius, 1.5)) <= 1e-5
+    It = torch.from_numpy(I)
+    for q, tq in ((p, torch.from_numpy(p)), (I, It)):
+        got = tpuimg_torch.guided_filter(It, tq, radius, 1e-3,
+                                         border="reflect101").numpy()
+        ref = tpuimg.guided_filter(I, q, radius, 1e-3, border="reflect101")
+        assert np.isfinite(got).all()
+        assert _maxdiff(got, ref) <= 1e-4
+
+
+@pytest.mark.parametrize("impl", ["fused", "staged"])
+@pytest.mark.parametrize("shape", [(8, 8), (6, 40)])
+def test_enhance_tiny_frames_match_tpuimg(rng, impl, shape):
+    img = rng.integers(0, 256, shape, dtype=np.uint8)
+    got = tpuimg_torch.enhance(torch.from_numpy(img), impl=impl).numpy()
+    ref = np.asarray(jax_enhance(img, impl=impl))
+    assert got.dtype == np.uint8 and got.shape == shape
+    assert np.abs(got.astype(int) - ref.astype(int)).max() <= 1
+
+
+def test_wrappers_take_plain_version_on_cpu(rng):
+    """On a CPU tensor the new wrappers launch nothing."""
+    before = (gaussian_kernel.launches, guided_filter_kernel.launches,
+              guided_filter_kernel.twopass_launches)
+    f = torch.from_numpy(rng.random((40, 50), dtype=np.float32))
+    tpuimg_torch.gaussian(f, 2, 1.5)
+    tpuimg_torch.guided_filter(f, f, 4, 1e-3, border="reflect101")
+    guided_filter_kernel(f, f.clone(), 4, 1e-3, variant="twopass")
+    tpuimg_torch.enhance(torch.from_numpy(
+        rng.integers(0, 256, (40, 50), dtype=np.uint8)), impl="staged")
+    after = (gaussian_kernel.launches, guided_filter_kernel.launches,
+             guided_filter_kernel.twopass_launches)
+    assert after == before == (0, 0, 0)
+
+
+def test_guided_variant_is_checked(rng):
+    f = torch.from_numpy(rng.random((20, 20), dtype=np.float32))
+    with pytest.raises(tpuimg_torch.core.validate.ParamError,
+                       match="variant"):
+        guided_filter_kernel(f, f, 2, 1e-3, variant="threepass")

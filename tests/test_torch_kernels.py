@@ -21,7 +21,6 @@ from tpuimg.oracle.numpy_ref import clahe_tile_geometry, clahe_tile_hists_ref
 from tpuimg.ops.histogram import _clahe_front, _map_bank, _tile_coord_runs
 from tpuimg_torch import clahe
 from tpuimg_torch.core.borders import pad_reflect101, reflect101_index
-from tpuimg_torch.core.validate import ParamError
 from tpuimg_torch.kernels.boxsum import enhance_tail, enhance_tail_plain
 from tpuimg_torch.kernels.hist import tile_hist, tile_hist_plain
 from tpuimg_torch.kernels.lut import clahe_map, clahe_map_plain
@@ -61,12 +60,20 @@ def test_reflect101_matches_tpuimg(n):
 
 
 def test_pad_reflect101_bound(rng):
-    x = torch.from_numpy(rng.random((5, 6), dtype=np.float32))
-    np.testing.assert_array_equal(
-        pad_reflect101(x, 4, 5).numpy(),
-        np.pad(x.numpy(), ((4, 4), (5, 5)), mode="reflect"))
-    with pytest.raises(ParamError, match="pad < n"):
-        pad_reflect101(x, 5, 1)
+    """Any pad, past the first mirror too: np.pad(mode="reflect")'s map,
+    which jnp.pad and so tpuimg's XLA paths follow (constant for n = 1)."""
+    for n in (1, 2, 5):
+        x = torch.from_numpy(rng.random((2, n, n + 1), dtype=np.float32))
+        for pad in range(3 * n + 1):
+            np.testing.assert_array_equal(
+                pad_reflect101(x, pad, 3 * n - pad).numpy(),
+                np.pad(x.numpy(), ((0, 0), (pad, pad),
+                                   (3 * n - pad, 3 * n - pad)),
+                       mode="reflect"))
+        idx = np.arange(-3 * n, 4 * n)
+        np.testing.assert_array_equal(
+            reflect101_index(torch.from_numpy(idx), n).numpy(),
+            np.pad(np.arange(n), 3 * n, mode="reflect"))
 
 
 def _tpuimg_map(img, tiles):

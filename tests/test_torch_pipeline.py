@@ -226,23 +226,38 @@ def test_cpu_dispatch_launches_no_kernel(rng):
     assert after == before == (0, 0, 0)
 
 
-def test_unported_paths_raise_off_the_cpu():
-    """A tensor off the CPU never runs plain code in place of a kernel:
-    what needs an unported kernel raises NotPortedError naming it. (A meta
-    tensor stands in for a CUDA one; the checks look at the device type.)"""
+def test_unported_paths_raise_off_the_cpu(monkeypatch):
+    """A tensor off the CPU never runs a kernel's plain version: the paths
+    that need a kernel reach its wrapper, which refuses any tensor but a
+    CUDA one. (A meta tensor stands in for a CUDA one; the checks look at
+    the device type.) The shrink border has no kernel in tpuimg either and
+    runs as plain PyTorch on the tensor's device."""
+    from tpuimg_torch.kernels import boxsum, hist, lut, sep_stencil
+
+    def must_not_run(*args, **kwargs):
+        raise AssertionError("a plain version ran off the CPU")
+
+    for mod, name in ((hist, "tile_hist_plain"), (lut, "clahe_map_plain"),
+                      (boxsum, "enhance_tail_plain"),
+                      (boxsum, "guided_filter_plain"),
+                      (sep_stencil, "gaussian_plain")):
+        monkeypatch.setattr(mod, name, must_not_run)
     meta_u8 = torch.empty((2160, 3840), dtype=torch.uint8, device="meta")
     meta_f = torch.empty((64, 64), device="meta")
-    with pytest.raises(tv.NotPortedError, match="gaussian_pallas"):
+    with pytest.raises(ValueError, match="must be a CUDA tensor"):
         enhance(meta_u8, impl="staged")
-    with pytest.raises(tv.NotPortedError, match="guided_filter_pallas"):
+    with pytest.raises(ValueError, match="must be a CUDA tensor"):
         enhance(torch.empty((30, 40), dtype=torch.uint8, device="meta"))
-    with pytest.raises(tv.NotPortedError, match="gaussian_pallas"):
+    with pytest.raises(ValueError, match="must be a CUDA tensor"):
         tpuimg_torch.gaussian(meta_f, 2, 1.5)
-    with pytest.raises(tv.NotPortedError, match="guided_filter_pallas"):
+    with pytest.raises(ValueError, match="must be a CUDA tensor"):
         tpuimg_torch.guided_filter(meta_f, meta_f, 4, 1e-3,
                                    border="reflect101")
-    with pytest.raises(tv.NotPortedError, match="shrink"):
-        tpuimg_torch.guided_filter(meta_f, meta_f, 4, 1e-3)
+    with pytest.raises(ValueError, match="must be a CUDA tensor"):
+        tpuimg_torch.guided_filter(meta_f, meta_f[None].expand(3, 64, 64), 4,
+                                   1e-3, border="reflect101")
+    shrink = tpuimg_torch.guided_filter(meta_f, meta_f, 4, 1e-3)
+    assert shrink.device.type == "meta" and shrink.shape == (64, 64)
 
 
 def test_import_pulls_in_no_jax_tpuimg_cv2_or_triton():

@@ -29,11 +29,6 @@ class ParamError(TpuImgError):
     pass
 
 
-class NotPortedError(NotImplementedError):
-    """The call needs a kernel or code path of ``tpuimg`` that has no
-    counterpart in this package yet; the message names it."""
-
-
 def dtype_name(dtype: torch.dtype) -> str:
     return str(dtype).removeprefix("torch.")
 

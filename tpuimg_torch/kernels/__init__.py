@@ -2,16 +2,17 @@
 ``tpuimg.kernels.interpret_mode``).
 
 All sources under ``tpuimg_torch/csrc/`` compile with ``nvcc`` for Hopper
-(``sm_90a``) into one shared library with a plain C interface, loaded with
+(``sm_90a``), one ``nvcc`` process per source, all started together, and
+link into one shared library with a plain C interface, loaded with
 ``ctypes``. The library is built at first use into ``tpuimg_torch/_build/``
 under a name keyed by a hash of the sources and flags, so a fresh checkout
 builds everything on its first call and an edited source never loads a stale
 library. A failed build raises ``KernelBuildError``; nothing falls back to
 the plain PyTorch versions.
 
-Each wrapper (kernels/hist.py, lut.py, boxsum.py) takes its plain version for
-a CPU tensor only. For a CUDA tensor it launches its kernel on the current
-stream, without synchronising, or raises.
+Each wrapper (kernels/hist.py, lut.py, sep_stencil.py, boxsum.py) takes its
+plain version for a CPU tensor only. For a CUDA tensor it launches its kernel
+on the current stream, without synchronising, or raises.
 """
 
 from __future__ import annotations
@@ -29,16 +30,23 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 MAX_TAPS = 33  # csrc/enhance_tail.cu kMaxTaps
+GAUSS_MAX_RADIUS = 96  # csrc/gaussian.cu kGaussMaxRadius
 
 
 class Taps(ctypes.Structure):
     """csrc/enhance_tail.cu ``Taps``: gaussian weights passed by value."""
 
     _fields_ = [("w", ctypes.c_float * MAX_TAPS)]
+
+
+class GaussTaps(ctypes.Structure):
+    """csrc/gaussian.cu ``GaussTaps``: gaussian weights passed by value."""
+
+    _fields_ = [("w", ctypes.c_float * (2 * GAUSS_MAX_RADIUS + 1))]
 
 
 # C entry points and their argument types; each returns cudaGetLastError()
@@ -50,6 +58,12 @@ _SIGNATURES = {
     "tpuimg_clahe_map": (_P, _I, _I, _P, _I, _I, _I, _I, _I, _F, _I, _P, _P),
     # f, h, w, taps, rg, r, eps, out, stream
     "tpuimg_enhance_tail": (_P, _I, _I, Taps, _I, _I, _F, _P, _P),
+    # src, n, h, w, taps, r, out, stream
+    "tpuimg_gaussian": (_P, _I, _I, _I, GaussTaps, _I, _P, _P),
+    # I, n_i, p, n, h, w, r, eps, self_guided, q, stream
+    "tpuimg_guided_onepass": (_P, _I, _P, _I, _I, _I, _I, _F, _I, _P, _P),
+    # I, n_i, p, n, h, w, r, eps, a, b, q, stream
+    "tpuimg_guided_twopass": (_P, _I, _P, _I, _I, _I, _I, _F, _P, _P, _P, _P),
 }
 
 _lib = None
@@ -83,6 +97,23 @@ def _nvcc() -> str:
     return os.path.join(cuda_home, "bin", "nvcc")
 
 
+def _run_all(cmds: list[list[str]]) -> str:
+    """Run the commands side by side; their joined output, or
+    ``KernelBuildError`` naming the first that failed."""
+    try:
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for c in cmds]
+    except OSError as e:
+        raise KernelBuildError(f"cannot run {cmds[0][0]}: {e}") from e
+    outs = [proc.communicate()[0] for proc in procs]
+    for cmd, proc, out in zip(cmds, procs, outs):
+        if proc.returncode != 0:
+            raise KernelBuildError(
+                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}")
+    return "".join(outs)
+
+
 def build() -> Path:
     """Compile the sources into the build directory unless the library for
     this exact source hash is already there. Returns its path."""
@@ -92,24 +123,25 @@ def build() -> Path:
     import fcntl
 
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # the lock serialises concurrent builds; nvcc writes to a temporary
-    # name that is renamed into place, so no reader sees half a library
+    # the lock serialises concurrent builds; the library is linked under a
+    # temporary name that is renamed into place, so no reader sees half of it
     with open(BUILD_DIR / "build.lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
         if lib.exists():
             return lib
         tmp = lib.with_suffix(f".tmp{os.getpid()}.so")
-        cu = [str(p) for p in _sources() if p.suffix == ".cu"]
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *cu]
+        objdir = BUILD_DIR / f"obj{os.getpid()}"
+        objdir.mkdir(exist_ok=True)
         try:
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-        except OSError as e:
-            raise KernelBuildError(f"cannot run {cmd[0]}: {e}") from e
-        if proc.returncode != 0:
-            raise KernelBuildError(
-                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                f"{proc.stdout}{proc.stderr}")
-        lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+            srcs = [p for p in _sources() if p.suffix == ".cu"]
+            objs = [str(objdir / f"{p.stem}.o") for p in srcs]
+            log = _run_all([[_nvcc(), *NVCC_FLAGS, "-c", "-o", o, str(p)]
+                            for p, o in zip(srcs, objs)])
+            log += _run_all([[_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                              *objs]])
+        finally:
+            shutil.rmtree(objdir, ignore_errors=True)
+        lib.with_suffix(".log").write_text(log)
         os.replace(tmp, lib)
     return lib
 
@@ -141,15 +173,16 @@ def launch(name: str, device: torch.device, *args) -> None:
         raise KernelLaunchError(f"{name}: CUDA error {err} ({msg})")
 
 
-def require_cuda_tensor(x: torch.Tensor, name: str,
-                        dtype: torch.dtype) -> None:
-    """The checks every wrapper makes before handing a (2-D) tensor's
-    pointer to a kernel."""
+def require_cuda_tensor(x: torch.Tensor, name: str, dtype: torch.dtype,
+                        batched: bool = False) -> None:
+    """The checks every wrapper makes before handing a tensor's pointer to a
+    kernel: an (H, W) frame, or (..., H, W) frames when ``batched``."""
     if not x.is_cuda:
         raise ValueError(f"{name} must be a CUDA tensor, got {x.device}")
     if x.dtype != dtype:
         raise ValueError(f"{name} must be {dtype}, got {x.dtype}")
-    if x.ndim != 2:
-        raise ValueError(f"{name} must have 2 dims, got {tuple(x.shape)}")
+    if x.ndim < 2 if batched else x.ndim != 2:
+        want = "at least 2" if batched else "2"
+        raise ValueError(f"{name} must have {want} dims, got {tuple(x.shape)}")
     if not x.is_contiguous():
         raise ValueError(f"{name} must be contiguous")

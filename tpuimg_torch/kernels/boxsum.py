@@ -1,13 +1,22 @@
-"""The enhance pipeline's tail, ``q = guided(I=f, p=gaussian(f))``: the tail
-kernel (csrc/enhance_tail.cu) and its plain PyTorch version.
+"""Box sums and the guided filter: the guided-filter kernels
+(csrc/guided.cu), the enhance pipeline's tail kernel (csrc/enhance_tail.cu),
+and their plain PyTorch versions.
 
-Replaces ``tpuimg/kernels/boxsum.py::enhance_tail_pallas``. The plain
-version is ``_tail_chain``'s algebra on the whole frame: pad once by the
-total halo 2r + rg (reflect-101), smooth (down the columns, then along the
-rows), then the guided chain in valid mode, so it never pads again.
+``guided_filter_kernel`` replaces ``tpuimg/kernels/boxsum.py::
+guided_filter_pallas`` (variants "onepass" and "twopass"); its plain version
+is tpuimg's reflect-101 chain with direct window sums: box means of I, p,
+I*p and I*I, then a and b, then q = mean_a*I + mean_b.
+
+``enhance_tail``, q = guided(I=f, p=gaussian(f)), replaces
+``enhance_tail_pallas``. Its plain version is ``_tail_chain``'s algebra on the
+whole frame: pad once by the total halo 2r + rg (reflect-101), smooth (down
+the columns, then along the rows), then the guided chain in valid mode, so it
+never pads again.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -15,8 +24,99 @@ import torch
 from tpuimg_torch.core.borders import pad_reflect101
 from tpuimg_torch.core.validate import ParamError
 from tpuimg_torch.kernels import MAX_TAPS, Taps, launch, require_cuda_tensor
-from tpuimg_torch.ops.gaussian import _sep_pass, taps
-from tpuimg_torch.ops.guided import _window_sum
+from tpuimg_torch.kernels.sep_stencil import _sep_pass, taps
+
+GUIDED_MAX_RADIUS = 16  # csrc/guided.cu kMaxRadius; tpuimg's _PALLAS_MAX_RADIUS
+VARIANTS = ("onepass", "twopass")
+
+
+def window_sum(x, ksz: int, dim: int):
+    """Sum over every length-``ksz`` window along ``dim`` (valid mode: the
+    caller supplies ksz - 1 taps of halo), as direct shifted adds."""
+    n = x.shape[dim] - ksz + 1
+    acc = x.narrow(dim, 0, n)
+    for k in range(1, ksz):
+        acc = acc + x.narrow(dim, k, n)
+    return acc
+
+
+def box_mean(x, radius: int):
+    """Box mean over (2r+1)^2 windows of (..., H, W), reflect-101 border,
+    fixed 1/ksz^2; direct window sums along the rows, then the columns."""
+    ksz = 2 * radius + 1
+    xp = pad_reflect101(x, radius, radius)
+    s = window_sum(window_sum(xp, ksz, -1), ksz, -2)
+    return s * (1.0 / (ksz * ksz))
+
+
+def guided_chain(I, p, eps: float, box, self_guided: bool = False):
+    """q = box(a)*I + box(b) with a, b from the box means of I, p, I*p and
+    I*I. ``p`` may carry one more leading dim than ``I`` (C channels guided
+    by one I, broadcast). ``self_guided``: p is I, two of the four means."""
+    mean_I = box(I)
+    mean_II = box(I * I)
+    mean_p = mean_I if self_guided else box(p)
+    mean_Ip = mean_II if self_guided else box(I * p)
+    a = (mean_Ip - mean_p * mean_I) / (mean_II - mean_I * mean_I + eps)
+    b = mean_p - a * mean_I
+    return box(a) * I + box(b)
+
+
+def guided_filter_plain(I, p, radius: int, eps: float,
+                        self_guided: bool = False):
+    """The guided filter of float32 (..., H, W) frames, reflect-101 border,
+    1/ksz^2 normalisation (both kernel variants compute this)."""
+    return guided_chain(I, p, eps, functools.partial(box_mean, radius=radius),
+                        self_guided)
+
+
+def guided_filter_kernel(I, p, radius: int, eps: float,
+                         variant: str = "onepass", self_guided: bool = False):
+    """``guided_filter_plain`` on a CPU tensor; on a CUDA tensor one launch
+    (onepass) or one pair of launches (twopass) over all frames.
+
+    I: float32 (..., H, W). p: float32 of I's shape, or with one more leading
+    dim of C channels that share the guide (CN1). ``self_guided``: p is I,
+    the onepass kernel's two-sum form (twopass always takes the four sums).
+    Takes radius <= GUIDED_MAX_RADIUS on the card."""
+    if variant not in VARIANTS:
+        raise ParamError(f"variant must be one of {VARIANTS}, got {variant!r}")
+    if I.device.type == "cpu":
+        return guided_filter_plain(I, p, radius, eps, self_guided)
+    require_cuda_tensor(I, "I", torch.float32, batched=True)
+    if self_guided:
+        p = I
+    require_cuda_tensor(p, "p", torch.float32, batched=True)
+    if p.device != I.device or p.shape[-I.ndim:] != I.shape or (
+            p.ndim not in (I.ndim, I.ndim + 1)):
+        raise ValueError(
+            f"p {tuple(p.shape)} on {p.device} must have the shape of I "
+            f"{tuple(I.shape)}, or one more leading dim, on {I.device}")
+    if radius > GUIDED_MAX_RADIUS:
+        raise ParamError(
+            f"the guided-filter kernel takes radius <= {GUIDED_MAX_RADIUS}, "
+            f"got {radius}")
+    h, w = I.shape[-2:]
+    q = torch.empty_like(p)
+    if q.numel() == 0:
+        return q
+    n_i, n = I.numel() // (h * w), p.numel() // (h * w)
+    if variant == "onepass":
+        launch("tpuimg_guided_onepass", I.device, I.data_ptr(), n_i,
+               p.data_ptr(), n, h, w, radius, eps, int(self_guided),
+               q.data_ptr())
+        guided_filter_kernel.launches += 1
+    else:
+        a, b = torch.empty_like(p), torch.empty_like(p)
+        launch("tpuimg_guided_twopass", I.device, I.data_ptr(), n_i,
+               p.data_ptr(), n, h, w, radius, eps, a.data_ptr(), b.data_ptr(),
+               q.data_ptr())
+        guided_filter_kernel.twopass_launches += 1
+    return q
+
+
+guided_filter_kernel.launches = 0  # onepass launches
+guided_filter_kernel.twopass_launches = 0  # twopass launch pairs
 
 
 def enhance_tail_plain(f, radius_g: int, sigma: float, radius: int,
@@ -33,7 +133,7 @@ def enhance_tail_plain(f, radius_g: int, sigma: float, radius: int,
     i = fv[rg:rg + h + 4 * r, rg:rg + w + 4 * r]
 
     def box_sum(x):
-        return _window_sum(_window_sum(x, ksz, 1), ksz, 0)
+        return window_sum(window_sum(x, ksz, 1), ksz, 0)
 
     imu = box_sum(i) * coef
     pmu = box_sum(s) * coef

@@ -1,67 +1,104 @@
-"""Box filter + guided filter, reflect-101 fused-path semantics (port of
-``tpuimg.ops.guided``).
+"""Box filter + guided filter (port of ``tpuimg.ops.guided``).
 
-Ported: ``box_filter`` and ``guided_filter`` with ``border="reflect101"``
-(fixed 1/ksz^2 normalisation, mirrored halo), including the self-guided
-collapse when ``p is I``. Not yet: the shrink-window class path, the
-C-channel (CN1) form, and the guided-filter kernel, so ``guided_filter`` on a
-CUDA tensor raises. ``box_filter`` has no kernel in the JAX package either
-and runs as plain PyTorch on any device.
+``guided_filter`` follows tpuimg's dispatch (``tpuimg/ops/guided.py``
+``_guided_filter_impl``): border="reflect101" with radius <= 16 runs the
+guided-filter kernel (kernels/boxsum.py, csrc/guided.cu) on a CUDA tensor,
+in one launch for every batch and for the C-channel (CN1) form, at any frame
+size; its plain version on a CPU tensor. What tpuimg computes in XLA outside
+any Pallas kernel stays plain PyTorch on the tensor's device, as here:
+radius > 16 (the reflect-101 chain, window sums as direct adds up to r = 5
+and cumsum differences above), and border="shrink", the reference class
+path (gIntegralToMean: windows clamped to the image, normalised by their
+true area), which is also ``box_filter``'s default.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from tpuimg_torch.core.borders import REFLECT101, SHRINK, pad_reflect101
 from tpuimg_torch.core.validate import (
-    NotPortedError, ParamError, ShapeError, check_image, check_positive,
-    check_radius)
+    ParamError, ShapeError, check_image, check_positive, check_radius)
+from tpuimg_torch.kernels.boxsum import (
+    GUIDED_MAX_RADIUS, guided_chain, guided_filter_kernel, window_sum)
 
 _FLOAT_IN = [torch.float32, torch.float64, torch.uint8]
 
-
-def _window_sum(x, ksz: int, dim: int):
-    """Sum over every length-``ksz`` window along ``dim`` (valid mode: the
-    caller supplies ksz - 1 taps of halo), as direct shifted adds."""
-    n = x.shape[dim] - ksz + 1
-    acc = x.narrow(dim, 0, n)
-    for k in range(1, ksz):
-        acc = acc + x.narrow(dim, k, n)
-    return acc
+# below this radius, direct shifted adds; above, cumsum differences
+# (tpuimg/ops/guided.py _DIRECT_MAX_RADIUS)
+_DIRECT_MAX_RADIUS = 5
 
 
-def _box_mean(x, radius: int):
+def _cumsum0(x, dim: int):
+    """Inclusive cumsum along ``dim`` with a leading zero."""
+    zero = torch.zeros_like(x.narrow(dim, 0, 1))
+    return torch.cat([zero, torch.cumsum(x, dim)], dim)
+
+
+def _box_reflect(x, radius: int):
+    """tpuimg's reflect-101 box mean: window sums along the rows, then the
+    columns, as direct adds up to r = 5 and cumsum differences above."""
     ksz = 2 * radius + 1
-    xp = pad_reflect101(x, radius, radius)
-    s = _window_sum(_window_sum(xp, ksz, -1), ksz, -2)
-    return s * (1.0 / (ksz * ksz))
+    for dim, pad in ((-1, (0, radius)), (-2, (radius, 0))):
+        n = x.shape[dim]
+        xp = pad_reflect101(x, *pad)
+        if radius <= _DIRECT_MAX_RADIUS:
+            x = window_sum(xp, ksz, dim)
+        else:
+            c = _cumsum0(xp, dim)
+            x = c.narrow(dim, ksz, n) - c.narrow(dim, 0, n)
+    return x * (1.0 / (ksz * ksz))
 
 
-def _check_border(border: str, op: str):
+def _axis_counts(n: int, radius: int, device):
+    idx = torch.arange(n, device=device)
+    return (torch.clamp(idx + 1 + radius, max=n)
+            - torch.clamp(idx - radius, min=0))
+
+
+def _box_shrink(x, radius: int):
+    """Shrink-window box mean (gIntegralToMean): zero padding, cumsum window
+    sums along the rows, then the columns, divided by the true area."""
+    h, w = x.shape[-2], x.shape[-1]
+    ksz = 2 * radius + 1
+    xp = torch.nn.functional.pad(x, (radius, radius, radius, radius))
+    c = _cumsum0(xp, -1)
+    rows = c[..., ksz:ksz + w] - c[..., :w]
+    c2 = _cumsum0(rows, -2)
+    s = c2[..., ksz:ksz + h, :] - c2[..., :h, :]
+    area = (_axis_counts(h, radius, x.device)[:, None]
+            * _axis_counts(w, radius, x.device)[None, :]).to(x.dtype)
+    return s / area
+
+
+def _box(border: str, radius: int):
     if border == SHRINK:
-        raise NotPortedError(
-            f"{op} border='shrink' (the class path, gIntegralToMean) is not "
-            f"ported yet; border='reflect101' is")
-    if border != REFLECT101:
-        raise ParamError(
-            f"border must be one of {[REFLECT101, SHRINK]}, got {border!r}")
+        return functools.partial(_box_shrink, radius=radius)
+    if border == REFLECT101:
+        return functools.partial(_box_reflect, radius=radius)
+    raise ParamError(
+        f"border must be one of {[REFLECT101, SHRINK]}, got {border!r}")
 
 
 def box_filter(x, radius: int, border: str = SHRINK):
-    """Box mean over a (2r+1)^2 window of a float32 (..., H, W) image,
-    reflect-101 border, fixed 1/ksz^2."""
+    """Box mean over a (2r+1)^2 window of a float32 (..., H, W) image.
+
+    border="shrink": reference class-path semantics (gIntegralToMean).
+    border="reflect101": fused-path semantics (fixed 1/ksz^2, mirrored halo).
+    """
     check_radius(radius)
     x = torch.as_tensor(x)
     check_image(x, "x", dtypes=_FLOAT_IN)
-    _check_border(border, "box_filter")
-    return _box_mean(x.to(torch.float32), radius)
+    return _box(border, radius)(x.to(torch.float32))
 
 
 def guided_filter(I, p, radius: int, eps: float, border: str = SHRINK):
     """Guided filter q = mean(a)*I + mean(b) with a/b from the per-window
     variance. Passing the same tensor as I and p collapses the four window
-    means to two (detected by object identity)."""
+    means to two (detected by object identity). p may add one leading
+    channel dim to I: each channel is filtered with the shared guide."""
     self_guided = p is I
     check_radius(radius)
     check_positive(eps, "eps")  # eps=0 gives 0/0=NaN on constant windows
@@ -74,22 +111,15 @@ def guided_filter(I, p, radius: int, eps: float, border: str = SHRINK):
             f"guide I {tuple(I.shape)} and source p {tuple(p.shape)} must "
             f"share spatial dims (p may add one leading channel dim)"
         )
-    if p.ndim == I.ndim + 1:
-        raise NotPortedError(
-            "guided_filter with a C-channel source (the CN1 path) is not "
-            "ported yet")
-    _check_border(border, "guided_filter")
-    if I.device.type != "cpu" or p.device.type != "cpu":
-        raise NotPortedError(
-            "guided_filter on a CUDA tensor needs the port of "
-            "tpuimg/kernels/boxsum.py::guided_filter_pallas, which is not "
-            "ported yet")
+    box = _box(border, radius)
     I = I.to(torch.float32)
     p = I if self_guided else p.to(torch.float32)
-    mean_I = _box_mean(I, radius)
-    mean_II = _box_mean(I * I, radius)
-    mean_p = mean_I if self_guided else _box_mean(p, radius)
-    mean_Ip = mean_II if self_guided else _box_mean(I * p, radius)
-    a = (mean_Ip - mean_p * mean_I) / (mean_II - mean_I * mean_I + eps)
-    b = mean_p - a * mean_I
-    return _box_mean(a, radius) * I + _box_mean(b, radius)
+    if border == SHRINK or radius > GUIDED_MAX_RADIUS:
+        return guided_chain(I, p, eps, box, self_guided)
+    if self_guided:
+        I = p = I.contiguous()
+    else:  # the kernel takes I's frames, C times over in p
+        lead = p.shape[:p.ndim - I.ndim]
+        shape = torch.broadcast_shapes(I.shape, p.shape[len(lead):])
+        I, p = I.expand(shape).contiguous(), p.expand(lead + shape).contiguous()
+    return guided_filter_kernel(I, p, radius, eps, self_guided=self_guided)

@@ -7,11 +7,12 @@ kernels: tile histograms, the CLAHE mapping, and the tail
 (kernels/hist.py, lut.py, boxsum.py), with the clip/table glue and the final
 rounding as plain PyTorch on the card. The tail kernel needs
 min(H, W) > 2*(2*gf_radius + radius), the JAX package's gate; smaller frames
-take the composed gaussian and guided filter, which run on the CPU only.
+compose ``gaussian`` and ``guided_filter``, whose kernels
+(csrc/gaussian.cu, csrc/guided.cu) take any frame size.
 
 impl="staged" composes the public ops with a u8 round trip between CLAHE and
-the tail; it needs the gaussian and guided-filter kernels, not ported yet,
-so on a CUDA tensor it raises. impl="fused1" is not ported.
+the tail: on a CUDA tensor the two CLAHE kernels, then the gaussian and
+guided-filter kernels. impl="fused1" is not ported.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ from __future__ import annotations
 import torch
 
 from tpuimg_torch.core.validate import (
-    NotPortedError, check_impl, check_positive, check_radius)
+    check_impl, check_positive, check_radius)
 from tpuimg_torch.kernels.boxsum import enhance_tail
 from tpuimg_torch.ops.gaussian import gaussian
 from tpuimg_torch.ops.guided import guided_filter
@@ -45,15 +46,6 @@ def enhance(
     The device is the input tensor's."""
     check_impl(impl, allowed=("fused", "staged"))
     img = torch.as_tensor(img)
-    hb2 = 2 * gf_radius + radius
-    if img.device.type != "cpu" and img.ndim == 2 and (
-            impl == "staged" or min(img.shape) <= 2 * hb2):
-        raise NotPortedError(
-            f"enhance(impl={impl!r}) on a {img.shape[0]}x{img.shape[1]} CUDA "
-            f"frame needs the ports of tpuimg/kernels/sep_stencil.py::"
-            f"gaussian_pallas and tpuimg/kernels/boxsum.py::"
-            f"guided_filter_pallas, which are not ported yet (the fused tail "
-            f"kernel takes min(H, W) > {2 * hb2})")
     if impl == "staged":
         eq = clahe(img, clip_limit, tiles, tiles)
         f = eq.to(torch.float32) * (1.0 / 255.0)
@@ -67,8 +59,7 @@ def enhance(
     check_radius(gf_radius)
     check_positive(gf_eps, "eps")
     f = blend * (1.0 / 255.0)
-    h, w = img.shape
-    if min(h, w) > 2 * hb2:
+    if min(img.shape) > 2 * (2 * gf_radius + radius):
         out = enhance_tail(f, radius, sigma, gf_radius, gf_eps)
     else:
         smooth = gaussian(f, radius, sigma)
