@@ -1,7 +1,7 @@
 """tpuimg_torch's CUDA kernels against their plain PyTorch versions, on the
 card, over shapes and parameters that chip_smoke.py does not reach: tiny
-tiles and frames, unaligned frames, batches, other radii, the shared-memory
-limits, the error paths.
+tiles and frames, unaligned frames and frame bases, batches, other radii and
+table dtypes, wrapping sums, the shared-memory limits, the error paths.
 
 Every test needs a CUDA card and skips without one. On the card, run
 
@@ -21,8 +21,13 @@ from tpuimg_torch.kernels import GAUSS_MAX_RADIUS, KernelLaunchError
 from tpuimg_torch.kernels.boxsum import (
     enhance_tail, enhance_tail_plain, guided_filter_kernel,
     guided_filter_plain)
-from tpuimg_torch.kernels.hist import tile_hist, tile_hist_plain
-from tpuimg_torch.kernels.lut import clahe_map, clahe_map_plain
+from tpuimg_torch.kernels.hist import (
+    hist256, hist256_frames, hist256_groups, hist256_groups_plain, tile_hist,
+    tile_hist_plain)
+from tpuimg_torch.kernels.lut import (
+    clahe_map, clahe_map_plain, lut_gather, lut_gather_frames,
+    lut_gather_frames_plain, lut_gather_plain)
+from tpuimg_torch.kernels.scan2d import integral_kernel, integral_plain
 from tpuimg_torch.kernels.sep_stencil import gaussian_kernel, gaussian_plain
 from tpuimg_torch.ops.histogram import _clahe_geometry, _clahe_tables
 from tpuimg_torch.pipeline import enhance
@@ -327,3 +332,219 @@ def test_random_shapes_kernels_match_plain(card, seed):
         got = guided_filter_kernel(f, p, r, 1e-3, variant=variant)
         assert float((got - guided_filter_plain(f, p, r, 1e-3))
                      .abs().max()) <= 1e-4
+
+
+def _unaligned(shape, offset, seed=0, card=None):
+    """A contiguous u8 frame whose base lies ``offset`` bytes past an
+    allocation's start, so it is 16-byte aligned only for offset 0."""
+    n = int(np.prod(shape))
+    buf = torch.from_numpy(_frame((n + offset,), seed)).to(card)
+    img = buf[offset:].reshape(shape)
+    assert img.is_contiguous() and img.data_ptr() % 16 == offset % 16
+    return img
+
+
+def _he_numpy(frame):
+    """rint(min(255, cdf * float32(256 / N))) indexed by the frame."""
+    cdf = np.cumsum(np.bincount(frame.ravel(), minlength=256))
+    factor = np.float32(256.0 / frame.size)
+    table = np.rint(np.minimum(np.float32(255.0),
+                               cdf.astype(np.float32) * factor))
+    return table.astype(np.uint8)[frame]
+
+
+def _integral_numpy(frames):
+    wide = np.cumsum(np.cumsum(frames.astype(np.int64), axis=-1), axis=-2)
+    return wide.astype(np.int32)
+
+
+@pytest.mark.parametrize("offset", [0, 3])
+@pytest.mark.parametrize("shape", [(1, 1), (1, 5), (4, 4), (17, 33),
+                                   (90, 110), (2161, 3839)])
+def test_hist256_exact(card, shape, offset):
+    img = _unaligned(shape, offset, 20, card)
+    got = hist256(img)
+    assert got.dtype == torch.int32 and got.shape == (256,)
+    assert torch.equal(got, hist256_groups_plain(img.reshape(1, -1))[0])
+    assert int(got.sum()) == img.numel()
+
+
+def test_hist256_flat_frames(card):
+    """Every atomic of a flat frame goes to one bin."""
+    for v in (0, 77, 255):
+        img = torch.full((1080, 1920), v, dtype=torch.uint8, device=card)
+        got = hist256(img)
+        assert int(got[v]) == img.numel() and int(got.sum()) == img.numel()
+
+
+@pytest.mark.parametrize("shape", [(3, 1081, 1917), (5, 1, 7), (2, 300, 401),
+                                   (70000, 1, 3)])
+def test_hist256_frames_and_groups_exact(card, shape):
+    """Odd frame sizes put every frame's base off alignment; 70000 frames
+    are more than one grid dimension holds."""
+    frames = torch.from_numpy(_frame(shape, 21)).to(card)
+    got = hist256_frames(frames)
+    assert torch.equal(got, hist256_groups_plain(frames))
+    assert torch.equal(hist256_groups(frames.reshape(shape[0], -1)), got)
+    assert bool((got.sum(dim=1) == shape[1] * shape[2]).all())
+
+
+def _tables(seed):
+    """256-entry tables of every kind lut_gather takes: u8; int32 and float32
+    from random bits (values > 255, negatives, NaN payloads, -0.0); int16,
+    float16 and bool through tpuimg's round trip. The float16 table holds no
+    NaN: PyTorch's CUDA float16 -> float32 -> float16 conversions do not keep
+    a NaN's payload bits as its CPU ones do."""
+    g = np.random.default_rng(seed)
+    bits = g.integers(-2 ** 31, 2 ** 31, 256).astype(np.int32)
+    f32 = bits.view(np.float32).copy()
+    f32[:3] = (-0.0, np.inf, np.nan)
+    f32[3] = np.array([0x7FC00123], dtype=np.uint32).view(np.float32)[0]
+    with np.errstate(over="ignore"):  # large values become float16 inf
+        f16 = np.where(np.isnan(f32), 1.5, f32).astype(np.float16)
+    return [g.integers(0, 256, 256, dtype=np.uint8), bits, f32,
+            bits.astype(np.int16), f16, g.integers(0, 2, 256).astype(bool)]
+
+
+def _bits(x):
+    return x.view({1: torch.uint8, 2: torch.int16,
+                   4: torch.int32}[x.element_size()])
+
+
+@pytest.mark.parametrize("shape,offset", [((1, 1), 0), ((17, 33), 3),
+                                          ((1080, 1920), 0),
+                                          ((2161, 3839), 1)])
+def test_lut_gather_exact(card, shape, offset):
+    img = _unaligned(shape, offset, 22, card)
+    for table in _tables(23):
+        t = torch.from_numpy(table).to(card)
+        got = lut_gather(t, img)
+        ref = lut_gather_plain(t, img)
+        assert got.dtype == t.dtype and got.shape == shape
+        assert torch.equal(_bits(got), _bits(ref))
+        assert torch.equal(_bits(got.cpu()),
+                           _bits(lut_gather_plain(t.cpu(), img.cpu())))
+
+
+@pytest.mark.parametrize("shape", [(16, 108, 192), (3, 1081, 1917),
+                                   (70000, 1, 3)])
+def test_lut_gather_frames_exact(card, shape):
+    imgs = torch.from_numpy(_frame(shape, 24)).to(card)
+    tables = torch.from_numpy(_frame((shape[0], 256), 25)).to(card)
+    got = lut_gather_frames(tables, imgs)
+    assert got.dtype == torch.uint8 and got.shape == shape
+    assert torch.equal(got, lut_gather_frames_plain(tables, imgs))
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (1, 7), (7, 1), (33, 1000),
+                                   (5, 3000), (1100, 33), (2161, 3839),
+                                   (2, 3, 40, 50), (70000, 2, 3)])
+def test_integral_exact(card, shape):
+    frame = _frame(shape, 26)
+    got = integral_kernel(torch.from_numpy(frame).to(card))
+    assert got.dtype == torch.int32 and got.shape == shape
+    assert torch.equal(got, integral_plain(torch.from_numpy(frame).to(card)))
+    assert np.array_equal(got.cpu().numpy(), _integral_numpy(frame))
+
+
+@pytest.mark.parametrize("shape", [(3000, 3000), (4320, 7680)])
+def test_integral_wraps(card, shape):
+    """An all-255 frame of these sizes passes 2^31: the sums wrap mod 2^32,
+    as tpuimg's int32 adds and integral_ref do."""
+    frame = np.full(shape, 255, np.uint8)
+    got = tpuimg_torch.integral(torch.from_numpy(frame).to(card))
+    want = _integral_numpy(frame)
+    assert int(want[-1, -1]) < 0
+    assert np.array_equal(got.cpu().numpy(), want)
+
+
+def test_integral_other_dtypes_run_plain_on_card(card):
+    g = np.random.default_rng(27)
+    before = integral_kernel.launches
+    for dtype in (np.int8, np.int16, np.uint16, np.int32, bool):
+        x = g.integers(-2 ** 31, 2 ** 31, (40, 50)).astype(dtype)
+        got = tpuimg_torch.integral(torch.from_numpy(x).to(card))
+        assert got.is_cuda and got.dtype == torch.int32
+        assert torch.equal(got.cpu(), tpuimg_torch.integral(
+            torch.from_numpy(x)))
+    assert integral_kernel.launches == before
+
+
+def _he_launches():
+    return hist256_groups.launches, lut_gather.launches
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (16, 32), (270, 480),
+                                   (2161, 3839), (2, 3, 40, 50),
+                                   (5, 1081, 1917)])
+def test_hist_equalize_on_card_matches_numpy(card, shape):
+    frame = _frame(shape, 28)
+    before = _he_launches()
+    got = tpuimg_torch.hist_equalize(torch.from_numpy(frame).to(card))
+    assert _he_launches() == (before[0] + 1, before[1] + 1)
+    assert got.dtype == torch.uint8 and got.shape == shape
+    frames = frame.reshape((-1,) + shape[-2:])
+    want = np.stack([_he_numpy(f) for f in frames]).reshape(shape)
+    assert np.array_equal(got.cpu().numpy(), want)
+    assert torch.equal(got.cpu(),
+                       tpuimg_torch.hist_equalize(torch.from_numpy(frame)))
+
+
+def test_hist_equalize_flat_and_8k(card):
+    """A flat frame maps to 255 (min before rounding); an 8K frame has more
+    than 2^24 pixels, so its cdf rounds on the way to float32."""
+    flat = torch.full((2160, 3840), 40, dtype=torch.uint8, device=card)
+    assert bool((tpuimg_torch.hist_equalize(flat) == 255).all())
+    frame = _frame((4320, 7680), 29) // 3 + 40  # a cdf with odd steps
+    got = tpuimg_torch.hist_equalize(torch.from_numpy(frame).to(card))
+    assert np.array_equal(got.cpu().numpy(), _he_numpy(frame))
+
+
+def test_bincount256_and_apply_lut_use_the_kernels(card):
+    from tpuimg_torch.ops.histogram import apply_lut, bincount256
+
+    frames = torch.from_numpy(_frame((3, 50, 70), 30)).to(card)
+    before = _he_launches()
+    assert torch.equal(bincount256(frames),
+                       hist256_groups_plain(frames.reshape(1, -1))[0])
+    assert torch.equal(bincount256(frames, per_leading=True),
+                       hist256_groups_plain(frames))
+    table = torch.arange(256, dtype=torch.float32, device=card) * 0.5
+    got = apply_lut(table, frames)
+    assert got.shape == frames.shape and got.dtype == torch.float32
+    assert torch.equal(got, frames.float() * 0.5)
+    assert _he_launches() == (before[0] + 2, before[1] + 1)
+
+
+def test_slice3_wrappers_check_their_inputs(card):
+    img = torch.from_numpy(_frame((64, 96))).to(card)
+    with pytest.raises(ValueError, match="contiguous"):
+        hist256_groups(img.t())
+    with pytest.raises(ValueError, match="uint8"):
+        hist256_groups(img.int())
+    with pytest.raises(ValueError, match="table must be"):
+        lut_gather(torch.zeros(255, device=card), img)
+    with pytest.raises(ValueError, match="uint8"):
+        lut_gather(torch.zeros(256, device=card), img.float())
+    with pytest.raises(ValueError, match="tables"):
+        lut_gather_frames(torch.zeros((2, 256), dtype=torch.uint8,
+                                      device=card), img[None])
+    with pytest.raises(ValueError, match="contiguous"):
+        integral_kernel(img.t())
+    with pytest.raises(ValueError, match="uint8"):
+        integral_kernel(img.int())
+
+
+@pytest.mark.parametrize("seed", range(8))
+def test_random_shapes_he_and_integral(card, seed):
+    """autoTestDemo-style: a random frame size and batch per seed, HE and
+    the integral against the NumPy formulas."""
+    g = np.random.default_rng(200 + seed)
+    h, w = (int(v) for v in g.integers(1, 1500, 2))
+    b = int(g.integers(1, 4))
+    frames = _frame((b, h, w), seed)
+    got = tpuimg_torch.hist_equalize(torch.from_numpy(frames).to(card))
+    want = np.stack([_he_numpy(f) for f in frames])
+    assert np.array_equal(got.cpu().numpy(), want)
+    got = tpuimg_torch.integral(torch.from_numpy(frames).to(card))
+    assert np.array_equal(got.cpu().numpy(), _integral_numpy(frames))

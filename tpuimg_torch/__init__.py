@@ -8,9 +8,11 @@ plain PyTorch version instead. Importing this package imports neither JAX nor
 ``tpuimg``.
 """
 
-from tpuimg_torch.ops import box_filter, clahe, gaussian, guided_filter
+from tpuimg_torch.ops import (
+    box_filter, clahe, gaussian, guided_filter, hist_equalize, integral)
 from tpuimg_torch.pipeline import enhance
 
 __version__ = "0.1.0"
 
-__all__ = ["box_filter", "clahe", "enhance", "gaussian", "guided_filter"]
+__all__ = ["box_filter", "clahe", "enhance", "gaussian", "guided_filter",
+           "hist_equalize", "integral"]

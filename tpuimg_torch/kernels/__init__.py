@@ -10,9 +10,10 @@ builds everything on its first call and an edited source never loads a stale
 library. A failed build raises ``KernelBuildError``; nothing falls back to
 the plain PyTorch versions.
 
-Each wrapper (kernels/hist.py, lut.py, sep_stencil.py, boxsum.py) takes its
-plain version for a CPU tensor only. For a CUDA tensor it launches its kernel
-on the current stream, without synchronising, or raises.
+Each wrapper (kernels/hist.py, lut.py, sep_stencil.py, boxsum.py,
+scan2d.py) takes its plain version for a CPU tensor only. For a CUDA tensor
+it launches its kernel on the current stream, without synchronising, or
+raises.
 """
 
 from __future__ import annotations
@@ -32,7 +33,8 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                  ctypes.c_float)
 MAX_TAPS = 33  # csrc/enhance_tail.cu kMaxTaps
 GAUSS_MAX_RADIUS = 96  # csrc/gaussian.cu kGaussMaxRadius
 
@@ -64,6 +66,12 @@ _SIGNATURES = {
     "tpuimg_guided_onepass": (_P, _I, _P, _I, _I, _I, _I, _F, _I, _P, _P),
     # I, n_i, p, n, h, w, r, eps, a, b, q, stream
     "tpuimg_guided_twopass": (_P, _I, _P, _I, _I, _I, _I, _F, _P, _P, _P, _P),
+    # x, groups, p, out, stream
+    "tpuimg_hist256": (_P, _I, _L, _P, _P),
+    # img, n, frames, tables, tstride, elem_bytes, out, stream
+    "tpuimg_lut_gather": (_P, _L, _I, _P, _I, _I, _P, _P),
+    # img, frames, h, w, out, stream
+    "tpuimg_integral": (_P, _I, _I, _I, _P, _P),
 }
 
 _lib = None

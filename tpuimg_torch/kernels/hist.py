@@ -1,9 +1,13 @@
-"""CLAHE per-tile histograms: the tile-histogram kernel (csrc/tile_hist.cu)
-and its plain PyTorch version.
+"""256-bin histograms: the tile-histogram kernel (csrc/tile_hist.cu), the
+group-histogram kernel (csrc/hist256.cu) and their plain PyTorch versions.
 
-Replaces ``tpuimg/kernels/hist.py::hist_tiles_fused``. ``hist256_tiled`` is
-the plain form of ``tpuimg/kernels/onehot.py::hist256_tiled`` (a bincount per
-tile instead of a one-hot contraction).
+``tile_hist`` replaces ``tpuimg/kernels/hist.py::hist_tiles_fused`` (CLAHE's
+per-tile histograms). ``hist256_groups`` replaces ``hist256_groups_pallas``,
+and its thin forms ``hist256`` (one frame) and ``hist256_frames`` (a stack)
+replace ``hist256_pallas`` and ``hist256_frames_pallas``: the three share one
+kernel, as they share one ``pallas_call`` in tpuimg. ``hist256_groups_plain``
+is the plain form of ``tpuimg/kernels/onehot.py::hist256_tiled`` (a bincount
+per group instead of a one-hot contraction).
 """
 
 from __future__ import annotations
@@ -14,13 +18,44 @@ from tpuimg_torch.core.borders import reflect101_index
 from tpuimg_torch.kernels import launch, require_cuda_tensor
 
 
-def hist256_tiled(tiles: torch.Tensor) -> torch.Tensor:
-    """Per-tile 256-bin histograms: (T, ...) u8 -> (T, 256) int32."""
-    t = tiles.shape[0]
-    flat = tiles.reshape(t, -1).to(torch.int64)
-    flat = flat + 256 * torch.arange(t, device=tiles.device)[:, None]
-    counts = torch.bincount(flat.reshape(-1), minlength=t * 256)
-    return counts.reshape(t, 256).to(torch.int32)
+def hist256_groups_plain(groups: torch.Tensor) -> torch.Tensor:
+    """Per-group 256-bin histograms: (G, ...) u8 -> (G, 256) int32."""
+    g = groups.shape[0]
+    flat = groups.reshape(g, -1).to(torch.int64)
+    flat = flat + 256 * torch.arange(g, device=groups.device)[:, None]
+    counts = torch.bincount(flat.reshape(-1), minlength=g * 256)
+    return counts.reshape(g, 256).to(torch.int32)
+
+
+def hist256_groups(groups: torch.Tensor) -> torch.Tensor:
+    """``hist256_groups_plain`` of a u8 (G, P) tensor on the CPU; the CUDA
+    kernel otherwise, one launch for every group."""
+    if groups.device.type == "cpu":
+        return hist256_groups_plain(groups)
+    require_cuda_tensor(groups, "groups", torch.uint8)
+    g, p = groups.shape
+    out = torch.zeros((g, 256), dtype=torch.int32, device=groups.device)
+    if groups.numel() == 0:
+        return out
+    launch("tpuimg_hist256", groups.device, groups.data_ptr(), g, p,
+           out.data_ptr())
+    hist256_groups.launches += 1
+    return out
+
+
+hist256_groups.launches = 0
+
+
+def hist256(img: torch.Tensor) -> torch.Tensor:
+    """Global histogram of a contiguous u8 array of any shape: (256,)
+    int32."""
+    return hist256_groups(img.reshape(1, -1))[0]
+
+
+def hist256_frames(frames: torch.Tensor) -> torch.Tensor:
+    """Per-frame histograms of a contiguous u8 (B, H, W) stack: (B, 256)
+    int32. The stack is already B groups of H*W bytes."""
+    return hist256_groups(frames.reshape(frames.shape[0], -1))
 
 
 def tile_hist_plain(img, ytiles: int, xtiles: int, th: int, tw: int,
@@ -34,7 +69,7 @@ def tile_hist_plain(img, ytiles: int, xtiles: int, th: int, tw: int,
     xs = reflect101_index(torch.arange(xtiles * tw, device=dev) - pad_left, w)
     ext = img[ys[:, None], xs[None, :]]
     tiles = ext.reshape(ytiles, th, xtiles, tw).permute(0, 2, 1, 3)
-    return hist256_tiled(tiles.reshape(ytiles * xtiles, th * tw))
+    return hist256_groups_plain(tiles.reshape(ytiles * xtiles, th * tw))
 
 
 def tile_hist(img, ytiles: int, xtiles: int, th: int, tw: int, pad_top: int,

@@ -1,10 +1,12 @@
-"""CLAHE bilinear 4-LUT mapping: the mapping kernel (csrc/clahe_map.cu) and
-its plain PyTorch version.
+"""Table lookups: the CLAHE mapping kernel (csrc/clahe_map.cu), the gather
+kernel (csrc/lut_gather.cu) and their plain PyTorch versions.
 
-Replaces ``tpuimg/kernels/lut.py::clahe_map_full`` (and, for tiny tiles,
-``clahe_band_map``: the per-pixel kernel takes any tile grid). The plain
-version is the gather form of ``tpuimg/kernels/onehot.py::lut_apply4``: the
-four corner tables indexed by the pixel value.
+``clahe_map`` replaces ``tpuimg/kernels/lut.py::clahe_map_full`` (the
+per-pixel kernel takes any tile grid); its plain version is the gather form
+of ``tpuimg/kernels/onehot.py::lut_apply4``: the four corner tables indexed
+by the pixel value. ``lut_gather`` and ``lut_gather_frames`` replace the
+TPU kernels of the same names (one table; one table per frame); both launch
+the one gather kernel and count on ``lut_gather.launches``.
 """
 
 from __future__ import annotations
@@ -63,3 +65,77 @@ def clahe_map(img, tables, ytiles: int, xtiles: int, th: int, tw: int,
 
 
 clahe_map.launches = 0
+
+
+def _word_table(table):
+    """The table as the gather kernel takes it: 1-byte and 4-byte entries as
+    they are; other floats through float32 and other ints through int32, as
+    tpuimg's ``astype`` round trip takes them."""
+    if table.element_size() in (1, 4):
+        return table
+    return table.to(torch.float32 if table.is_floating_point()
+                    else torch.int32)
+
+
+def lut_gather_plain(table, img):
+    """dst = table[img] for a (256,) table and a u8 array of any shape, in
+    the table's dtype, every bit of the selected entry kept."""
+    return _word_table(table)[img.to(torch.int64)].to(table.dtype)
+
+
+def lut_gather_frames_plain(tables, imgs):
+    """dst[b] = tables[b][imgs[b]] for u8 (B, 256) tables and u8 (B, H, W)
+    frames."""
+    b = imgs.shape[0]
+    idx = imgs.reshape(b, -1).to(torch.int64)
+    return torch.gather(tables, 1, idx).reshape(imgs.shape)
+
+
+def _gather(img, tables, tstride: int):
+    """One launch of the gather kernel over the (frames, n) u8 pixels of
+    ``img``: frame f looks up ``tables`` from entry f * tstride on. Tables
+    are 1-byte or 4-byte entries; the result has their dtype."""
+    words = tables.view(torch.uint8 if tables.element_size() == 1
+                        else torch.int32)
+    out = torch.empty(img.shape, dtype=words.dtype, device=img.device)
+    if img.numel() == 0:
+        return out.view(tables.dtype)
+    frames = img.shape[0] if tstride else 1
+    launch("tpuimg_lut_gather", img.device, img.data_ptr(),
+           img.numel() // frames, frames, words.data_ptr(), tstride,
+           words.element_size(), out.data_ptr())
+    lut_gather.launches += 1
+    return out.view(tables.dtype)
+
+
+def lut_gather(table, img):
+    """``lut_gather_plain`` on a CPU tensor; the gather kernel otherwise,
+    for a contiguous u8 (..., H, W) image."""
+    if img.device.type == "cpu":
+        return lut_gather_plain(table, img)
+    require_cuda_tensor(img, "img", torch.uint8, batched=True)
+    if table.shape != (256,) or table.device != img.device:
+        raise ValueError(
+            f"table must be (256,) on {img.device}, got {tuple(table.shape)} "
+            f"on {table.device}")
+    words = _word_table(table).contiguous()
+    return _gather(img, words, 0).to(table.dtype)
+
+
+def lut_gather_frames(tables, imgs):
+    """``lut_gather_frames_plain`` on a CPU tensor; the gather kernel
+    otherwise, one launch for every frame."""
+    if imgs.device.type == "cpu":
+        return lut_gather_frames_plain(tables, imgs)
+    require_cuda_tensor(imgs, "imgs", torch.uint8, batched=True)
+    require_cuda_tensor(tables, "tables", torch.uint8)
+    if imgs.ndim != 3 or tables.shape != (imgs.shape[0], 256) or (
+            tables.device != imgs.device):
+        raise ValueError(
+            f"imgs must be (B, H, W) with tables (B, 256) on one card, got "
+            f"{tuple(imgs.shape)} on {imgs.device} and "
+            f"{tuple(tables.shape)} on {tables.device}")
+    return _gather(imgs, tables, 256)
+
+
+lut_gather.launches = 0

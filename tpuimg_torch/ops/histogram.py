@@ -1,12 +1,19 @@
-"""CLAHE (port of the CLAHE half of ``tpuimg.ops.histogram``).
+"""Global histogram equalization and CLAHE (port of
+``tpuimg.ops.histogram``).
 
-The reference chain gCalcTileHistsUnroll -> gClipLimit -> gCreateTable ->
+``hist_equalize`` is the reference's gCalcHistUnroll8 -> gCalcHeTable ->
+gMapping: the histogram and the table lookup are CUDA kernels
+(kernels/hist.py, kernels/lut.py) on a CUDA tensor, one launch each for a
+frame or a whole batch; the 256-entry table build stays plain PyTorch on the
+tensor's device, as it stays XLA glue in the JAX package.
+
+CLAHE is the chain gCalcTileHistsUnroll -> gClipLimit -> gCreateTable ->
 gInterpolateMappingUnroll (Claher::run). The per-tile histograms and the
-bilinear mapping are CUDA kernels (kernels/hist.py, kernels/lut.py) on a
-CUDA tensor; clip/redistribute and the float tables stay plain PyTorch on the
-tensor's device, as they stay XLA glue in the JAX package. Rounding follows
-the CUDA ops: ``__float2int_rz`` -> trunc, float -> u8 assignment ->
-truncation. ``hist_equalize`` is not ported yet.
+bilinear mapping are CUDA kernels on a CUDA tensor; clip/redistribute and the
+float tables stay plain PyTorch on the tensor's device.
+
+Rounding follows the CUDA ops: ``__float2int_rn`` -> round half to even,
+``__float2int_rz`` -> trunc, float -> u8 assignment -> truncation.
 """
 
 from __future__ import annotations
@@ -17,7 +24,61 @@ import torch
 from tpuimg_torch.core.layout import cdiv
 from tpuimg_torch.core.validate import (
     ParamError, ShapeError, check_image, check_positive, check_radius)
-from tpuimg_torch.kernels.hist import tile_hist
+from tpuimg_torch.kernels.hist import (
+    hist256, hist256_frames, hist256_groups, tile_hist)
+
+
+def bincount256(x, per_leading: bool = False):
+    """256-bin histogram(s) of a uint8 array, int32.
+
+    per_leading=False reduces everything; True keeps the leading dim and
+    reduces the rest (one histogram per leading index)."""
+    x = torch.as_tensor(x).contiguous()
+    if per_leading:
+        return hist256_groups(x.reshape(x.shape[0], -1))
+    return hist256(x)
+
+
+def apply_lut(table, img):
+    """dst = table[img] (gMapping) for a uint8 array of any shape; a float
+    table gives float32, as tpuimg's ``lut_apply`` does."""
+    from tpuimg_torch.kernels.lut import lut_gather
+
+    table = torch.as_tensor(table)
+    if table.is_floating_point():
+        table = table.to(torch.float32)
+    img = torch.as_tensor(img).contiguous()
+    return lut_gather(table, img.reshape(1, -1)).reshape(img.shape)
+
+
+def _he_tables(hists, pixels: int):
+    """table[v] = rint(min(255, cdf[v] * 256/N)) (gCalcHeTable) for (..., 256)
+    histograms: u8 (..., 256). The factor is the host's float32 of a float64
+    quotient (hist_equalization.cpp:58), multiplied, never divided by; the
+    cdf rounds to float32 to nearest even above 2^24; min comes before the
+    half-to-even rounding, so cdf * factor = 256 gives 255."""
+    factor = float(np.float32(256.0 / pixels))
+    cdf = torch.cumsum(hists, dim=-1).to(torch.float32)
+    return torch.round(torch.clamp(cdf * factor, max=255.0)).to(torch.uint8)
+
+
+def hist_equalize(img):
+    """Global HE of a uint8 image: table[v] = rint(min(255, cdf[v]*256/N)).
+    Leading batch dims (..., H, W) get one histogram and table per frame.
+
+    The intended algorithm, not the reference kernel's undercount of the
+    last x-block of each row band (KNOWN_DIVERGENCES.md section 1)."""
+    from tpuimg_torch.kernels.lut import lut_gather, lut_gather_frames
+
+    img = torch.as_tensor(img)
+    check_image(img, "img", dtypes=[torch.uint8])
+    img = img.contiguous()
+    if img.ndim > 2:
+        h, w = img.shape[-2:]
+        flat = img.reshape(-1, h, w)
+        tables = _he_tables(hist256_frames(flat), h * w)
+        return lut_gather_frames(tables, flat).reshape(img.shape)
+    return lut_gather(_he_tables(hist256(img), img.numel()), img)
 
 
 def _clip_redistribute(hists, limit: int):
