@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive tpuimg_torch's enhance pipeline, filters, histogram equalization and
-integral image once on one CUDA card and check them.
+"""Drive tpuimg_torch's enhance pipeline, filters, histogram equalization,
+integral image and morphology once on one CUDA card and check them.
 
 Run from the repository root on a machine with an NVIDIA Hopper card and
 nvcc:
@@ -24,25 +24,41 @@ Phases, each printed on its own line:
    float32 tables (compared as int32 bits), lut_gather_frames on 16 frames
    of 1080p, integral at 4K, 2161x3839, on three 1080p frames and on an
    all-255 4320x7680 frame whose sums wrap; hist_equalize at 8K and on a
-   flat frame, and every integral, also against NumPy formulas;
+   flat frame, and every integral, also against NumPy formulas; erode and
+   dilate (morphology) at those three sizes for r 1, 2, 7, 15, 31 in u8,
+   int32 (INT_MIN and INT_MAX planted) and float32 (NaNs, infinities and
+   -0.0 planted), on 10x200 at r15, 5x6 at r40 and 1x1 at r3, on a batch of
+   two 4K frames and at r200 at 4K (the two-pass route past the tile
+   kernel's ceiling), and open and close (open_close) at the same sizes for
+   r 1, 15, 31: all equal to the plain versions, NaNs in the same places;
+   the fused1 tail (enhance_tail_clahe) at the three sizes for tiles 4, 8,
+   16 and a 3x5 grid within 5e-6 of enhance_tail on the card's own CLAHE
+   blend times 1/255 (the count of differing pixels printed), and within
+   1e-4 of its plain version;
 4. the main paths, each run once with every launch counter reset just
    before and read just after, and each of its kernels launched:
-   enhance at 4K (impl="fused": tile_hist, clahe_map, enhance_tail),
+   enhance at 4K (impl="fused": tile_hist, clahe_map, enhance_tail;
+   impl="fused1": tile_hist, enhance_tail_clahe and no clahe_map),
    enhance at 4K with impl="staged" and enhance on a 32x48 frame (under the
    tail kernel's gate; both: tile_hist, clahe_map, gaussian, guided), and
    the stand-alone filters (gaussian r2 at 1080p, guided r8 at 4K
    self-guided, general, and twopass), hist_equalize at 4K (hist256,
    lut_gather) and on 16 frames of 1080p (the same two kernels, frames
-   form, one launch each) and integral at 4K (integral). Each enhance output
-   is u8 of the frame's shape, within 1 step of the plain composition on the
-   card and within 1 step of the CPU run on a crop; each filter output is
-   within its contract of the plain version; hist_equalize and integral
-   equal the plain composition, the NumPy formula and the CPU run on a crop
-   bit for bit;
+   form, one launch each), integral at 4K (integral), and erode, dilate
+   (one morphology launch each), morph_open and morph_close (one
+   open_close launch each) at r15 on two 4K u8 frames (the JAX package's
+   morph_31x31_4k_batch2 bench row). Each enhance output is u8 of the
+   frame's shape, within 1 step of the plain composition on the card and
+   within 1 step of the CPU run on a crop, and fused1's within 1 step of
+   fused's (differing pixels counted); each filter output is within its
+   contract of the plain version; hist_equalize, integral and the
+   morphology ops equal the plain composition and the CPU run on a crop
+   bit for bit, and hist_equalize and integral the NumPy formula;
 5. CUDA-event timing (median of 30 after 3 warm-up runs) of every kernel and
-   its plain version, of enhance on both impls, and of hist_equalize (one
-   frame, and 16 frames of 1080p) and integral end to end against their
-   plain compositions, at 4K and 1080p.
+   its plain version, of enhance on the three impls, and of hist_equalize
+   (one frame, and 16 frames of 1080p), integral, erode (r1, r15) and
+   morph_open (r15 on two 4K frames, also against two erode/dilate
+   launches) end to end against their plain compositions, at 4K and 1080p.
 
 Then one JSON line with the kernels (launches summed over phase 4's runs),
 and last the device line. Any failed check raises, so the script exits
@@ -59,11 +75,12 @@ import numpy as np
 import torch
 
 from tpuimg_torch import (
-    gaussian, guided_filter, hist_equalize, integral, kernels)
+    dilate, erode, gaussian, guided_filter, hist_equalize, integral, kernels,
+    morph_close, morph_open)
 from tpuimg_torch.core.timing import card_label, time_cuda
 from tpuimg_torch.kernels.boxsum import (
-    enhance_tail, enhance_tail_plain, guided_filter_kernel,
-    guided_filter_plain)
+    INV_255, enhance_tail, enhance_tail_clahe, enhance_tail_clahe_plain,
+    enhance_tail_plain, guided_filter_kernel, guided_filter_plain)
 from tpuimg_torch.kernels.hist import (
     hist256, hist256_frames, hist256_groups, hist256_groups_plain, tile_hist,
     tile_hist_plain)
@@ -71,7 +88,9 @@ from tpuimg_torch.kernels.lut import (
     clahe_map, clahe_map_plain, lut_gather, lut_gather_frames,
     lut_gather_frames_plain, lut_gather_plain)
 from tpuimg_torch.kernels.scan2d import integral_kernel, integral_plain
-from tpuimg_torch.kernels.sep_stencil import gaussian_kernel, gaussian_plain
+from tpuimg_torch.kernels.sep_stencil import (
+    gaussian_kernel, gaussian_plain, morphology_kernel, morphology_plain,
+    open_close_kernel, open_close_plain)
 from tpuimg_torch.ops.histogram import (
     _clahe_geometry, _clahe_tables, _he_tables)
 from tpuimg_torch.pipeline import _to_u8, enhance
@@ -86,6 +105,12 @@ GUIDED_R = [1, 8, 16]
 SMALL = (32, 48)  # under the tail kernel's gate: 32 <= 2*(2*8 + 2)
 UHD8K = (4320, 7680)  # 33 Mpx: more than 2^24 pixels, and all-255 sums wrap
 BATCH = (16, 1080, 1920)  # the hist_equalize_1080p_b16 bench row (bench.py:58)
+MORPH_R = [1, 2, 7, 15, 31]
+OPEN_CLOSE_R = [1, 15, 31]
+MORPH_TINY = [((10, 200), 15), ((5, 6), 40), ((1, 1), 3)]
+MORPH_BATCH = (2, 2160, 3840)  # morph_31x31_4k_batch2 (bench.py:84): r15
+MORPH_PATH_R = 15
+TAIL_GRIDS = [(4, 4), (8, 8), (16, 16), (3, 5)]  # (ytiles, xtiles)
 ITERS = 30
 
 KERNELS = [  # name, wrapper, its launch counter, source, TPU kernel replaced
@@ -107,6 +132,13 @@ KERNELS = [  # name, wrapper, its launch counter, source, TPU kernel replaced
      "tpuimg/kernels/lut.py:77 (also :193)"),
     ("integral", integral_kernel, "launches", "tpuimg_torch/csrc/integral.cu",
      "tpuimg/kernels/scan2d.py:216"),
+    ("morphology", morphology_kernel, "launches",
+     "tpuimg_torch/csrc/morphology.cu", "tpuimg/kernels/sep_stencil.py:575"),
+    ("open_close", open_close_kernel, "launches",
+     "tpuimg_torch/csrc/open_close.cu", "tpuimg/kernels/sep_stencil.py:509"),
+    ("enhance_tail_clahe", enhance_tail_clahe, "launches",
+     "tpuimg_torch/csrc/enhance_tail_clahe.cu",
+     "tpuimg/kernels/boxsum.py:495"),
 ]
 
 
@@ -368,6 +400,110 @@ def check_integral_kernel(dev, card: str, errs: dict,
     check(int(want[-1, -1]) < 0, "the all-255 8K sums wrap past 2^31")
 
 
+def morph_frame(shape, dtype: str, seed: int) -> np.ndarray:
+    """A morphology input: u8, the synthetic scene (a stack of them for a
+    batch); int32 over its whole range with INT_MIN and INT_MAX planted;
+    float32 noise with -0.0 planted often and a few NaNs and infinities,
+    sparse enough that r31 leaves most pixels finite."""
+    rng = np.random.default_rng(seed)
+    if dtype == "uint8":
+        return (make_frame(*shape, seed) if len(shape) == 2
+                else batch_frames(shape, seed))
+    if dtype == "int32":
+        x = rng.integers(-2 ** 31, 2 ** 31, shape, dtype=np.int64).astype(
+            np.int32)
+        x.flat[::997] = np.iinfo(np.int32).min
+        x.flat[13::991] = np.iinfo(np.int32).max
+        return x
+    x = rng.standard_normal(shape).astype(np.float32)
+    x.flat[::101] = -0.0
+    k = max(1, x.size // 400_000)
+    x.flat[rng.integers(0, x.size, 3 * k)] = np.repeat(
+        np.float32([np.nan, np.inf, -np.inf]), k)
+    return x
+
+
+def same_values(what: str, got, ref, errs: dict, name: str) -> None:
+    """got equals ref in dtype, shape and value, NaNs in the same places
+    (+0 equals -0: min and max keep either); records the measured
+    max_abs_err over the finite pixels."""
+    check(got.dtype == ref.dtype and got.shape == ref.shape,
+          f"{what} dtype and shape")
+    if got.is_floating_point():
+        nan = torch.isnan(ref)
+        check(torch.equal(torch.isnan(got), nan),
+              f"{what} NaNs in the same places")
+        got, ref = got[~nan], ref[~nan]
+    check(torch.equal(got, ref), f"{what} equal values")
+    if ref.is_floating_point():
+        finite = torch.isfinite(ref)
+        got, ref = got[finite], ref[finite]
+    err = max_err(got, ref) if ref.numel() else 0.0
+    errs[name] = max(errs.get(name, 0.0), err)
+
+
+def check_morph_kernels(dev, card: str, errs: dict) -> None:
+    """Phase 3, the morphology and open/close kernels, in every dtype."""
+    cases = [(shape, MORPH_R, OPEN_CLOSE_R) for shape in SHAPES]
+    cases += [(shape, [r], [r]) for shape, r in MORPH_TINY]
+    cases += [(MORPH_BATCH, [MORPH_PATH_R], [MORPH_PATH_R]),
+              (SHAPES[0], [200], [200])]
+    for shape, radii, oc_radii in cases:
+        label = "x".join(map(str, shape))
+        split = morphology_kernel.split_launches
+        for dtype in ("uint8", "int32", "float32"):
+            x = torch.from_numpy(morph_frame(shape, dtype, SEED + 30)).to(dev)
+            for r in radii:
+                for mode in (0, 1):
+                    same_values(f"morphology {label} {dtype} r{r} mode {mode}",
+                                morphology_kernel(x, r, mode),
+                                morphology_plain(x, r, mode), errs,
+                                "morphology")
+            for r in oc_radii:
+                for mode in (0, 1):
+                    same_values(f"open_close {label} {dtype} r{r} mode {mode}",
+                                open_close_kernel(x, r, mode),
+                                open_close_plain(x, r, mode), errs,
+                                "open_close")
+        torch.cuda.synchronize()
+        split = morphology_kernel.split_launches - split
+        print(f"phase 3 morphology vs plain {label}: erode and dilate r "
+              f"{radii}, open and close r {oc_radii}, u8, int32 and float32 "
+              f"equal, NaNs in place; two-pass route {split} times [{card}]")
+    check(split == 18, f"r200 at 4K takes the two-pass route every time "
+          f"({split} of 18)")
+
+
+def check_tail_clahe_kernel(dev, card: str, errs: dict) -> None:
+    """Phase 3, the fused1 tail against the f32 tail on the card's own
+    blend, and against its plain version."""
+    for h, w in SHAPES:
+        img = torch.from_numpy(make_frame(h, w, SEED)).to(dev)
+        line = []
+        for yt, xt in TAIL_GRIDS:
+            th, tw, pt, pl = _clahe_geometry(h, w, xt, yt)
+            tables = _clahe_tables(
+                tile_hist_plain(img, yt, xt, th, tw, pt, pl), CLIP, th, tw)
+            geo = (yt, xt, th, tw, pt, pl)
+            got = enhance_tail_clahe(img, tables, *geo, RG, SIGMA, GF_R,
+                                     GF_EPS)
+            blend = clahe_map(img, tables, *geo, True)
+            tail = enhance_tail(blend * INV_255, RG, SIGMA, GF_R, GF_EPS)
+            diff, ndiff = max_err(got, tail), int((got != tail).sum())
+            err = max_err(got, enhance_tail_clahe_plain(
+                img, tables, *geo, RG, SIGMA, GF_R, GF_EPS))
+            label = f"enhance_tail_clahe {h}x{w} tiles {yt}x{xt}"
+            check(bool(torch.isfinite(got).all()), f"{label} finite")
+            check(diff <= 5e-6, f"{label} vs enhance_tail: {diff} <= 5e-6")
+            check(err <= 1e-4, f"{label} vs plain: {err} <= 1e-4")
+            errs["enhance_tail_clahe"] = max(
+                errs.get("enhance_tail_clahe", 0.0), err)
+            line.append(f"{yt}x{xt} vs tail {diff:.3g} ({ndiff} px differ) "
+                        f"vs plain {err:.3g}")
+        print(f"phase 3 enhance_tail_clahe {h}x{w}: {'; '.join(line)} "
+              f"[{card}]")
+
+
 def counts() -> dict:
     return {name: getattr(fn, attr) for name, fn, attr, _, _ in KERNELS}
 
@@ -407,19 +543,32 @@ def run_main_paths(dev, card: str, batch: np.ndarray) -> dict:
     total = dict.fromkeys(counts(), 0)
     clahe_kernels = ("tile_hist", "clahe_map")
     h, w = SHAPES[0]
-    for label, shape, impl, tail in (
-            (f"enhance {h}x{w} fused", (h, w), "fused", ("enhance_tail",)),
+    outs = {}
+    for label, shape, impl, expected in (
+            (f"enhance {h}x{w} fused", (h, w), "fused",
+             clahe_kernels + ("enhance_tail",)),
+            (f"enhance {h}x{w} fused1", (h, w), "fused1",
+             ("tile_hist", "enhance_tail_clahe")),
             (f"enhance {h}x{w} staged", (h, w), "staged",
-             ("gaussian", "guided")),
+             clahe_kernels + ("gaussian", "guided")),
             (f"enhance {SMALL[0]}x{SMALL[1]} fused", SMALL, "fused",
-             ("gaussian", "guided"))):
+             clahe_kernels + ("gaussian", "guided"))):
         frame = make_frame(*shape, SEED + 1)
         img = torch.from_numpy(frame).to(dev)
-        out, got = drive(label, clahe_kernels + tail, enhance, img, CLIP,
+        out, got = drive(label, expected, enhance, img, CLIP,
                          TILES, RG, SIGMA, GF_R, GF_EPS, impl)
         print(f"phase 4 {label}: launches {got} [{card}]")
         check_enhance_out(label, out, img, frame, impl, card)
+        outs[(shape, impl)] = out
         total = {k: total[k] + got[k] for k in total}
+        if impl == "fused1":
+            check(got["clahe_map"] == 0, f"{label} launches no clahe_map")
+            fused = outs[(shape, "fused")]
+            step = int((out.int() - fused.int()).abs().max())
+            ndiff = int((out != fused).sum())
+            check(step <= 1, f"{label} vs fused: {step} <= 1 step")
+            print(f"phase 4 {label} vs fused: {ndiff} pixels differ, max "
+                  f"{step} step [{card}]")
 
     # the stand-alone filters at the JAX package's bench rows (bench.py:54,
     # :72-81) and guided's twopass rung (tpuimg/cli.py:523-531)
@@ -446,7 +595,37 @@ def run_main_paths(dev, card: str, batch: np.ndarray) -> dict:
           f"{errs[2]:.3g} twopass {errs[3]:.3g} [{card}]")
     total = {k: total[k] + got[k] for k in total}
     he = run_he_integral_paths(dev, card, batch)
-    return {k: total[k] + he[k] for k in total}
+    morph = run_morph_paths(dev, card)
+    return {k: total[k] + he[k] + morph[k] for k in total}
+
+
+def run_morph_paths(dev, card: str) -> dict:
+    """Phase 4 for the four morphology ops at morph_31x31_4k_batch2
+    (bench.py:84); returns the launches summed."""
+    total = dict.fromkeys(counts(), 0)
+    frames = morph_frame(MORPH_BATCH, "uint8", SEED + 6)
+    x = torch.from_numpy(frames).to(dev)
+    r = MORPH_PATH_R
+    crop = np.ascontiguousarray(frames[..., :270, :480])
+    for fn, kernel, plain in (
+            (erode, "morphology", lambda v: morphology_plain(v, r, 0)),
+            (dilate, "morphology", lambda v: morphology_plain(v, r, 1)),
+            (morph_open, "open_close", lambda v: open_close_plain(v, r, 0)),
+            (morph_close, "open_close", lambda v: open_close_plain(v, r, 1))):
+        label = f"{fn.__name__} r{r} {'x'.join(map(str, MORPH_BATCH))}"
+        out, got = drive(label, (kernel,), fn, x, r)
+        check(got[kernel] == 1 and sum(got.values()) == 1,
+              f"{label}: one {kernel} launch and no other ({got})")
+        check(out.shape == x.shape and out.dtype == torch.uint8
+              and torch.equal(out, plain(x)), f"{label} vs plain composition")
+        card_out = fn(torch.from_numpy(crop).to(dev), r).cpu()
+        check(torch.equal(card_out, fn(torch.from_numpy(crop), r)),
+              f"{label} {crop.shape} crop card vs CPU")
+        print(f"phase 4 {label}: launches {{'{kernel}': {got[kernel]}}}; "
+              f"equals the plain composition, and the CPU run on a "
+              f"{'x'.join(map(str, crop.shape))} crop [{card}]")
+        total = {k: total[k] + got[k] for k in total}
+    return total
 
 
 def run_he_integral_paths(dev, card: str, batch: np.ndarray) -> dict:
@@ -519,7 +698,7 @@ def time_all(dev, card: str) -> dict:
                                                  self_guided=True),
                   lambda x: guided_filter_plain(x, x, GF_R, GF_EPS, True),
                   (f,), card)
-        for impl in ("fused", "staged"):
+        for impl in ("fused", "staged", "fused1"):
             e = time_cuda(enhance, img, CLIP, TILES, RG, SIGMA, GF_R, GF_EPS,
                           impl, iters=ITERS, card=card)
             ep = time_cuda(enhance_plain, img, impl, iters=ITERS, card=card)
@@ -571,6 +750,52 @@ def time_he_integral(dev, card: str, batch: np.ndarray) -> dict:
     return at_4k
 
 
+def time_morph_tail(dev, card: str) -> dict:
+    """Phase 5 for the morphology, open/close and fused1 tail kernels;
+    returns {kernel: (ms, plain_ms)}: erode r15 and the tail at 4K,
+    morph_open r15 on two 4K frames."""
+    at_4k = {}
+    for h, w in TIMED:
+        img = torch.from_numpy(make_frame(h, w, SEED)).to(dev)
+        for r in (1, MORPH_PATH_R):
+            ms = time_pair(f"erode u8 r{r} {h}x{w}",
+                           lambda x: morphology_kernel(x, r, 0),
+                           lambda x: morphology_plain(x, r, 0), (img,), card)
+            if (h, w) == SHAPES[0] and r == MORPH_PATH_R:
+                at_4k["morphology"] = ms
+        th, tw, pt, pl = _clahe_geometry(h, w, TILES, TILES)
+        tables = _clahe_tables(tile_hist_plain(img, TILES, TILES, th, tw, pt,
+                                               pl), CLIP, th, tw)
+        args = (img, tables, TILES, TILES, th, tw, pt, pl, RG, SIGMA, GF_R,
+                GF_EPS)
+        ms = time_pair(f"enhance_tail_clahe {h}x{w}", enhance_tail_clahe,
+                       enhance_tail_clahe_plain, args, card)
+        if (h, w) == SHAPES[0]:
+            at_4k["enhance_tail_clahe"] = ms
+    img = torch.from_numpy(make_frame(*SHAPES[0], SEED)).to(dev)
+    t = time_cuda(morphology_kernel, img, 200, 0, iters=ITERS, card=card)
+    print(f"phase 5 time erode u8 r200 {SHAPES[0][0]}x{SHAPES[0][1]} "
+          f"(two-pass route): kernel {t.ms:.4f} ms (min {t.ms_min:.4f}), "
+          f"median of {ITERS} [{card}]")
+    x = torch.from_numpy(morph_frame(MORPH_BATCH, "uint8", SEED + 6)).to(dev)
+    label = f"r{MORPH_PATH_R} {'x'.join(map(str, MORPH_BATCH))}"
+    r = MORPH_PATH_R
+    at_4k["open_close"] = time_pair(
+        f"open_close (open) {label}", lambda v: open_close_kernel(v, r, 0),
+        lambda v: open_close_plain(v, r, 0), (x,), card)
+    fused = time_cuda(morph_open, x, r, iters=ITERS, card=card)
+    two = time_cuda(lambda v: morphology_kernel(morphology_kernel(v, r, 0),
+                                                r, 1), x, iters=ITERS,
+                    card=card)
+    print(f"phase 5 time morph_open {label} end to end: {fused.ms:.4f} ms "
+          f"(min {fused.ms_min:.4f}), erode then dilate as two morphology "
+          f"launches {two.ms:.4f} ms (min {two.ms_min:.4f}), median of "
+          f"{ITERS} [{card}]")
+    time_pair(f"erode {label} end to end", lambda v: erode(v, r),
+              lambda v: morphology_plain(v, r, 0), (x,), card)
+    return at_4k
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this check "
@@ -598,6 +823,8 @@ def main() -> int:
     check_filter_kernels(dev, card, errs)
     check_he_kernels(dev, card, errs, batch)
     check_integral_kernel(dev, card, errs, batch)
+    check_morph_kernels(dev, card, errs)
+    check_tail_clahe_kernel(dev, card, errs)
     print(f"phase 3 took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     launches = run_main_paths(dev, card, batch)
@@ -605,6 +832,7 @@ def main() -> int:
     t0 = time.perf_counter()
     times = time_all(dev, card)
     times.update(time_he_integral(dev, card, batch))
+    times.update(time_morph_tail(dev, card))
     print(f"phase 5 took {time.perf_counter() - t0:.1f} s")
 
     rows = [{"name": name, "route": "cuda", "source": src, "replaces": tpu,

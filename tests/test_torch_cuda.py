@@ -17,10 +17,12 @@ import torch
 
 import tpuimg_torch
 from tpuimg_torch.core.validate import ParamError
-from tpuimg_torch.kernels import GAUSS_MAX_RADIUS, KernelLaunchError
+from tpuimg_torch.kernels import (
+    GAUSS_MAX_RADIUS, MORPH_MAX_TILE_RADIUS, OPEN_CLOSE_MAX_RADIUS,
+    KernelLaunchError)
 from tpuimg_torch.kernels.boxsum import (
-    enhance_tail, enhance_tail_plain, guided_filter_kernel,
-    guided_filter_plain)
+    INV_255, enhance_tail, enhance_tail_clahe, enhance_tail_clahe_plain,
+    enhance_tail_plain, guided_filter_kernel, guided_filter_plain)
 from tpuimg_torch.kernels.hist import (
     hist256, hist256_frames, hist256_groups, hist256_groups_plain, tile_hist,
     tile_hist_plain)
@@ -28,7 +30,9 @@ from tpuimg_torch.kernels.lut import (
     clahe_map, clahe_map_plain, lut_gather, lut_gather_frames,
     lut_gather_frames_plain, lut_gather_plain)
 from tpuimg_torch.kernels.scan2d import integral_kernel, integral_plain
-from tpuimg_torch.kernels.sep_stencil import gaussian_kernel, gaussian_plain
+from tpuimg_torch.kernels.sep_stencil import (
+    gaussian_kernel, gaussian_plain, morphology_kernel, morphology_plain,
+    open_close_kernel, open_close_plain)
 from tpuimg_torch.ops.histogram import _clahe_geometry, _clahe_tables
 from tpuimg_torch.pipeline import enhance
 
@@ -548,3 +552,197 @@ def test_random_shapes_he_and_integral(card, seed):
     assert np.array_equal(got.cpu().numpy(), want)
     got = tpuimg_torch.integral(torch.from_numpy(frames).to(card))
     assert np.array_equal(got.cpu().numpy(), _integral_numpy(frames))
+
+
+def _morph_frames(shape, dtype, seed):
+    """u8 noise; int32 over its whole range with INT_MIN and INT_MAX
+    planted; float32 noise with -0.0 planted often and a few NaNs and
+    infinities."""
+    g = np.random.default_rng(seed)
+    if dtype == "uint8":
+        return g.integers(0, 256, shape, dtype=np.uint8)
+    if dtype == "int32":
+        x = g.integers(-2 ** 31, 2 ** 31, shape, dtype=np.int64).astype(
+            np.int32)
+        x.flat[::97] = np.iinfo(np.int32).min
+        x.flat[7::89] = np.iinfo(np.int32).max
+        return x
+    x = g.standard_normal(shape).astype(np.float32)
+    x.flat[5::101] = -0.0
+    # sparse enough that large radii leave most pixels finite
+    x.flat[g.integers(0, x.size, 6)] = (np.nan, np.nan, np.inf, np.inf,
+                                        -np.inf, np.nan)
+    return x
+
+
+def _same_values(got, ref):
+    """Same dtype, shape and values, NaNs in the same places."""
+    assert got.dtype == ref.dtype and got.shape == ref.shape
+    if got.is_floating_point():
+        nan = torch.isnan(ref)
+        assert torch.equal(torch.isnan(got), nan)
+        got, ref = got[~nan], ref[~nan]
+    assert torch.equal(got, ref)
+
+
+MORPH_CASES = [((1, 1), 3), ((5, 6), 40), ((10, 200), 15), ((33, 1000), 7),
+               ((300, 257), 31), ((129, 130), MORPH_MAX_TILE_RADIUS),
+               ((250, 260), MORPH_MAX_TILE_RADIUS + 1), ((400, 300), 200),
+               ((2, 3, 40, 50), 2), ((70, 1), 1)]
+
+
+@pytest.mark.parametrize("dtype", ["uint8", "int32", "float32"])
+@pytest.mark.parametrize("shape,radius", MORPH_CASES)
+def test_morphology_matches_plain(card, shape, radius, dtype):
+    x = torch.from_numpy(_morph_frames(shape, dtype, 40)).to(card)
+    for mode in (0, 1):
+        before = morphology_kernel.split_launches
+        got = morphology_kernel(x, radius, mode)
+        _same_values(got, morphology_plain(x, radius, mode))
+        split = min(radius, max(shape[-2:]) - 1) > MORPH_MAX_TILE_RADIUS
+        assert morphology_kernel.split_launches == before + split
+
+
+OPEN_CLOSE_CASES = [((1, 1), 3), ((5, 6), 40), ((15, 33), 8),
+                    ((97, 201), 15), ((300, 257), OPEN_CLOSE_MAX_RADIUS),
+                    ((260, 250), OPEN_CLOSE_MAX_RADIUS + 1), ((200, 230), 60),
+                    ((2, 2, 40, 70), 3)]
+
+
+@pytest.mark.parametrize("dtype", ["uint8", "int32", "float32"])
+@pytest.mark.parametrize("shape,radius", OPEN_CLOSE_CASES)
+def test_open_close_matches_plain(card, shape, radius, dtype):
+    """One fused launch up to the ceiling; two morphology launches above
+    it."""
+    x = torch.from_numpy(_morph_frames(shape, dtype, 41)).to(card)
+    fused = min(radius, max(shape[-2:]) - 1) <= OPEN_CLOSE_MAX_RADIUS
+    for mode in (0, 1):
+        before = (open_close_kernel.launches, morphology_kernel.launches)
+        got = open_close_kernel(x, radius, mode)
+        _same_values(got, open_close_plain(x, radius, mode))
+        assert (open_close_kernel.launches, morphology_kernel.launches) == (
+            before[0] + fused, before[1] + 2 * (not fused))
+
+
+@pytest.mark.parametrize("seed", range(8))
+def test_random_shapes_morphology_match_plain(card, seed):
+    """autoTestDemo-style: a random frame size, batch, dtype and radius per
+    seed (either side of both shared-memory ceilings), both kernels
+    against their plain versions."""
+    g = np.random.default_rng(400 + seed)
+    h, w = (int(v) for v in g.integers(1, 700, 2))
+    b = int(g.integers(1, 4))
+    dtype = ("uint8", "int32", "float32")[seed % 3]
+    radius = int(g.integers(1, 130))
+    x = torch.from_numpy(_morph_frames((b, h, w), dtype, seed)).to(card)
+    for mode in (0, 1):
+        _same_values(morphology_kernel(x, radius, mode),
+                     morphology_plain(x, radius, mode))
+        _same_values(open_close_kernel(x, radius, mode),
+                     open_close_plain(x, radius, mode))
+
+
+def test_morphology_storage_offsets_and_public_ops(card):
+    """Frames that start past their storage's first element (u8 at odd
+    byte offsets), narrowed dtypes, and the public ops on the card against
+    the CPU run."""
+    g = np.random.default_rng(42)
+    for dtype in ("uint8", "int32", "float32"):
+        big = torch.from_numpy(_morph_frames((3, 61, 77), dtype, 43)).to(card)
+        x = big.reshape(-1)[5:5 + 2 * 61 * 77].reshape(2, 61, 77)
+        assert x.is_contiguous() and x.storage_offset() == 5
+        for op in ("erode", "dilate", "morph_open", "morph_close"):
+            got = getattr(tpuimg_torch, op)(x, 4)
+            _same_values(got.cpu(), getattr(tpuimg_torch, op)(x.cpu(), 4))
+    f64 = torch.from_numpy(g.random((30, 40))).to(card)
+    got = tpuimg_torch.erode(f64, 2)
+    assert got.dtype == torch.float32 and got.is_cuda
+    _same_values(got.cpu(), tpuimg_torch.erode(f64.cpu(), 2))
+    strided = torch.from_numpy(_frame((40, 60), 44)).to(card)[:, ::2]
+    _same_values(tpuimg_torch.dilate(strided, 3),
+                 morphology_plain(strided.contiguous(), 3, 1))
+
+
+def test_morphology_error_paths(card):
+    x = torch.zeros((20, 30), dtype=torch.int16, device=card)
+    for fn in (morphology_kernel, open_close_kernel):
+        with pytest.raises(ValueError, match="uint8 or torch.int32"):
+            fn(x, 2, 0)
+        with pytest.raises(ValueError, match="contiguous"):
+            fn(x.to(torch.uint8).t(), 2, 0)
+        with pytest.raises(ParamError, match="mode"):
+            fn(x.to(torch.uint8), 2, 3)
+        with pytest.raises(ValueError, match="must be a CUDA tensor"):
+            fn(torch.zeros((4, 4), device="meta"), 2, 0)
+    with pytest.raises(tpuimg_torch.core.validate.DTypeError):
+        tpuimg_torch.morph_open(x, 2)
+    empty = torch.zeros((0, 5, 6), dtype=torch.uint8, device=card)
+    assert morphology_kernel(empty, 2, 0).shape == (0, 5, 6)
+    assert open_close_kernel(empty, 2, 1).shape == (0, 5, 6)
+
+
+def _tail_clahe_args(frame, ytiles, xtiles, card):
+    img = torch.from_numpy(frame).to(card)
+    geo, tables = _geometry_and_tables(img, ytiles, xtiles)
+    return img, tables, geo
+
+
+@pytest.mark.parametrize("shape,grid,rg,r", [
+    ((37, 37), (1, 1), 2, 8), ((37, 40), (2, 3), 2, 8), ((150, 200), (4, 4),
+                                                        1, 2),
+    ((256, 256), (16, 16), 2, 8), ((301, 203), (3, 5), 3, 4),
+    ((75, 77), (8, 8), 1, 1)])
+def test_enhance_tail_clahe_matches_plain(card, shape, grid, rg, r):
+    """Against its plain version within 5e-6 and against the f32 tail on
+    the card's own blend, at the tail's gate (37 = 2*(2*8 + 2) + 1) and
+    over tile grids from 1x1 to 16x16."""
+    yt, xt = grid
+    img, tables, geo = _tail_clahe_args(_frame(shape, 45), yt, xt, card)
+    got = enhance_tail_clahe(img, tables, yt, xt, *geo, rg, 1.5, r, 1e-3)
+    ref = enhance_tail_clahe_plain(img, tables, yt, xt, *geo, rg, 1.5, r,
+                                   1e-3)
+    assert bool(torch.isfinite(got).all())
+    assert float((got - ref).abs().max()) <= 5e-6
+    blend = clahe_map(img, tables, yt, xt, *geo, out_f32=True)
+    tail = enhance_tail(blend * INV_255, rg, 1.5, r, 1e-3)
+    assert float((got - tail).abs().max()) <= 5e-6
+
+
+def test_enhance_tail_clahe_checks_its_inputs(card):
+    img, tables, geo = _tail_clahe_args(_frame((64, 96), 46), 4, 4, card)
+    with pytest.raises(ValueError, match="tables"):
+        enhance_tail_clahe(img, tables[:3], 4, 4, *geo, 2, 1.5, 8, 1e-3)
+    with pytest.raises(ValueError, match="uint8"):
+        enhance_tail_clahe(img.float(), tables, 4, 4, *geo, 2, 1.5, 8, 1e-3)
+    with pytest.raises(ValueError, match="2\\*radius"):
+        enhance_tail_clahe(img[:18], tables, 4, 4, *geo, 2, 1.5, 8, 1e-3)
+    with pytest.raises(ParamError, match="gaussian radius"):
+        enhance_tail_clahe(img, tables, 4, 4, *geo, 17, 5.0, 1, 1e-3)
+    with pytest.raises(ValueError, match="must be a CUDA tensor"):
+        enhance_tail_clahe(img, tables.cpu(), 4, 4, *geo, 2, 1.5, 8, 1e-3)
+
+
+@pytest.mark.parametrize("shape,tiles", [((270, 480), 8), ((37, 60), 2),
+                                         ((512, 512), 16), ((301, 203), 4),
+                                         ((36, 60), 2)])
+def test_enhance_fused1_on_card(card, shape, tiles):
+    """Above the gate: tile_hist and enhance_tail_clahe, no clahe_map, the
+    values of impl="fused"; at or under it (36 <= 2*(2*8 + 2)) the fused
+    composition. Within 1 step of the CPU run."""
+    frame = _frame(shape, 47)
+    img = torch.from_numpy(frame).to(card)
+
+    def counts():
+        return (tile_hist.launches, clahe_map.launches,
+                enhance_tail_clahe.launches)
+
+    before = counts()
+    got = enhance(img, tiles=tiles, impl="fused1")
+    gated = min(shape) > 36
+    assert counts() == (before[0] + 1, before[1] + (not gated),
+                        before[2] + gated)
+    assert got.dtype == torch.uint8 and got.shape == shape
+    fused = enhance(img, tiles=tiles)
+    assert int((got.int() - fused.int()).abs().max()) <= 1
+    cpu = enhance(torch.from_numpy(frame), tiles=tiles, impl="fused1")
+    assert int((got.cpu().int() - cpu.int()).abs().max()) <= 1

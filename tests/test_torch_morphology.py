@@ -1,0 +1,215 @@
+"""tpuimg_torch's erode, dilate, morph_open and morph_close against tpuimg's,
+on the CPU, bit for bit.
+
+On a CPU tensor the kernel wrappers run their plain versions; these tests
+hold them to the JAX package's Pallas kernels (interpret mode on the CPU
+backend, as tests/test_pallas_kernels.py runs them), its XLA path and the
+NumPy oracles: u8 at the radii of KNOWN_DIVERGENCES section 6, int32 with
+its extremes, float32 with NaNs (which propagate), frames smaller than the
+structuring element, batches, and the typed errors.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import tpuimg
+import tpuimg_torch
+from tpuimg.kernels.sep_stencil import open_close_pallas
+from tpuimg.oracle import close_ref, dilate_ref, erode_ref, open_ref
+from tpuimg_torch.kernels.sep_stencil import (
+    morphology_kernel, morphology_plain, open_close_kernel, open_close_plain,
+    pad_replicate)
+
+OPS = ["erode", "dilate", "morph_open", "morph_close"]
+RADII = [1, 2, 3, 6, 7, 8, 15, 25, 31]
+
+
+def _same(got, ref):
+    """Equal values and dtype, NaNs in the same places (+0 equals -0)."""
+    got = np.asarray(got)
+    ref = np.asarray(ref)
+    assert got.dtype == ref.dtype and got.shape == ref.shape
+    if got.dtype.kind == "f":
+        nan = np.isnan(ref)
+        np.testing.assert_array_equal(np.isnan(got), nan)
+        got, ref = got[~nan], ref[~nan]
+    np.testing.assert_array_equal(got, ref)
+
+
+def _port(op, x, radius):
+    return getattr(tpuimg_torch, op)(torch.from_numpy(x), radius).numpy()
+
+
+@pytest.mark.parametrize("radius", RADII)
+def test_erode_dilate_u8_match_pallas_and_oracle(rng, radius):
+    img = rng.integers(0, 256, (75, 183), dtype=np.uint8)
+    for op, oracle in (("erode", erode_ref), ("dilate", dilate_ref)):
+        got = _port(op, img, radius)
+        _same(got, getattr(tpuimg, op)(img, radius, impl="pallas"))
+        _same(got, oracle(img, radius))
+
+
+def _int32_frame(rng, shape):
+    x = rng.integers(-2 ** 31, 2 ** 31, shape, dtype=np.int64).astype(
+        np.int32)
+    x.flat[::17] = np.iinfo(np.int32).min
+    x.flat[5::23] = np.iinfo(np.int32).max
+    return x
+
+
+def _nan_frame(rng, shape):
+    x = rng.standard_normal(shape).astype(np.float32)
+    x.flat[rng.choice(x.size, 4, replace=False)] = np.nan
+    x.flat[::31] = -0.0
+    x.flat[3::37] = np.inf
+    return x
+
+
+@pytest.mark.parametrize("radius", [1, 2, 13])
+@pytest.mark.parametrize("op", OPS)
+def test_int32_and_float32_nan_match_tpuimg(rng, op, radius):
+    for x in (_int32_frame(rng, (20, 30)), _nan_frame(rng, (20, 30))):
+        _same(_port(op, x, radius), getattr(tpuimg, op)(x, radius))
+
+
+@pytest.mark.parametrize("dtype", ["uint8", "int32", "float32"])
+def test_erode_matches_pallas_in_every_dtype(rng, dtype):
+    x = {"uint8": lambda: rng.integers(0, 256, (40, 70), dtype=np.uint8),
+         "int32": lambda: _int32_frame(rng, (40, 70)),
+         "float32": lambda: _nan_frame(rng, (40, 70))}[dtype]()
+    for op in ("erode", "dilate"):
+        _same(_port(op, x, 3), getattr(tpuimg, op)(x, 3, impl="pallas"))
+
+
+@pytest.mark.parametrize("op,radius,want", [
+    ("erode", 2, 25), ("dilate", 13, 540), ("morph_open", 2, 81),
+    ("morph_close", 2, 81)])
+def test_nan_spreads_over_the_window(rng, op, radius, want):
+    """One NaN in a 20x30 frame spreads over its clamped window (27x20 at
+    r13), and open and close spread it twice, in tpuimg and in the port."""
+    x = rng.random((20, 30), dtype=np.float32)
+    x[10, 15] = np.nan
+    got = _port(op, x, radius)
+    assert int(np.isnan(got).sum()) == want
+    _same(got, getattr(tpuimg, op)(x, radius))
+
+
+@pytest.mark.parametrize("shape,radius", [((10, 200), 15), ((5, 6), 40),
+                                          ((1, 1), 3), ((1, 9), 2),
+                                          ((7, 1), 4)])
+@pytest.mark.parametrize("op", OPS)
+def test_frames_smaller_than_the_element(rng, op, shape, radius):
+    img = rng.integers(0, 256, shape, dtype=np.uint8)
+    got = _port(op, img, radius)
+    assert got.shape == shape
+    _same(got, getattr(tpuimg, op)(img, radius))
+
+
+@pytest.mark.parametrize("shape", [(3, 30, 42), (2, 2, 20, 30)])
+@pytest.mark.parametrize("op", OPS)
+def test_batches_match_tpuimg(rng, op, shape):
+    img = rng.integers(0, 256, shape, dtype=np.uint8)
+    got = _port(op, img, 4)
+    _same(got, getattr(tpuimg, op)(img, 4))
+    flat = img.reshape((-1,) + shape[-2:])
+    one = np.stack([_port(op, f, 4) for f in flat]).reshape(shape)
+    _same(got, one)
+
+
+@pytest.mark.parametrize("radius", [1, 3, 8, 15])
+def test_open_close_match_pallas_and_oracle(rng, radius):
+    """The fused form's semantics: stage 2's replicate border acts on the
+    stage-1 result (also where 2r > h)."""
+    for shape in [(97, 201), (15, 33)]:
+        img = rng.integers(0, 256, shape, dtype=np.uint8)
+        for mode, oracle in ((0, open_ref), (1, close_ref)):
+            got = open_close_kernel(torch.from_numpy(img), radius,
+                                    mode).numpy()
+            _same(got, open_close_pallas(img, radius, mode))
+            _same(got, oracle(img, radius))
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_random_shapes_match_oracle(seed):
+    """autoTestDemo-style: a random frame, batch and radius per seed, the
+    four ops against the NumPy oracles frame by frame."""
+    g = np.random.default_rng(300 + seed)
+    h, w = (int(v) for v in g.integers(1, 60, 2))
+    b, radius = int(g.integers(1, 4)), int(g.integers(1, 21))
+    img = g.integers(0, 256, (b, h, w), dtype=np.uint8)
+    for op, oracle in (("erode", erode_ref), ("dilate", dilate_ref),
+                       ("morph_open", open_ref), ("morph_close", close_ref)):
+        got = _port(op, img, radius)
+        _same(got, np.stack([oracle(f, radius) for f in img]))
+
+
+def test_dtype_narrowing_follows_tpuimg(rng):
+    """float64 comes out float32 and int64 int32, as through jnp.asarray."""
+    f64 = rng.random((12, 14))
+    i64 = rng.integers(-1000, 1000, (12, 14))
+    for x, want in ((f64, torch.float32), (i64, torch.int32)):
+        for op in OPS:
+            got = getattr(tpuimg_torch, op)(torch.from_numpy(x), 2)
+            assert got.dtype == want
+            _same(got.numpy(), getattr(tpuimg, op)(x, 2))
+
+
+def _raised(fn):
+    with pytest.raises(ValueError) as info:
+        fn()
+    return type(info.value).__name__, str(info.value)
+
+
+@pytest.mark.parametrize("case", ["int16", "uint16", "bool", "float16",
+                                  "radius_0", "radius_float", "radius_bool",
+                                  "one_dim"])
+@pytest.mark.parametrize("op", OPS)
+def test_same_typed_errors_as_tpuimg(op, case):
+    x = np.zeros((6, 8), np.uint8)
+    arr, radius = {
+        "int16": (x.astype(np.int16), 1), "uint16": (x.astype(np.uint16), 1),
+        "bool": (x.astype(bool), 1), "float16": (x.astype(np.float16), 1),
+        "radius_0": (x, 0), "radius_float": (x, 2.0),
+        "radius_bool": (x, True), "one_dim": (x[0], 1)}[case]
+    theirs = _raised(lambda: getattr(tpuimg, op)(arr, radius))
+    ours = _raised(lambda: getattr(tpuimg_torch, op)(torch.from_numpy(arr),
+                                                     radius))
+    assert ours == theirs
+
+
+def test_plain_versions_compose_and_pad(rng):
+    x = torch.from_numpy(rng.integers(0, 256, (9, 11), dtype=np.uint8))
+    p = pad_replicate(x, 20)
+    assert p.shape == (49, 51)
+    assert torch.equal(p[:21, :21], x[0, 0].expand(21, 21))
+    assert torch.equal(open_close_plain(x, 2, 1),
+                       morphology_plain(morphology_plain(x, 2, 1), 2, 0))
+
+
+def test_wrappers_take_plain_version_on_cpu(rng):
+    before = (morphology_kernel.launches, morphology_kernel.split_launches,
+              open_close_kernel.launches)
+    x = torch.from_numpy(rng.integers(0, 256, (30, 40), dtype=np.uint8))
+    for op in OPS:
+        getattr(tpuimg_torch, op)(x, 3)
+    assert (morphology_kernel.launches, morphology_kernel.split_launches,
+            open_close_kernel.launches) == before == (0, 0, 0)
+
+
+def test_wrappers_raise_off_the_cpu(monkeypatch):
+    """A tensor off the CPU never runs the plain versions; a bad mode is a
+    ParamError."""
+    from tpuimg_torch.kernels import sep_stencil
+
+    def must_not_run(*args, **kwargs):
+        raise AssertionError("a plain version ran off the CPU")
+
+    monkeypatch.setattr(sep_stencil, "morphology_plain", must_not_run)
+    monkeypatch.setattr(sep_stencil, "open_close_plain", must_not_run)
+    meta = torch.empty((64, 64), dtype=torch.uint8, device="meta")
+    for op in OPS:
+        with pytest.raises(ValueError, match="must be a CUDA tensor"):
+            getattr(tpuimg_torch, op)(meta, 3)
+    with pytest.raises(tpuimg_torch.core.validate.ParamError, match="mode"):
+        morphology_kernel(torch.zeros((4, 4)), 1, 2)

@@ -14,7 +14,8 @@ import torch
 import tpuimg
 import tpuimg_torch
 from tpuimg.core.kernelgen import gaussian_kernel_1d as jax_taps
-from tpuimg.kernels.boxsum import enhance_tail_pallas
+from tpuimg.kernels.boxsum import (
+    enhance_tail_clahe_pallas, enhance_tail_pallas)
 from tpuimg.kernels.lut import clahe_map_full
 from tpuimg.oracle import clahe_ref, gaussian_ref, guided_filter_ref
 from tpuimg.ops.histogram import _clahe_front, _map_bank, _tile_coord_runs
@@ -22,7 +23,8 @@ from tpuimg.pipeline import enhance as jax_enhance
 from tpuimg_torch.core import validate as tv
 from tpuimg_torch.core.kernelgen import gaussian_kernel_1d
 from tpuimg_torch.core.params import carry_enhance_state
-from tpuimg_torch.kernels.boxsum import enhance_tail
+from tpuimg_torch.kernels.boxsum import (
+    enhance_tail, enhance_tail_clahe, enhance_tail_clahe_plain)
 from tpuimg_torch.kernels.hist import tile_hist
 from tpuimg_torch.kernels.lut import clahe_map
 from tpuimg_torch.ops.histogram import _clahe_front as torch_clahe_front
@@ -60,6 +62,45 @@ def test_enhance_matches_tpuimg_and_oracle(rng, impl, tiles, radius,
     assert np.abs(got.astype(int) - ref.astype(int)).max() <= 1
     oracle = _composed_oracle(img, tiles, radius, gf_radius)
     assert np.abs(got.astype(int) - oracle.astype(int)).max() <= 2
+
+
+@pytest.mark.parametrize("tiles,radius,gf_radius", PARAMS)
+def test_enhance_fused1_matches_tpuimg_and_fused(rng, tiles, radius,
+                                                 gf_radius):
+    """impl="fused1" within 1 step of tpuimg's (which composes the fused
+    chain on the CPU), and equal to the port's impl="fused"."""
+    img = rng.integers(0, 256, SHAPE, dtype=np.uint8)
+    args = (2.0, tiles, radius, 1.5, gf_radius, 1e-3)
+    got = enhance(torch.from_numpy(img), *args, impl="fused1")
+    assert got.dtype == torch.uint8 and got.shape == SHAPE
+    ref = np.asarray(jax_enhance(img, *args, impl="fused1"))
+    assert np.abs(got.numpy().astype(int) - ref.astype(int)).max() <= 1
+    assert torch.equal(got, enhance(torch.from_numpy(img), *args))
+
+
+@pytest.mark.parametrize("shape,tiles", [((150, 200), 4), ((220, 260), 8)])
+def test_enhance_tail_clahe_matches_pallas(rng, shape, tiles):
+    """The fused1 tail's plain version against tpuimg's Pallas kernel
+    (interpret mode), fed the same CLAHE state: within tpuimg's own 5e-6
+    (tests/test_pallas_kernels.py), u8 within 1 step."""
+    h, w = shape
+    img = rng.integers(0, 256, shape, dtype=np.uint8)
+    tables, th, tw, pad_top, pad_left = _clahe_front(
+        jnp.asarray(img), 2.0, tiles, tiles)
+    xinfo = tuple((x0, x1, tx1) for x0, x1, tx1, _tx2, _ in
+                  _tile_coord_runs(w, tiles, tw, pad_left, use_recip=True))
+    jq = np.asarray(enhance_tail_clahe_pallas(
+        img, _map_bank(tables, tiles, tiles), 2, 1.5, 8, 1e-3,
+        pad_top=float(pad_top), th=th, tw=tw, ytiles=tiles, xtiles=tiles,
+        pad_left=float(pad_left),
+        inv_tw=float(np.float32(1.0) / np.float32(tw)), xinfo=xinfo))
+    q = enhance_tail_clahe(torch.from_numpy(img),
+                           torch.from_numpy(np.array(tables)), tiles, tiles,
+                           th, tw, pad_top, pad_left, 2, 1.5, 8,
+                           1e-3).numpy()
+    assert q.dtype == np.float32 and q.shape == shape
+    assert np.abs(q - jq).max() < 5e-6
+    assert np.abs(_to_u8(q).astype(int) - _to_u8(jq).astype(int)).max() <= 1
 
 
 def test_enhance_small_frame_composes_gaussian_and_guided(rng):
@@ -156,8 +197,7 @@ def test_same_typed_errors_as_tpuimg(case):
     }[case]
     theirs = _raised(lambda: jax_enhance(*args, **kwargs))
     ours = _raised(lambda: enhance(torch.from_numpy(args[0]), **kwargs))
-    assert ours[0] == theirs[0]
-    assert ours[1] == theirs[1].replace(", 'fused1'", "")  # not ported
+    assert ours == theirs
 
 
 def test_3d_frame_is_a_shape_error():
@@ -219,11 +259,23 @@ def test_box_and_guided_match_tpuimg(rng):
 
 def test_cpu_dispatch_launches_no_kernel(rng):
     img = torch.from_numpy(rng.integers(0, 256, (80, 100), dtype=np.uint8))
-    before = (tile_hist.launches, clahe_map.launches, enhance_tail.launches)
+
+    def launches():
+        return (tile_hist.launches, clahe_map.launches, enhance_tail.launches,
+                enhance_tail_clahe.launches)
+
+    before = launches()
     enhance(img)
+    enhance(img, impl="fused1")
     tpuimg_torch.clahe(img, 2.0, 4, 4)
-    after = (tile_hist.launches, clahe_map.launches, enhance_tail.launches)
-    assert after == before == (0, 0, 0)
+    assert launches() == before == (0, 0, 0, 0)
+    # the plain version is the blend times 1/255 through the plain tail
+    front = torch_clahe_front(img, 2.0, 8, 8)
+    q = enhance_tail_clahe_plain(img, front[0], 8, 8, *front[1:], 2, 1.5, 8,
+                                 1e-3)
+    blend = clahe_map(img, front[0], 8, 8, *front[1:], out_f32=True)
+    assert torch.equal(q, enhance_tail(blend * (1.0 / 255.0), 2, 1.5, 8,
+                                       1e-3))
 
 
 def test_unported_paths_raise_off_the_cpu(monkeypatch):
@@ -239,6 +291,7 @@ def test_unported_paths_raise_off_the_cpu(monkeypatch):
 
     for mod, name in ((hist, "tile_hist_plain"), (lut, "clahe_map_plain"),
                       (boxsum, "enhance_tail_plain"),
+                      (boxsum, "enhance_tail_clahe_plain"),
                       (boxsum, "guided_filter_plain"),
                       (sep_stencil, "gaussian_plain")):
         monkeypatch.setattr(mod, name, must_not_run)
@@ -246,6 +299,8 @@ def test_unported_paths_raise_off_the_cpu(monkeypatch):
     meta_f = torch.empty((64, 64), device="meta")
     with pytest.raises(ValueError, match="must be a CUDA tensor"):
         enhance(meta_u8, impl="staged")
+    with pytest.raises(ValueError, match="must be a CUDA tensor"):
+        enhance(meta_u8, impl="fused1")
     with pytest.raises(ValueError, match="must be a CUDA tensor"):
         enhance(torch.empty((30, 40), dtype=torch.uint8, device="meta"))
     with pytest.raises(ValueError, match="must be a CUDA tensor"):

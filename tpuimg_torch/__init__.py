@@ -9,10 +9,12 @@ plain PyTorch version instead. Importing this package imports neither JAX nor
 """
 
 from tpuimg_torch.ops import (
-    box_filter, clahe, gaussian, guided_filter, hist_equalize, integral)
+    box_filter, clahe, dilate, erode, gaussian, guided_filter, hist_equalize,
+    integral, morph_close, morph_open)
 from tpuimg_torch.pipeline import enhance
 
 __version__ = "0.1.0"
 
-__all__ = ["box_filter", "clahe", "enhance", "gaussian", "guided_filter",
-           "hist_equalize", "integral"]
+__all__ = ["box_filter", "clahe", "dilate", "enhance", "erode", "gaussian",
+           "guided_filter", "hist_equalize", "integral", "morph_close",
+           "morph_open"]

@@ -35,6 +35,48 @@ __device__ __forceinline__ void reflect101_table(int start, int len, int n,
   }
 }
 
+// The CLAHE tile grid of a frame: (ytiles*xtiles, 256) float tables, the
+// tile height, the centred padding and the host's f32 reciprocal of the tile
+// width.
+struct ClaheGeom {
+  const float* tables;
+  int ytiles, xtiles;
+  float th, pad_top, pad_left, inv_tw;
+};
+
+// The CLAHE bilinear 4-LUT blend of pixel value v at (y, x), in [0, 255].
+// Coordinate math is the reference's (gInterpolateMappingUnroll) and
+// tpuimg's, bit for bit: tyf = __fdiv_rn(y + pad_top, th) - 0.5 and
+// txf = (x + pad_left) * inv_tw - 0.5; ty1/tx1 truncate toward zero (ya may
+// be negative at the top border), ty2/tx2 clamp to the last tile. The blend
+// is (t11*xa1 + t12*xa)*ya1 + (t21*xa1 + t22*xa)*ya with every multiply and
+// add rounded on its own (__fmul_rn/__fadd_rn), so nvcc cannot contract it
+// into FMAs and every kernel that calls this computes the plain PyTorch
+// version's value exactly.
+__device__ __forceinline__ float clahe_blend(const ClaheGeom& g, int v, int y,
+                                             int x) {
+  const float tyf = __fsub_rn(__fdiv_rn(__fadd_rn(static_cast<float>(y),
+                                                  g.pad_top), g.th), 0.5f);
+  const float txf = __fsub_rn(__fmul_rn(__fadd_rn(static_cast<float>(x),
+                                                  g.pad_left), g.inv_tw),
+                              0.5f);
+  const int ty1 = __float2int_rz(tyf);
+  const int tx1 = __float2int_rz(txf);
+  const int ty2 = min(ty1 + 1, g.ytiles - 1);
+  const int tx2 = min(tx1 + 1, g.xtiles - 1);
+  const float ya = __fsub_rn(tyf, static_cast<float>(ty1));
+  const float xa = __fsub_rn(txf, static_cast<float>(tx1));
+  const float ya1 = __fsub_rn(1.0f, ya);
+  const float xa1 = __fsub_rn(1.0f, xa);
+  const float t11 = __ldg(&g.tables[(ty1 * g.xtiles + tx1) * 256 + v]);
+  const float t12 = __ldg(&g.tables[(ty1 * g.xtiles + tx2) * 256 + v]);
+  const float t21 = __ldg(&g.tables[(ty2 * g.xtiles + tx1) * 256 + v]);
+  const float t22 = __ldg(&g.tables[(ty2 * g.xtiles + tx2) * 256 + v]);
+  const float top = __fadd_rn(__fmul_rn(t11, xa1), __fmul_rn(t12, xa));
+  const float bot = __fadd_rn(__fmul_rn(t21, xa1), __fmul_rn(t22, xa));
+  return __fadd_rn(__fmul_rn(top, ya1), __fmul_rn(bot, ya));
+}
+
 // dst (eh x ew) = the plane src (row stride w) at rows ys[0 .. eh) and
 // columns xs[0 .. ew): one warp per row, its lanes along the row. Every
 // thread of the block takes part; the caller synchronises.

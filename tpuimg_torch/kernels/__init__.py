@@ -35,12 +35,16 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                   ctypes.c_float)
-MAX_TAPS = 33  # csrc/enhance_tail.cu kMaxTaps
+MAX_TAPS = 33  # csrc/enhance_tail.cuh kMaxTaps
 GAUSS_MAX_RADIUS = 96  # csrc/gaussian.cu kGaussMaxRadius
+# csrc/morphology.cu kMorphMaxTileRadius: the one-launch tile route's
+# ceiling; larger radii take the row-pass/column-pass route
+MORPH_MAX_TILE_RADIUS = 96
+OPEN_CLOSE_MAX_RADIUS = 39  # csrc/open_close.cu kOpenCloseMaxRadius
 
 
 class Taps(ctypes.Structure):
-    """csrc/enhance_tail.cu ``Taps``: gaussian weights passed by value."""
+    """csrc/enhance_tail.cuh ``Taps``: gaussian weights passed by value."""
 
     _fields_ = [("w", ctypes.c_float * MAX_TAPS)]
 
@@ -72,6 +76,14 @@ _SIGNATURES = {
     "tpuimg_lut_gather": (_P, _L, _I, _P, _I, _I, _P, _P),
     # img, frames, h, w, out, stream
     "tpuimg_integral": (_P, _I, _I, _I, _P, _P),
+    # src, n, h, w, dtype, r, mode, scratch, dst, stream
+    "tpuimg_morphology": (_P, _I, _I, _I, _I, _I, _I, _P, _P, _P),
+    # src, n, h, w, dtype, r, mode, dst, stream
+    "tpuimg_open_close": (_P, _I, _I, _I, _I, _I, _I, _P, _P),
+    # img, h, w, tables, ytiles, xtiles, th, pad_top, pad_left, inv_tw,
+    # scale, taps, rg, r, eps, out, stream
+    "tpuimg_enhance_tail_clahe": (_P, _I, _I, _P, _I, _I, _I, _I, _I, _F, _F,
+                                  Taps, _I, _I, _F, _P, _P),
 }
 
 _lib = None
@@ -181,14 +193,17 @@ def launch(name: str, device: torch.device, *args) -> None:
         raise KernelLaunchError(f"{name}: CUDA error {err} ({msg})")
 
 
-def require_cuda_tensor(x: torch.Tensor, name: str, dtype: torch.dtype,
+def require_cuda_tensor(x: torch.Tensor, name: str, dtype,
                         batched: bool = False) -> None:
     """The checks every wrapper makes before handing a tensor's pointer to a
-    kernel: an (H, W) frame, or (..., H, W) frames when ``batched``."""
+    kernel: an (H, W) frame, or (..., H, W) frames when ``batched``, of
+    ``dtype`` (a dtype, or a tuple of the dtypes the kernel takes)."""
+    dtypes = dtype if isinstance(dtype, tuple) else (dtype,)
     if not x.is_cuda:
         raise ValueError(f"{name} must be a CUDA tensor, got {x.device}")
-    if x.dtype != dtype:
-        raise ValueError(f"{name} must be {dtype}, got {x.dtype}")
+    if x.dtype not in dtypes:
+        raise ValueError(f"{name} must be {' or '.join(map(str, dtypes))}, "
+                         f"got {x.dtype}")
     if x.ndim < 2 if batched else x.ndim != 2:
         want = "at least 2" if batched else "2"
         raise ValueError(f"{name} must have {want} dims, got {tuple(x.shape)}")

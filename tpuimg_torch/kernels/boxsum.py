@@ -12,6 +12,11 @@ I*p and I*I, then a and b, then q = mean_a*I + mean_b.
 whole frame: pad once by the total halo 2r + rg (reflect-101), smooth (down
 the columns, then along the rows), then the guided chain in valid mode, so it
 never pads again.
+
+``enhance_tail_clahe`` (csrc/enhance_tail_clahe.cu), the same tail with f =
+clahe_blend(img) / 255 computed inside the kernel, replaces
+``enhance_tail_clahe_pallas``. Its plain version is the f32 CLAHE blend
+times 1/255, then ``enhance_tail_plain``.
 """
 
 from __future__ import annotations
@@ -24,7 +29,12 @@ import torch
 from tpuimg_torch.core.borders import pad_reflect101
 from tpuimg_torch.core.validate import ParamError
 from tpuimg_torch.kernels import MAX_TAPS, Taps, launch, require_cuda_tensor
+from tpuimg_torch.kernels.lut import check_clahe_args, clahe_map_plain
 from tpuimg_torch.kernels.sep_stencil import _sep_pass, taps
+
+# the f32 factor the fused enhance path multiplies the blend by in PyTorch
+# (``blend * (1.0 / 255.0)``): np.float32(1 / 255), bits 998277249
+INV_255 = float(np.float32(1.0 / 255.0))
 
 GUIDED_MAX_RADIUS = 16  # csrc/guided.cu kMaxRadius; tpuimg's _PALLAS_MAX_RADIUS
 VARIANTS = ("onepass", "twopass")
@@ -145,13 +155,8 @@ def enhance_tail_plain(f, radius_g: int, sigma: float, radius: int,
     return (box_sum(a) * icen + box_sum(b)) * coef
 
 
-def enhance_tail(f, radius_g: int, sigma: float, radius: int, eps: float):
-    """``enhance_tail_plain`` on a CPU tensor; the CUDA kernel otherwise.
-    Needs min(H, W) > 2*radius + radius_g."""
-    if f.device.type == "cpu":
-        return enhance_tail_plain(f, radius_g, sigma, radius, eps)
-    require_cuda_tensor(f, "f", torch.float32)
-    h, w = f.shape
+def _tail_taps(h: int, w: int, radius_g: int, sigma: float, radius: int):
+    """The tail kernels' limits, then their gaussian taps."""
     if 2 * radius_g + 1 > MAX_TAPS:
         raise ParamError(
             f"the tail kernel takes a gaussian radius <= {MAX_TAPS // 2}, "
@@ -163,6 +168,17 @@ def enhance_tail(f, radius_g: int, sigma: float, radius: int, eps: float):
     tp = Taps()
     wts = taps(radius_g, sigma)
     tp.w[:len(wts)] = wts
+    return tp
+
+
+def enhance_tail(f, radius_g: int, sigma: float, radius: int, eps: float):
+    """``enhance_tail_plain`` on a CPU tensor; the CUDA kernel otherwise.
+    Needs min(H, W) > 2*radius + radius_g."""
+    if f.device.type == "cpu":
+        return enhance_tail_plain(f, radius_g, sigma, radius, eps)
+    require_cuda_tensor(f, "f", torch.float32)
+    h, w = f.shape
+    tp = _tail_taps(h, w, radius_g, sigma, radius)
     out = torch.empty_like(f)
     launch("tpuimg_enhance_tail", f.device, f.data_ptr(), h, w, tp, radius_g,
            radius, eps, out.data_ptr())
@@ -171,3 +187,40 @@ def enhance_tail(f, radius_g: int, sigma: float, radius: int, eps: float):
 
 
 enhance_tail.launches = 0
+
+
+def enhance_tail_clahe_plain(img, tables, ytiles: int, xtiles: int, th: int,
+                             tw: int, pad_top: int, pad_left: int,
+                             radius_g: int, sigma: float, radius: int,
+                             eps: float):
+    """q = enhance_tail_plain(f) with f = the f32 CLAHE blend of the u8
+    (H, W) frame (``clahe_map_plain`` of the (ytiles*xtiles, 256) tables)
+    times 1/255."""
+    blend = clahe_map_plain(img, tables, ytiles, xtiles, th, tw, pad_top,
+                            pad_left, out_f32=True)
+    return enhance_tail_plain(blend * INV_255, radius_g, sigma, radius, eps)
+
+
+def enhance_tail_clahe(img, tables, ytiles: int, xtiles: int, th: int,
+                       tw: int, pad_top: int, pad_left: int, radius_g: int,
+                       sigma: float, radius: int, eps: float):
+    """``enhance_tail_clahe_plain`` on a CPU tensor; on a CUDA tensor one
+    launch, the blend recomputed on each tile's halo and never stored.
+    Takes any tile grid; needs min(H, W) > 2*radius + radius_g."""
+    if img.device.type == "cpu":
+        return enhance_tail_clahe_plain(img, tables, ytiles, xtiles, th, tw,
+                                        pad_top, pad_left, radius_g, sigma,
+                                        radius, eps)
+    check_clahe_args(img, tables, ytiles, xtiles, th, tw, pad_top, pad_left)
+    h, w = img.shape
+    tp = _tail_taps(h, w, radius_g, sigma, radius)
+    out = torch.empty((h, w), dtype=torch.float32, device=img.device)
+    inv_tw = float(np.float32(1.0) / np.float32(tw))
+    launch("tpuimg_enhance_tail_clahe", img.device, img.data_ptr(), h, w,
+           tables.data_ptr(), ytiles, xtiles, th, pad_top, pad_left, inv_tw,
+           INV_255, tp, radius_g, radius, eps, out.data_ptr())
+    enhance_tail_clahe.launches += 1
+    return out
+
+
+enhance_tail_clahe.launches = 0

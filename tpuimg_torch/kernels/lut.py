@@ -38,12 +38,10 @@ def clahe_map_plain(img, tables, ytiles: int, xtiles: int, th: int, tw: int,
     return out if out_f32 else _blend_to_u8(out)
 
 
-def clahe_map(img, tables, ytiles: int, xtiles: int, th: int, tw: int,
-              pad_top: int, pad_left: int, out_f32: bool = False):
-    """``clahe_map_plain`` on a CPU tensor; the CUDA kernel otherwise."""
-    if img.device.type == "cpu":
-        return clahe_map_plain(img, tables, ytiles, xtiles, th, tw, pad_top,
-                               pad_left, out_f32)
+def check_clahe_args(img, tables, ytiles: int, xtiles: int, th: int,
+                     tw: int, pad_top: int, pad_left: int) -> None:
+    """The checks of the kernels that blend CLAHE tables on the card
+    (clahe_map.cu, enhance_tail_clahe.cu)."""
     require_cuda_tensor(img, "img", torch.uint8)
     require_cuda_tensor(tables, "tables", torch.float32)
     if tables.device != img.device or tables.shape != (ytiles * xtiles, 256):
@@ -54,6 +52,16 @@ def clahe_map(img, tables, ytiles: int, xtiles: int, th: int, tw: int,
     if ytiles * th < h or xtiles * tw < w or pad_top < 0 or pad_left < 0:
         raise ValueError(
             f"tile grid {ytiles}x{xtiles} of {th}x{tw} does not cover {h}x{w}")
+
+
+def clahe_map(img, tables, ytiles: int, xtiles: int, th: int, tw: int,
+              pad_top: int, pad_left: int, out_f32: bool = False):
+    """``clahe_map_plain`` on a CPU tensor; the CUDA kernel otherwise."""
+    if img.device.type == "cpu":
+        return clahe_map_plain(img, tables, ytiles, xtiles, th, tw, pad_top,
+                               pad_left, out_f32)
+    check_clahe_args(img, tables, ytiles, xtiles, th, tw, pad_top, pad_left)
+    h, w = img.shape
     out = torch.empty((h, w), dtype=torch.float32 if out_f32 else torch.uint8,
                       device=img.device)
     inv_tw = float(np.float32(1.0) / np.float32(tw))

@@ -1,0 +1,52 @@
+"""Grayscale morphology: erode / dilate / open / close, square structuring
+element of side 2r+1, replicate border (port of ``tpuimg.ops.morphology``).
+
+On a CUDA tensor erode and dilate run the morphology kernel
+(kernels/sep_stencil.py, csrc/morphology.cu) and open and close the fused
+open/close kernel (csrc/open_close.cu), all leading dims in one launch; on a
+CPU tensor their plain versions run. The result is tpuimg's bit for bit, in
+u8, int32 and float32 (NaN propagates), at any radius: a radius past the
+frame's edges clamps.
+
+Dtypes follow tpuimg's ``jnp.asarray``: float64 is taken as float32 and
+int64 as int32; other dtypes raise ``DTypeError``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from tpuimg_torch.core.validate import check_image, check_radius
+from tpuimg_torch.kernels.sep_stencil import (
+    MORPH_DTYPES, morphology_kernel, open_close_kernel)
+
+# what JAX without x64 narrows an array to, as tpuimg receives it
+_NARROW = {torch.float64: torch.float32, torch.int64: torch.int32}
+
+
+def _prepared(img, radius: int):
+    check_radius(radius)
+    img = torch.as_tensor(img)
+    img = img.to(_NARROW.get(img.dtype, img.dtype))
+    check_image(img, "img", dtypes=list(MORPH_DTYPES))
+    return img.contiguous()
+
+
+def erode(img, radius: int):
+    """Min over a (2r+1)^2 square, replicate border."""
+    return morphology_kernel(_prepared(img, radius), radius, 0)
+
+
+def dilate(img, radius: int):
+    """Max over a (2r+1)^2 square, replicate border."""
+    return morphology_kernel(_prepared(img, radius), radius, 1)
+
+
+def morph_open(img, radius: int):
+    """Erode, then dilate (square, replicate border)."""
+    return open_close_kernel(_prepared(img, radius), radius, 0)
+
+
+def morph_close(img, radius: int):
+    """Dilate, then erode (square, replicate border)."""
+    return open_close_kernel(_prepared(img, radius), radius, 1)

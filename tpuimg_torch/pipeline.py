@@ -10,9 +10,18 @@ min(H, W) > 2*(2*gf_radius + radius), the JAX package's gate; smaller frames
 compose ``gaussian`` and ``guided_filter``, whose kernels
 (csrc/gaussian.cu, csrc/guided.cu) take any frame size.
 
+impl="fused1" folds the CLAHE mapping into the tail: above the same gate, a
+CUDA tensor runs the tile histograms, the clip/table glue, then one kernel
+(csrc/enhance_tail_clahe.cu) that recomputes the blend on each tile's halo,
+so the f32 blend never reaches device memory; two kernel launches and no
+``clahe_map``. It computes "fused"'s values. tpuimg also requires tiles of
+at least 32 rows and a table bank of at most 4 MB, limits of the TPU's
+VMEM; the per-pixel table reads here take any tile grid. Under the gate it
+composes as "fused" does.
+
 impl="staged" composes the public ops with a u8 round trip between CLAHE and
 the tail: on a CUDA tensor the two CLAHE kernels, then the gaussian and
-guided-filter kernels. impl="fused1" is not ported.
+guided-filter kernels.
 """
 
 from __future__ import annotations
@@ -21,10 +30,12 @@ import torch
 
 from tpuimg_torch.core.validate import (
     check_impl, check_positive, check_radius)
-from tpuimg_torch.kernels.boxsum import enhance_tail
+from tpuimg_torch.kernels.boxsum import (
+    INV_255, enhance_tail, enhance_tail_clahe)
+from tpuimg_torch.kernels.lut import clahe_map
 from tpuimg_torch.ops.gaussian import gaussian
 from tpuimg_torch.ops.guided import guided_filter
-from tpuimg_torch.ops.histogram import clahe
+from tpuimg_torch.ops.histogram import _clahe_front, clahe
 
 
 def _to_u8(q):
@@ -44,7 +55,7 @@ def enhance(
 ):
     """Contrast-enhance + denoise a uint8 (H, W) frame, edges preserved.
     The device is the input tensor's."""
-    check_impl(impl, allowed=("fused", "staged"))
+    check_impl(impl, allowed=("fused", "staged", "fused1"))
     img = torch.as_tensor(img)
     if impl == "staged":
         eq = clahe(img, clip_limit, tiles, tiles)
@@ -53,13 +64,19 @@ def enhance(
         out = guided_filter(f, smooth, gf_radius, gf_eps,
                             border="reflect101")
         return _to_u8(out)
-    blend = clahe(img, clip_limit, tiles, tiles, _out_f32=True)
+    img = img.contiguous()
+    tables, *geo = _clahe_front(img, clip_limit, tiles, tiles)
     # the checks gaussian and guided_filter make on the composed path
     check_radius(radius)
     check_radius(gf_radius)
     check_positive(gf_eps, "eps")
-    f = blend * (1.0 / 255.0)
-    if min(img.shape) > 2 * (2 * gf_radius + radius):
+    tail_fits = min(img.shape) > 2 * (2 * gf_radius + radius)
+    if impl == "fused1" and tail_fits:
+        return _to_u8(enhance_tail_clahe(img, tables, tiles, tiles, *geo,
+                                         radius, sigma, gf_radius, gf_eps))
+    blend = clahe_map(img, tables, tiles, tiles, *geo, out_f32=True)
+    f = blend * INV_255  # the factor enhance_tail_clahe applies in-kernel
+    if tail_fits:
         out = enhance_tail(f, radius, sigma, gf_radius, gf_eps)
     else:
         smooth = gaussian(f, radius, sigma)
