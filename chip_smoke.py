@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive tpuimg_torch's enhance pipeline, filters, histogram equalization,
-integral image and morphology once on one CUDA card and check them.
+integral image, morphology and row-sharded path once on one CUDA card and
+check them.
 
 Run from the repository root on a machine with an NVIDIA Hopper card and
 nvcc:
@@ -34,7 +35,14 @@ Phases, each printed on its own line:
    the fused1 tail (enhance_tail_clahe) at the three sizes for tiles 4, 8,
    16 and a 3x5 grid within 5e-6 of enhance_tail on the card's own CLAHE
    blend times 1/255 (the count of differing pixels printed), and within
-   1e-4 of its plain version;
+   1e-4 of its plain version; the row-padded kernels at the blocks of a 4K
+   shard over sp = 4 (540, 541 of 3839 columns, and 1 output rows, with the
+   enhance tail's 2*18 halo rows): gaussian_ypadded r2 <= 1e-5,
+   guided_ypadded r8 general and self <= 1e-4, morph_ypadded r1 and r15 on
+   2x4K-shard, unaligned and one-row blocks and r120 (its two-pass route)
+   in u8, int32 and float32 with NaNs, equal; clahe_band_map on 540-row
+   4K bands at y0 0, 537 and 1620, tiles 8 and 16: f32 <= 1e-3, u8 <= 1
+   step, and equal to clahe_map's rows;
 4. the main paths, each run once with every launch counter reset just
    before and read just after, and each of its kernels launched:
    enhance at 4K (impl="fused": tile_hist, clahe_map, enhance_tail;
@@ -53,20 +61,36 @@ Phases, each printed on its own line:
    fused's (differing pixels counted); each filter output is within its
    contract of the plain version; hist_equalize, integral and the
    morphology ops equal the plain composition and the CPU run on a crop
-   bit for bit, and hist_equalize and integral the NumPy formula;
+   bit for bit, and hist_equalize and integral the NumPy formula. Then the
+   sharded path (tpuimg_torch/parallel, meshes of the one card repeated)
+   against the unsharded ops: enhance_sharded at 4K, 8K and 2161x3840 over
+   (1, 4) within 1 step of enhance(impl="staged") (clahe_band_map,
+   gaussian_ypadded, guided_ypadded); stencil_sharded gaussian r2 (1e-6)
+   and erode r15 (equal) on 2x4K over (2, 4); guided_filter_sharded r8 at
+   4K, general and self (1e-5); integral_sharded, hist_equalize_sharded
+   at 4K and on 16x1080p over (4, 2) (equal), clahe_sharded at 4K and
+   2161x3840 (1 step);
 5. CUDA-event timing (median of 30 after 3 warm-up runs) of every kernel and
    its plain version, of enhance on the three impls, and of hist_equalize
    (one frame, and 16 frames of 1080p), integral, erode (r1, r15) and
    morph_open (r15 on two 4K frames, also against two erode/dilate
-   launches) end to end against their plain compositions, at 4K and 1080p.
+   launches) end to end against their plain compositions, at 4K and 1080p;
+   f32 dilate r15 against max_pool2d, gaussian against a conv2d, hist256
+   against bincount and lut_gather against indexing (the one PyTorch call
+   that computes the same function); the row-padded kernels at a 4K
+   shard's blocks; enhance_sharded at 4K and 8K against enhance staged and
+   fused, and the stencil and guided sharded ops against their unsharded
+   kernels.
 
-Then one JSON line with the kernels (launches summed over phase 4's runs),
-and last the device line. Any failed check raises, so the script exits
+Then one JSON line with the kernels (launches summed over phase 4's runs;
+times and the least time the card could take, at 4K or a 4K shard), and
+last the device line. Any failed check raises, so the script exits
 non-zero without printing the device line.
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import sys
 import time
@@ -75,24 +99,33 @@ import numpy as np
 import torch
 
 from tpuimg_torch import (
-    dilate, erode, gaussian, guided_filter, hist_equalize, integral, kernels,
-    morph_close, morph_open)
+    clahe, dilate, erode, gaussian, guided_filter, hist_equalize, integral,
+    kernels, morph_close, morph_open)
 from tpuimg_torch.core.timing import card_label, time_cuda
 from tpuimg_torch.kernels.boxsum import (
     INV_255, enhance_tail, enhance_tail_clahe, enhance_tail_clahe_plain,
-    enhance_tail_plain, guided_filter_kernel, guided_filter_plain)
+    enhance_tail_plain, guided_filter_kernel, guided_filter_plain,
+    guided_ypadded_kernel, guided_ypadded_plain)
 from tpuimg_torch.kernels.hist import (
     hist256, hist256_frames, hist256_groups, hist256_groups_plain, tile_hist,
     tile_hist_plain)
 from tpuimg_torch.kernels.lut import (
-    clahe_map, clahe_map_plain, lut_gather, lut_gather_frames,
-    lut_gather_frames_plain, lut_gather_plain)
+    clahe_band_map, clahe_band_map_plain, clahe_map, clahe_map_plain,
+    lut_gather, lut_gather_frames, lut_gather_frames_plain, lut_gather_plain)
 from tpuimg_torch.kernels.scan2d import integral_kernel, integral_plain
 from tpuimg_torch.kernels.sep_stencil import (
-    gaussian_kernel, gaussian_plain, morphology_kernel, morphology_plain,
-    open_close_kernel, open_close_plain)
+    gaussian_kernel, gaussian_plain, gaussian_ypadded_kernel,
+    gaussian_ypadded_plain, morph_ypadded_kernel, morph_ypadded_plain,
+    morphology_kernel, morphology_plain, open_close_kernel, open_close_plain,
+    taps)
+from tpuimg_torch.ops.gaussian import gaussian_ypadded
 from tpuimg_torch.ops.histogram import (
     _clahe_geometry, _clahe_tables, _he_tables)
+from tpuimg_torch.ops.morphology import morph_ypadded
+from tpuimg_torch.parallel import (
+    clahe_sharded, enhance_sharded, guided_filter_sharded,
+    hist_equalize_sharded, integral_sharded, make_mesh, shard_batch,
+    shard_rows, stencil_sharded)
 from tpuimg_torch.pipeline import _to_u8, enhance
 
 SEED = 0
@@ -139,7 +172,57 @@ KERNELS = [  # name, wrapper, its launch counter, source, TPU kernel replaced
     ("enhance_tail_clahe", enhance_tail_clahe, "launches",
      "tpuimg_torch/csrc/enhance_tail_clahe.cu",
      "tpuimg/kernels/boxsum.py:495"),
+    ("gaussian_ypadded", gaussian_ypadded_kernel, "launches",
+     "tpuimg_torch/csrc/gaussian.cu", "tpuimg/kernels/sep_stencil.py:551"),
+    ("morph_ypadded", morph_ypadded_kernel, "launches",
+     "tpuimg_torch/csrc/morphology.cu", "tpuimg/kernels/sep_stencil.py:594"),
+    ("guided_ypadded", guided_ypadded_kernel, "launches",
+     "tpuimg_torch/csrc/guided.cu", "tpuimg/kernels/boxsum.py:602"),
+    ("clahe_band_map", clahe_band_map, "launches",
+     "tpuimg_torch/csrc/clahe_map.cu", "tpuimg/kernels/lut.py:502"),
 ]
+
+# the least time of a call (on-chip-measurement guide): H100 SXM at 700 W,
+# HBM 3.35 TB/s, 67 TFLOP/s f32 outside the tensor cores; the kernels'
+# integer compares and adds are counted at the f32 rate
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+# the enhance tail's halo: 2*gf_radius + radius rows (enhance_sharded)
+REACH = 2 * GF_R + RG
+SHARD_ROWS = [540, 541, 1]  # a 4K shard over sp = 4, unaligned, one row
+BAND_Y0 = [0, 537, 1620]
+BAND_GRIDS = [8, 16]
+YPAD_MORPH_R = [1, 15]
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(moved: int, ops: float) -> tuple[float, str]:
+    """The least ms for a call that moves ``moved`` bytes (each input read
+    once, each output written once) and does ``ops`` operations, and which
+    of the two bounds it."""
+    by_bytes = moved / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / F32_OPS_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
+                                                           "operations")
+
+
+def gauss_ops(r: int) -> int:
+    """Operations a gaussian output pixel takes: a row and a column pass,
+    r + 1 multiplies and 2r adds each (the symmetric form)."""
+    return 2 * (3 * r + 1)
+
+
+def guided_ops(r: int, planes: int = 4) -> int:
+    """Operations a guided output pixel takes: row and column window sums
+    of ``planes`` planes (4 general, 2 self-guided) and of a and b, two
+    products, a and b, and q."""
+    return 2 * 2 * r * (planes + 2) + 12
+
+
+CLAHE_BLEND_OPS = 16  # coordinates, four table reads, the bilinear lerp
 
 
 def check(ok: bool, what: str) -> None:
@@ -504,6 +587,101 @@ def check_tail_clahe_kernel(dev, card: str, errs: dict) -> None:
               f"[{card}]")
 
 
+def check_ypadded_kernels(dev, card: str, errs: dict) -> None:
+    """Phase 3, the row-padded kernels at the blocks the sharded paths give
+    them: an enhance_sharded shard of 4K over sp = 4 (540 rows with the
+    tail's 2*reach halo rows), an unaligned 541x3839 one and a one-row one,
+    and morphology blocks of 2x4K over (2, 4)."""
+    for rows in SHARD_ROWS:
+        w = SHAPES[1][1] if rows == SHARD_ROWS[1] else SHAPES[0][1]
+        fp, p = guide_pair((rows + 2 * REACH, w), SEED + 40 + rows, dev)
+        smooth = gaussian_ypadded_kernel(fp, RG, SIGMA)
+        err_g = max_err(smooth, gaussian_ypadded_plain(fp, RG, SIGMA))
+        check(smooth.shape == (rows + 4 * GF_R, w), f"gaussian_ypadded shape "
+              f"{tuple(smooth.shape)}")
+        Ip = fp[RG:fp.shape[0] - RG]
+        line = [f"gaussian r{RG} {err_g:.3g}"]
+        check(err_g <= 1e-5, f"gaussian_ypadded {rows}x{w}: {err_g} <= 1e-5")
+        errs["gaussian_ypadded"] = max(errs.get("gaussian_ypadded", 0.0),
+                                       err_g)
+        for what, pp, self_g in (("general", smooth, False),
+                                 ("self", Ip, True)):
+            got = guided_ypadded_kernel(Ip, pp, GF_R, GF_EPS, self_g)
+            err = max_err(got, guided_ypadded_plain(Ip, pp, GF_R, GF_EPS,
+                                                    self_g))
+            check(got.shape == (rows, w) and bool(torch.isfinite(got).all()),
+                  f"guided_ypadded {what} {rows}x{w} shape and finite")
+            check(err <= 1e-4, f"guided_ypadded {what} {rows}x{w}: {err} "
+                  f"<= 1e-4")
+            errs["guided_ypadded"] = max(errs.get("guided_ypadded", 0.0), err)
+            line.append(f"guided r{GF_R} {what} {err:.3g}")
+        torch.cuda.synchronize()
+        print(f"phase 3 ypadded vs plain, {rows}x{w} shard "
+              f"({rows + 2 * REACH} rows in): {', '.join(line)} [{card}]")
+    one, _ = guide_pair((1 + 2 * RG, SHAPES[0][1]), SEED + 45, dev)
+    err = max_err(gaussian_ypadded_kernel(one, RG, SIGMA),
+                  gaussian_ypadded_plain(one, RG, SIGMA))
+    check(err <= 1e-5, f"gaussian_ypadded one-row block: {err} <= 1e-5")
+
+    w = SHAPES[0][1]
+    cases = [((2, SHARD_ROWS[0]), w, YPAD_MORPH_R),
+             ((SHARD_ROWS[1],), SHAPES[1][1], YPAD_MORPH_R),
+             ((1,), w, YPAD_MORPH_R), ((30,), 600, [120])]
+    for lead_rows, w, radii in cases:
+        *lead, rows = lead_rows
+        for r in radii:
+            shape = (*lead, rows + 2 * r, w)
+            split = morph_ypadded_kernel.split_launches
+            for dtype in ("uint8", "int32", "float32"):
+                x = torch.from_numpy(morph_frame(shape, dtype, SEED + 50)).to(
+                    dev)
+                for mode in (0, 1):
+                    got = morph_ypadded_kernel(x, r, mode)
+                    check(got.shape == (*lead, rows, w),
+                          f"morph_ypadded shape {tuple(got.shape)}")
+                    same_values(f"morph_ypadded {shape} {dtype} r{r} mode "
+                                f"{mode}", got,
+                                morph_ypadded_plain(x, r, mode), errs,
+                                "morph_ypadded")
+            torch.cuda.synchronize()
+            split = morph_ypadded_kernel.split_launches - split
+            check(split == (6 if r > kernels.MORPH_MAX_TILE_RADIUS else 0),
+                  f"morph_ypadded r{r} took the two-pass route {split} times")
+            print(f"phase 3 morph_ypadded vs plain {'x'.join(map(str, shape))}"
+                  f" r{r}: u8, int32 and float32 equal, NaNs in place; "
+                  f"two-pass route {split} times [{card}]")
+
+    img = torch.from_numpy(make_frame(*SHAPES[0], SEED + 60)).to(dev)
+    for tiles in BAND_GRIDS:
+        geo, tables = front_at(img, tiles)
+        full = clahe_map(img, tables, tiles, tiles, *geo, True)
+        line = []
+        for y0 in BAND_Y0:
+            band = img[y0:y0 + SHARD_ROWS[0]]
+            args = (band, tables, tiles, tiles, *geo, y0)
+            f32 = clahe_band_map(*args, out_f32=True)
+            err = max_err(f32, clahe_band_map_plain(*args, out_f32=True))
+            step = int((clahe_band_map(*args).int()
+                        - clahe_band_map_plain(*args).int()).abs().max())
+            check(err <= 1e-3, f"clahe_band_map f32 y0 {y0}: {err} <= 1e-3")
+            check(step <= 1, f"clahe_band_map u8 y0 {y0}: {step} <= 1 step")
+            check(torch.equal(f32, full[y0:y0 + SHARD_ROWS[0]]),
+                  f"clahe_band_map y0 {y0} equals the frame's clahe_map rows")
+            errs["clahe_band_map"] = max(errs.get("clahe_band_map", 0.0), err)
+            line.append(f"y0 {y0}: f32 {err:.3g}, u8 {step} step")
+        print(f"phase 3 clahe_band_map vs plain, {SHARD_ROWS[0]}-row bands "
+              f"of {SHAPES[0][0]}x{SHAPES[0][1]} tiles {tiles}: "
+              f"{'; '.join(line)}; each equals clahe_map's rows [{card}]")
+
+
+def front_at(img, tiles: int, clip: float = CLIP):
+    """CLAHE geometry and tables of a frame on a tiles x tiles grid."""
+    h, w = img.shape
+    th, tw, pt, pl = _clahe_geometry(h, w, tiles, tiles)
+    hists = tile_hist_plain(img, tiles, tiles, th, tw, pt, pl)
+    return (th, tw, pt, pl), _clahe_tables(hists, clip, th, tw)
+
+
 def counts() -> dict:
     return {name: getattr(fn, attr) for name, fn, attr, _, _ in KERNELS}
 
@@ -666,17 +844,163 @@ def run_he_integral_paths(dev, card: str, batch: np.ndarray) -> dict:
     return total
 
 
-def time_pair(label: str, fn, plain, args, card: str):
+def meshes(dev) -> dict:
+    """Meshes of the one card repeated: a single controller runs the shards
+    one after another on its current stream."""
+    return {shape: make_mesh(*shape, devices=[dev] * (shape[0] * shape[1]))
+            for shape in ((1, 4), (2, 4), (4, 2))}
+
+
+def run_sharded_paths(dev, card: str, batch: np.ndarray) -> dict:
+    """Phase 4 for the sharded path (parallel/sharding.py) against the
+    port's unsharded ops on the card; returns the launches summed."""
+    total = dict.fromkeys(counts(), 0)
+    mesh = meshes(dev)
+    h, w = SHAPES[0]
+    ypad = ("clahe_band_map", "gaussian_ypadded", "guided_ypadded")
+
+    def add(got):
+        for k in total:
+            total[k] += got[k]
+
+    for label, shape in ((f"enhance_sharded {h}x{w} (1, 4)", (h, w)),
+                         (f"enhance_sharded {UHD8K[0]}x{UHD8K[1]} (1, 4)",
+                          UHD8K),
+                         (f"enhance_sharded {h + 1}x{w} (1, 4)", (h + 1, w))):
+        img = torch.from_numpy(make_frame(*shape, SEED + 7)).to(dev)
+        op = enhance_sharded(mesh[(1, 4)], CLIP, TILES, RG, SIGMA, GF_R,
+                             GF_EPS)
+        out, got = drive(label, ypad, op, img)
+        add(got)
+        out = out.gather()
+        ref = enhance(img, CLIP, TILES, RG, SIGMA, GF_R, GF_EPS, "staged")
+        step = int((out.int() - ref.int()).abs().max())
+        check(out.shape == ref.shape and out.dtype == torch.uint8,
+              f"{label} output {tuple(out.shape)} {out.dtype}")
+        check(step <= 1, f"{label} vs enhance staged: {step} <= 1 step")
+        print(f"phase 4 {label}: launches {pick(got, ypad)}; vs enhance "
+              f"staged {step} step, {int((out != ref).sum())} pixels differ "
+              f"[{card}]")
+
+    frames = torch.from_numpy(batch_frames(MORPH_BATCH, SEED + 8)).to(dev)
+    f2 = frames.to(torch.float32) * (1.0 / 255.0)
+    for label, kernel, op, x, ref, tol in (
+            (f"stencil_sharded gaussian r{RG} {MORPH_BATCH} (2, 4)",
+             "gaussian_ypadded", stencil_sharded(
+                 lambda p: gaussian_ypadded(p, RG, SIGMA), RG, "reflect101",
+                 mesh[(2, 4)]), f2, lambda: gaussian(f2, RG, SIGMA), 1e-6),
+            (f"stencil_sharded erode r{MORPH_PATH_R} {MORPH_BATCH} (2, 4)",
+             "morph_ypadded", stencil_sharded(
+                 lambda p: morph_ypadded(p, MORPH_PATH_R, 0), MORPH_PATH_R,
+                 "replicate", mesh[(2, 4)]), shard_batch(mesh[(2, 4)], frames),
+             lambda: erode(frames, MORPH_PATH_R), 0.0)):
+        out, got = drive(label, (kernel,), op, x)
+        add(got)
+        check(got[kernel] == 8, f"{label}: one {kernel} launch a shard")
+        err = max_err(out.gather(), ref())
+        check(err <= tol, f"{label} vs unsharded: {err} <= {tol}")
+        print(f"phase 4 {label}: launches {pick(got, (kernel,))}; vs the "
+              f"unsharded op {err:.3g} [{card}]")
+
+    I, p = guide_pair((h, w), SEED + 9, dev)
+    for label, args, ref in (
+            (f"guided_filter_sharded r{GF_R} general {h}x{w} (1, 4)",
+             (shard_rows(mesh[(1, 4)], I), p),
+             lambda: guided_filter(I, p, GF_R, GF_EPS, "reflect101")),
+            (f"guided_filter_sharded r{GF_R} self {h}x{w} (1, 4)", (I, I),
+             lambda: guided_filter(I, I, GF_R, GF_EPS, "reflect101"))):
+        op = guided_filter_sharded(mesh[(1, 4)], GF_R, GF_EPS)
+        out, got = drive(label, ("guided_ypadded",), op, *args)
+        add(got)
+        err = max_err(out.gather(), ref())
+        check(err <= 1e-5, f"{label} vs unsharded: {err} <= 1e-5")
+        print(f"phase 4 {label}: launches {pick(got, ('guided_ypadded',))};"
+              f" vs guided_filter {err:.3g} [{card}]")
+
+    frame = torch.from_numpy(make_frame(h, w, SEED + 10)).to(dev)
+    stack = torch.from_numpy(batch).to(dev)
+    he = ("hist256", "lut_gather")
+    for label, expected, op, x, ref in (
+            (f"integral_sharded {h}x{w} (1, 4)", ("integral",),
+             integral_sharded(mesh[(1, 4)]), frame, integral),
+            (f"hist_equalize_sharded {h}x{w} (1, 4)", he,
+             hist_equalize_sharded(mesh[(1, 4)]), frame, hist_equalize),
+            (f"hist_equalize_sharded {'x'.join(map(str, BATCH))} (4, 2)", he,
+             hist_equalize_sharded(mesh[(4, 2)]), stack, hist_equalize),
+            (f"clahe_sharded {h}x{w} tiles {TILES} (1, 4)",
+             ("clahe_band_map",),
+             clahe_sharded(mesh[(1, 4)], CLIP, TILES, TILES), frame,
+             lambda v: clahe(v, CLIP, TILES, TILES)),
+            (f"clahe_sharded {h + 1}x{w} tiles {TILES} (1, 4)",
+             ("clahe_band_map",),
+             clahe_sharded(mesh[(1, 4)], CLIP, TILES, TILES),
+             torch.from_numpy(make_frame(h + 1, w, SEED + 11)).to(dev),
+             lambda v: clahe(v, CLIP, TILES, TILES))):
+        out, got = drive(label, expected, op, x)
+        add(got)
+        out, want = out.gather(), ref(x)
+        check(out.shape == want.shape and out.dtype == want.dtype,
+              f"{label} shape and dtype")
+        diff = int((out.long() - want.long()).abs().max())
+        limit = 1 if "clahe" in label else 0
+        check(diff <= limit, f"{label} vs unsharded: {diff} <= {limit}")
+        print(f"phase 4 {label}: launches {pick(got, expected)}; vs the "
+              f"unsharded op {diff} (<= {limit}) [{card}]")
+    return total
+
+
+def pick(got: dict, names) -> dict:
+    return {k: got[k] for k in names}
+
+
+def time_pair(label: str, fn, plain, args, card: str, library=None,
+              work=None):
+    """Kernel, plain version and (when given) the one PyTorch call that
+    computes the same function, each timed on ``args``: (ms, plain_ms,
+    library_ms), medians. ``work``: the call's (bytes moved, operations),
+    whose bound the line prints."""
     k = time_cuda(fn, *args, iters=ITERS, card=card)
     p = time_cuda(plain, *args, iters=ITERS, card=card)
+    lib = None if library is None else time_cuda(library, *args, iters=ITERS,
+                                                 card=card)
+    extra = "" if lib is None else (f", library call {lib.ms:.4f} ms (min "
+                                    f"{lib.ms_min:.4f})")
+    if work is not None:
+        least, by = bound(*work)
+        extra += f", bound {least:.4f} ms ({by})"
     print(f"phase 5 time {label}: kernel {k.ms:.4f} ms (min {k.ms_min:.4f}), "
-          f"plain {p.ms:.4f} ms (min {p.ms_min:.4f}), median of {ITERS} "
-          f"[{card}]")
-    return k.ms, p.ms
+          f"plain {p.ms:.4f} ms (min {p.ms_min:.4f}){extra}, median of "
+          f"{ITERS} [{card}]")
+    return k.ms, p.ms, None if lib is None else lib.ms
+
+
+def row(times, moved: int, ops: float) -> tuple:
+    """(ms, plain_ms, library_ms, bound_ms, bound_by) of a JSON row."""
+    return (*times, *bound(moved, ops))
+
+
+def gauss_conv(r: int, sigma: float, dev, pad_rows: bool = True):
+    """The gaussian as one PyTorch call: a (2r+1)^2 convolution with the
+    outer product of the taps, reflect padding (of the columns only when
+    not ``pad_rows``: a row-padded block), for a float32 (H, W) frame."""
+    k = torch.tensor(taps(r, sigma), dtype=torch.float32)
+    conv = torch.nn.Conv2d(1, 1, 2 * r + 1, padding=(r if pad_rows else 0, r),
+                           padding_mode="reflect", bias=False).to(dev)
+    conv.requires_grad_(False)
+    conv.weight.copy_(torch.outer(k, k)[None, None])
+    return lambda x, *_: conv(x[None, None])[0, 0]
+
+
+def max_pool(r: int, pad_rows: bool = True):
+    """f32 dilate as one PyTorch call: max_pool2d's -inf padding is the
+    replicate border for a max."""
+    pad = (r if pad_rows else 0, r)
+    return lambda x: torch.nn.functional.max_pool2d(x[None], 2 * r + 1, 1,
+                                                    pad)[0]
 
 
 def time_all(dev, card: str) -> dict:
-    """Phase 5; returns {kernel: (ms, plain_ms)} at 4K."""
+    """Phase 5; returns the JSON rows' numbers {kernel: row(...)} at 4K."""
     plain = {"tile_hist": tile_hist_plain, "clahe_map": clahe_map_plain,
              "enhance_tail": enhance_tail_plain, "gaussian": gaussian_plain,
              "guided": guided_filter_plain,
@@ -687,11 +1011,21 @@ def time_all(dev, card: str) -> dict:
     for h, w in TIMED:
         img = torch.from_numpy(make_frame(h, w, SEED)).to(dev)
         args = kernel_args(img)
+        n = h * w
+        tables = args["clahe_map"][1]
+        work = {  # bytes moved, operations
+            "tile_hist": (n + TILES * TILES * 256 * 4, n),
+            "clahe_map": (5 * n + nbytes(tables), CLAHE_BLEND_OPS * n),
+            "enhance_tail": (8 * n, (gauss_ops(RG) + guided_ops(GF_R)) * n),
+            "gaussian": (8 * n, gauss_ops(RG) * n),
+            "guided": (12 * n, guided_ops(GF_R) * n),
+            "guided_twopass": (12 * n, guided_ops(GF_R) * n)}
+        library = {"gaussian": gauss_conv(RG, SIGMA, dev)}
         for name in plain:
-            ms = time_pair(f"{name} {h}x{w}", wrappers[name], plain[name],
-                           args[name], card)
+            t = time_pair(f"{name} {h}x{w}", wrappers[name], plain[name],
+                          args[name], card, library.get(name), work[name])
             if (h, w) == SHAPES[0]:
-                at_4k[name] = ms
+                at_4k[name] = row(t, *work[name])
         f = args["gaussian"][0]
         time_pair(f"guided self-guided {h}x{w}",
                   lambda x: guided_filter_kernel(x, x, GF_R, GF_EPS,
@@ -710,22 +1044,28 @@ def time_all(dev, card: str) -> dict:
 
 
 def time_he_integral(dev, card: str, batch: np.ndarray) -> dict:
-    """Phase 5 for hist_equalize and integral; returns {kernel: (ms,
-    plain_ms)} at 4K."""
+    """Phase 5 for hist_equalize and integral; returns the JSON rows'
+    numbers at 4K."""
     at_4k = {}
     for h, w in TIMED:
         img = torch.from_numpy(make_frame(h, w, SEED)).to(dev)
         table = _he_tables(hist256_groups_plain(img.reshape(1, -1))[0], h * w)
-        pairs = {
+        n = h * w
+        cases = {
             "hist256": (hist256, lambda x: hist256_groups_plain(
-                x.reshape(1, -1))[0], (img,)),
-            "lut_gather": (lut_gather, lut_gather_plain, (table, img)),
-            "integral": (integral_kernel, integral_plain, (img,)),
+                x.reshape(1, -1))[0], (img,),
+                lambda x: torch.bincount(x.reshape(-1), minlength=256),
+                (n + 256 * 4, n)),
+            # indexing takes int64 indices: the cast is part of the call
+            "lut_gather": (lut_gather, lut_gather_plain, (table, img),
+                           lambda t, x: t[x.long()], (2 * n + 256, n)),
+            "integral": (integral_kernel, integral_plain, (img,), None,
+                         (5 * n, 2 * n)),
         }
-        for name, (fn, plain, args) in pairs.items():
-            ms = time_pair(f"{name} {h}x{w}", fn, plain, args, card)
+        for name, (fn, plain, args, lib, work) in cases.items():
+            t = time_pair(f"{name} {h}x{w}", fn, plain, args, card, lib, work)
             if (h, w) == SHAPES[0]:
-                at_4k[name] = ms
+                at_4k[name] = row(t, *work)
         time_pair(f"hist_equalize {h}x{w} end to end", hist_equalize,
                   he_plain, (img,), card)
         time_pair(f"integral {h}x{w} end to end", integral, integral_plain,
@@ -737,14 +1077,17 @@ def time_he_integral(dev, card: str, batch: np.ndarray) -> dict:
     groups = torch.from_numpy(np.random.default_rng(SEED).integers(
         0, 256, (64, 8161), dtype=np.uint8)).to(dev)
     time_pair("hist256_groups 64x8161", hist256_groups, hist256_groups_plain,
-              (groups,), card)
+              (groups,), card, work=(groups.numel() + 64 * 256 * 4,
+                                     groups.numel()))
     stack = torch.from_numpy(batch).to(dev)
     tables = _he_tables(hist256_groups_plain(stack), stack[0].numel())
     label = "x".join(map(str, BATCH))
     time_pair(f"hist256_frames {label}", hist256_frames, hist256_groups_plain,
-              (stack,), card)
+              (stack,), card, work=(stack.numel() + BATCH[0] * 256 * 4,
+                                    stack.numel()))
     time_pair(f"lut_gather_frames {label}", lut_gather_frames,
-              lut_gather_frames_plain, (tables, stack), card)
+              lut_gather_frames_plain, (tables, stack), card,
+              work=(2 * stack.numel() + nbytes(tables), stack.numel()))
     time_pair(f"hist_equalize {label} end to end", hist_equalize, he_plain,
               (stack,), card)
     return at_4k
@@ -752,37 +1095,50 @@ def time_he_integral(dev, card: str, batch: np.ndarray) -> dict:
 
 def time_morph_tail(dev, card: str) -> dict:
     """Phase 5 for the morphology, open/close and fused1 tail kernels;
-    returns {kernel: (ms, plain_ms)}: erode r15 and the tail at 4K,
-    morph_open r15 on two 4K frames."""
+    returns the JSON rows' numbers: f32 dilate r15 (which max_pool2d also
+    computes) and the tail at 4K, morph_open r15 on two 4K frames."""
     at_4k = {}
+    r = MORPH_PATH_R
     for h, w in TIMED:
         img = torch.from_numpy(make_frame(h, w, SEED)).to(dev)
-        for r in (1, MORPH_PATH_R):
-            ms = time_pair(f"erode u8 r{r} {h}x{w}",
-                           lambda x: morphology_kernel(x, r, 0),
-                           lambda x: morphology_plain(x, r, 0), (img,), card)
-            if (h, w) == SHAPES[0] and r == MORPH_PATH_R:
-                at_4k["morphology"] = ms
+        for rr in (1, r):
+            time_pair(f"erode u8 r{rr} {h}x{w}",
+                      lambda x: morphology_kernel(x, rr, 0),
+                      lambda x: morphology_plain(x, rr, 0), (img,), card,
+                      work=(2 * img.numel(), 4 * rr * img.numel()))
+        f = img.to(torch.float32)
+        check(torch.equal(morphology_kernel(f, r, 1), max_pool(r)(f)),
+              f"dilate f32 r{r} {h}x{w} equals max_pool2d")
+        work = (2 * nbytes(f), 4 * r * f.numel())
+        t = time_pair(f"dilate f32 r{r} {h}x{w}",
+                      lambda x: morphology_kernel(x, r, 1),
+                      lambda x: morphology_plain(x, r, 1), (f,), card,
+                      max_pool(r), work)
+        if (h, w) == SHAPES[0]:
+            at_4k["morphology"] = row(t, *work)
         th, tw, pt, pl = _clahe_geometry(h, w, TILES, TILES)
         tables = _clahe_tables(tile_hist_plain(img, TILES, TILES, th, tw, pt,
                                                pl), CLIP, th, tw)
         args = (img, tables, TILES, TILES, th, tw, pt, pl, RG, SIGMA, GF_R,
                 GF_EPS)
-        ms = time_pair(f"enhance_tail_clahe {h}x{w}", enhance_tail_clahe,
-                       enhance_tail_clahe_plain, args, card)
+        n = h * w
+        work = (5 * n + nbytes(tables),
+                (gauss_ops(RG) + guided_ops(GF_R) + CLAHE_BLEND_OPS) * n)
+        t = time_pair(f"enhance_tail_clahe {h}x{w}", enhance_tail_clahe,
+                      enhance_tail_clahe_plain, args, card, work=work)
         if (h, w) == SHAPES[0]:
-            at_4k["enhance_tail_clahe"] = ms
+            at_4k["enhance_tail_clahe"] = row(t, *work)
     img = torch.from_numpy(make_frame(*SHAPES[0], SEED)).to(dev)
     t = time_cuda(morphology_kernel, img, 200, 0, iters=ITERS, card=card)
     print(f"phase 5 time erode u8 r200 {SHAPES[0][0]}x{SHAPES[0][1]} "
           f"(two-pass route): kernel {t.ms:.4f} ms (min {t.ms_min:.4f}), "
           f"median of {ITERS} [{card}]")
     x = torch.from_numpy(morph_frame(MORPH_BATCH, "uint8", SEED + 6)).to(dev)
-    label = f"r{MORPH_PATH_R} {'x'.join(map(str, MORPH_BATCH))}"
-    r = MORPH_PATH_R
-    at_4k["open_close"] = time_pair(
+    label = f"r{r} {'x'.join(map(str, MORPH_BATCH))}"
+    work = (2 * nbytes(x), 8 * r * x.numel())
+    at_4k["open_close"] = row(time_pair(
         f"open_close (open) {label}", lambda v: open_close_kernel(v, r, 0),
-        lambda v: open_close_plain(v, r, 0), (x,), card)
+        lambda v: open_close_plain(v, r, 0), (x,), card, work=work), *work)
     fused = time_cuda(morph_open, x, r, iters=ITERS, card=card)
     two = time_cuda(lambda v: morphology_kernel(morphology_kernel(v, r, 0),
                                                 r, 1), x, iters=ITERS,
@@ -794,6 +1150,157 @@ def time_morph_tail(dev, card: str) -> dict:
     time_pair(f"erode {label} end to end", lambda v: erode(v, r),
               lambda v: morphology_plain(v, r, 0), (x,), card)
     return at_4k
+
+
+def host_ms(fn, *args, calls: int = 20) -> float:
+    """Host-clock ms a call over back-to-back calls that end in a
+    synchronize: what a caller waits for, launch overhead included."""
+    fn(*args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn(*args)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / calls * 1e3
+
+
+def device_split(fn, *args, calls: int = 10) -> tuple:
+    """A torch.profiler trace of back-to-back calls: device busy ms a call,
+    the device's idle share of the traced span, the number of kernels a
+    call, and the five largest kernels' ms a call by name."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn(*args)
+        torch.cuda.synchronize()
+    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.time_range.end - e.time_range.start for e in kern)
+    span = (max(e.time_range.end for e in kern)
+            - min(e.time_range.start for e in kern))
+    by_name = {}
+    for e in kern:
+        by_name[e.name] = (by_name.get(e.name, 0)
+                           + e.time_range.end - e.time_range.start)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    return (busy / calls / 1e3, 1 - busy / span, len(kern) / calls,
+            [(name[:48], t / calls / 1e3) for name, t in top])
+
+
+def time_sharded(dev, card: str, batch: np.ndarray) -> dict:
+    """Phase 5 for the row-padded kernels at the blocks of the sharded
+    paths (a 4K shard over sp = 4), and the sharded paths against the
+    unsharded ops; returns the JSON rows' numbers."""
+    at = {}
+    h, w = SHAPES[0]
+    rows = h // 4
+    fp, _ = guide_pair((rows + 2 * REACH, w), SEED + 70, dev)
+    smooth = gaussian_ypadded_kernel(fp, RG, SIGMA)
+    conv = gauss_conv(RG, SIGMA, dev, pad_rows=False)
+    err = max_err(conv(fp), smooth)
+    print(f"phase 5 gaussian_ypadded vs its conv2d yardstick: {err:.3g}")
+    work = (nbytes(fp, smooth), gauss_ops(RG) * smooth.numel())
+    at["gaussian_ypadded"] = row(time_pair(
+        f"gaussian_ypadded r{RG} {tuple(fp.shape)} -> {tuple(smooth.shape)}",
+        lambda x: gaussian_ypadded_kernel(x, RG, SIGMA),
+        lambda x: gaussian_ypadded_plain(x, RG, SIGMA), (fp,), card, conv,
+        work), *work)
+    Ip = fp[RG:fp.shape[0] - RG].contiguous()
+    out = guided_ypadded_kernel(Ip, smooth, GF_R, GF_EPS)
+    work = (nbytes(Ip, smooth, out), guided_ops(GF_R) * out.numel())
+    at["guided_ypadded"] = row(time_pair(
+        f"guided_ypadded r{GF_R} general {tuple(Ip.shape)} -> "
+        f"{tuple(out.shape)}",
+        lambda a, b: guided_ypadded_kernel(a, b, GF_R, GF_EPS),
+        lambda a, b: guided_ypadded_plain(a, b, GF_R, GF_EPS), (Ip, smooth),
+        card, work=work), *work)
+    time_pair(f"guided_ypadded r{GF_R} self {tuple(Ip.shape)}",
+              lambda a: guided_ypadded_kernel(a, a, GF_R, GF_EPS, True),
+              lambda a: guided_ypadded_plain(a, a, GF_R, GF_EPS, True),
+              (Ip,), card, work=(nbytes(Ip, out),
+                                 guided_ops(GF_R, 2) * out.numel()))
+    r = MORPH_PATH_R
+    blk = torch.from_numpy(make_frame(rows + 2 * r, w, SEED + 71)).to(dev)
+    time_pair(f"morph_ypadded erode u8 r{r} {tuple(blk.shape)}",
+              lambda x: morph_ypadded_kernel(x, r, 0),
+              lambda x: morph_ypadded_plain(x, r, 0), (blk,), card,
+              work=(blk.numel() + rows * w, 4 * r * rows * w))
+    fblk = blk.to(torch.float32)
+    dil = morph_ypadded_kernel(fblk, r, 1)
+    check(torch.equal(dil, max_pool(r, pad_rows=False)(fblk)),
+          "morph_ypadded f32 dilate equals max_pool2d")
+    work = (nbytes(fblk, dil), 4 * r * dil.numel())
+    at["morph_ypadded"] = row(time_pair(
+        f"morph_ypadded dilate f32 r{r} {tuple(fblk.shape)}",
+        lambda x: morph_ypadded_kernel(x, r, 1),
+        lambda x: morph_ypadded_plain(x, r, 1), (fblk,), card,
+        max_pool(r, pad_rows=False), work), *work)
+    img = torch.from_numpy(make_frame(h, w, SEED + 72)).to(dev)
+    geo, tables = front_at(img, TILES)
+    band = img[rows:2 * rows]
+    args = (band, tables, TILES, TILES, *geo, rows)
+    work = (2 * nbytes(band) + nbytes(tables), CLAHE_BLEND_OPS * band.numel())
+    at["clahe_band_map"] = row(time_pair(
+        f"clahe_band_map u8 {tuple(band.shape)} at y0 {rows}",
+        clahe_band_map, clahe_band_map_plain, args, card, work=work), *work)
+
+    mesh = meshes(dev)
+    for shape in (SHAPES[0], UHD8K):
+        frame = torch.from_numpy(make_frame(*shape, SEED + 73)).to(dev)
+        label = "x".join(map(str, shape))
+        op = enhance_sharded(mesh[(1, 4)], CLIP, TILES, RG, SIGMA, GF_R,
+                             GF_EPS)
+        sh = time_cuda(op, frame, iters=ITERS, card=card)
+        line = [f"enhance_sharded (1, 4) {sh.ms:.4f} ms (min {sh.ms_min:.4f})"]
+        staged = functools.partial(enhance, clip_limit=CLIP, tiles=TILES,
+                                   radius=RG, sigma=SIGMA, gf_radius=GF_R,
+                                   gf_eps=GF_EPS, impl="staged")
+        for impl in ("staged", "fused"):
+            t = time_cuda(enhance, frame, CLIP, TILES, RG, SIGMA, GF_R, GF_EPS,
+                          impl, iters=ITERS, card=card)
+            line.append(f"enhance {impl} {t.ms:.4f} ms (min {t.ms_min:.4f})")
+        print(f"phase 5 time {label}: {', '.join(line)}, median of {ITERS} "
+              f"[{card}]")
+        host = {name: host_ms(fn, frame) for name, fn in
+                (("enhance_sharded", op), ("enhance staged", staged))}
+        print(f"phase 5 host clock {label}, 20 calls back to back: "
+              + ", ".join(f"{k} {v:.4f} ms a call" for k, v in host.items())
+              + f" [{card}]")
+        for name, fn in (("enhance_sharded", op), ("enhance staged", staged)):
+            busy, idle, nk, top = device_split(fn, frame)
+            print(f"phase 5 profile {label} {name}, 10 calls: device busy "
+                  f"{busy:.4f} ms a call over {nk:.0f} kernels, idle share "
+                  f"{idle:.2%}; largest: "
+                  + "; ".join(f"{k} {v:.4f}" for k, v in top) + f" [{card}]")
+    frames = torch.from_numpy(batch_frames(MORPH_BATCH, SEED + 74)).to(dev)
+    f2 = frames.to(torch.float32) * (1.0 / 255.0)
+    label = "x".join(map(str, MORPH_BATCH))
+    for what, sharded, whole, x in (
+            (f"gaussian r{RG}", stencil_sharded(
+                lambda p: gaussian_ypadded(p, RG, SIGMA), RG, "reflect101",
+                mesh[(2, 4)]), lambda v: gaussian_kernel(v, RG, SIGMA), f2),
+            (f"erode u8 r{r}", stencil_sharded(
+                lambda p: morph_ypadded(p, r, 0), r, "replicate",
+                mesh[(2, 4)]), lambda v: morphology_kernel(v, r, 0), frames)):
+        a = time_cuda(sharded, x, iters=ITERS, card=card)
+        b = time_cuda(whole, x, iters=ITERS, card=card)
+        print(f"phase 5 time stencil_sharded {what} {label} (2, 4): "
+              f"{a.ms:.4f} ms (min {a.ms_min:.4f}), the unsharded kernel "
+              f"{b.ms:.4f} ms (min {b.ms_min:.4f}), median of {ITERS} "
+              f"[{card}]")
+    I, p = guide_pair((h, w), SEED + 75, dev)
+    a = time_cuda(guided_filter_sharded(mesh[(1, 4)], GF_R, GF_EPS), I, p,
+                  iters=ITERS, card=card)
+    b = time_cuda(guided_filter_kernel, I, p, GF_R, GF_EPS, iters=ITERS,
+                  card=card)
+    print(f"phase 5 time guided_filter_sharded r{GF_R} {h}x{w} (1, 4): "
+          f"{a.ms:.4f} ms (min {a.ms_min:.4f}), the unsharded kernel "
+          f"{b.ms:.4f} ms (min {b.ms_min:.4f}), median of {ITERS} [{card}]")
+    return at
 
 
 def main() -> int:
@@ -825,19 +1332,28 @@ def main() -> int:
     check_integral_kernel(dev, card, errs, batch)
     check_morph_kernels(dev, card, errs)
     check_tail_clahe_kernel(dev, card, errs)
+    check_ypadded_kernels(dev, card, errs)
     print(f"phase 3 took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     launches = run_main_paths(dev, card, batch)
+    sharded = run_sharded_paths(dev, card, batch)
+    launches = {k: launches[k] + sharded[k] for k in launches}
     print(f"phase 4 took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    # the library yardsticks in full float32 (cuDNN convolutions take TF32
+    # by default)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
     times = time_all(dev, card)
     times.update(time_he_integral(dev, card, batch))
     times.update(time_morph_tail(dev, card))
+    times.update(time_sharded(dev, card, batch))
     print(f"phase 5 took {time.perf_counter() - t0:.1f} s")
 
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
     rows = [{"name": name, "route": "cuda", "source": src, "replaces": tpu,
              "launches": launches[name], "max_abs_err": errs[name],
-             "ms": times[name][0], "plain_ms": times[name][1]}
+             **dict(zip(keys, times[name]))}
             for name, _, _, src, tpu in KERNELS]
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -22,17 +22,19 @@ from tpuimg_torch.kernels import (
     KernelLaunchError)
 from tpuimg_torch.kernels.boxsum import (
     INV_255, enhance_tail, enhance_tail_clahe, enhance_tail_clahe_plain,
-    enhance_tail_plain, guided_filter_kernel, guided_filter_plain)
+    enhance_tail_plain, guided_filter_kernel, guided_filter_plain,
+    guided_ypadded_kernel, guided_ypadded_plain)
 from tpuimg_torch.kernels.hist import (
     hist256, hist256_frames, hist256_groups, hist256_groups_plain, tile_hist,
     tile_hist_plain)
 from tpuimg_torch.kernels.lut import (
-    clahe_map, clahe_map_plain, lut_gather, lut_gather_frames,
-    lut_gather_frames_plain, lut_gather_plain)
+    clahe_band_map, clahe_band_map_plain, clahe_map, clahe_map_plain,
+    lut_gather, lut_gather_frames, lut_gather_frames_plain, lut_gather_plain)
 from tpuimg_torch.kernels.scan2d import integral_kernel, integral_plain
 from tpuimg_torch.kernels.sep_stencil import (
-    gaussian_kernel, gaussian_plain, morphology_kernel, morphology_plain,
-    open_close_kernel, open_close_plain)
+    gaussian_kernel, gaussian_plain, gaussian_ypadded_kernel,
+    gaussian_ypadded_plain, morph_ypadded_kernel, morph_ypadded_plain,
+    morphology_kernel, morphology_plain, open_close_kernel, open_close_plain)
 from tpuimg_torch.ops.histogram import _clahe_geometry, _clahe_tables
 from tpuimg_torch.pipeline import enhance
 
@@ -746,3 +748,180 @@ def test_enhance_fused1_on_card(card, shape, tiles):
     assert int((got.int() - fused.int()).abs().max()) <= 1
     cpu = enhance(torch.from_numpy(frame), tiles=tiles, impl="fused1")
     assert int((got.cpu().int() - cpu.int()).abs().max()) <= 1
+
+
+# --- the row-padded kernels and the sharded path ----------------------------
+
+
+@pytest.mark.parametrize("out_shape,radius", [
+    ((1, 7), 1), ((1, 3840), 2), ((37, 1000), 2), ((2, 70, 129), 7),
+    ((3, 40, 33), 4), ((64, 64), GAUSS_MAX_RADIUS)])
+def test_gaussian_ypadded_matches_plain(card, out_shape, radius):
+    *lead, h, w = out_shape
+    shape = (*lead, h + 2 * radius, w)
+    p = torch.from_numpy(np.random.default_rng(h + w).random(
+        shape, dtype=np.float32)).to(card)
+    got = gaussian_ypadded_kernel(p, radius, 1.5)
+    assert got.shape == out_shape
+    ref = gaussian_ypadded_plain(p, radius, 1.5)
+    assert float((got - ref).abs().max()) <= 1e-5
+
+
+YPAD_MORPH_CASES = [((1, 1), 3), ((5, 6), 40), ((10, 200), 15),
+                    ((33, 1000), 7), ((2, 3, 40, 50), 2),
+                    ((20, 130), MORPH_MAX_TILE_RADIUS),
+                    ((7, 300), MORPH_MAX_TILE_RADIUS + 4)]
+
+
+@pytest.mark.parametrize("dtype", ["uint8", "int32", "float32"])
+@pytest.mark.parametrize("out_shape,radius", YPAD_MORPH_CASES)
+def test_morph_ypadded_matches_plain(card, out_shape, radius, dtype):
+    *lead, h, w = out_shape
+    x = torch.from_numpy(_morph_frames((*lead, h + 2 * radius, w), dtype,
+                                       41)).to(card)
+    for mode in (0, 1):
+        before = morph_ypadded_kernel.split_launches
+        got = morph_ypadded_kernel(x, radius, mode)
+        assert got.shape == out_shape
+        _same_values(got, morph_ypadded_plain(x, radius, mode))
+        assert morph_ypadded_kernel.split_launches - before == (
+            radius > MORPH_MAX_TILE_RADIUS)
+
+
+@pytest.mark.parametrize("out_shape,radius", [
+    ((1, 40), 8), ((6, 40), 8), ((37, 1000), 1), ((2, 70, 129), 4),
+    ((64, 300), 16)])
+@pytest.mark.parametrize("self_guided", [False, True])
+def test_guided_ypadded_matches_plain(card, out_shape, radius, self_guided):
+    *lead, h, w = out_shape
+    g = np.random.default_rng(h * w)
+    shape = (*lead, h + 4 * radius, w)
+    I = torch.from_numpy(g.random(shape, dtype=np.float32)).to(card)
+    p = torch.from_numpy(g.random(shape, dtype=np.float32)).to(card)
+    got = guided_ypadded_kernel(I, p, radius, 1e-3, self_guided)
+    ref = guided_ypadded_plain(I, p, radius, 1e-3, self_guided)
+    assert got.shape == out_shape and bool(torch.isfinite(got).all())
+    assert float((got - ref).abs().max()) <= 1e-4
+
+
+def test_guided_ypadded_cn1(card):
+    # C channels of p guided by one I, in one launch
+    g = np.random.default_rng(5)
+    I = torch.from_numpy(g.random((2, 50, 90), dtype=np.float32)).to(card)
+    p = torch.from_numpy(g.random((3, 2, 50, 90), dtype=np.float32)).to(card)
+    got = guided_ypadded_kernel(I, p, 4, 1e-3)
+    assert got.shape == (3, 2, 34, 90)
+    ref = guided_ypadded_plain(I, p, 4, 1e-3)
+    assert float((got - ref).abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("shape,grid", CLAHE_CASES)
+def test_clahe_band_map_matches_plain(card, shape, grid):
+    yt, xt = grid
+    img = torch.from_numpy(_frame(shape, 2)).to(card)
+    geo, tables = _geometry_and_tables(img, yt, xt)
+    h = shape[0]
+    full = clahe_map(img, tables, yt, xt, *geo, out_f32=True)
+    for y0, y1 in ((0, h), (h // 3, h // 3 + max(1, h // 4)), (h - 1, h)):
+        band = img[y0:y1]
+        for out_f32 in (True, False):
+            got = clahe_band_map(band, tables, yt, xt, *geo, y0,
+                                 out_f32=out_f32)
+            ref = clahe_band_map_plain(band, tables, yt, xt, *geo, y0,
+                                       out_f32=out_f32)
+            diff = float((got.float() - ref.float()).abs().max())
+            assert diff <= (1e-3 if out_f32 else 1)
+        assert torch.equal(clahe_band_map(band, tables, yt, xt, *geo, y0,
+                                          out_f32=True), full[y0:y1])
+
+
+def test_ypadded_wrappers_check_their_inputs(card):
+    f = torch.zeros((40, 30), device=card)
+    with pytest.raises(ValueError, match="contiguous"):
+        gaussian_ypadded_kernel(f.t(), 2, 1.5)
+    with pytest.raises(ValueError, match="float32"):
+        gaussian_ypadded_kernel(f.double(), 2, 1.5)
+    with pytest.raises(ParamError, match="radius <= 16"):
+        guided_ypadded_kernel(torch.zeros((80, 30), device=card), None, 17,
+                              1e-3, True)
+    with pytest.raises(ValueError, match="shape of I"):
+        guided_ypadded_kernel(f, torch.zeros((41, 30), device=card), 2, 1e-3)
+    with pytest.raises(ParamError, match="mode"):
+        morph_ypadded_kernel(f, 2, 2)
+    img = torch.from_numpy(_frame((64, 80))).to(card)
+    geo, tables = _geometry_and_tables(img, 4, 4)
+    with pytest.raises(ValueError, match="does not cover rows"):
+        clahe_band_map(img[:10], tables, 4, 4, *geo, 60)
+    with pytest.raises(ValueError, match="does not cover rows"):
+        clahe_band_map(img[:10], tables, 4, 4, *geo, -1)
+    assert morph_ypadded_kernel(torch.zeros((0, 9, 5), dtype=torch.uint8,
+                                            device=card), 2, 0).shape == (
+        0, 5, 5)
+
+
+def _mesh(card, n_data, n_sp):
+    from tpuimg_torch.parallel import make_mesh
+    return make_mesh(n_data, n_sp, devices=[card] * (n_data * n_sp))
+
+
+def test_sharded_paths_on_card(card):
+    """The sharded ops on a mesh of the card repeated against the unsharded
+    ops on the card, through the row-padded kernels."""
+    import functools
+
+    from tpuimg_torch import parallel as tpar
+    from tpuimg_torch.ops.gaussian import gaussian_ypadded
+    from tpuimg_torch.ops.morphology import morph_ypadded
+
+    mesh = _mesh(card, 1, 4)
+    img = torch.from_numpy(_frame((270, 480), 6)).to(card)
+    counts = (clahe_band_map.launches, gaussian_ypadded_kernel.launches,
+              guided_ypadded_kernel.launches)
+    for frame in (img, img[:269].contiguous()):
+        out = tpar.enhance_sharded(mesh, 2.0, 8, 2, 1.5, 8, 1e-3)(frame)
+        ref = tpuimg_torch.enhance(frame, 2.0, 8, 2, 1.5, 8, 1e-3,
+                                   impl="staged")
+        got = out.gather()
+        assert got.is_cuda and got.shape == ref.shape
+        assert int((got.int() - ref.int()).abs().max()) <= 1
+    assert (clahe_band_map.launches, gaussian_ypadded_kernel.launches,
+            guided_ypadded_kernel.launches) == tuple(c + 8 for c in counts)
+    mesh24 = _mesh(card, 2, 4)
+    frames = torch.from_numpy(_frame((2, 64, 96), 7)).to(card)
+    er = tpar.stencil_sharded(functools.partial(
+        morph_ypadded, radius=5, mode=0), 5, "replicate", mesh24)(
+        tpar.shard_batch(mesh24, frames))
+    assert torch.equal(er.gather(), tpuimg_torch.erode(frames, 5))
+    f = frames.float() / 255
+    ga = tpar.stencil_sharded(functools.partial(
+        gaussian_ypadded, radius=3, sigma=1.2), 3, "reflect101", mesh24)(f)
+    assert float((ga.gather() - tpuimg_torch.gaussian(f, 3, 1.2)).abs()
+                 .max()) <= 1e-6
+    assert torch.equal(tpar.integral_sharded(mesh)(img[:268]).gather(),
+                       tpuimg_torch.integral(img[:268]))
+    assert torch.equal(tpar.hist_equalize_sharded(mesh24)(frames).gather(),
+                       tpuimg_torch.hist_equalize(frames))
+    cl = tpar.clahe_sharded(mesh, 3.0, 6, 5)(img[:269])
+    assert int((cl.gather().int() - tpuimg_torch.clahe(
+        img[:269], 3.0, 6, 5).int()).abs().max()) <= 1
+    # 16 rows a shard cover r = 7's reach of 14 rows (+ 1 for reflect-101)
+    q = tpar.guided_filter_sharded(mesh, 7, 1e-3, self_guided=True)(f[0])
+    assert float((q.gather() - tpuimg_torch.guided_filter(
+        f[0], f[0], 7, 1e-3, "reflect101")).abs().max()) <= 1e-5
+
+
+def test_numpy_input_lands_on_the_card(card):
+    """A NumPy frame, what tpuimg's users pass, runs on the card."""
+    from tpuimg_torch.core.params import carry_enhance_state
+    from tpuimg_torch.ops.histogram import _clahe_front
+
+    a = _frame((64, 96), 8)
+    f = a.astype(np.float32) / 255
+    for out in (tpuimg_torch.enhance(a), tpuimg_torch.hist_equalize(a),
+                tpuimg_torch.integral(a), tpuimg_torch.erode(a, 2),
+                tpuimg_torch.clahe(a), tpuimg_torch.gaussian(f, 2, 1.5),
+                tpuimg_torch.guided_filter(f, f, 2, 1e-3)):
+        assert out.is_cuda
+    tables, th, tw, pt, pl = _clahe_front(torch.from_numpy(a), 2.0, 8, 8)
+    st = carry_enhance_state(tables.numpy(), th, tw, pt, pl, h=64, w=96)
+    assert st.tables.is_cuda

@@ -122,7 +122,7 @@ def test_carried_state_drives_both_packages(rng, shape, tiles):
     tables, th, tw, pad_top, pad_left = _clahe_front(
         jnp.asarray(img), 2.0, tiles, tiles)
     st = carry_enhance_state(np.asarray(tables), th, tw, pad_top, pad_left,
-                             h=h, w=w, tiles=tiles)
+                             h=h, w=w, tiles=tiles, device="cpu")
     geo = (st.th, st.tw, st.pad_top, st.pad_left)
     blend = clahe_map(torch.from_numpy(img), st.tables, tiles, tiles, *geo,
                       out_f32=True)
@@ -149,7 +149,7 @@ def test_carry_round_trips_clahe_front_state(rng):
     tables, th, tw, pad_top, pad_left = _clahe_front(
         jnp.asarray(img), 2.0, 8, 8)
     st = carry_enhance_state(np.asarray(tables), th, tw, pad_top, pad_left,
-                             h=90, w=110)
+                             h=90, w=110, device="cpu")
     np.testing.assert_array_equal(st.tables.numpy(), np.asarray(tables))
     assert st.tables.dtype == torch.float32
     # the port's own front end computes the same state, bit for bit
@@ -160,10 +160,10 @@ def test_carry_round_trips_clahe_front_state(rng):
             st.guided.radius, st.guided.eps) == (2.0, 8, 2, 8, 1e-3)
     with pytest.raises(tv.ParamError, match="geometry"):
         carry_enhance_state(np.asarray(tables), th, tw, pad_top, pad_left,
-                            h=96, w=110)
+                            h=96, w=110, device="cpu")
     with pytest.raises(tv.ShapeError, match="tables"):
         carry_enhance_state(np.asarray(tables)[:10], th, tw, pad_top,
-                            pad_left, h=90, w=110)
+                            pad_left, h=90, w=110, device="cpu")
 
 
 @pytest.mark.parametrize("ksize,sigma", [(3, 0.8), (5, 1.5), (17, 3.0),

@@ -13,6 +13,7 @@ import torch
 import torch.nn.functional as F
 
 REFLECT101 = "reflect101"
+REPLICATE = "replicate"
 SHRINK = "shrink"
 
 

@@ -18,6 +18,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from tpuimg_torch.core.device import as_image
 from tpuimg_torch.core.layout import cdiv
 from tpuimg_torch.core.validate import (
     ParamError, ShapeError, check_positive, check_radius)
@@ -72,14 +73,16 @@ def carry_enhance_state(tables, th, tw, pad_top, pad_left, *, h: int, w: int,
                         clip_limit: float = 2.0, tiles: int = 8,
                         radius: int = 2, sigma: float = 1.5,
                         gf_radius: int = 8, gf_eps: float = 1e-3,
-                        device="cpu") -> EnhanceState:
+                        device=None) -> EnhanceState:
     """Carry ``tpuimg``'s CLAHE front-end state for an (h, w) frame across.
 
     ``tables, th, tw, pad_top, pad_left`` are what
     ``tpuimg.ops.histogram._clahe_front`` returns (the tables as a NumPy
     array); the keywords are ``enhance``'s. The geometry is checked against
     the one this package derives from (h, w, tiles), so state from another
-    frame size or tile grid is refused."""
+    frame size or tile grid is refused. The tables go to ``device``; by
+    default the current CUDA card (``DeviceError`` without one), so pass
+    ``device="cpu"`` for the CPU path."""
     cl = ClaheConfig(clip_limit, tiles, tiles)
     ga = GaussianConfig(radius, sigma)
     gu = GuidedConfig(gf_radius, gf_eps, border="reflect101")
@@ -95,5 +98,6 @@ def carry_enhance_state(tables, th, tw, pad_top, pad_left, *, h: int, w: int,
         raise ParamError(
             f"CLAHE geometry (th, tw, pad_top, pad_left) = {geometry} does not "
             f"match {expect} for a {h}x{w} frame with {tiles}x{tiles} tiles")
-    t = torch.from_numpy(tables.copy()).to(device)
+    t = (as_image(tables) if device is None
+         else torch.from_numpy(tables.copy()).to(device))
     return EnhanceState(cl, ga, gu, t, *geometry)

@@ -29,6 +29,10 @@ class ParamError(TpuImgError):
     pass
 
 
+class DeviceError(TpuImgError):
+    """A NumPy (or list) input with no CUDA card to run it on."""
+
+
 def dtype_name(dtype: torch.dtype) -> str:
     return str(dtype).removeprefix("torch.")
 
@@ -48,6 +52,14 @@ def check_image(x, name: str = "img", min_ndim: int = 2, dtypes=None):
             f"got {dtype_name(x.dtype)}"
         )
     return h, w
+
+
+def check_ypadded_rows(p, depth: int, reach: str) -> None:
+    """A row-padded block (``depth`` halo rows on each side) must keep at
+    least one row; ``reach`` names 2 * depth as tpuimg's message does."""
+    if p.ndim < 2 or p.shape[-2] - 2 * depth < 1:
+        raise ValueError(f"ypadded block must have > {reach} rows; got "
+                         f"{p.shape[-2] if p.ndim >= 2 else tuple(p.shape)}")
 
 
 def check_radius(radius: int, lo: int = 1, name: str = "radius"):

@@ -35,6 +35,18 @@ __device__ __forceinline__ void reflect101_table(int start, int len, int n,
   }
 }
 
+// idx[i] = min(start + i, n - 1) for i < len: a tile's rows of a block whose
+// row halo is already in device memory (the ypadded kernels: a shard's block
+// with its neighbours' rows). Rows past the block's end only feed outputs
+// past its last output row, which are not written. Every thread of the block
+// takes part; the caller synchronises.
+__device__ __forceinline__ void clamped_table(int start, int len, int n,
+                                              int* idx) {
+  for (int i = threadIdx.x; i < len; i += blockDim.x) {
+    idx[i] = min(start + i, n - 1);
+  }
+}
+
 // The CLAHE tile grid of a frame: (ytiles*xtiles, 256) float tables, the
 // tile height, the centred padding and the host's f32 reciprocal of the tile
 // width.

@@ -7,6 +7,15 @@
 // streams row bands with halo views, widens lanes to 128 and splits wide
 // frames into column strips; none of that carries over.
 //
+// A second entry, tpuimg_gaussian_ypadded, replaces gaussian_pallas_ypadded
+// (:551, pallas_call :417 in _sep_stencil_ypadded :371): a shard's block
+// whose rows already carry r halo rows on each side, (h + 2r, w) in and
+// (h, w) out. Output row y reads block rows y .. y + 2r, so its extent's
+// rows are an identity table (common.cuh::clamped_table) instead of the
+// reflected one; x is still reflect-101 in the kernel. Everything else is
+// the one kernel body. tpuimg's column strips for w > 4096 are a TPU lane
+// limit; this kernel takes any width.
+//
 // Design on this card: one block per 32x32 output tile of one frame
 // (gridDim.z runs over the frames). It stages the tile's (32 + 2r)^2 input
 // extent in shared memory through the iterated reflect-101 index, so the
@@ -46,6 +55,8 @@ __host__ __device__ int gauss_smem_words(int r) {
   return ext * ext + ext * kTile + 2 * r + 1 + 2 * ext;
 }
 
+// kYPadded: src frames are (h + 2r, w) blocks whose rows are already padded
+template <bool kYPadded>
 __global__ void __launch_bounds__(kThreads)
 gaussian_kernel(const float* __restrict__ src, int n, int h, int w,
                 const GaussTaps taps, int r, float* __restrict__ dst) {
@@ -59,13 +70,19 @@ gaussian_kernel(const float* __restrict__ src, int n, int h, int w,
   const int y0 = blockIdx.y * kTile, x0 = blockIdx.x * kTile;
   const int tid = threadIdx.x;
   for (int i = tid; i < 2 * r + 1; i += kThreads) W[i] = taps.w[i];
-  reflect101_table(y0 - r, ext, h, YS);
+  const int hin = kYPadded ? h + 2 * r : h;  // rows of a source frame
+  if (kYPadded) {
+    clamped_table(y0, ext, hin, YS);
+  } else {
+    reflect101_table(y0 - r, ext, h, YS);
+  }
   reflect101_table(x0 - r, ext, w, XS);
   __syncthreads();
   const size_t plane = static_cast<size_t>(h) * w;
+  const size_t in_plane = static_cast<size_t>(hin) * w;
 
   for (int z = blockIdx.z; z < n; z += gridDim.z) {
-    stage_rows(src + z * plane, w, YS, ext, XS, ext, E);
+    stage_rows(src + z * in_plane, w, YS, ext, XS, ext, E);
     __syncthreads();
 
     // 1. along the rows: R[row][col] centred on E[row][col + r]
@@ -97,18 +114,15 @@ gaussian_kernel(const float* __restrict__ src, int n, int h, int w,
   }
 }
 
-}  // namespace
-
-// src, dst: n frames of (h, w) float32, contiguous; taps.w[0 .. 2r].
-extern "C" int tpuimg_gaussian(const float* src, int n, int h, int w,
-                               GaussTaps taps, int r, float* dst,
-                               cudaStream_t stream) {
+template <bool kYPadded>
+int run(const float* src, int n, int h, int w, const GaussTaps& taps, int r,
+        float* dst, cudaStream_t stream) {
   if (r < 1 || r > kGaussMaxRadius || n < 1 || h < 1 || w < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const size_t bytes = static_cast<size_t>(gauss_smem_words(r)) * 4;
   cudaError_t err = cudaFuncSetAttribute(
-      gaussian_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      gaussian_kernel<kYPadded>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes));
   if (err != cudaSuccess) {
     cudaGetLastError();  // clear it; the caller gets the code
@@ -116,7 +130,24 @@ extern "C" int tpuimg_gaussian(const float* src, int n, int h, int w,
   }
   const dim3 grid((w + kTile - 1) / kTile, (h + kTile - 1) / kTile,
                   n < 65535 ? n : 65535);
-  gaussian_kernel<<<grid, kThreads, bytes, stream>>>(src, n, h, w, taps, r,
-                                                     dst);
+  gaussian_kernel<kYPadded><<<grid, kThreads, bytes, stream>>>(
+      src, n, h, w, taps, r, dst);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// src, dst: n frames of (h, w) float32, contiguous; taps.w[0 .. 2r].
+extern "C" int tpuimg_gaussian(const float* src, int n, int h, int w,
+                               GaussTaps taps, int r, float* dst,
+                               cudaStream_t stream) {
+  return run<false>(src, n, h, w, taps, r, dst, stream);
+}
+
+// src: n blocks of (h + 2r, w) float32 rows padded by r on each side; dst:
+// n frames of (h, w); both contiguous.
+extern "C" int tpuimg_gaussian_ypadded(const float* src, int n, int h, int w,
+                                       GaussTaps taps, int r, float* dst,
+                                       cudaStream_t stream) {
+  return run<true>(src, n, h, w, taps, r, dst, stream);
 }

@@ -40,6 +40,19 @@
 // against 12 bytes of device memory. Shared memory: general onepass at
 // r = 16 takes 205,568 bytes of the 227 KB a block may use; the wrapper
 // sends no radius above 16 (tpuimg's _PALLAS_MAX_RADIUS).
+//
+// A third entry, tpuimg_guided_onepass_ypadded, replaces
+// tpuimg/kernels/boxsum.py::guided_pallas_ypadded (:602; pallas_calls :592
+// self-guided and :596 general in _guided_onepass_ypadded :525): a shard's
+// block of I (and p) whose rows already carry 2r halo rows on each side,
+// (h + 4r, w) in and (h, w) out. The onepass kernel runs as it is, with the
+// extent's rows an identity table over the block (common.cuh::
+// clamped_table) instead of the reflected one: a and b on the ring rows come
+// from the block's real halo rows, as tpuimg's kernel computes them, and x
+// is still reflect-101 at 2r in the kernel. The result equals the plain
+// version (kernels/boxsum.py::guided_ypadded_plain) bit for bit, since both
+// compute a and b on the same padded columns. tpuimg has no radius ceiling
+// there; this entry keeps the onepass kernel's r <= 16.
 #include "common.cuh"
 
 namespace {
@@ -80,7 +93,8 @@ __device__ __forceinline__ float q_of(float sa, float sb, float i,
   return __fadd_rn(__fmul_rn(__fmul_rn(sa, coef), i), __fmul_rn(sb, coef));
 }
 
-template <bool kSelf>
+// kYPadded: I and p frames are (h + 4r, w) blocks whose rows are padded
+template <bool kSelf, bool kYPadded>
 __global__ void __launch_bounds__(kThreads)
 guided_onepass_kernel(const float* __restrict__ I, int n_i,
                       const float* __restrict__ p, int n, int h, int w, int r,
@@ -100,14 +114,20 @@ guided_onepass_kernel(const float* __restrict__ I, int n_i,
   const int tid = threadIdx.x;
   // the same f32 coefficient as the host's float32(1.0 / ksz^2)
   const float coef = static_cast<float>(1.0 / (ksz * ksz));
+  const int hin = kYPadded ? h + 4 * r : h;  // rows of a source frame
   const size_t plane = static_cast<size_t>(h) * w;
-  reflect101_table(y0 - 2 * r, ext, h, YS);
+  const size_t in_plane = static_cast<size_t>(hin) * w;
+  if (kYPadded) {
+    clamped_table(y0, ext, hin, YS);
+  } else {
+    reflect101_table(y0 - 2 * r, ext, h, YS);
+  }
   reflect101_table(x0 - 2 * r, ext, w, XS);
   __syncthreads();
 
   for (int z = blockIdx.z; z < n; z += gridDim.z) {
-    stage_rows(I + (z % n_i) * plane, w, YS, ext, XS, ext, EI);
-    if (!kSelf) stage_rows(p + z * plane, w, YS, ext, XS, ext, EP);
+    stage_rows(I + (z % n_i) * in_plane, w, YS, ext, XS, ext, EI);
+    if (!kSelf) stage_rows(p + z * in_plane, w, YS, ext, XS, ext, EP);
     __syncthreads();
 
     // 1. row window sums over ext x rab: X[k][row][col] sums E[row][col..+2r]
@@ -347,6 +367,33 @@ dim3 grid_of(int n, int h, int w) {
               n < 65535 ? n : 65535);
 }
 
+template <bool kSelf, bool kYPadded>
+int launch_onepass(const float* I, int n_i, const float* p, int n, int h,
+                   int w, int r, float eps, float* q, cudaStream_t stream) {
+  const size_t bytes = static_cast<size_t>(onepass_smem_words(r, kSelf)) * 4;
+  const cudaError_t err =
+      allow_smem(guided_onepass_kernel<kSelf, kYPadded>, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  guided_onepass_kernel<kSelf, kYPadded>
+      <<<grid_of(n, h, w), kThreads, bytes, stream>>>(I, n_i, p, n, h, w, r,
+                                                      eps, q);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kYPadded>
+int onepass(const float* I, int n_i, const float* p, int n, int h, int w,
+            int r, float eps, int self_guided, float* q,
+            cudaStream_t stream) {
+  if (bad_args(n_i, n, h, w, r) || (self_guided && n != n_i)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return self_guided
+             ? launch_onepass<true, kYPadded>(I, n_i, I, n, h, w, r, eps, q,
+                                              stream)
+             : launch_onepass<false, kYPadded>(I, n_i, p, n, h, w, r, eps, q,
+                                               stream);
+}
+
 }  // namespace
 
 // I: n_i frames of (h, w) float32; p, q: n frames, n a multiple of n_i, and
@@ -356,25 +403,17 @@ extern "C" int tpuimg_guided_onepass(const float* I, int n_i, const float* p,
                                      int n, int h, int w, int r, float eps,
                                      int self_guided, float* q,
                                      cudaStream_t stream) {
-  if (bad_args(n_i, n, h, w, r) || (self_guided && n != n_i)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const size_t bytes =
-      static_cast<size_t>(onepass_smem_words(r, self_guided)) * 4;
-  const dim3 grid = grid_of(n, h, w);
-  cudaError_t err;
-  if (self_guided) {
-    err = allow_smem(guided_onepass_kernel<true>, bytes);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    guided_onepass_kernel<true><<<grid, kThreads, bytes, stream>>>(
-        I, n_i, I, n, h, w, r, eps, q);
-  } else {
-    err = allow_smem(guided_onepass_kernel<false>, bytes);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    guided_onepass_kernel<false><<<grid, kThreads, bytes, stream>>>(
-        I, n_i, p, n, h, w, r, eps, q);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return onepass<false>(I, n_i, p, n, h, w, r, eps, self_guided, q, stream);
+}
+
+// As tpuimg_guided_onepass, with I and p frames of (h + 4r, w): rows padded
+// by 2r on each side; q is (h, w) frames.
+extern "C" int tpuimg_guided_onepass_ypadded(const float* I, int n_i,
+                                             const float* p, int n, int h,
+                                             int w, int r, float eps,
+                                             int self_guided, float* q,
+                                             cudaStream_t stream) {
+  return onepass<true>(I, n_i, p, n, h, w, r, eps, self_guided, q, stream);
 }
 
 // As tpuimg_guided_onepass, general only; a, b: n frames of scratch.

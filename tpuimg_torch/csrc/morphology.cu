@@ -26,6 +26,16 @@
 // Bound: shared-memory loads, about (2r + 1)(2 + 2r/32) per output pixel,
 // against 2 element reads and writes of device memory per pixel (plus the
 // halo re-read, which hits L2).
+//
+// A second entry, tpuimg_morphology_ypadded, replaces
+// tpuimg/kernels/sep_stencil.py::morph_pallas_ypadded (:594, pallas_call
+// :417 in _sep_stencil_ypadded :371): a shard's block whose rows already
+// carry r halo rows on each side, (h + 2r, w) in and (h, w) out. Output row
+// y takes the extreme over block rows y .. y + 2r (no border in y) and the
+// clamped columns, so both routes run with a row offset `yoff` = r into a
+// source of h + 2*yoff rows: the tile route stages rows from y0 on, the
+// column pass reads rows [y, y + 2r]. The radius is the block's own; it is
+// never shrunk to the frame (the block's height is fixed at h + 2r).
 #include <algorithm>
 
 #include "morph.cuh"
@@ -41,17 +51,20 @@ using morph::kTile;
 template <class T, bool kMin>
 __global__ void __launch_bounds__(kThreads)
 morph_tile_kernel(const T* __restrict__ src, int n, int h, int w, int r,
-                  T* __restrict__ dst) {
+                  int yoff, T* __restrict__ dst) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int e = kTile + 2 * r;
   T* E = reinterpret_cast<T*>(smem);  // e x e: clamped input extent
   T* R = E + e * e;                   // e x kTile: row pass
   const int y0 = blockIdx.y * kTile, x0 = blockIdx.x * kTile;
   const int tid = threadIdx.x;
+  const int hin = h + 2 * yoff;  // rows of a source frame
   const size_t plane = static_cast<size_t>(h) * w;
+  const size_t in_plane = static_cast<size_t>(hin) * w;
 
   for (int z = blockIdx.z; z < n; z += gridDim.z) {
-    morph::stage_clamped(src + z * plane, h, w, y0 - r, e, x0 - r, e, E);
+    morph::stage_clamped(src + z * in_plane, hin, w, y0 + yoff - r, e, x0 - r,
+                         e, E);
     __syncthreads();
 
     // 1. along the rows: R[row][col] over E[row][col .. col + 2r]
@@ -95,19 +108,23 @@ morph_rows_kernel(const T* __restrict__ src, size_t total, int w, int r,
   }
 }
 
-// dst[i] = ext of src's column over the clamped rows [y - r, y + r]
+// dst[i] = ext of src's column over the clamped rows [y + yoff - r,
+// y + yoff + r] of its h + 2*yoff rows
 template <class T, bool kMin>
 __global__ void __launch_bounds__(kThreads)
 morph_cols_kernel(const T* __restrict__ src, size_t total, int h, int w,
-                  int r, T* __restrict__ dst) {
+                  int r, int yoff, T* __restrict__ dst) {
   const size_t stride = static_cast<size_t>(gridDim.x) * kThreads;
+  const int hin = h + 2 * yoff;
   const size_t plane = static_cast<size_t>(h) * w;
+  const size_t in_plane = static_cast<size_t>(hin) * w;
   for (size_t i = static_cast<size_t>(blockIdx.x) * kThreads + threadIdx.x;
        i < total; i += stride) {
-    const size_t yx = i % plane;
+    const size_t z = i / plane, yx = i - z * plane;
     const int y = static_cast<int>(yx / w);
-    const T* col = src + (i - static_cast<size_t>(y) * w);  // row 0, column x
-    const int lo = max(0, y - r), hi = min(h - 1, y + r);
+    const int x = static_cast<int>(yx - static_cast<size_t>(y) * w);
+    const T* col = src + z * in_plane + x;  // row 0, column x
+    const int lo = max(0, y + yoff - r), hi = min(hin - 1, y + yoff + r);
     T acc = col[static_cast<size_t>(lo) * w];
     for (int k = lo + 1; k <= hi; ++k) {
       acc = extreme<kMin>(acc, col[static_cast<size_t>(k) * w]);
@@ -116,36 +133,62 @@ morph_cols_kernel(const T* __restrict__ src, size_t total, int h, int w,
   }
 }
 
+unsigned flat_blocks(size_t total) {
+  return static_cast<unsigned>(
+      std::min<size_t>((total + kThreads - 1) / kThreads, size_t{1} << 30));
+}
+
+// h output rows from sources of h + 2*yoff rows
 template <class T, bool kMin>
-int run(const T* src, int n, int h, int w, int r, T* scratch, T* dst,
-        cudaStream_t stream) {
+int run(const T* src, int n, int h, int w, int r, int yoff, T* scratch,
+        T* dst, cudaStream_t stream) {
   if (r <= kMorphMaxTileRadius) {
     const int e = kTile + 2 * r;
     const size_t bytes = static_cast<size_t>(e * e + e * kTile) * sizeof(T);
     return morph::launch_tiles(morph_tile_kernel<T, kMin>, bytes, n, h, w,
-                               stream, src, n, h, w, r, dst);
+                               stream, src, n, h, w, r, yoff, dst);
   }
   if (scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t total_in = static_cast<size_t>(n) * (h + 2 * yoff) * w;
   const size_t total = static_cast<size_t>(n) * h * w;
-  const unsigned blocks = static_cast<unsigned>(
-      std::min<size_t>((total + kThreads - 1) / kThreads, size_t{1} << 30));
-  morph_rows_kernel<T, kMin><<<blocks, kThreads, 0, stream>>>(src, total, w,
-                                                              r, scratch);
+  morph_rows_kernel<T, kMin><<<flat_blocks(total_in), kThreads, 0, stream>>>(
+      src, total_in, w, r, scratch);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  morph_cols_kernel<T, kMin><<<blocks, kThreads, 0, stream>>>(scratch, total,
-                                                              h, w, r, dst);
+  morph_cols_kernel<T, kMin><<<flat_blocks(total), kThreads, 0, stream>>>(
+      scratch, total, h, w, r, yoff, dst);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <class T>
-int morphology(const void* src, int n, int h, int w, int r, int mode,
-               void* scratch, void* dst, cudaStream_t stream) {
+int morphology(const void* src, int n, int h, int w, int r, int yoff,
+               int mode, void* scratch, void* dst, cudaStream_t stream) {
   const T* s = static_cast<const T*>(src);
   T* t = static_cast<T*>(scratch);
   T* d = static_cast<T*>(dst);
-  return mode == 0 ? run<T, true>(s, n, h, w, r, t, d, stream)
-                   : run<T, false>(s, n, h, w, r, t, d, stream);
+  return mode == 0 ? run<T, true>(s, n, h, w, r, yoff, t, d, stream)
+                   : run<T, false>(s, n, h, w, r, yoff, t, d, stream);
+}
+
+int dispatch(const void* src, int n, int h, int w, int dtype, int r,
+             int yoff, int mode, void* scratch, void* dst,
+             cudaStream_t stream) {
+  if (n < 1 || h < 1 || w < 1 || r < 0 || (mode != 0 && mode != 1)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  switch (dtype) {
+    case morph::kU8:
+      return morphology<uint8_t>(src, n, h, w, r, yoff, mode, scratch, dst,
+                                 stream);
+    case morph::kI32:
+      return morphology<int32_t>(src, n, h, w, r, yoff, mode, scratch, dst,
+                                 stream);
+    case morph::kF32:
+      return morphology<float>(src, n, h, w, r, yoff, mode, scratch, dst,
+                               stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
@@ -156,17 +199,15 @@ int morphology(const void* src, int n, int h, int w, int r, int mode,
 extern "C" int tpuimg_morphology(const void* src, int n, int h, int w,
                                  int dtype, int r, int mode, void* scratch,
                                  void* dst, cudaStream_t stream) {
-  if (n < 1 || h < 1 || w < 1 || r < 0 || (mode != 0 && mode != 1)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  switch (dtype) {
-    case morph::kU8:
-      return morphology<uint8_t>(src, n, h, w, r, mode, scratch, dst, stream);
-    case morph::kI32:
-      return morphology<int32_t>(src, n, h, w, r, mode, scratch, dst, stream);
-    case morph::kF32:
-      return morphology<float>(src, n, h, w, r, mode, scratch, dst, stream);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return dispatch(src, n, h, w, dtype, r, 0, mode, scratch, dst, stream);
+}
+
+// src: n blocks of (h + 2r, w) rows padded by r on each side; dst: n frames
+// of (h, w); both contiguous. scratch: n*(h + 2r)*w elements, used (and
+// needed) only when r > kMorphMaxTileRadius.
+extern "C" int tpuimg_morphology_ypadded(const void* src, int n, int h,
+                                         int w, int dtype, int r, int mode,
+                                         void* scratch, void* dst,
+                                         cudaStream_t stream) {
+  return dispatch(src, n, h, w, dtype, r, r, mode, scratch, dst, stream);
 }

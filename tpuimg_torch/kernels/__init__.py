@@ -59,15 +59,20 @@ class GaussTaps(ctypes.Structure):
 _SIGNATURES = {
     # img, h, w, ytiles, xtiles, th, tw, pad_top, pad_left, out, stream
     "tpuimg_tile_hist": (_P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P),
-    # img, h, w, tables, ytiles, xtiles, th, pad_top, pad_left, inv_tw,
+    # img, h, w, y0, tables, ytiles, xtiles, th, pad_top, pad_left, inv_tw,
     # out_f32, out, stream
-    "tpuimg_clahe_map": (_P, _I, _I, _P, _I, _I, _I, _I, _I, _F, _I, _P, _P),
+    "tpuimg_clahe_map": (_P, _I, _I, _I, _P, _I, _I, _I, _I, _I, _F, _I, _P,
+                         _P),
     # f, h, w, taps, rg, r, eps, out, stream
     "tpuimg_enhance_tail": (_P, _I, _I, Taps, _I, _I, _F, _P, _P),
-    # src, n, h, w, taps, r, out, stream
+    # src, n, h, w, taps, r, out, stream (ypadded: src rows h + 2r)
     "tpuimg_gaussian": (_P, _I, _I, _I, GaussTaps, _I, _P, _P),
-    # I, n_i, p, n, h, w, r, eps, self_guided, q, stream
+    "tpuimg_gaussian_ypadded": (_P, _I, _I, _I, GaussTaps, _I, _P, _P),
+    # I, n_i, p, n, h, w, r, eps, self_guided, q, stream (ypadded: I and p
+    # rows h + 4r)
     "tpuimg_guided_onepass": (_P, _I, _P, _I, _I, _I, _I, _F, _I, _P, _P),
+    "tpuimg_guided_onepass_ypadded": (_P, _I, _P, _I, _I, _I, _I, _F, _I, _P,
+                                      _P),
     # I, n_i, p, n, h, w, r, eps, a, b, q, stream
     "tpuimg_guided_twopass": (_P, _I, _P, _I, _I, _I, _I, _F, _P, _P, _P, _P),
     # x, groups, p, out, stream
@@ -76,8 +81,10 @@ _SIGNATURES = {
     "tpuimg_lut_gather": (_P, _L, _I, _P, _I, _I, _P, _P),
     # img, frames, h, w, out, stream
     "tpuimg_integral": (_P, _I, _I, _I, _P, _P),
-    # src, n, h, w, dtype, r, mode, scratch, dst, stream
+    # src, n, h, w, dtype, r, mode, scratch, dst, stream (ypadded: src rows
+    # h + 2r)
     "tpuimg_morphology": (_P, _I, _I, _I, _I, _I, _I, _P, _P, _P),
+    "tpuimg_morphology_ypadded": (_P, _I, _I, _I, _I, _I, _I, _P, _P, _P),
     # src, n, h, w, dtype, r, mode, dst, stream
     "tpuimg_open_close": (_P, _I, _I, _I, _I, _I, _I, _P, _P),
     # img, h, w, tables, ytiles, xtiles, th, pad_top, pad_left, inv_tw,

@@ -7,6 +7,13 @@ guided_filter_pallas`` (variants "onepass" and "twopass"); its plain version
 is tpuimg's reflect-101 chain with direct window sums: box means of I, p,
 I*p and I*I, then a and b, then q = mean_a*I + mean_b.
 
+``guided_ypadded_kernel`` (the onepass kernel's row-padded entry) replaces
+``guided_pallas_ypadded``: I and p blocks whose rows already carry 2r halo
+rows on each side (a shard of ``parallel/sharding.py`` with its neighbours'
+rows), (..., H + 4r, W) in and (..., H, W) out. Its plain version is
+tpuimg's XLA form of ``guided_ypadded``: pad x only by 2r (reflect-101), the
+same chain with valid-window box sums, q on the block's centre.
+
 ``enhance_tail``, q = guided(I=f, p=gaussian(f)), replaces
 ``enhance_tail_pallas``. Its plain version is ``_tail_chain``'s algebra on the
 whole frame: pad once by the total halo 2r + rg (reflect-101), smooth (down
@@ -59,16 +66,21 @@ def box_mean(x, radius: int):
     return s * (1.0 / (ksz * ksz))
 
 
-def guided_chain(I, p, eps: float, box, self_guided: bool = False):
-    """q = box(a)*I + box(b) with a, b from the box means of I, p, I*p and
-    I*I. ``p`` may carry one more leading dim than ``I`` (C channels guided
-    by one I, broadcast). ``self_guided``: p is I, two of the four means."""
+def guided_ab(I, p, eps: float, box, self_guided: bool = False):
+    """a and b from the box means of I, p, I*p and I*I. ``p`` may carry one
+    more leading dim than ``I`` (C channels guided by one I, broadcast).
+    ``self_guided``: p is I, two of the four means."""
     mean_I = box(I)
     mean_II = box(I * I)
     mean_p = mean_I if self_guided else box(p)
     mean_Ip = mean_II if self_guided else box(I * p)
     a = (mean_Ip - mean_p * mean_I) / (mean_II - mean_I * mean_I + eps)
-    b = mean_p - a * mean_I
+    return a, mean_p - a * mean_I
+
+
+def guided_chain(I, p, eps: float, box, self_guided: bool = False):
+    """q = box(a)*I + box(b), a and b from ``guided_ab``."""
+    a, b = guided_ab(I, p, eps, box, self_guided)
     return box(a) * I + box(b)
 
 
@@ -78,6 +90,25 @@ def guided_filter_plain(I, p, radius: int, eps: float,
     1/ksz^2 normalisation (both kernel variants compute this)."""
     return guided_chain(I, p, eps, functools.partial(box_mean, radius=radius),
                         self_guided)
+
+
+def _checked_pair(I, p, radius: int, self_guided: bool):
+    """The guided kernels' checks on the card; returns p (I when
+    ``self_guided``)."""
+    require_cuda_tensor(I, "I", torch.float32, batched=True)
+    if self_guided:
+        p = I
+    require_cuda_tensor(p, "p", torch.float32, batched=True)
+    if p.device != I.device or p.shape[-I.ndim:] != I.shape or (
+            p.ndim not in (I.ndim, I.ndim + 1)):
+        raise ValueError(
+            f"p {tuple(p.shape)} on {p.device} must have the shape of I "
+            f"{tuple(I.shape)}, or one more leading dim, on {I.device}")
+    if radius > GUIDED_MAX_RADIUS:
+        raise ParamError(
+            f"the guided-filter kernel takes radius <= {GUIDED_MAX_RADIUS}, "
+            f"got {radius}")
+    return p
 
 
 def guided_filter_kernel(I, p, radius: int, eps: float,
@@ -93,19 +124,7 @@ def guided_filter_kernel(I, p, radius: int, eps: float,
         raise ParamError(f"variant must be one of {VARIANTS}, got {variant!r}")
     if I.device.type == "cpu":
         return guided_filter_plain(I, p, radius, eps, self_guided)
-    require_cuda_tensor(I, "I", torch.float32, batched=True)
-    if self_guided:
-        p = I
-    require_cuda_tensor(p, "p", torch.float32, batched=True)
-    if p.device != I.device or p.shape[-I.ndim:] != I.shape or (
-            p.ndim not in (I.ndim, I.ndim + 1)):
-        raise ValueError(
-            f"p {tuple(p.shape)} on {p.device} must have the shape of I "
-            f"{tuple(I.shape)}, or one more leading dim, on {I.device}")
-    if radius > GUIDED_MAX_RADIUS:
-        raise ParamError(
-            f"the guided-filter kernel takes radius <= {GUIDED_MAX_RADIUS}, "
-            f"got {radius}")
+    p = _checked_pair(I, p, radius, self_guided)
     h, w = I.shape[-2:]
     q = torch.empty_like(p)
     if q.numel() == 0:
@@ -127,6 +146,51 @@ def guided_filter_kernel(I, p, radius: int, eps: float,
 
 guided_filter_kernel.launches = 0  # onepass launches
 guided_filter_kernel.twopass_launches = 0  # twopass launch pairs
+
+
+def guided_ypadded_plain(Ipad, ppad, radius: int, eps: float,
+                         self_guided: bool = False):
+    """The guided filter of float32 (..., H + 4r, W) row-padded blocks:
+    (..., H, W). x is padded by 2r (reflect-101); the box means are valid
+    window sums times 1/ksz^2, so a and b on the ring rows come from the
+    block's own halo rows."""
+    r = radius
+    ksz = 2 * r + 1
+    I2 = pad_reflect101(Ipad, 0, 2 * r)
+    p2 = I2 if self_guided else pad_reflect101(ppad, 0, 2 * r)
+
+    def box(x):
+        s = window_sum(window_sum(x, ksz, -1), ksz, -2)
+        return s * (1.0 / (ksz * ksz))
+
+    a, b = guided_ab(I2, p2, eps, box, self_guided)
+    h, w = Ipad.shape[-2] - 4 * r, Ipad.shape[-1]
+    return box(a) * I2[..., 2 * r:2 * r + h, 2 * r:2 * r + w] + box(b)
+
+
+def guided_ypadded_kernel(Ipad, ppad, radius: int, eps: float,
+                          self_guided: bool = False):
+    """``guided_ypadded_plain`` on a CPU tensor; on a CUDA tensor one launch
+    of the onepass kernel's row-padded entry over all frames. Ipad: float32
+    (..., H + 4r, W), H >= 1; ppad: of its shape, or with one more leading
+    dim (CN1); ignored when ``self_guided``. Radius <= GUIDED_MAX_RADIUS."""
+    if Ipad.device.type == "cpu":
+        return guided_ypadded_plain(Ipad, ppad, radius, eps, self_guided)
+    p = _checked_pair(Ipad, ppad, radius, self_guided)
+    hin, w = Ipad.shape[-2:]
+    h = hin - 4 * radius
+    q = torch.empty(p.shape[:-2] + (h, w), dtype=torch.float32,
+                    device=p.device)
+    if q.numel() == 0:
+        return q
+    n_i, n = Ipad.numel() // (hin * w), p.numel() // (hin * w)
+    launch("tpuimg_guided_onepass_ypadded", Ipad.device, Ipad.data_ptr(), n_i,
+           p.data_ptr(), n, h, w, radius, eps, int(self_guided), q.data_ptr())
+    guided_ypadded_kernel.launches += 1
+    return q
+
+
+guided_ypadded_kernel.launches = 0
 
 
 def enhance_tail_plain(f, radius_g: int, sigma: float, radius: int,

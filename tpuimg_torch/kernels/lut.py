@@ -4,7 +4,11 @@ kernel (csrc/lut_gather.cu) and their plain PyTorch versions.
 ``clahe_map`` replaces ``tpuimg/kernels/lut.py::clahe_map_full`` (the
 per-pixel kernel takes any tile grid); its plain version is the gather form
 of ``tpuimg/kernels/onehot.py::lut_apply4``: the four corner tables indexed
-by the pixel value. ``lut_gather`` and ``lut_gather_frames`` replace the
+by the pixel value. ``clahe_band_map`` (the same source) replaces
+``clahe_band_map``: the blend of a band of rows starting at global row y0
+of a frame, with the frame's tables and geometry (a row shard of
+``parallel/sharding.py::clahe_sharded``); ``clahe_map`` is its band at
+y0 = 0. ``lut_gather`` and ``lut_gather_frames`` replace the
 TPU kernels of the same names (one table; one table per frame); both launch
 the one gather kernel and count on ``lut_gather.launches``.
 """
@@ -19,13 +23,16 @@ from tpuimg_torch.ops.histogram import (
     _bilinear_blend, _blend_to_u8, _tile_coords)
 
 
-def clahe_map_plain(img, tables, ytiles: int, xtiles: int, th: int, tw: int,
-                    pad_top: int, pad_left: int, out_f32: bool = False):
-    """Blend the four corner tables of every pixel of the u8 (h, w) frame.
-    ``tables`` is (ytiles*xtiles, 256) float32. Returns u8 (h, w), or the raw
-    float32 blend in [0, 255] when ``out_f32``."""
+def clahe_band_map_plain(img, tables, ytiles: int, xtiles: int, th: int,
+                         tw: int, pad_top: int, pad_left: int, y0: int,
+                         out_f32: bool = False):
+    """Blend the four corner tables of every pixel of the u8 (h, w) rows
+    [y0, y0 + h) of a frame. ``tables`` is the frame's (ytiles*xtiles, 256)
+    float32. Returns u8 (h, w), or the raw float32 blend in [0, 255] when
+    ``out_f32``."""
     h, w = img.shape
-    ty1, ty2, ya = _tile_coords(h, ytiles, th, pad_top, False, img.device)
+    ty1, ty2, ya = _tile_coords(h, ytiles, th, pad_top, False, img.device,
+                                start=y0)
     tx1, tx2, xa = _tile_coords(w, xtiles, tw, pad_left, True, img.device)
     flat = tables.reshape(-1)
     v = img.to(torch.int64)
@@ -38,10 +45,20 @@ def clahe_map_plain(img, tables, ytiles: int, xtiles: int, th: int, tw: int,
     return out if out_f32 else _blend_to_u8(out)
 
 
+def clahe_map_plain(img, tables, ytiles: int, xtiles: int, th: int, tw: int,
+                    pad_top: int, pad_left: int, out_f32: bool = False):
+    """The blend of the whole u8 (h, w) frame: its band at y0 = 0."""
+    return clahe_band_map_plain(img, tables, ytiles, xtiles, th, tw, pad_top,
+                                pad_left, 0, out_f32)
+
+
 def check_clahe_args(img, tables, ytiles: int, xtiles: int, th: int,
-                     tw: int, pad_top: int, pad_left: int) -> None:
+                     tw: int, pad_top: int, pad_left: int,
+                     y0: int = 0) -> None:
     """The checks of the kernels that blend CLAHE tables on the card
-    (clahe_map.cu, enhance_tail_clahe.cu)."""
+    (clahe_map.cu, enhance_tail_clahe.cu): ``img`` is the rows [y0, y0 + h)
+    of a frame whose tile grid covers them past its padding, so that every
+    table index the blend takes is in the grid."""
     require_cuda_tensor(img, "img", torch.uint8)
     require_cuda_tensor(tables, "tables", torch.float32)
     if tables.device != img.device or tables.shape != (ytiles * xtiles, 256):
@@ -49,9 +66,27 @@ def check_clahe_args(img, tables, ytiles: int, xtiles: int, th: int,
             f"tables must be ({ytiles * xtiles}, 256) on {img.device}, got "
             f"{tuple(tables.shape)} on {tables.device}")
     h, w = img.shape
-    if ytiles * th < h or xtiles * tw < w or pad_top < 0 or pad_left < 0:
+    if (y0 < 0 or pad_top < 0 or pad_left < 0
+            or ytiles * th - pad_top < y0 + h or xtiles * tw - pad_left < w):
         raise ValueError(
-            f"tile grid {ytiles}x{xtiles} of {th}x{tw} does not cover {h}x{w}")
+            f"tile grid {ytiles}x{xtiles} of {th}x{tw} does not cover rows "
+            f"[{y0}, {y0 + h}) of width {w}")
+
+
+def _map(img, tables, ytiles: int, xtiles: int, th: int, tw: int,
+         pad_top: int, pad_left: int, y0: int, out_f32: bool):
+    """The checks and one launch of the mapping kernel over the rows
+    [y0, y0 + h) of a frame."""
+    check_clahe_args(img, tables, ytiles, xtiles, th, tw, pad_top, pad_left,
+                     y0)
+    h, w = img.shape
+    out = torch.empty((h, w), dtype=torch.float32 if out_f32 else torch.uint8,
+                      device=img.device)
+    inv_tw = float(np.float32(1.0) / np.float32(tw))
+    launch("tpuimg_clahe_map", img.device, img.data_ptr(), h, w, y0,
+           tables.data_ptr(), ytiles, xtiles, th, pad_top, pad_left, inv_tw,
+           int(out_f32), out.data_ptr())
+    return out
 
 
 def clahe_map(img, tables, ytiles: int, xtiles: int, th: int, tw: int,
@@ -60,19 +95,31 @@ def clahe_map(img, tables, ytiles: int, xtiles: int, th: int, tw: int,
     if img.device.type == "cpu":
         return clahe_map_plain(img, tables, ytiles, xtiles, th, tw, pad_top,
                                pad_left, out_f32)
-    check_clahe_args(img, tables, ytiles, xtiles, th, tw, pad_top, pad_left)
-    h, w = img.shape
-    out = torch.empty((h, w), dtype=torch.float32 if out_f32 else torch.uint8,
-                      device=img.device)
-    inv_tw = float(np.float32(1.0) / np.float32(tw))
-    launch("tpuimg_clahe_map", img.device, img.data_ptr(), h, w,
-           tables.data_ptr(), ytiles, xtiles, th, pad_top, pad_left, inv_tw,
-           int(out_f32), out.data_ptr())
+    out = _map(img, tables, ytiles, xtiles, th, tw, pad_top, pad_left, 0,
+               out_f32)
     clahe_map.launches += 1
     return out
 
 
 clahe_map.launches = 0
+
+
+def clahe_band_map(img, tables, ytiles: int, xtiles: int, th: int, tw: int,
+                   pad_top: int, pad_left: int, y0: int,
+                   out_f32: bool = False):
+    """``clahe_band_map_plain`` on a CPU tensor; on a CUDA tensor one launch
+    of the mapping kernel with the band's first global row y0. The frame's
+    tile grid must cover rows [y0, y0 + h)."""
+    if img.device.type == "cpu":
+        return clahe_band_map_plain(img, tables, ytiles, xtiles, th, tw,
+                                    pad_top, pad_left, y0, out_f32)
+    out = _map(img, tables, ytiles, xtiles, th, tw, pad_top, pad_left, y0,
+               out_f32)
+    clahe_band_map.launches += 1
+    return out
+
+
+clahe_band_map.launches = 0
 
 
 def _word_table(table):

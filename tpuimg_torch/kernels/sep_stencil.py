@@ -7,8 +7,18 @@ gaussian_pallas``. Its plain version is tpuimg's XLA form: pad by the radius
 (reflect-101), one pass along the rows, then one down the columns, each in
 the symmetric form k[i]*(left + right).
 
+``gaussian_ypadded_kernel`` (the same source) replaces
+``gaussian_pallas_ypadded``: a block whose rows already carry the radius of
+halo rows on each side (a shard of ``parallel/sharding.py`` with its
+neighbours' rows), (..., H + 2r, W) in and (..., H, W) out. Its plain version
+is tpuimg's XLA form of ``gaussian_ypadded``: pad x only (reflect-101), the
+row pass, then the column pass over the block's own rows.
+
 ``morphology_kernel`` replaces ``morphology_pallas`` and
-``open_close_kernel`` replaces ``open_close_pallas``. The plain versions are
+``open_close_kernel`` replaces ``open_close_pallas``;
+``morph_ypadded_kernel`` (csrc/morphology.cu) replaces
+``morph_pallas_ypadded``, on a row-padded block as above, replicate in x
+only. The plain versions are
 tpuimg's XLA form (``tpuimg/ops/morphology.py``): replicate pad, then the
 minimum or maximum over the 2r+1 shifted slices, along the rows, then down
 the columns; open and close compose two of them. u8, int32 and float32 are
@@ -59,6 +69,35 @@ def gaussian_plain(img, radius: int, sigma: float):
     return _sep_pass(rows, w, img.ndim - 2)
 
 
+def gaussian_ypadded_plain(p, radius: int, sigma: float):
+    """Gaussian blur of float32 (..., H + 2r, W) row-padded blocks:
+    (..., H, W), reflect-101 in x, the block's own rows in y."""
+    w = taps(radius, sigma)
+    rows = _sep_pass(pad_reflect101(p, 0, radius), w, p.ndim - 1)
+    return _sep_pass(rows, w, p.ndim - 2)
+
+
+def _gauss_launch(entry: str, src, radius: int, sigma: float, cut: int):
+    """The checks and the one launch of a gaussian C entry over the frames
+    of ``src``, whose outputs have ``cut`` rows fewer; returns the output."""
+    require_cuda_tensor(src, "img", torch.float32, batched=True)
+    if radius > GAUSS_MAX_RADIUS:
+        raise ParamError(
+            f"the gaussian kernel takes radius <= {GAUSS_MAX_RADIUS} (its "
+            f"(32 + 2r)^2 tile extent must fit in a block's 227 KB of shared "
+            f"memory), got {radius}")
+    h, w = src.shape[-2] - cut, src.shape[-1]
+    out = torch.empty(src.shape[:-2] + (h, w), dtype=torch.float32,
+                      device=src.device)
+    if out.numel():
+        tp = GaussTaps()
+        wts = taps(radius, sigma)
+        tp.w[:len(wts)] = wts
+        launch(entry, src.device, src.data_ptr(), out.numel() // (h * w), h,
+               w, tp, radius, out.data_ptr())
+    return out
+
+
 def gaussian_kernel(img, radius: int, sigma: float):
     """``gaussian_plain`` on a CPU tensor; on a CUDA tensor one launch of
     the kernel over all leading dims. Takes radius <= GAUSS_MAX_RADIUS on
@@ -66,26 +105,27 @@ def gaussian_kernel(img, radius: int, sigma: float):
     of shared memory."""
     if img.device.type == "cpu":
         return gaussian_plain(img, radius, sigma)
-    require_cuda_tensor(img, "img", torch.float32, batched=True)
-    if radius > GAUSS_MAX_RADIUS:
-        raise ParamError(
-            f"the gaussian kernel takes radius <= {GAUSS_MAX_RADIUS} (its "
-            f"(32 + 2r)^2 tile extent must fit in a block's 227 KB of shared "
-            f"memory), got {radius}")
-    h, w = img.shape[-2:]
-    out = torch.empty_like(img)
-    if out.numel() == 0:
-        return out
-    tp = GaussTaps()
-    wts = taps(radius, sigma)
-    tp.w[:len(wts)] = wts
-    launch("tpuimg_gaussian", img.device, img.data_ptr(),
-           img.numel() // (h * w), h, w, tp, radius, out.data_ptr())
-    gaussian_kernel.launches += 1
+    out = _gauss_launch("tpuimg_gaussian", img, radius, sigma, 0)
+    gaussian_kernel.launches += out.numel() > 0
     return out
 
 
 gaussian_kernel.launches = 0
+
+
+def gaussian_ypadded_kernel(p, radius: int, sigma: float):
+    """``gaussian_ypadded_plain`` on a CPU tensor; on a CUDA tensor one
+    launch over all leading dims, any width, radius <= GAUSS_MAX_RADIUS.
+    ``p`` is float32 (..., H + 2r, W) with H >= 1."""
+    if p.device.type == "cpu":
+        return gaussian_ypadded_plain(p, radius, sigma)
+    out = _gauss_launch("tpuimg_gaussian_ypadded", p, radius, sigma,
+                        2 * radius)
+    gaussian_ypadded_kernel.launches += out.numel() > 0
+    return out
+
+
+gaussian_ypadded_kernel.launches = 0
 
 
 def _extreme_pass(x, radius: int, dim: int, mode: int):
@@ -100,13 +140,17 @@ def _extreme_pass(x, radius: int, dim: int, mode: int):
     return acc
 
 
+def _clamped(x, radius: int, dim: int):
+    """Pad ``dim`` by ``radius`` on each side, repeating the edge element."""
+    n = x.shape[dim]
+    idx = torch.arange(-radius, n + radius, device=x.device).clamp(0, n - 1)
+    return x.index_select(dim, idx)
+
+
 def pad_replicate(x, radius: int):
     """Pad the trailing two dims by ``radius`` on each side, repeating the
     edge pixel; any radius and dtype."""
-    h, w = x.shape[-2:]
-    ys = torch.arange(-radius, h + radius, device=x.device).clamp(0, h - 1)
-    xs = torch.arange(-radius, w + radius, device=x.device).clamp(0, w - 1)
-    return x.index_select(-2, ys).index_select(-1, xs)
+    return _clamped(_clamped(x, radius, -2), radius, -1)
 
 
 def morphology_plain(img, radius: int, mode: int):
@@ -116,6 +160,13 @@ def morphology_plain(img, radius: int, mode: int):
     p = pad_replicate(img, radius)
     rows = _extreme_pass(p, radius, img.ndim - 1, mode)
     return _extreme_pass(rows, radius, img.ndim - 2, mode)
+
+
+def morph_ypadded_plain(p, radius: int, mode: int):
+    """Erode (mode 0) or dilate (mode 1) (..., H + 2r, W) row-padded blocks:
+    (..., H, W), replicate in x, the block's own rows in y."""
+    rows = _extreme_pass(_clamped(p, radius, -1), radius, p.ndim - 1, mode)
+    return _extreme_pass(rows, radius, p.ndim - 2, mode)
 
 
 def open_close_plain(img, radius: int, mode: int):
@@ -163,6 +214,34 @@ def morphology_kernel(img, radius: int, mode: int):
 
 morphology_kernel.launches = 0
 morphology_kernel.split_launches = 0
+
+
+def morph_ypadded_kernel(p, radius: int, mode: int):
+    """``morph_ypadded_plain`` on a CPU tensor; on a CUDA tensor one call of
+    the kernel over all leading dims: one launch for radius <=
+    MORPH_MAX_TILE_RADIUS, a row pass into a scratch block and a column
+    pass out of it above (counted on ``split_launches`` too). The radius is
+    the block's halo depth and is never shrunk to the frame. ``p`` is
+    (..., H + 2r, W) with H >= 1."""
+    _check_morph(p, mode)
+    if p.device.type == "cpu":
+        return morph_ypadded_plain(p, radius, mode)
+    n, hin, w = _frames(p)
+    h = hin - 2 * radius
+    out = torch.empty(p.shape[:-2] + (h, w), dtype=p.dtype, device=p.device)
+    if out.numel() == 0:
+        return out
+    scratch = torch.empty_like(p) if radius > MORPH_MAX_TILE_RADIUS else None
+    launch("tpuimg_morphology_ypadded", p.device, p.data_ptr(), n, h, w,
+           MORPH_DTYPES[p.dtype], radius, mode,
+           None if scratch is None else scratch.data_ptr(), out.data_ptr())
+    morph_ypadded_kernel.launches += 1
+    morph_ypadded_kernel.split_launches += scratch is not None
+    return out
+
+
+morph_ypadded_kernel.launches = 0
+morph_ypadded_kernel.split_launches = 0
 
 
 def open_close_kernel(img, radius: int, mode: int):

@@ -10,6 +10,11 @@ radius > 16 (the reflect-101 chain, window sums as direct adds up to r = 5
 and cumsum differences above), and border="shrink", the reference class
 path (gIntegralToMean: windows clamped to the image, normalised by their
 true area), which is also ``box_filter``'s default.
+
+``guided_ypadded``, the per-shard op of ``parallel.guided_filter_sharded``
+and ``enhance_sharded``, runs the onepass kernel's row-padded entry;
+``box_filter_ypadded`` is plain PyTorch on the tensor's device, as tpuimg's
+is XLA.
 """
 
 from __future__ import annotations
@@ -19,10 +24,13 @@ import functools
 import torch
 
 from tpuimg_torch.core.borders import REFLECT101, SHRINK, pad_reflect101
+from tpuimg_torch.core.device import as_image
 from tpuimg_torch.core.validate import (
-    ParamError, ShapeError, check_image, check_positive, check_radius)
+    ParamError, ShapeError, check_image, check_positive, check_radius,
+    check_ypadded_rows)
 from tpuimg_torch.kernels.boxsum import (
-    GUIDED_MAX_RADIUS, guided_chain, guided_filter_kernel, window_sum)
+    GUIDED_MAX_RADIUS, guided_chain, guided_filter_kernel,
+    guided_ypadded_kernel, window_sum)
 
 _FLOAT_IN = [torch.float32, torch.float64, torch.uint8]
 
@@ -37,19 +45,24 @@ def _cumsum0(x, dim: int):
     return torch.cat([zero, torch.cumsum(x, dim)], dim)
 
 
+def _window(xp, radius: int, dim: int):
+    """tpuimg's ``_window_sum`` along ``dim`` of ``xp``, already padded by
+    the radius there: direct adds up to r = 5, cumsum differences above."""
+    ksz = 2 * radius + 1
+    if radius <= _DIRECT_MAX_RADIUS:
+        return window_sum(xp, ksz, dim)
+    n = xp.shape[dim] - 2 * radius
+    c = _cumsum0(xp, dim)
+    return c.narrow(dim, ksz, n) - c.narrow(dim, 0, n)
+
+
 def _box_reflect(x, radius: int):
     """tpuimg's reflect-101 box mean: window sums along the rows, then the
-    columns, as direct adds up to r = 5 and cumsum differences above."""
+    columns."""
     ksz = 2 * radius + 1
-    for dim, pad in ((-1, (0, radius)), (-2, (radius, 0))):
-        n = x.shape[dim]
-        xp = pad_reflect101(x, *pad)
-        if radius <= _DIRECT_MAX_RADIUS:
-            x = window_sum(xp, ksz, dim)
-        else:
-            c = _cumsum0(xp, dim)
-            x = c.narrow(dim, ksz, n) - c.narrow(dim, 0, n)
-    return x * (1.0 / (ksz * ksz))
+    rows = _window(pad_reflect101(x, 0, radius), radius, -1)
+    return _window(pad_reflect101(rows, radius, 0), radius, -2) * (
+        1.0 / (ksz * ksz))
 
 
 def _axis_counts(n: int, radius: int, device):
@@ -89,9 +102,44 @@ def box_filter(x, radius: int, border: str = SHRINK):
     border="reflect101": fused-path semantics (fixed 1/ksz^2, mirrored halo).
     """
     check_radius(radius)
-    x = torch.as_tensor(x)
+    x = as_image(x)
     check_image(x, "x", dtypes=_FLOAT_IN)
     return _box(border, radius)(x.to(torch.float32))
+
+
+def box_filter_ypadded(p, radius: int):
+    """Box mean (reflect-101 in x, 1/ksz^2) of a block already padded by
+    ``radius`` rows on the row axis: (..., H + 2r, W) -> float32 (..., H,
+    W). The sharded form of ``box_filter(border="reflect101")``."""
+    check_radius(radius)
+    p = as_image(p)
+    check_image(p, "p", dtypes=_FLOAT_IN)
+    check_ypadded_rows(p, radius, "2*radius")
+    ksz = 2 * radius + 1
+    rows = _window(pad_reflect101(p.to(torch.float32), 0, radius), radius, -1)
+    return _window(rows, radius, -2) * (1.0 / (ksz * ksz))
+
+
+def guided_ypadded(Ipad, ppad, radius: int, eps: float):
+    """Guided filter (reflect-101 fused-path semantics) on blocks already
+    padded by ``2*radius`` rows on the row axis, (..., H + 4r, W) ->
+    float32 (..., H, W); x is reflect-101 in the kernel. Passing the same
+    tensor twice is the self-guided form (object identity, as tpuimg's
+    ``ppad is Ipad``). The kernel takes radius <= 16 (its shared-memory
+    ceiling), on every device; tpuimg has none there."""
+    self_guided = ppad is Ipad
+    check_radius(radius)
+    check_positive(eps, "eps")
+    if radius > GUIDED_MAX_RADIUS:
+        raise ParamError(
+            f"guided_ypadded takes radius <= {GUIDED_MAX_RADIUS} (the guided "
+            f"kernel's shared-memory ceiling), got {radius}")
+    Ipad = as_image(Ipad)
+    check_ypadded_rows(Ipad, 2 * radius, "4*radius")
+    Ipad = Ipad.to(torch.float32).contiguous()
+    ppad = Ipad if self_guided else as_image(ppad, like=Ipad).to(
+        torch.float32).contiguous()
+    return guided_ypadded_kernel(Ipad, ppad, radius, eps, self_guided)
 
 
 def guided_filter(I, p, radius: int, eps: float, border: str = SHRINK):
@@ -102,8 +150,8 @@ def guided_filter(I, p, radius: int, eps: float, border: str = SHRINK):
     self_guided = p is I
     check_radius(radius)
     check_positive(eps, "eps")  # eps=0 gives 0/0=NaN on constant windows
-    I = torch.as_tensor(I)
-    p = I if self_guided else torch.as_tensor(p)
+    I = as_image(I)
+    p = I if self_guided else as_image(p, like=I)
     check_image(I, "I", dtypes=_FLOAT_IN)
     check_image(p, "p", dtypes=_FLOAT_IN)
     if p.ndim not in (I.ndim, I.ndim + 1) or p.shape[-2:] != I.shape[-2:]:

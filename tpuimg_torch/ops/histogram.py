@@ -21,6 +21,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from tpuimg_torch.core.device import as_image
 from tpuimg_torch.core.layout import cdiv
 from tpuimg_torch.core.validate import (
     ParamError, ShapeError, check_image, check_positive, check_radius)
@@ -33,7 +34,7 @@ def bincount256(x, per_leading: bool = False):
 
     per_leading=False reduces everything; True keeps the leading dim and
     reduces the rest (one histogram per leading index)."""
-    x = torch.as_tensor(x).contiguous()
+    x = as_image(x).contiguous()
     if per_leading:
         return hist256_groups(x.reshape(x.shape[0], -1))
     return hist256(x)
@@ -44,10 +45,10 @@ def apply_lut(table, img):
     table gives float32, as tpuimg's ``lut_apply`` does."""
     from tpuimg_torch.kernels.lut import lut_gather
 
-    table = torch.as_tensor(table)
+    img = as_image(img).contiguous()
+    table = as_image(table, like=img)
     if table.is_floating_point():
         table = table.to(torch.float32)
-    img = torch.as_tensor(img).contiguous()
     return lut_gather(table, img.reshape(1, -1)).reshape(img.shape)
 
 
@@ -70,7 +71,7 @@ def hist_equalize(img):
     last x-block of each row band (KNOWN_DIVERGENCES.md section 1)."""
     from tpuimg_torch.kernels.lut import lut_gather, lut_gather_frames
 
-    img = torch.as_tensor(img)
+    img = as_image(img)
     check_image(img, "img", dtypes=[torch.uint8])
     img = img.contiguous()
     if img.ndim > 2:
@@ -113,15 +114,16 @@ def _blend_to_u8(out):
 
 
 def _tile_coords(n: int, tiles: int, tsize: int, pad: int, use_recip: bool,
-                 device):
-    """Per-axis interpolation coordinates (the counterpart of tpuimg's
-    ``_tile_coord_runs``, which groups the same values into static runs).
+                 device, start: int = 0):
+    """Per-axis interpolation coordinates of positions start .. start + n - 1
+    (the counterpart of tpuimg's ``_tile_coord_runs``, which groups the same
+    values into static runs).
 
     The reference's f32 math: y uses a true division (``__fdiv_rn``), x a
     multiply by the host's f32 reciprocal; the tile index truncates toward
     zero. Returns (t1, t2, frac) with t2 = min(t1 + 1, tiles - 1); frac may be
     negative at the leading border."""
-    idx = torch.arange(n, dtype=torch.float32, device=device)
+    idx = torch.arange(start, start + n, dtype=torch.float32, device=device)
     if use_recip:
         inv = float(np.float32(1.0) / np.float32(tsize))
         tf = (idx + pad) * inv - 0.5
@@ -188,7 +190,7 @@ def clahe(img, clip_limit: float = 1.0, xtiles: int = 8, ytiles: int = 8,
     in [0, 255] as float32 instead of truncating it to uint8."""
     from tpuimg_torch.kernels.lut import clahe_map
 
-    img = torch.as_tensor(img).contiguous()
+    img = as_image(img).contiguous()
     tables, th, tw, pad_top, pad_left = _clahe_front(
         img, clip_limit, xtiles, ytiles)
     return clahe_map(img, tables, ytiles, xtiles, th, tw,

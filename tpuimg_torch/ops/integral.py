@@ -12,13 +12,14 @@ from __future__ import annotations
 
 import torch
 
+from tpuimg_torch.core.device import as_image
 from tpuimg_torch.core.validate import DTypeError, check_image, dtype_name
 from tpuimg_torch.kernels.scan2d import integral_kernel, integral_plain
 
 
 def integral(img):
     """Inclusive 2D prefix sum over the trailing two dims; int32 result."""
-    img = torch.as_tensor(img)
+    img = as_image(img)
     check_image(img, "img")
     if img.is_floating_point() or img.is_complex():
         raise DTypeError(

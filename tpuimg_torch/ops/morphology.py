@@ -10,15 +10,21 @@ frame's edges clamps.
 
 Dtypes follow tpuimg's ``jnp.asarray``: float64 is taken as float32 and
 int64 as int32; other dtypes raise ``DTypeError``.
+
+``morph_ypadded``, the per-shard op of ``parallel.stencil_sharded``, runs
+the morphology kernel's row-padded entry on a block whose rows already carry
+the radius of halo rows.
 """
 
 from __future__ import annotations
 
 import torch
 
-from tpuimg_torch.core.validate import check_image, check_radius
+from tpuimg_torch.core.device import as_image
+from tpuimg_torch.core.validate import (
+    check_image, check_radius, check_ypadded_rows)
 from tpuimg_torch.kernels.sep_stencil import (
-    MORPH_DTYPES, morphology_kernel, open_close_kernel)
+    MORPH_DTYPES, morph_ypadded_kernel, morphology_kernel, open_close_kernel)
 
 # what JAX without x64 narrows an array to, as tpuimg receives it
 _NARROW = {torch.float64: torch.float32, torch.int64: torch.int32}
@@ -26,7 +32,7 @@ _NARROW = {torch.float64: torch.float32, torch.int64: torch.int32}
 
 def _prepared(img, radius: int):
     check_radius(radius)
-    img = torch.as_tensor(img)
+    img = as_image(img)
     img = img.to(_NARROW.get(img.dtype, img.dtype))
     check_image(img, "img", dtypes=list(MORPH_DTYPES))
     return img.contiguous()
@@ -50,3 +56,12 @@ def morph_open(img, radius: int):
 def morph_close(img, radius: int):
     """Dilate, then erode (square, replicate border)."""
     return open_close_kernel(_prepared(img, radius), radius, 1)
+
+
+def morph_ypadded(p, radius: int, mode: int):
+    """Erode (mode 0) or dilate (mode 1) a block already padded by
+    ``radius`` rows on the row axis (halo rows), (..., H + 2r, W) ->
+    (..., H, W); x is replicate in the kernel."""
+    p = _prepared(p, radius)
+    check_ypadded_rows(p, radius, "2*radius")
+    return morph_ypadded_kernel(p, radius, mode)

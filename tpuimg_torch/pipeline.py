@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import torch
 
+from tpuimg_torch.core.device import as_image
 from tpuimg_torch.core.validate import (
     check_impl, check_positive, check_radius)
 from tpuimg_torch.kernels.boxsum import (
@@ -56,7 +57,7 @@ def enhance(
     """Contrast-enhance + denoise a uint8 (H, W) frame, edges preserved.
     The device is the input tensor's."""
     check_impl(impl, allowed=("fused", "staged", "fused1"))
-    img = torch.as_tensor(img)
+    img = as_image(img)
     if impl == "staged":
         eq = clahe(img, clip_limit, tiles, tiles)
         f = eq.to(torch.float32) * (1.0 / 255.0)
