@@ -182,7 +182,7 @@ KERNELS = [  # name, wrapper, its launch counter, source, TPU kernel replaced
      "tpuimg_torch/csrc/clahe_map.cu", "tpuimg/kernels/lut.py:502"),
 ]
 
-# the least time of a call (on-chip-measurement guide): H100 SXM at 700 W,
+# the least time of a call, from the card's datasheet: H100 SXM at 700 W,
 # HBM 3.35 TB/s, 67 TFLOP/s f32 outside the tensor cores; the kernels'
 # integer compares and adds are counted at the f32 rate
 HBM_BYTES_PER_S = 3.35e12
