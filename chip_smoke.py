@@ -183,8 +183,8 @@ KERNELS = [  # name, wrapper, its launch counter, source, TPU kernel replaced
 ]
 
 # the least time of a call, from the card's datasheet: H100 SXM at 700 W,
-# HBM 3.35 TB/s, 67 TFLOP/s f32 outside the tensor cores; the kernels'
-# integer compares and adds are counted at the f32 rate
+# HBM 3.35 TB/s, 67 TFLOP/s f32 outside the tensor cores; integer compares
+# and adds count at the f32 rate, packed u8 compares four to an operation
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 # the enhance tail's halo: 2*gf_radius + radius rows (enhance_sharded)
@@ -215,11 +215,25 @@ def gauss_ops(r: int) -> int:
     return 2 * (3 * r + 1)
 
 
-def guided_ops(r: int, planes: int = 4) -> int:
-    """Operations a guided output pixel takes: row and column window sums
-    of ``planes`` planes (4 general, 2 self-guided) and of a and b, two
-    products, a and b, and q."""
-    return 2 * 2 * r * (planes + 2) + 12
+# the operations the function needs, whatever a kernel does: a window sum
+# is a running sum (an add and a subtract a pixel, in the row and the
+# column pass) and a window min or max is van Herk/Gil-Werman's (three
+# compares a pixel, in each pass), so neither grows with the radius
+BOX_SUM_OPS = 2 * 2
+MIN_MAX_OPS = 2 * 3
+
+
+def guided_ops(planes: int = 4) -> int:
+    """Operations a guided output pixel takes: window sums of ``planes``
+    planes (4 general, 2 self-guided) and of a and b, two products, a and
+    b, and q."""
+    return BOX_SUM_OPS * (planes + 2) + 12
+
+
+def morph_ops(dtype: torch.dtype, passes: int = 1) -> float:
+    """Operations an output pixel of ``passes`` erodes or dilates takes; u8
+    compares go four to an operation (__vminu4, __vmaxu4)."""
+    return MIN_MAX_OPS * passes / (4 if dtype == torch.uint8 else 1)
 
 
 CLAHE_BLEND_OPS = 16  # coordinates, four table reads, the bilinear lerp
@@ -1016,10 +1030,10 @@ def time_all(dev, card: str) -> dict:
         work = {  # bytes moved, operations
             "tile_hist": (n + TILES * TILES * 256 * 4, n),
             "clahe_map": (5 * n + nbytes(tables), CLAHE_BLEND_OPS * n),
-            "enhance_tail": (8 * n, (gauss_ops(RG) + guided_ops(GF_R)) * n),
+            "enhance_tail": (8 * n, (gauss_ops(RG) + guided_ops()) * n),
             "gaussian": (8 * n, gauss_ops(RG) * n),
-            "guided": (12 * n, guided_ops(GF_R) * n),
-            "guided_twopass": (12 * n, guided_ops(GF_R) * n)}
+            "guided": (12 * n, guided_ops() * n),
+            "guided_twopass": (12 * n, guided_ops() * n)}
         library = {"gaussian": gauss_conv(RG, SIGMA, dev)}
         for name in plain:
             t = time_pair(f"{name} {h}x{w}", wrappers[name], plain[name],
@@ -1095,27 +1109,28 @@ def time_he_integral(dev, card: str, batch: np.ndarray) -> dict:
 
 def time_morph_tail(dev, card: str) -> dict:
     """Phase 5 for the morphology, open/close and fused1 tail kernels;
-    returns the JSON rows' numbers: f32 dilate r15 (which max_pool2d also
-    computes) and the tail at 4K, morph_open r15 on two 4K frames."""
+    returns the JSON rows' numbers: u8 erode r15 (no one PyTorch call
+    computes it: f32 dilate r15 against max_pool2d is a line of its own)
+    and the tail at 4K, morph_open r15 on two 4K frames."""
     at_4k = {}
     r = MORPH_PATH_R
     for h, w in TIMED:
         img = torch.from_numpy(make_frame(h, w, SEED)).to(dev)
+        work = (2 * img.numel(), morph_ops(img.dtype) * img.numel())
         for rr in (1, r):
-            time_pair(f"erode u8 r{rr} {h}x{w}",
-                      lambda x: morphology_kernel(x, rr, 0),
-                      lambda x: morphology_plain(x, rr, 0), (img,), card,
-                      work=(2 * img.numel(), 4 * rr * img.numel()))
+            t = time_pair(f"erode u8 r{rr} {h}x{w}",
+                          lambda x: morphology_kernel(x, rr, 0),
+                          lambda x: morphology_plain(x, rr, 0), (img,), card,
+                          work=work)
+        if (h, w) == SHAPES[0]:
+            at_4k["morphology"] = row(t, *work)
         f = img.to(torch.float32)
         check(torch.equal(morphology_kernel(f, r, 1), max_pool(r)(f)),
               f"dilate f32 r{r} {h}x{w} equals max_pool2d")
-        work = (2 * nbytes(f), 4 * r * f.numel())
-        t = time_pair(f"dilate f32 r{r} {h}x{w}",
-                      lambda x: morphology_kernel(x, r, 1),
-                      lambda x: morphology_plain(x, r, 1), (f,), card,
-                      max_pool(r), work)
-        if (h, w) == SHAPES[0]:
-            at_4k["morphology"] = row(t, *work)
+        time_pair(f"dilate f32 r{r} {h}x{w}",
+                  lambda x: morphology_kernel(x, r, 1),
+                  lambda x: morphology_plain(x, r, 1), (f,), card,
+                  max_pool(r), (2 * nbytes(f), morph_ops(f.dtype) * f.numel()))
         th, tw, pt, pl = _clahe_geometry(h, w, TILES, TILES)
         tables = _clahe_tables(tile_hist_plain(img, TILES, TILES, th, tw, pt,
                                                pl), CLIP, th, tw)
@@ -1123,7 +1138,7 @@ def time_morph_tail(dev, card: str) -> dict:
                 GF_EPS)
         n = h * w
         work = (5 * n + nbytes(tables),
-                (gauss_ops(RG) + guided_ops(GF_R) + CLAHE_BLEND_OPS) * n)
+                (gauss_ops(RG) + guided_ops() + CLAHE_BLEND_OPS) * n)
         t = time_pair(f"enhance_tail_clahe {h}x{w}", enhance_tail_clahe,
                       enhance_tail_clahe_plain, args, card, work=work)
         if (h, w) == SHAPES[0]:
@@ -1135,7 +1150,7 @@ def time_morph_tail(dev, card: str) -> dict:
           f"median of {ITERS} [{card}]")
     x = torch.from_numpy(morph_frame(MORPH_BATCH, "uint8", SEED + 6)).to(dev)
     label = f"r{r} {'x'.join(map(str, MORPH_BATCH))}"
-    work = (2 * nbytes(x), 8 * r * x.numel())
+    work = (2 * nbytes(x), morph_ops(x.dtype, passes=2) * x.numel())
     at_4k["open_close"] = row(time_pair(
         f"open_close (open) {label}", lambda v: open_close_kernel(v, r, 0),
         lambda v: open_close_plain(v, r, 0), (x,), card, work=work), *work)
@@ -1211,7 +1226,7 @@ def time_sharded(dev, card: str, batch: np.ndarray) -> dict:
         work), *work)
     Ip = fp[RG:fp.shape[0] - RG].contiguous()
     out = guided_ypadded_kernel(Ip, smooth, GF_R, GF_EPS)
-    work = (nbytes(Ip, smooth, out), guided_ops(GF_R) * out.numel())
+    work = (nbytes(Ip, smooth, out), guided_ops() * out.numel())
     at["guided_ypadded"] = row(time_pair(
         f"guided_ypadded r{GF_R} general {tuple(Ip.shape)} -> "
         f"{tuple(out.shape)}",
@@ -1221,19 +1236,19 @@ def time_sharded(dev, card: str, batch: np.ndarray) -> dict:
     time_pair(f"guided_ypadded r{GF_R} self {tuple(Ip.shape)}",
               lambda a: guided_ypadded_kernel(a, a, GF_R, GF_EPS, True),
               lambda a: guided_ypadded_plain(a, a, GF_R, GF_EPS, True),
-              (Ip,), card, work=(nbytes(Ip, out),
-                                 guided_ops(GF_R, 2) * out.numel()))
+              (Ip,), card, work=(nbytes(Ip, out), guided_ops(2) * out.numel()))
     r = MORPH_PATH_R
     blk = torch.from_numpy(make_frame(rows + 2 * r, w, SEED + 71)).to(dev)
     time_pair(f"morph_ypadded erode u8 r{r} {tuple(blk.shape)}",
               lambda x: morph_ypadded_kernel(x, r, 0),
               lambda x: morph_ypadded_plain(x, r, 0), (blk,), card,
-              work=(blk.numel() + rows * w, 4 * r * rows * w))
+              work=(blk.numel() + rows * w,
+                    morph_ops(blk.dtype) * rows * w))
     fblk = blk.to(torch.float32)
     dil = morph_ypadded_kernel(fblk, r, 1)
     check(torch.equal(dil, max_pool(r, pad_rows=False)(fblk)),
           "morph_ypadded f32 dilate equals max_pool2d")
-    work = (nbytes(fblk, dil), 4 * r * dil.numel())
+    work = (nbytes(fblk, dil), morph_ops(fblk.dtype) * dil.numel())
     at["morph_ypadded"] = row(time_pair(
         f"morph_ypadded dilate f32 r{r} {tuple(fblk.shape)}",
         lambda x: morph_ypadded_kernel(x, r, 1),

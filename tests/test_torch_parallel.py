@@ -410,7 +410,9 @@ def test_sharded_gather_and_shape(rng, meshes):
     assert [b.shape[0] for b in s.blocks[0]] == [16] * 4
     assert torch.equal(s.gather(), img)
     b = tpar.shard_batch(tm, img.reshape(4, 16, 72))
-    assert b.shape == (4, 16, 72) and not b.rows
+    assert b.shape == (4, 16, 72)
+    assert [[blk.shape for blk in row] for row in b.blocks] == [
+        [(2, 4, 72)] * 4] * 2
     assert torch.equal(b.gather(), img.reshape(4, 16, 72))
 
 

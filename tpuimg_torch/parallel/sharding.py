@@ -76,23 +76,20 @@ class Sharded:
     ``mesh.devices[d][s]``.
 
     ``batch``: the leading dim splits over ``data`` (else ``blocks`` has the
-    one data row of a single frame). ``rows``: the rows (dim -2) split over
-    ``sp``, in order (else each ``sp`` device holds every row, as
-    ``shard_batch`` places a batch). The row blocks of an op that crops
-    (uneven H in ``clahe_sharded``, ``enhance_sharded``) may be shorter at
-    the end."""
+    one data row of a single frame). The rows (dim -2) split over ``sp``, in
+    order; the row blocks of an op that crops (uneven H in
+    ``clahe_sharded``, ``enhance_sharded``) may be shorter at the end."""
 
     mesh: Mesh
     blocks: tuple[tuple[torch.Tensor, ...], ...]
     batch: bool
-    rows: bool
 
     def gather(self, device=None) -> torch.Tensor:
         """The global tensor on ``device`` (by default the first block's):
         the row blocks concatenated, then the data rows."""
         device = self.blocks[0][0].device if device is None else device
-        parts = [torch.cat([b.to(device) for b in row], dim=-2) if self.rows
-                 else row[0].to(device) for row in self.blocks]
+        parts = [torch.cat([b.to(device) for b in row], dim=-2)
+                 for row in self.blocks]
         return torch.cat(parts, dim=0) if self.batch else parts[0]
 
     @property
@@ -109,8 +106,7 @@ class Sharded:
         lead = list(first.shape[:-2])
         if self.batch:
             lead[0] = sum(row[0].shape[0] for row in self.blocks)
-        h = (sum(b.shape[-2] for b in self.blocks[0]) if self.rows
-             else first.shape[-2])
+        h = sum(b.shape[-2] for b in self.blocks[0])
         return (*lead, h, first.shape[-1])
 
 
@@ -156,37 +152,23 @@ def _split(mesh: Mesh, x: torch.Tensor, uneven: bool = False):
 def _layout(mesh: Mesh, x, uneven: bool = False):
     """The blocks of ``x`` (a global tensor or array, or a ``Sharded``) in
     ``_spec``'s layout on ``mesh``: a ``Sharded`` already so laid out is
-    taken as it is, one from ``shard_batch`` is cut into rows on each
-    device, anything else is split from the global tensor."""
+    taken as it is, anything else is split from the global tensor."""
     if isinstance(x, Sharded) and x.mesh == mesh and x.batch == (x.ndim > 2):
-        if x.rows:
-            return x.blocks
-        n_sp = mesh.shape["sp"]
-        bounds = _row_bounds(x.shape[-2], n_sp, uneven)
-        return tuple(
-            tuple(row[s].narrow(-2, lo, hi - lo).contiguous()
-                  for s, (lo, hi) in enumerate(bounds))
-            for row in x.blocks)
+        return x.blocks
     x = x.gather() if isinstance(x, Sharded) else as_image(x)
     return _split(mesh, x, uneven)
 
 
 def shard_batch(mesh: Mesh, batch) -> Sharded:
-    """Place a (B, H, W) batch with B split over the ``data`` axis; each
-    ``sp`` device of a data row holds that row's frames whole."""
+    """Place a (B, H, W) batch with B split over the ``data`` axis and each
+    data row's frames split by rows over ``sp``, the layout every sharded
+    op works in (tpuimg's P('data') replicates the frames over ``sp``,
+    which one controller gains nothing from)."""
     batch = as_image(batch)
     if batch.ndim != 3:
         raise ValueError(
             f"shard_batch places a (B, H, W) batch; got ndim={batch.ndim}")
-    n_data = mesh.shape["data"]
-    if batch.shape[0] % n_data:
-        raise ValueError(
-            f"a batch of {batch.shape[0]} does not divide over the data axis "
-            f"of {n_data} devices")
-    bs = batch.shape[0] // n_data
-    return Sharded(mesh, tuple(
-        tuple(batch[d * bs:(d + 1) * bs].to(dev) for dev in row)
-        for d, row in enumerate(mesh.devices)), batch=True, rows=False)
+    return Sharded(mesh, _split(mesh, batch), batch=True)
 
 
 def shard_rows(mesh: Mesh, img) -> Sharded:
@@ -199,7 +181,7 @@ def shard_rows(mesh: Mesh, img) -> Sharded:
         raise ValueError(
             f"shard_rows places a single (H, W) frame; got ndim={img.ndim} "
             f"— use shard_batch for batched inputs")
-    return Sharded(mesh, _split(mesh, img), batch=False, rows=True)
+    return Sharded(mesh, _split(mesh, img), batch=False)
 
 
 def _edge_rows(block, radius: int, border: str, top: bool):
@@ -255,7 +237,7 @@ def _psum(parts, device):
 def _sharded(mesh: Mesh, blocks) -> Sharded:
     """The result of an op: row blocks in ``_spec``'s layout."""
     return Sharded(mesh, tuple(tuple(row) for row in blocks),
-                   batch=blocks[0][0].ndim > 2, rows=True)
+                   batch=blocks[0][0].ndim > 2)
 
 
 def stencil_sharded(op, radius: int, border: str, mesh: Mesh):
