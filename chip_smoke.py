@@ -21,7 +21,9 @@ Phases, each printed on its own line:
    (r 1, 8, 16, plus a 6x40 frame at r 8) <= 1e-4 and finite; bit-exact:
    hist256 at those sizes, at 4320x7680 and on a flat 4K frame,
    hist256_frames on 16 frames of 1080p and on 3 odd-sized frames,
-   hist256_groups on (64, 8161) groups, lut_gather with u8, int32 and
+   hist256_groups on (64, 8161) groups, hist256_groups_packed on a 4K
+   frame seen as (2160, 960) int32 words and on (64, 2041) random words
+   with top bits set, lut_gather with u8, int32 and
    float32 tables (compared as int32 bits), lut_gather_frames on 16 frames
    of 1080p, integral at 4K, 2161x3839, on three 1080p frames and on an
    all-255 4320x7680 frame whose sums wrap; hist_equalize at 8K and on a
@@ -38,7 +40,9 @@ Phases, each printed on its own line:
    1e-4 of its plain version; the row-padded kernels at the blocks of a 4K
    shard over sp = 4 (540, 541 of 3839 columns, and 1 output rows, with the
    enhance tail's 2*18 halo rows): gaussian_ypadded r2 <= 1e-5,
-   guided_ypadded r8 general and self <= 1e-4, morph_ypadded r1 and r15 on
+   guided_ypadded r8 general and self <= 1e-4 (and r 20, 32, 64 and 80,
+   the last on its scratch route, on 540-row and one-row 4K blocks),
+   morph_ypadded r1 and r15 on
    2x4K-shard, unaligned and one-row blocks and r120 (its two-pass route)
    in u8, int32 and float32 with NaNs, equal; clahe_band_map on 540-row
    4K bands at y0 0, 537 and 1620, tiles 8 and 16: f32 <= 1e-3, u8 <= 1
@@ -52,7 +56,9 @@ Phases, each printed on its own line:
    the stand-alone filters (gaussian r2 at 1080p, guided r8 at 4K
    self-guided, general, and twopass), hist_equalize at 4K (hist256,
    lut_gather) and on 16 frames of 1080p (the same two kernels, frames
-   form, one launch each), integral at 4K (integral), and erode, dilate
+   form, one launch each), hist256_groups_packed on a 4K frame's words
+   (equal to hist256 and NumPy's bincount), integral at 4K (integral), and
+   erode, dilate
    (one morphology launch each), morph_open and morph_close (one
    open_close launch each) at r15 on two 4K u8 frames (the JAX package's
    morph_31x31_4k_batch2 bench row). Each enhance output is u8 of the
@@ -67,7 +73,9 @@ Phases, each printed on its own line:
    (1, 4) within 1 step of enhance(impl="staged") (clahe_band_map,
    gaussian_ypadded, guided_ypadded); stencil_sharded gaussian r2 (1e-6)
    and erode r15 (equal) on 2x4K over (2, 4); guided_filter_sharded r8 at
-   4K, general and self (1e-5); integral_sharded, hist_equalize_sharded
+   4K, general and self (1e-5); at gf_radius 20, guided_filter_sharded
+   (1e-5 of the unsharded kernel, 1e-3 of guided_filter's plain chain) and
+   enhance_sharded (1 step of staged); integral_sharded, hist_equalize_sharded
    at 4K and on 16x1080p over (4, 2) (equal), clahe_sharded at 4K and
    2161x3840 (1 step);
 5. CUDA-event timing (median of 30 after 3 warm-up runs) of every kernel and
@@ -76,7 +84,8 @@ Phases, each printed on its own line:
    morph_open (r15 on two 4K frames, also against two erode/dilate
    launches) end to end against their plain compositions, at 4K and 1080p;
    f32 dilate r15 against max_pool2d, gaussian against a conv2d, hist256
-   against bincount and lut_gather against indexing (the one PyTorch call
+   and hist256_packed against bincount and lut_gather against indexing (the
+   one PyTorch call
    that computes the same function); the row-padded kernels at a 4K
    shard's blocks; enhance_sharded at 4K and 8K against enhance staged and
    fused, and the stencil and guided sharded ops against their unsharded
@@ -107,7 +116,8 @@ from tpuimg_torch.kernels.boxsum import (
     enhance_tail_plain, guided_filter_kernel, guided_filter_plain,
     guided_ypadded_kernel, guided_ypadded_plain)
 from tpuimg_torch.kernels.hist import (
-    hist256, hist256_frames, hist256_groups, hist256_groups_plain, tile_hist,
+    hist256, hist256_frames, hist256_groups, hist256_groups_packed,
+    hist256_groups_packed_plain, hist256_groups_plain, tile_hist,
     tile_hist_plain)
 from tpuimg_torch.kernels.lut import (
     clahe_band_map, clahe_band_map_plain, clahe_map, clahe_map_plain,
@@ -180,6 +190,8 @@ KERNELS = [  # name, wrapper, its launch counter, source, TPU kernel replaced
      "tpuimg_torch/csrc/guided.cu", "tpuimg/kernels/boxsum.py:602"),
     ("clahe_band_map", clahe_band_map, "launches",
      "tpuimg_torch/csrc/clahe_map.cu", "tpuimg/kernels/lut.py:502"),
+    ("hist256_packed", hist256_groups_packed, "launches",
+     "tpuimg_torch/csrc/hist256.cu", "tpuimg/kernels/hist.py:167"),
 ]
 
 # the least time of a call, from the card's datasheet: H100 SXM at 700 W,
@@ -193,6 +205,10 @@ SHARD_ROWS = [540, 541, 1]  # a 4K shard over sp = 4, unaligned, one row
 BAND_Y0 = [0, 537, 1620]
 BAND_GRIDS = [8, 16]
 YPAD_MORPH_R = [1, 15]
+# the row-padded guided entry past tpuimg's dispatch ceiling of 16; 80 takes
+# its scratch route (past kernels.GUIDED_SMEM_MAX_RADIUS)
+YPAD_GUIDED_R = [20, 32, 64, 80]
+GF_R_LARGE = 20  # the sharded paths at a gf_radius past 16
 
 
 def nbytes(*tensors) -> int:
@@ -470,6 +486,19 @@ def check_he_kernels(dev, card: str, errs: dict, batch: np.ndarray) -> None:
         rng.integers(0, 256, (64, 8161), dtype=np.uint8)).to(dev)
     exact("hist256_groups 64x8161", hist256_groups(groups),
           hist256_groups_plain(groups), errs, "hist256")
+    # packed words: a 4K frame seen as int32 words, a row a group, and random
+    # words, many with the top bit set
+    words = torch.from_numpy(make_frame(*SHAPES[0], SEED)).to(dev).view(
+        torch.int32)
+    signed = torch.from_numpy(rng.integers(
+        -2 ** 31, 2 ** 31, (64, 2041), dtype=np.int64).astype(np.int32)).to(dev)
+    check(bool((signed < 0).any()), "packed words with the top bit set")
+    for x in (words, signed):
+        exact(f"hist256_packed {tuple(x.shape)}", hist256_groups_packed(x),
+              hist256_groups_packed_plain(x), errs, "hist256_packed")
+    print(f"phase 3 hist256_groups_packed vs plain, {tuple(words.shape)} "
+          f"words of a 4K frame and {tuple(signed.shape)} random words: "
+          f"exact [{card}]")
     tables = _he_tables(hist256_groups_plain(stack), stack[0].numel())
     exact("lut_gather_frames", lut_gather_frames(tables, stack),
           lut_gather_frames_plain(tables, stack), errs, "lut_gather")
@@ -636,6 +665,7 @@ def check_ypadded_kernels(dev, card: str, errs: dict) -> None:
     err = max_err(gaussian_ypadded_kernel(one, RG, SIGMA),
                   gaussian_ypadded_plain(one, RG, SIGMA))
     check(err <= 1e-5, f"gaussian_ypadded one-row block: {err} <= 1e-5")
+    check_guided_ypadded_large(dev, card, errs)
 
     w = SHAPES[0][1]
     cases = [((2, SHARD_ROWS[0]), w, YPAD_MORPH_R),
@@ -686,6 +716,37 @@ def check_ypadded_kernels(dev, card: str, errs: dict) -> None:
         print(f"phase 3 clahe_band_map vs plain, {SHARD_ROWS[0]}-row bands "
               f"of {SHAPES[0][0]}x{SHAPES[0][1]} tiles {tiles}: "
               f"{'; '.join(line)}; each equals clahe_map's rows [{card}]")
+
+
+def check_guided_ypadded_large(dev, card: str, errs: dict) -> None:
+    """Phase 3, the row-padded guided entry past r = 16 (tpuimg has no
+    ceiling there): a 4K shard's block (540 output rows) and a one-row block
+    at each radius, general and self-guided; r80 on the scratch route."""
+    w = SHAPES[0][1]
+    for r in YPAD_GUIDED_R:
+        for rows in (SHARD_ROWS[0], 1):
+            I, p = guide_pair((rows + 4 * r, w), SEED + 80 + r + rows, dev)
+            scratch = guided_ypadded_kernel.scratch_launches
+            line = []
+            for what, pp, self_g in (("general", p, False), ("self", I, True)):
+                got = guided_ypadded_kernel(I, pp, r, GF_EPS, self_g)
+                err = max_err(got, guided_ypadded_plain(I, pp, r, GF_EPS,
+                                                        self_g))
+                label = f"guided_ypadded r{r} {what} {rows}x{w}"
+                check(got.shape == (rows, w)
+                      and bool(torch.isfinite(got).all()),
+                      f"{label} shape and finite")
+                check(err <= 1e-4, f"{label}: {err} <= 1e-4")
+                errs["guided_ypadded"] = max(errs["guided_ypadded"], err)
+                line.append(f"{what} {err:.3g}")
+            torch.cuda.synchronize()
+            scratch = guided_ypadded_kernel.scratch_launches - scratch
+            want = 2 if r > kernels.GUIDED_SMEM_MAX_RADIUS else 0
+            check(scratch == want, f"guided_ypadded r{r} took the scratch "
+                  f"route {scratch} times, not {want}")
+            print(f"phase 3 guided_ypadded r{r} vs plain, {rows}x{w} block "
+                  f"({rows + 4 * r} rows in): {', '.join(line)}; scratch "
+                  f"route {scratch} times [{card}]")
 
 
 def front_at(img, tiles: int, clip: float = CLIP):
@@ -855,6 +916,21 @@ def run_he_integral_paths(dev, card: str, batch: np.ndarray) -> dict:
               f"composition and the NumPy formula, and the CPU run on a "
               f"{'x'.join(map(str, crop.shape))} crop [{card}]")
         total = {k: total[k] + got[k] for k in total}
+    # a caller that holds the frame as packed words (tpuimg has none: its
+    # packed kernel is an entry of its own)
+    img = torch.from_numpy(frame).to(dev)
+    words = img.view(torch.int32).reshape(1, -1)
+    label = f"hist256_groups_packed {tuple(words.shape)} words of {h}x{w}"
+    out, got = drive(label, ("hist256_packed",), hist256_groups_packed, words)
+    check(got["hist256_packed"] == 1 and sum(got.values()) == 1,
+          f"{label}: one hist256_packed launch and no other ({got})")
+    check(torch.equal(out[0], hist256(img)), f"{label} equals hist256")
+    check(torch.equal(out[0].cpu(), torch.from_numpy(np.bincount(
+        frame.ravel(), minlength=256).astype(np.int32))),
+          f"{label} equals NumPy's bincount")
+    print(f"phase 4 {label}: launches {{'hist256_packed': 1}}; equals "
+          f"hist256 of the frame and NumPy's bincount [{card}]")
+    total["hist256_packed"] += 1
     return total
 
 
@@ -930,6 +1006,7 @@ def run_sharded_paths(dev, card: str, batch: np.ndarray) -> dict:
         check(err <= 1e-5, f"{label} vs unsharded: {err} <= 1e-5")
         print(f"phase 4 {label}: launches {pick(got, ('guided_ypadded',))};"
               f" vs guided_filter {err:.3g} [{card}]")
+    add(run_sharded_large_radius(dev, card, mesh[(1, 4)], I, p))
 
     frame = torch.from_numpy(make_frame(h, w, SEED + 10)).to(dev)
     stack = torch.from_numpy(batch).to(dev)
@@ -961,6 +1038,52 @@ def run_sharded_paths(dev, card: str, batch: np.ndarray) -> dict:
         print(f"phase 4 {label}: launches {pick(got, expected)}; vs the "
               f"unsharded op {diff} (<= {limit}) [{card}]")
     return total
+
+
+def run_sharded_large_radius(dev, card: str, mesh, I, p) -> dict:
+    """Phase 4 for guided_filter_sharded and enhance_sharded at gf_radius
+    GF_R_LARGE (> 16) on 4K over (1, 4), through the row-padded kernel.
+    guided_filter and enhance send r > 16 to the plain chain (cumsum
+    differences in f32, as tpuimg sends it to XLA), so the sharded guided
+    filter is held to the unsharded frame kernel (1e-5) and to that chain
+    (1e-3), and enhance_sharded to enhance(impl="staged") (1 step)."""
+    r = GF_R_LARGE
+    h, w = I.shape
+    counts = []
+    for label, args, self_g in (
+            (f"guided_filter_sharded r{r} general {h}x{w} (1, 4)",
+             (shard_rows(mesh, I), p), False),
+            (f"guided_filter_sharded r{r} self {h}x{w} (1, 4)", (I, I), True)):
+        op = guided_filter_sharded(mesh, r, GF_EPS)
+        out, got = drive(label, ("guided_ypadded",), op, *args)
+        counts.append(got)
+        out = out.gather()
+        q = args[1]
+        err_k = max_err(out, guided_filter_kernel(I, q, r, GF_EPS,
+                                                  self_guided=self_g))
+        err_op = max_err(out, guided_filter(I, q, r, GF_EPS, "reflect101"))
+        check(err_k <= 1e-5, f"{label} vs the unsharded kernel: {err_k} "
+              f"<= 1e-5")
+        check(err_op <= 1e-3, f"{label} vs guided_filter's chain: {err_op} "
+              f"<= 1e-3")
+        print(f"phase 4 {label}: launches {pick(got, ('guided_ypadded',))}; "
+              f"vs the unsharded kernel {err_k:.3g}, vs guided_filter (plain "
+              f"chain past r16) {err_op:.3g} [{card}]")
+    img = torch.from_numpy(make_frame(h, w, SEED + 12)).to(dev)
+    label = f"enhance_sharded gf_radius {r} {h}x{w} (1, 4)"
+    ypad = ("clahe_band_map", "gaussian_ypadded", "guided_ypadded")
+    out, got = drive(label, ypad, enhance_sharded(
+        mesh, CLIP, TILES, RG, SIGMA, r, GF_EPS), img)
+    counts.append(got)
+    out = out.gather()
+    ref = enhance(img, CLIP, TILES, RG, SIGMA, r, GF_EPS, "staged")
+    step = int((out.int() - ref.int()).abs().max())
+    check(out.shape == ref.shape and out.dtype == torch.uint8,
+          f"{label} output {tuple(out.shape)} {out.dtype}")
+    check(step <= 1, f"{label} vs enhance staged: {step} <= 1 step")
+    print(f"phase 4 {label}: launches {pick(got, ypad)}; vs enhance staged "
+          f"{step} step, {int((out != ref).sum())} pixels differ [{card}]")
+    return {k: sum(c[k] for c in counts) for k in counts[0]}
 
 
 def pick(got: dict, names) -> dict:
@@ -1065,11 +1188,18 @@ def time_he_integral(dev, card: str, batch: np.ndarray) -> dict:
         img = torch.from_numpy(make_frame(h, w, SEED)).to(dev)
         table = _he_tables(hist256_groups_plain(img.reshape(1, -1))[0], h * w)
         n = h * w
+        words = img.view(torch.int32).reshape(1, -1)  # the frame, packed
         cases = {
             "hist256": (hist256, lambda x: hist256_groups_plain(
                 x.reshape(1, -1))[0], (img,),
                 lambda x: torch.bincount(x.reshape(-1), minlength=256),
                 (n + 256 * 4, n)),
+            # bincount of the words' bytes: a view, then one call
+            "hist256_packed": (
+                hist256_groups_packed, hist256_groups_packed_plain, (words,),
+                lambda x: torch.bincount(x.view(torch.uint8).reshape(-1),
+                                         minlength=256),
+                (4 * words.numel() + 256 * 4, n)),
             # indexing takes int64 indices: the cast is part of the call
             "lut_gather": (lut_gather, lut_gather_plain, (table, img),
                            lambda t, x: t[x.long()], (2 * n + 256, n)),

@@ -18,14 +18,15 @@ import torch
 import tpuimg_torch
 from tpuimg_torch.core.validate import ParamError
 from tpuimg_torch.kernels import (
-    GAUSS_MAX_RADIUS, MORPH_MAX_TILE_RADIUS, OPEN_CLOSE_MAX_RADIUS,
-    KernelLaunchError)
+    GAUSS_MAX_RADIUS, GUIDED_SMEM_MAX_RADIUS, MORPH_MAX_TILE_RADIUS,
+    OPEN_CLOSE_MAX_RADIUS, KernelLaunchError, launch, load)
 from tpuimg_torch.kernels.boxsum import (
     INV_255, enhance_tail, enhance_tail_clahe, enhance_tail_clahe_plain,
     enhance_tail_plain, guided_filter_kernel, guided_filter_plain,
     guided_ypadded_kernel, guided_ypadded_plain)
 from tpuimg_torch.kernels.hist import (
-    hist256, hist256_frames, hist256_groups, hist256_groups_plain, tile_hist,
+    hist256, hist256_frames, hist256_groups, hist256_groups_packed,
+    hist256_groups_packed_plain, hist256_groups_plain, tile_hist,
     tile_hist_plain)
 from tpuimg_torch.kernels.lut import (
     clahe_band_map, clahe_band_map_plain, clahe_map, clahe_map_plain,
@@ -210,6 +211,22 @@ def test_guided_matches_plain(card, shape, radius, variant):
         assert float((got - ref).abs().max()) <= 1e-4
 
 
+@pytest.mark.parametrize("shape,radius", [((33, 33), 20), ((96, 300), 32),
+                                          ((150, 170), 64), ((5, 700), 40)])
+def test_guided_onepass_large_radius_matches_plain(card, shape, radius):
+    """The frame entry past tpuimg's dispatch ceiling of 16, up to its own
+    of GUIDED_MAX_RADIUS["onepass"] = 64."""
+    g = np.random.default_rng(radius)
+    I = torch.from_numpy(g.random(shape, dtype=np.float32)).to(card)
+    p = torch.from_numpy(g.random(shape, dtype=np.float32)).to(card)
+    for q, self_guided in ((p, False), (I, True)):
+        got = guided_filter_kernel(I, q, radius, 1e-3,
+                                   self_guided=self_guided)
+        ref = guided_filter_plain(I, q, radius, 1e-3, self_guided)
+        assert bool(torch.isfinite(got).all())
+        assert float((got - ref).abs().max()) <= 1e-4
+
+
 def test_guided_self_equals_general_with_p_is_i(card):
     g = np.random.default_rng(8)
     I = torch.from_numpy(g.random((140, 230), dtype=np.float32)).to(card)
@@ -295,8 +312,10 @@ def test_wrappers_check_their_inputs(card):
         guided_filter_kernel(f, f[:10], 4, 1e-3)
     with pytest.raises(ValueError, match="CUDA tensor"):
         guided_filter_kernel(f, f.cpu(), 4, 1e-3)
+    with pytest.raises(ParamError, match="radius <= 64"):
+        guided_filter_kernel(f, f, 65, 1e-3)
     with pytest.raises(ParamError, match="radius <= 16"):
-        guided_filter_kernel(f, f, 17, 1e-3)
+        guided_filter_kernel(f, f, 17, 1e-3, variant="twopass")
     with pytest.raises(ParamError, match="variant"):
         guided_filter_kernel(f, f, 4, 1e-3, variant="threepass")
 
@@ -393,6 +412,28 @@ def test_hist256_frames_and_groups_exact(card, shape):
     assert torch.equal(got, hist256_groups_plain(frames))
     assert torch.equal(hist256_groups(frames.reshape(shape[0], -1)), got)
     assert bool((got.sum(dim=1) == shape[1] * shape[2]).all())
+
+
+@pytest.mark.parametrize("shape,offset", [((1, 1), 0), ((6, 256), 1),
+                                          ((3, 1001), 2), ((64, 2041), 3),
+                                          ((2160, 960), 0), ((70000, 3), 1)])
+def test_hist256_groups_packed_exact(card, shape, offset):
+    """int32 words of four pixels, bit-exact against the plain version and
+    against hist256_groups of the same bytes; ``offset`` words put the
+    groups' bases off 16-byte alignment, and bytes >= 128 in the fourth
+    place set the words' top bits."""
+    g, p4 = shape
+    pixels = torch.from_numpy(_frame((g * 4 * p4 + 4 * offset,), 31)).to(card)
+    words = pixels.view(torch.int32)[offset:].reshape(g, p4)
+    assert words.data_ptr() % 16 == 4 * offset
+    before = hist256_groups_packed.launches
+    got = hist256_groups_packed(words)
+    assert hist256_groups_packed.launches == before + 1
+    assert got.dtype == torch.int32 and got.shape == (g, 256)
+    assert torch.equal(got, hist256_groups_packed_plain(words))
+    assert torch.equal(got, hist256_groups(
+        pixels[4 * offset:].reshape(g, 4 * p4).contiguous()))
+    assert bool((got.sum(dim=1) == 4 * p4).all())
 
 
 def _tables(seed):
@@ -528,6 +569,10 @@ def test_slice3_wrappers_check_their_inputs(card):
         hist256_groups(img.t())
     with pytest.raises(ValueError, match="uint8"):
         hist256_groups(img.int())
+    with pytest.raises(ValueError, match="int32"):
+        hist256_groups_packed(img)
+    with pytest.raises(ValueError, match="contiguous"):
+        hist256_groups_packed(img.int().t())
     with pytest.raises(ValueError, match="table must be"):
         lut_gather(torch.zeros(255, device=card), img)
     with pytest.raises(ValueError, match="uint8"):
@@ -790,18 +835,43 @@ def test_morph_ypadded_matches_plain(card, out_shape, radius, dtype):
 
 @pytest.mark.parametrize("out_shape,radius", [
     ((1, 40), 8), ((6, 40), 8), ((37, 1000), 1), ((2, 70, 129), 4),
-    ((64, 300), 16)])
+    ((64, 300), 16), ((1, 200), 20), ((40, 250), 32), ((9, 130), 64),
+    ((3, 100), 80)])
 @pytest.mark.parametrize("self_guided", [False, True])
 def test_guided_ypadded_matches_plain(card, out_shape, radius, self_guided):
+    """r 80 takes the scratch route (past GUIDED_SMEM_MAX_RADIUS)."""
     *lead, h, w = out_shape
     g = np.random.default_rng(h * w)
     shape = (*lead, h + 4 * radius, w)
     I = torch.from_numpy(g.random(shape, dtype=np.float32)).to(card)
     p = torch.from_numpy(g.random(shape, dtype=np.float32)).to(card)
+    before = guided_ypadded_kernel.scratch_launches
     got = guided_ypadded_kernel(I, p, radius, 1e-3, self_guided)
     ref = guided_ypadded_plain(I, p, radius, 1e-3, self_guided)
     assert got.shape == out_shape and bool(torch.isfinite(got).all())
     assert float((got - ref).abs().max()) <= 1e-4
+    assert guided_ypadded_kernel.scratch_launches - before == (
+        radius > GUIDED_SMEM_MAX_RADIUS)
+
+
+@pytest.mark.parametrize("self_guided", [False, True])
+def test_guided_ypadded_scratch_route_equals_shared(card, self_guided):
+    """The scratch route is the shared-memory route's arithmetic with the
+    workspace in device memory: the same bits at a radius both take."""
+    g = np.random.default_rng(12)
+    r, h, w = 8, 300, 333
+    I = torch.from_numpy(g.random((h + 4 * r, w), dtype=np.float32)).to(card)
+    p = I if self_guided else torch.from_numpy(
+        g.random((h + 4 * r, w), dtype=np.float32)).to(card)
+    want = guided_ypadded_kernel(I, p, r, 1e-3, self_guided)
+    floats = load().tpuimg_guided_onepass_scratch_floats(1, h, w, r,
+                                                         int(self_guided))
+    scratch = torch.empty(floats, dtype=torch.float32, device=card)
+    got = torch.empty_like(want)
+    launch("tpuimg_guided_onepass_ypadded_scratch", card, I.data_ptr(), 1,
+           p.data_ptr(), 1, h, w, r, 1e-3, int(self_guided),
+           scratch.data_ptr(), got.data_ptr())
+    assert torch.equal(got, want)
 
 
 def test_guided_ypadded_cn1(card):
@@ -841,9 +911,6 @@ def test_ypadded_wrappers_check_their_inputs(card):
         gaussian_ypadded_kernel(f.t(), 2, 1.5)
     with pytest.raises(ValueError, match="float32"):
         gaussian_ypadded_kernel(f.double(), 2, 1.5)
-    with pytest.raises(ParamError, match="radius <= 16"):
-        guided_ypadded_kernel(torch.zeros((80, 30), device=card), None, 17,
-                              1e-3, True)
     with pytest.raises(ValueError, match="shape of I"):
         guided_ypadded_kernel(f, torch.zeros((41, 30), device=card), 2, 1e-3)
     with pytest.raises(ParamError, match="mode"):

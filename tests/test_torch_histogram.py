@@ -7,6 +7,7 @@ XLA path and to its NumPy oracle. Histograms, table entries and HE output
 are integers or copied bits, so every comparison is exact.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -15,14 +16,16 @@ import torch
 import tpuimg
 import tpuimg_torch
 from tpuimg.kernels.hist import (
-    hist256_frames_pallas, hist256_groups_pallas, hist256_pallas)
+    hist256_frames_pallas, hist256_groups_pallas,
+    hist256_groups_pallas_packed, hist256_pallas)
 from tpuimg.kernels.lut import lut_gather as jax_lut_gather
 from tpuimg.kernels.lut import lut_gather_frames as jax_lut_gather_frames
 from tpuimg.oracle.numpy_ref import hist_equalize_ref
 from tpuimg.ops.histogram import apply_lut as jax_apply_lut
 from tpuimg.ops.histogram import bincount256 as jax_bincount256
 from tpuimg_torch.kernels.hist import (
-    hist256, hist256_frames, hist256_groups, hist256_groups_plain)
+    hist256, hist256_frames, hist256_groups, hist256_groups_packed,
+    hist256_groups_plain)
 from tpuimg_torch.kernels.lut import (
     lut_gather, lut_gather_frames, lut_gather_frames_plain, lut_gather_plain)
 from tpuimg_torch.ops.histogram import _he_tables, apply_lut, bincount256
@@ -64,6 +67,23 @@ def test_hist256_groups_plain_matches_pallas(rng, shape):
     assert torch.equal(got, hist256_groups_plain(torch.from_numpy(groups)))
     np.testing.assert_array_equal(got.numpy(),
                                   np.asarray(hist256_groups_pallas(groups)))
+
+
+@pytest.mark.parametrize("shape", [(6, 256), (3, 1000), (1, 8161)])
+def test_hist256_groups_packed_matches_pallas(rng, shape):
+    """(G, P4) int32 words of four pixels, packed as
+    tests/test_pallas_kernels.py packs them; words with the top bit set
+    included (bytes >= 128 in the fourth place)."""
+    g, p4 = shape
+    pixels = rng.integers(0, 256, (g, 4 * p4), dtype=np.uint8)
+    words = np.array(jax.lax.bitcast_convert_type(
+        pixels.reshape(g, p4, 4), np.int32))
+    assert (words < 0).any()
+    got = hist256_groups_packed(torch.from_numpy(words))
+    assert got.dtype == torch.int32 and got.shape == (g, 256)
+    np.testing.assert_array_equal(
+        got.numpy(), np.asarray(hist256_groups_pallas_packed(words)))
+    assert torch.equal(got, hist256_groups(torch.from_numpy(pixels)))
 
 
 def _table(rng, kind):
@@ -223,12 +243,15 @@ def test_wrappers_refuse_non_cuda_devices(monkeypatch):
         raise AssertionError("a plain version ran off the CPU")
 
     for mod, name in ((hist, "hist256_groups_plain"),
+                      (hist, "hist256_groups_packed_plain"),
                       (lut, "lut_gather_plain"),
                       (lut, "lut_gather_frames_plain")):
         monkeypatch.setattr(mod, name, must_not_run)
     img = torch.empty((64, 64), dtype=torch.uint8, device="meta")
+    words = torch.empty((64, 16), dtype=torch.int32, device="meta")
     table = torch.empty(256, dtype=torch.uint8, device="meta")
     for call in (lambda: hist256_groups(img),
+                 lambda: hist256_groups_packed(words),
                  lambda: lut_gather(table, img),
                  lambda: lut_gather_frames(table[None], img[None]),
                  lambda: tpuimg_torch.hist_equalize(img),

@@ -141,9 +141,24 @@ def test_ypadded_ops_refuse_thin_blocks():
         guided_ypadded(x, x, 2, 1e-3)
     with pytest.raises(ValueError, match="> 2\\*radius rows"):
         box_filter_ypadded(torch.zeros(2, 9), 1)
-    with pytest.raises(ParamError, match="radius <= 16"):
-        x = torch.zeros(80, 9)
-        guided_ypadded(x, x, 17, 1e-3)
+
+
+@pytest.mark.parametrize("self_guided", [False, True])
+@pytest.mark.parametrize("radius", [17, 20])
+def test_guided_ypadded_large_radius_matches_tpuimg(rng, radius, self_guided):
+    """Past tpuimg_torch's former r <= 16 ceiling, as tpuimg runs it."""
+    Ip = rng.random((40 + 4 * radius, 96), dtype=np.float32)
+    if self_guided:
+        x, jx = _t(Ip), jnp.asarray(Ip)
+        got = guided_ypadded(x, x, radius, 1e-3).numpy()
+        ref = np.asarray(jax_guided_ypadded(jx, jx, radius, 1e-3))
+    else:
+        pp = rng.random(Ip.shape, dtype=np.float32)
+        got = guided_ypadded(_t(Ip), _t(pp), radius, 1e-3).numpy()
+        ref = np.asarray(jax_guided_ypadded(Ip, pp, radius, 1e-3))
+    assert got.shape == ref.shape == (40, 96)
+    assert np.isfinite(got).all()
+    assert np.abs(got - ref).max() <= 1e-5
 
 
 # --- the band mapping ----------------------------------------------------
@@ -275,6 +290,20 @@ def test_guided_sharded_matches_tpuimg(rng, meshes):
         assert np.abs(_np(got) - np.asarray(ref)).max() < 1e-5, r
 
 
+def test_guided_sharded_large_radius_matches_tpuimg(rng):
+    """r = 20 > 16 over (1, 2): each 96-row shard takes a 40-row halo."""
+    jm = jpar.make_mesh(1, 2)
+    tm = tpar.make_mesh(1, 2, devices=CPU8[:2])
+    I = rng.random((192, 96), dtype=np.float32)
+    p = rng.random((192, 96), dtype=np.float32)
+    ref = jax.jit(jpar.guided_filter_sharded(jm, 20, 1e-3))(
+        jpar.shard_rows(jm, I), jpar.shard_rows(jm, p))
+    got = tpar.guided_filter_sharded(tm, 20, 1e-3)(
+        tpar.shard_rows(tm, _t(I)), _t(p))
+    assert _np(got).shape == (192, 96)
+    assert np.abs(_np(got) - np.asarray(ref)).max() <= 1e-5
+
+
 def test_guided_sharded_self_guided(rng, meshes):
     jm, tm = meshes
     I = rng.random((64, 96), dtype=np.float32)
@@ -305,9 +334,11 @@ def test_clahe_sharded_matches_tpuimg(rng, meshes, h, grid, clip):
 
 @pytest.mark.parametrize("shape,args", [
     ((96, 128), (2.0, 4, 2, 1.5, 4, 1e-3)),
-    ((90, 96), (4.0, 3, 1, 1.0, 4, 1e-2))])
+    ((90, 96), (4.0, 3, 1, 1.0, 4, 1e-2)),
+    ((160, 96), (2.0, 4, 2, 1.5, 17, 1e-3))])
 def test_enhance_sharded_matches_tpuimg(rng, meshes, shape, args):
-    # 90 rows do not divide over sp = 4: reflect-padded and cropped
+    # 90 rows do not divide over sp = 4: reflect-padded and cropped; 160
+    # rows over sp = 4 hold gf_radius 17's reach of 2*17 + 2
     jm, tm = meshes
     img = rng.integers(0, 256, shape, dtype=np.uint8)
     ref = np.asarray(jax.jit(jpar.enhance_sharded(jm, *args))(

@@ -25,6 +25,15 @@ __device__ __forceinline__ int reflect101_any(int x, int n) {
   return m >= n ? period - m : m;
 }
 
+// reflect101_any without its modulo wherever one mirror reaches (|x| <=
+// 2(n - 1)): only a frame narrower than the halo takes the modulo.
+__device__ __forceinline__ int reflect101_fast(int x, int n) {
+  x = abs(x);
+  if (x < n) return x;
+  const int y = 2 * (n - 1) - x;
+  return y >= 0 ? y : reflect101_any(x, n);
+}
+
 // idx[i] = reflect101_any(start + i, n) for i < len: a block's reflected
 // rows or columns, computed once so that staging needs no division.
 // Every thread of the block takes part; the caller synchronises.

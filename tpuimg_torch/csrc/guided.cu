@@ -9,70 +9,167 @@
 // Replaces tpuimg/kernels/boxsum.py::guided_filter_pallas (:632): variant
 // "onepass" (_guided_strip_onepass :193, pallas_calls :270 self-guided and
 // :281 general) and variant "twopass" (_guided_strip :108, pallas_calls :143
-// and :169). The TPU's row bands, column strips of at most 2048 lanes and
-// (8, 128) padding have no counterpart here.
+// and :169); and guided_pallas_ypadded (:602; pallas_calls :592 self-guided
+// and :596 general in _guided_onepass_ypadded :525), the onepass form on a
+// shard's block whose rows already carry 2r halo rows on each side, (h + 4r,
+// w) in and (h, w) out, x still reflect-101 in the kernel. The TPU's row
+// bands, column strips of at most 2048 lanes and (8, 128) padding have no
+// counterpart here.
 //
 // The algebra is the plain version's (tpuimg_torch/kernels/boxsum.py::
-// guided_chain): the box mean of x is (row window sums, then column window
-// sums) * coef with coef = f32(1 / ksz^2); a = (mean_Ip - mean_p*mean_I) /
-// (mean_II - mean_I^2 + eps); b = mean_p - a*mean_I; q = mean_a*I + mean_b.
-// Window sums add left to right, products are taken before the sum, and
-// every multiply and add is rounded on its own (__fmul_rn/__fadd_rn), so
-// away from the border the kernels equal the plain version bit for bit.
-// Self-guided (p is I) keeps two of the four sums (mean_p = mean_I,
-// mean_Ip = mean_II), a template flag of the onepass kernel whose result is
-// the general kernel's with p = I, bit for bit.
+// guided_chain): the box mean of x is its window sum times coef = f32(1 /
+// ksz^2); a = (mean_Ip - mean_p*mean_I) / (mean_II - mean_I^2 + eps); b =
+// mean_p - a*mean_I; q = mean_a*I + mean_b, each multiply and add of a, b and
+// q rounded on its own (__fmul_rn/__fadd_rn). Self-guided (p is I) keeps two
+// of the four sums (mean_p = mean_I, mean_Ip = mean_II) and equals the
+// general form with p = I bit for bit.
 //
-// Design on this card: one block per 32x32 output tile of one frame;
-// gridDim.z runs over the frames of p (the I frame is z mod n_i, so C
-// channels of p share one guide, the reference's CN1 form). Onepass stages
-// the tile's (32 + 4r)^2 extent of I (and p) through the iterated
-// reflect-101 index (two index tables of the extent's reflected rows and
-// columns, computed once per block), then, all in shared memory:
-//   E (extent) -> X (row window sums of I, p, I*p, I*I over (32+4r) x (32+2r))
-//   -> A, B (a and b over the (32+2r)^2 ring) -> X (row sums of a, b)
-//   -> q in device memory.
-// a and b on the ring come from the extent's own windows: the reflected
-// frame is symmetric about each edge, so they equal the plain version's
-// reflected a and b up to the order of the sums.
-// Bound: shared-memory loads, about 4(2r + 1)(1 + 4r/32)(1 + 2r/32) +
-// 2(2r + 1)(1 + 2r/32) + 2(2r + 1) per output pixel for the general filter,
-// against 12 bytes of device memory. Shared memory: general onepass at
-// r = 16 takes 205,568 bytes of the 227 KB a block may use; the wrapper
-// sends no radius above 16 (tpuimg's _PALLAS_MAX_RADIUS).
+// Onepass, the strip walker. The function needs 12 bytes of device memory a
+// pixel (I, p in, q out) and a constant number of operations, so on this card
+// it is bound by bytes (0.030 ms at 4K). What held the tile kernel it replaces
+// at 27x that bound was on-chip work: direct (2r + 1)-tap window sums out of
+// shared memory (~340 loads a pixel at r = 8), a 32x32 tile's (32 + 4r)^2
+// halo recomputed per tile, runtime divisions in its loops, and 100 KB of
+// shared memory a block (2 blocks an SM; r <= 16). This design:
+// - A block owns a strip of kStrip = 64 output columns over one segment of
+//   rows of one frame and walks down it kRows = 4 rows a step (a warp a row),
+//   so the vertical halo (4r rows) is paid once per segment and the
+//   horizontal one is 4r input columns and 2r columns of a and b. Segments
+//   are as many as fit one wave of the blocks the card holds at once (a
+//   second, partial wave would double the time), none shorter than
+//   max(kMinSegRows, 4r).
+// - Window sums are running sums: an add and a subtract an element, plus a
+//   2r warm-up at the start of each part of a row (at most 9 adds a column
+//   at any r, 2.5 at r = 8).
+//   Vertically, a thread per input column keeps the sums of I, p, I*p and
+//   I*I in f64, adds the entering row and subtracts the one 2r + 1 rows above
+//   (re-read from L1/L2). Products of f32 values are exact in f64 and the sums
+//   drift by ~1e-16 relative down any strip, so the 2160-row walk of a 4K
+//   frame is as exact as a direct sum; each row's sums are rounded to f32
+//   once. Horizontally (row_window_sums), a thread runs along one part of one
+//   (row, plane) pair: 2r warm-up adds, then one add and one subtract a
+//   column, in f32 over 2r + ta / 8 + 2 terms at most. a and b are computed
+//   once per pixel (plus the strip's side columns), in place; the second box
+//   filter sums them along the rows the same way into a ring of the last
+//   2r + 1 + kRows rows, then down each output column in f64. I at the output
+//   pixels is kept in a ring from the step that stages it, not read again.
+// - The next step's input rows come into shared memory with cp.async while
+//   this step computes (two buffers); five barriers a step; no division or
+//   modulo in a loop (ring slots wrap by a compare; the reflect-101 map takes
+//   its modulo only on a frame narrower than the halo). Odd row strides keep
+//   the threads that walk along rows side by side in distinct banks.
+// - Shared memory: 18,088 + 2,320r bytes (general; self-guided 10,856 +
+//   1,936r), 36,656 at r = 8: 6 blocks of 4 warps an SM, the launch bound's
+//   80 registers a thread (none spilled but on the general scratch route
+//   below, 80 bytes). The shared-memory route takes r <=
+//   kSmemMaxRadius = 64 (166,568 bytes). Past it, the row-padded entry runs
+//   the same kernel with the workspace in device memory (a per-block scratch
+//   the wrapper allocates, the scratch route): input rows are read with __ldg
+//   instead of staged, and any radius below kScratchMaxRadius (an input block
+//   of more than 16.7 million rows) runs. The frame entry takes r <= 64.
+// - What bounds it now (timed by stage on the card, PERF.md): not bytes but
+//   the latency of a step's five stages, each a short chain of dependent
+//   adds, run one after another between barriers; 24 warps an SM hide only
+//   part of it. Overlapping the stages of successive steps is the next step.
+// - Against the plain version (direct f32 sums): the same function up to the
+//   order of the sums (a and b outside the frame come from the reflected
+//   windows, which the reflect-101 symmetry makes equal to the plain
+//   version's reflected a and b). A NaN or infinity in I or p stays in the
+//   running sums of its column strip to the end of the segment, where direct
+//   sums keep it to its windows.
 //
-// A third entry, tpuimg_guided_onepass_ypadded, replaces
-// tpuimg/kernels/boxsum.py::guided_pallas_ypadded (:602; pallas_calls :592
-// self-guided and :596 general in _guided_onepass_ypadded :525): a shard's
-// block of I (and p) whose rows already carry 2r halo rows on each side,
-// (h + 4r, w) in and (h, w) out. The onepass kernel runs as it is, with the
-// extent's rows an identity table over the block (common.cuh::
-// clamped_table) instead of the reflected one: a and b on the ring rows come
-// from the block's real halo rows, as tpuimg's kernel computes them, and x
-// is still reflect-101 at 2r in the kernel. The result equals the plain
-// version (kernels/boxsum.py::guided_ypadded_plain) bit for bit, since both
-// compute a and b on the same padded columns. tpuimg has no radius ceiling
-// there; this entry keeps the onepass kernel's r <= 16.
+// Twopass keeps the earlier tile design: one block per 32x32 output tile, the
+// tile's (32 + 2r)^2 extent staged through the reflect-101 index, direct
+// window sums in the plain version's order; r <= kTwopassMaxRadius = 16.
+#include <algorithm>
+
 #include "common.cuh"
 
 namespace {
 
-constexpr int kTile = 32;
 constexpr int kThreads = 256;
-constexpr int kMaxRadius = 16;
 
-// shared memory in 4-byte words: the floats, then two index tables of ext
-__host__ __device__ int onepass_smem_words(int r, bool self_guided) {
-  const int ext = kTile + 4 * r, rab = kTile + 2 * r;
-  const int planes = self_guided ? 2 : 4;
-  return (self_guided ? 1 : 2) * ext * ext + planes * ext * rab +
-         2 * rab * rab + 2 * ext;
+// ---- onepass: the strip walker ---------------------------------------------
+
+constexpr int kStrip = 64;               // output columns of a block
+constexpr int kWalkThreads = 128;
+// the launch bound: 6 blocks an SM, so 80 registers a thread
+constexpr int kWalkBlocks = 6;
+constexpr int kRows = kWalkThreads / 32;  // rows a step takes in: a warp each
+constexpr int kSmemMaxRadius = 64;       // the shared-memory route's ceiling
+constexpr int kScratchMaxRadius = 1 << 22;  // keeps every index in an int
+constexpr int kMinSegRows = 32;
+constexpr int kScratchFrames = 8;        // frames in flight, scratch route
+
+constexpr int kStripPad = kStrip + 1;    // row stride of the ring
+
+// A block's workspace, offsets in floats: f64 column sums of the vertical
+// pass (np a column), the two buffers of staged input rows (shared-memory
+// route only), a step's vertical sums rounded to f32 (np planes of kRows
+// rows of ti + 1), their window sums along the rows and then a and b in
+// place (np planes of kRows rows of ta + 1), the ring of the second box
+// filter's row sums (2 x kr rows of kStrip + 1), and the ring of I at the
+// output columns (ki x kStrip: from the row a step takes in until its q is
+// written, 2r rows later). The odd row strides put the rows of a column in
+// distinct banks, for the lanes that walk along rows side by side.
+struct Workspace {
+  long long vst, stg, vsum, hab, ring, iring, total;
+};
+
+__host__ __device__ inline Workspace workspace_of(int r, bool self_guided,
+                                                  bool staged) {
+  const long long ti = kStrip + 4LL * r, ta = kStrip + 2LL * r;
+  const long long kr = 2LL * r + 1 + kRows, ki = 2LL * r + kRows;
+  const long long np = self_guided ? 2 : 4, ns = self_guided ? 1 : 2;
+  Workspace ws;
+  ws.vst = 0;
+  ws.stg = 2 * np * ti;
+  ws.vsum = ws.stg + (staged ? 2 * ns * kRows * ti : 0);
+  ws.hab = ws.vsum + np * kRows * (ti + 1);
+  ws.ring = ws.hab + np * kRows * (ta + 1);
+  ws.iring = ws.ring + 2 * kr * kStripPad;
+  ws.total = (ws.iring + ki * kStrip + 3) & ~3LL;  // whole 16-byte blocks
+  return ws;
 }
 
-// launch 1 keeps 4 planes of row sums, launch 2 two
-__host__ __device__ int twopass_smem_words(int r, int planes) {
-  const int ext = kTile + 2 * r;
-  return 2 * ext * ext + planes * ext * kTile + 2 * ext;
+// out[c] = src[c] + ... + src[c + 2r] for c in [c0, c1): a running sum along
+// the row, 2r warm-up adds and then one add and one subtract a column, in
+// the plain version's order within each window's first sum
+__device__ __forceinline__ void row_window_sums(const float* src, int c0,
+                                                int c1, int r, float* out) {
+  if (c0 >= c1) return;
+  float sum = 0.0f;
+  for (int t = c0; t < c0 + 2 * r; ++t) sum += src[t];
+#pragma unroll 4
+  for (int c = c0; c < c1; ++c) {
+    sum += src[c + 2 * r];
+    out[c] = sum;
+    sum -= src[c];
+  }
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most one committed group (the newest) is still in flight
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// the source row of extended row e: reflect-101 in a frame; in a row-padded
+// block e + 2r (its own halo rows), clamped at its last row for the rows a
+// final step reads past the segment
+template <bool kYPadded>
+__device__ __forceinline__ int source_row(int e, int h, int r) {
+  return kYPadded ? min(e + 2 * r, h + 4 * r - 1) : reflect101_fast(e, h);
 }
 
 // a and b from the four window sums (sums, not means)
@@ -93,132 +190,276 @@ __device__ __forceinline__ float q_of(float sa, float sb, float i,
   return __fadd_rn(__fmul_rn(__fmul_rn(sa, coef), i), __fmul_rn(sb, coef));
 }
 
-// kYPadded: I and p frames are (h + 4r, w) blocks whose rows are padded
+// Step t's kRows input rows of I (and p) over the strip's ti columns into
+// buffer t & 1 with cp.async: a warp a row, lanes along it.
 template <bool kSelf, bool kYPadded>
-__global__ void __launch_bounds__(kThreads)
-guided_onepass_kernel(const float* __restrict__ I, int n_i,
-                      const float* __restrict__ p, int n, int h, int w, int r,
-                      float eps, float* __restrict__ q) {
-  extern __shared__ float smem[];
-  const int ksz = 2 * r + 1;
-  const int ext = kTile + 4 * r, rab = kTile + 2 * r;
-  const int nplanes = kSelf ? 2 : 4;
-  float* EI = smem;                                // ext x ext
-  float* EP = kSelf ? EI : EI + ext * ext;         // ext x ext (general)
-  float* X = EI + (kSelf ? 1 : 2) * ext * ext;     // nplanes of ext x rab
-  float* A = X + nplanes * ext * rab;              // rab x rab
-  float* B = A + rab * rab;                        // rab x rab
-  int* YS = reinterpret_cast<int*>(B + rab * rab); // ext reflected rows
-  int* XS = YS + ext;                              // ext reflected columns
-  const int y0 = blockIdx.y * kTile, x0 = blockIdx.x * kTile;
-  const int tid = threadIdx.x;
-  // the same f32 coefficient as the host's float32(1.0 / ksz^2)
-  const float coef = static_cast<float>(1.0 / (ksz * ksz));
-  const int hin = kYPadded ? h + 4 * r : h;  // rows of a source frame
-  const size_t plane = static_cast<size_t>(h) * w;
-  const size_t in_plane = static_cast<size_t>(hin) * w;
-  if (kYPadded) {
-    clamped_table(y0, ext, hin, YS);
-  } else {
-    reflect101_table(y0 - 2 * r, ext, h, YS);
+__device__ __forceinline__ void stage_step(int t, const float* Iz,
+                                           const float* pz, int e0, int x0,
+                                           int h, int w, int r, int ti,
+                                           float* stg) {
+  constexpr int ns = kSelf ? 1 : 2;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const size_t row =
+      static_cast<size_t>(source_row<kYPadded>(e0 + t * kRows + warp, h, r)) *
+      w;
+  float* dst = stg + static_cast<size_t>((t & 1) * ns * kRows + warp) * ti;
+  for (int c = lane; c < ti; c += 32) {
+    const int x = reflect101_fast(x0 - 2 * r + c, w);
+    cp_async4(dst + c, Iz + row + x);
+    if constexpr (!kSelf) cp_async4(dst + kRows * ti + c, pz + row + x);
   }
-  reflect101_table(x0 - 2 * r, ext, w, XS);
-  __syncthreads();
+}
+
+// kYPadded: I and p frames are (h + 4r, w) blocks whose rows are padded.
+// kShared: the workspace in shared memory and input rows staged there, or
+// (the scratch route) in device memory at scratch, workspace_of(...).total
+// floats a block.
+template <bool kSelf, bool kYPadded, bool kShared>
+__global__ void __launch_bounds__(kWalkThreads, kWalkBlocks)
+guided_walk_kernel(const float* __restrict__ I, int n_i,
+                   const float* __restrict__ p, int n, int h, int w, int r,
+                   float eps, int seg_rows, float* __restrict__ scratch,
+                   float* __restrict__ q) {
+  extern __shared__ __align__(16) float smem[];
+  constexpr int np = kSelf ? 2 : 4;  // planes summed: I, p, I*p, I*I
+  constexpr int ns = kSelf ? 1 : 2;  // planes staged: I, p
+  const Workspace wl = workspace_of(r, kSelf, kShared);
+  float* ws;
+  if constexpr (kShared) {
+    ws = smem;
+  } else {
+    const size_t block =
+        (static_cast<size_t>(blockIdx.z) * gridDim.y + blockIdx.y) *
+            gridDim.x + blockIdx.x;
+    ws = scratch + block * wl.total;
+  }
+  double* vst = reinterpret_cast<double*>(ws + wl.vst);
+  float* stg = ws + wl.stg;
+  float* vsum = ws + wl.vsum;
+  float* hab = ws + wl.hab;
+  float* ring = ws + wl.ring;
+  float* iring = ws + wl.iring;
+
+  const int k = 2 * r + 1;
+  const int ti = kStrip + 4 * r, ta = kStrip + 2 * r, kr = k + kRows;
+  const int ki = 2 * r + kRows;
+  const int tip = ti + 1, tap = ta + 1;  // odd row strides
+  const int vplane = kRows * tip;        // a plane of vsum
+  const int hplane = kRows * tap;        // a plane of hab
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  // the same f32 coefficient as the host's float32(1.0 / ksz^2)
+  const float coef = static_cast<float>(1.0 / (static_cast<double>(k) * k));
+  const int hin = kYPadded ? h + 4 * r : h;  // rows of a source frame
+  const size_t in_plane = static_cast<size_t>(hin) * w;
+  const size_t out_plane = static_cast<size_t>(h) * w;
+  const int x0 = blockIdx.x * kStrip;
+  const int y0 = blockIdx.y * seg_rows;
+  const int y1 = min(y0 + seg_rows, h);
+  const int rows_in = y1 - y0 + 4 * r;  // input rows the walk takes in
+  const int steps = (rows_in + kRows - 1) / kRows;
+  const int e0 = y0 - 2 * r;  // extended row of the walk's first input row
+  // the horizontal passes: a thread runs along one part (of len_v or len_ab
+  // columns) of one (row, plane) pair of a step, np planes of the vertical
+  // sums (stage 2) and then a and b (stage 3). The self-guided form cuts its
+  // rows into the general form's parts, so that it sums in the same order
+  // and equals the general form with p = I bit for bit.
+  constexpr int pairs_v = kRows * np, pairs_ab = kRows * 2;
+  constexpr int parts_v = kWalkThreads / (kRows * 4);
+  constexpr int parts_ab = kWalkThreads / pairs_ab;
+  const int len_v = ((ta + parts_v - 1) / parts_v) | 1;
+  const int len_ab = ((kStrip + parts_ab - 1) / parts_ab) | 1;
 
   for (int z = blockIdx.z; z < n; z += gridDim.z) {
-    stage_rows(I + (z % n_i) * in_plane, w, YS, ext, XS, ext, EI);
-    if (!kSelf) stage_rows(p + z * in_plane, w, YS, ext, XS, ext, EP);
-    __syncthreads();
-
-    // 1. row window sums over ext x rab: X[k][row][col] sums E[row][col..+2r]
-    const int xplane = ext * rab;
-    for (int i = tid; i < xplane; i += kThreads) {
-      const int row = i / rab, col = i - row * rab;
-      const float* ip = EI + row * ext + col;
-      if (kSelf) {
-        float si = ip[0], sii = __fmul_rn(ip[0], ip[0]);
-        for (int k = 1; k < ksz; ++k) {
-          si = __fadd_rn(si, ip[k]);
-          sii = __fadd_rn(sii, __fmul_rn(ip[k], ip[k]));
-        }
-        X[i] = si;
-        X[xplane + i] = sii;
-      } else {
-        const float* pp = EP + row * ext + col;
-        float si = ip[0], sp = pp[0];
-        float sip = __fmul_rn(ip[0], pp[0]), sii = __fmul_rn(ip[0], ip[0]);
-        for (int k = 1; k < ksz; ++k) {
-          si = __fadd_rn(si, ip[k]);
-          sp = __fadd_rn(sp, pp[k]);
-          sip = __fadd_rn(sip, __fmul_rn(ip[k], pp[k]));
-          sii = __fadd_rn(sii, __fmul_rn(ip[k], ip[k]));
-        }
-        X[i] = si;
-        X[xplane + i] = sp;
-        X[2 * xplane + i] = sip;
-        X[3 * xplane + i] = sii;
-      }
+    const float* Iz = I + static_cast<size_t>(z % n_i) * in_plane;
+    const float* pz = kSelf ? Iz : p + static_cast<size_t>(z) * in_plane;
+    float* qz = q + static_cast<size_t>(z) * out_plane;
+    for (int i = tid; i < np * ti; i += kWalkThreads) vst[i] = 0.0;
+    for (int i = tid; i < 2 * kr * kStripPad; i += kWalkThreads) {
+      ring[i] = 0.0f;
     }
-    __syncthreads();
+    double sa = 0.0, sb = 0.0;  // output column tid's sums of a and b
+    int base = 0;   // ring slot of this step's first row
+    int ibase = 0;  // iring slot of this step's first row
+    if constexpr (kShared) {
+      stage_step<kSelf, kYPadded>(0, Iz, pz, e0, x0, h, w, r, ti, stg);
+      cp_async_commit();
+    }
 
-    // 2. column window sums over rab x rab, then a and b
-    for (int i = tid; i < rab * rab; i += kThreads) {
-      const int row = i / rab, col = i - row * rab;
-      const int j0 = row * rab + col;
-      if (kSelf) {
-        float si = X[j0], sii = X[xplane + j0];
-        for (int k = 1; k < ksz; ++k) {
-          const int j = j0 + k * rab;
-          si = __fadd_rn(si, X[j]);
-          sii = __fadd_rn(sii, X[xplane + j]);
+    for (int s = 0; s < steps; ++s) {
+      if constexpr (kShared) {
+        if (s + 1 < steps) {
+          stage_step<kSelf, kYPadded>(s + 1, Iz, pz, e0, x0, h, w, r, ti,
+                                      stg);
         }
-        ab_of(si, si, sii, sii, coef, eps, A + i, B + i);
-      } else {
-        float si = X[j0], sp = X[xplane + j0];
-        float sip = X[2 * xplane + j0], sii = X[3 * xplane + j0];
-        for (int k = 1; k < ksz; ++k) {
-          const int j = j0 + k * rab;
-          si = __fadd_rn(si, X[j]);
-          sp = __fadd_rn(sp, X[xplane + j]);
-          sip = __fadd_rn(sip, X[2 * xplane + j]);
-          sii = __fadd_rn(sii, X[3 * xplane + j]);
+        cp_async_commit();
+        cp_async_wait_one();
+      }
+      __syncthreads();
+
+      // 1. vertical running sums, a thread per input column: after row u the
+      //    column's sums cover input rows u - 2r .. u (centre row u - r)
+      {
+        const int splane = kRows * ti;  // a plane of a staging buffer
+        const float* sI = stg + static_cast<size_t>((s & 1) * ns) * splane;
+        for (int c = tid; c < ti; c += kWalkThreads) {
+          const int x = reflect101_fast(x0 - 2 * r + c, w);
+          const int j = c - 2 * r;  // output column j keeps its I in iring
+          const bool keep = j >= 0 && j < kStrip;
+          // the rows leaving the window this step (2r + 1 rows above the
+          // entering ones; zero before the window is full), all loaded
+          // before the running sums wait on the first
+          float li[kRows], lp[kRows];
+#pragma unroll
+          for (int i = 0; i < kRows; ++i) {
+            const int u = s * kRows + i - k;
+            li[i] = 0.0f;
+            lp[i] = 0.0f;
+            if (u >= 0) {
+              const size_t o =
+                  static_cast<size_t>(source_row<kYPadded>(e0 + u, h, r)) * w +
+                  x;
+              li[i] = __ldg(Iz + o);
+              if constexpr (!kSelf) lp[i] = __ldg(pz + o);
+            }
+          }
+          double v[np];
+#pragma unroll
+          for (int pl = 0; pl < np; ++pl) v[pl] = vst[pl * ti + c];
+#pragma unroll
+          for (int i = 0; i < kRows; ++i) {
+            float ie, pe;
+            if constexpr (kShared) {
+              ie = sI[i * ti + c];
+              pe = kSelf ? ie : sI[splane + i * ti + c];
+            } else {
+              const size_t o = static_cast<size_t>(source_row<kYPadded>(
+                                   e0 + s * kRows + i, h, r)) * w + x;
+              ie = __ldg(Iz + o);
+              pe = kSelf ? ie : __ldg(pz + o);
+            }
+            if (keep) {
+              int slot = ibase + i;
+              if (slot >= ki) slot -= ki;
+              iring[slot * kStrip + j] = ie;
+            }
+            // entering minus leaving; f32 values and their products are
+            // exact in f64
+            const double di = ie, dl = li[i];
+            v[0] += di - dl;
+            if constexpr (kSelf) {
+              v[1] += di * di - dl * dl;
+            } else {
+              const double dp = pe, dq = lp[i];
+              v[1] += dp - dq;
+              v[2] += di * dp - dl * dq;
+              v[3] += di * di - dl * dl;
+            }
+#pragma unroll
+            for (int pl = 0; pl < np; ++pl) {
+              vsum[pl * vplane + i * tip + c] = static_cast<float>(v[pl]);
+            }
+          }
+#pragma unroll
+          for (int pl = 0; pl < np; ++pl) vst[pl * ti + c] = v[pl];
         }
-        ab_of(si, sp, sip, sii, coef, eps, A + i, B + i);
       }
-    }
-    __syncthreads();
+      __syncthreads();
 
-    // 3. row window sums of a and b over rab x kTile, into X
-    const int abplane = rab * kTile;
-    for (int i = tid; i < abplane; i += kThreads) {
-      const int row = i / kTile, col = i - row * kTile;
-      const float* ap = A + row * rab + col;
-      const float* bp = B + row * rab + col;
-      float sa = ap[0], sb = bp[0];
-      for (int k = 1; k < ksz; ++k) {
-        sa = __fadd_rn(sa, ap[k]);
-        sb = __fadd_rn(sb, bp[k]);
+      // 2. window sums along the rows of each plane (a thread a part of a
+      //    (row, plane) pair), then a and b in place (a warp a row); zero on
+      //    rows whose vertical window is not full, so that they add nothing
+      //    below
+      {
+        const int m = tid % pairs_v, i = m % kRows, u = s * kRows + i;
+        const int c0 = tid / pairs_v * len_v, c1 = min(c0 + len_v, ta);
+        const int o = m / kRows * vplane + i * tip;  // plane m / kRows, row i
+        if (u >= 2 * r && u < rows_in) {
+          row_window_sums(vsum + o, c0, c1, r,
+                          hab + m / kRows * hplane + i * tap);
+        }
       }
-      X[i] = sa;
-      X[abplane + i] = sb;
-    }
-    __syncthreads();
+      __syncthreads();
+      {
+        const int u = s * kRows + warp;
+        const bool full = u >= 2 * r && u < rows_in;
+        float* h0 = hab + warp * tap;  // plane 0 of row warp
+        for (int c = lane; c < ta; c += 32) {
+          float a = 0.0f, b = 0.0f;
+          if (full) {
+            if constexpr (kSelf) {
+              ab_of(h0[c], h0[c], h0[hplane + c], h0[hplane + c], coef, eps,
+                    &a, &b);
+            } else {
+              ab_of(h0[c], h0[hplane + c], h0[2 * hplane + c],
+                    h0[3 * hplane + c], coef, eps, &a, &b);
+            }
+          }
+          h0[c] = a;
+          h0[hplane + c] = b;
+        }
+      }
+      __syncthreads();
 
-    // 4. column window sums of a and b, then q; I at the tile centre
-    for (int i = tid; i < kTile * kTile; i += kThreads) {
-      const int row = i / kTile, col = i - row * kTile;
-      const int y = y0 + row, x = x0 + col;
-      if (y >= h || x >= w) continue;
-      float sa = X[i], sb = X[abplane + i];
-      for (int k = 1; k < ksz; ++k) {
-        sa = __fadd_rn(sa, X[i + k * kTile]);
-        sb = __fadd_rn(sb, X[abplane + i + k * kTile]);
+      // 3. window sums of a and b along each row into the ring (a thread a
+      //    part of a (row, a or b) pair)
+      {
+        const int m = tid % pairs_ab, i = m % kRows, pl = m / kRows;
+        const int c0 = tid / pairs_ab * len_ab, c1 = min(c0 + len_ab, kStrip);
+        int slot = base + i;
+        if (slot >= kr) slot -= kr;
+        row_window_sums(hab + pl * hplane + i * tap, c0, c1, r,
+                        ring + (pl * kr + slot) * kStripPad);
       }
-      const float ic = EI[(row + 2 * r) * ext + col + 2 * r];
-      q[z * plane + static_cast<size_t>(y) * w + x] = q_of(sa, sb, ic, coef);
+      __syncthreads();
+
+      // 4. running sums of the ring down each output column, then q. Ring
+      //    slot of row v: v mod kr; the row leaving (v - k) sits kRows slots
+      //    ahead. Output row yo = u - 4r + y0 once its window is full; its I
+      //    is walker row u - 2r's, in iring slot (u - 2r) mod ki.
+      if (tid < kStrip) {
+        const int x = x0 + tid;
+#pragma unroll
+        for (int i = 0; i < kRows; ++i) {
+          int slot = base + i;
+          if (slot >= kr) slot -= kr;
+          int old = slot + kRows;
+          if (old >= kr) old -= kr;
+          sa += static_cast<double>(ring[slot * kStripPad + tid]) -
+                static_cast<double>(ring[old * kStripPad + tid]);
+          sb += static_cast<double>(ring[(kr + slot) * kStripPad + tid]) -
+                static_cast<double>(ring[(kr + old) * kStripPad + tid]);
+          const int yo = y0 + s * kRows + i - 4 * r;
+          if (yo >= y0 && yo < y1 && x < w) {
+            int is = ibase + i - 2 * r;
+            if (is < 0) {
+              is += ki;
+            } else if (is >= ki) {
+              is -= ki;
+            }
+            qz[static_cast<size_t>(yo) * w + x] =
+                q_of(static_cast<float>(sa), static_cast<float>(sb),
+                     iring[is * kStrip + tid], coef);
+          }
+        }
+      }
+      base += kRows;
+      if (base >= kr) base -= kr;
+      ibase += kRows;
+      if (ibase >= ki) ibase -= ki;
     }
-    __syncthreads();  // shared memory is refilled for the next frame
+    __syncthreads();  // the next frame zeroes what step 4 read
   }
+}
+
+// ---- twopass: the tile kernels --------------------------------------------
+
+constexpr int kTile = 32;
+constexpr int kTwopassMaxRadius = 16;
+
+// launch 1 keeps 4 planes of row sums, launch 2 two
+__host__ __device__ int twopass_smem_words(int r, int planes) {
+  const int ext = kTile + 2 * r;
+  return 2 * ext * ext + planes * ext * kTile + 2 * ext;
 }
 
 // twopass launch 1 (gCalcAB): a and b of every pixel into device memory
@@ -348,6 +589,8 @@ guided_q_kernel(const float* __restrict__ I, int n_i,
   }
 }
 
+// ---- launches --------------------------------------------------------------
+
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t bytes) {
   const cudaError_t err = cudaFuncSetAttribute(
@@ -357,71 +600,134 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
   return err;
 }
 
-bool bad_args(int n_i, int n, int h, int w, int r) {
-  return r < 1 || r > kMaxRadius || n_i < 1 || n < 1 || n % n_i != 0 ||
-         h < 1 || w < 1;
+bool bad_frames(int n_i, int n, int h, int w) {
+  return n_i < 1 || n < 1 || n % n_i != 0 || h < 1 || w < 1;
 }
 
-dim3 grid_of(int n, int h, int w) {
-  return dim3((w + kTile - 1) / kTile, (h + kTile - 1) / kTile,
-              n < 65535 ? n : 65535);
+// The walker's grid: strips of kStrip columns, segments of seg_rows output
+// rows, and frames. Segments are as many as fit in one wave of `slots`
+// resident blocks (a second, partial wave would double the time), none
+// shorter than max(kMinSegRows, 4r), whose halo each pays.
+struct WalkGrid {
+  dim3 grid;
+  int seg_rows;
+};
+
+WalkGrid walk_grid(int n, int h, int w, int r, bool shared, long long slots) {
+  const long long strips = (w + kStrip - 1) / kStrip;
+  const long long frames = std::min(n, shared ? 65535 : kScratchFrames);
+  const long long min_rows = std::max(kMinSegRows, 4 * r);
+  const long long segs = std::max(
+      1LL, std::min(slots / (strips * frames), (h + min_rows - 1) / min_rows));
+  const int rows = static_cast<int>((h + segs - 1) / segs);
+  return {dim3(static_cast<unsigned>(strips),
+               static_cast<unsigned>((h + rows - 1) / rows),
+               static_cast<unsigned>(frames)),
+          rows};
 }
 
-template <bool kSelf, bool kYPadded>
-int launch_onepass(const float* I, int n_i, const float* p, int n, int h,
-                   int w, int r, float eps, float* q, cudaStream_t stream) {
-  const size_t bytes = static_cast<size_t>(onepass_smem_words(r, kSelf)) * 4;
-  const cudaError_t err =
-      allow_smem(guided_onepass_kernel<kSelf, kYPadded>, bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  guided_onepass_kernel<kSelf, kYPadded>
-      <<<grid_of(n, h, w), kThreads, bytes, stream>>>(I, n_i, p, n, h, w, r,
-                                                      eps, q);
+// The scratch route sizes its scratch from the grid, so its wave is fixed:
+// kWalkBlocks on each of an H100's 132 SMs.
+constexpr long long kScratchSlots = kWalkBlocks * 132LL;
+
+template <bool kSelf, bool kYPadded, bool kShared>
+int launch_walk(const float* I, int n_i, const float* p, int n, int h, int w,
+                int r, float eps, float* scratch, float* q,
+                cudaStream_t stream) {
+  auto kernel = guided_walk_kernel<kSelf, kYPadded, kShared>;
+  size_t bytes = 0;
+  long long slots = kScratchSlots;
+  if (kShared) {
+    bytes = static_cast<size_t>(workspace_of(r, kSelf, true).total) *
+            sizeof(float);
+    cudaError_t err = allow_smem(kernel, bytes);
+    // the blocks this card holds at once at this shared-memory footprint
+    int dev = 0, sms = 0, per_sm = 0;
+    if (err == cudaSuccess) err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) {
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    }
+    if (err == cudaSuccess) {
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                          kWalkThreads, bytes);
+    }
+    if (err != cudaSuccess) return static_cast<int>(err);
+    slots = std::max(1LL, static_cast<long long>(sms) * per_sm);
+  }
+  const WalkGrid g = walk_grid(n, h, w, r, kShared, slots);
+  kernel<<<g.grid, kWalkThreads, bytes, stream>>>(I, n_i, p, n, h, w, r, eps,
+                                                  g.seg_rows, scratch, q);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool kYPadded>
+template <bool kYPadded, bool kShared>
 int onepass(const float* I, int n_i, const float* p, int n, int h, int w,
-            int r, float eps, int self_guided, float* q,
+            int r, float eps, int self_guided, float* scratch, float* q,
             cudaStream_t stream) {
-  if (bad_args(n_i, n, h, w, r) || (self_guided && n != n_i)) {
+  const int most = kShared ? kSmemMaxRadius : kScratchMaxRadius;
+  if (bad_frames(n_i, n, h, w) || r < 1 || r > most ||
+      (self_guided && n != n_i) || (!kShared && scratch == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return self_guided
-             ? launch_onepass<true, kYPadded>(I, n_i, I, n, h, w, r, eps, q,
-                                              stream)
-             : launch_onepass<false, kYPadded>(I, n_i, p, n, h, w, r, eps, q,
-                                               stream);
+             ? launch_walk<true, kYPadded, kShared>(I, n_i, I, n, h, w, r, eps,
+                                                    scratch, q, stream)
+             : launch_walk<false, kYPadded, kShared>(I, n_i, p, n, h, w, r,
+                                                     eps, scratch, q, stream);
 }
 
 }  // namespace
 
 // I: n_i frames of (h, w) float32; p, q: n frames, n a multiple of n_i, and
 // p frame z is guided by I frame z mod n_i. self_guided: p is I (p unused,
-// n == n_i). All contiguous.
+// n == n_i). All contiguous. r <= 64.
 extern "C" int tpuimg_guided_onepass(const float* I, int n_i, const float* p,
                                      int n, int h, int w, int r, float eps,
                                      int self_guided, float* q,
                                      cudaStream_t stream) {
-  return onepass<false>(I, n_i, p, n, h, w, r, eps, self_guided, q, stream);
+  return onepass<false, true>(I, n_i, p, n, h, w, r, eps, self_guided,
+                              nullptr, q, stream);
 }
 
 // As tpuimg_guided_onepass, with I and p frames of (h + 4r, w): rows padded
-// by 2r on each side; q is (h, w) frames.
+// by 2r on each side; q is (h, w) frames. r <= 64 (shared memory).
 extern "C" int tpuimg_guided_onepass_ypadded(const float* I, int n_i,
                                              const float* p, int n, int h,
                                              int w, int r, float eps,
                                              int self_guided, float* q,
                                              cudaStream_t stream) {
-  return onepass<true>(I, n_i, p, n, h, w, r, eps, self_guided, q, stream);
+  return onepass<true, true>(I, n_i, p, n, h, w, r, eps, self_guided, nullptr,
+                             q, stream);
 }
 
-// As tpuimg_guided_onepass, general only; a, b: n frames of scratch.
+// The floats of device scratch tpuimg_guided_onepass_ypadded_scratch needs
+// for this call, or -1 for arguments it refuses.
+extern "C" long long tpuimg_guided_onepass_scratch_floats(int n, int h, int w,
+                                                          int r,
+                                                          int self_guided) {
+  if (n < 1 || h < 1 || w < 1 || r < 1 || r > kScratchMaxRadius) return -1;
+  const WalkGrid g = walk_grid(n, h, w, r, false, kScratchSlots);
+  return workspace_of(r, self_guided != 0, false).total * g.grid.x *
+         g.grid.y * g.grid.z;
+}
+
+// As tpuimg_guided_onepass_ypadded at any r < 2^22, the walker's workspace
+// in scratch (tpuimg_guided_onepass_scratch_floats floats).
+extern "C" int tpuimg_guided_onepass_ypadded_scratch(
+    const float* I, int n_i, const float* p, int n, int h, int w, int r,
+    float eps, int self_guided, float* scratch, float* q,
+    cudaStream_t stream) {
+  return onepass<true, false>(I, n_i, p, n, h, w, r, eps, self_guided,
+                              scratch, q, stream);
+}
+
+// As tpuimg_guided_onepass, general only, r <= 16; a, b: n frames of
+// scratch.
 extern "C" int tpuimg_guided_twopass(const float* I, int n_i, const float* p,
                                      int n, int h, int w, int r, float eps,
                                      float* a, float* b, float* q,
                                      cudaStream_t stream) {
-  if (bad_args(n_i, n, h, w, r)) {
+  if (bad_frames(n_i, n, h, w) || r < 1 || r > kTwopassMaxRadius) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const size_t bytes_ab = static_cast<size_t>(twopass_smem_words(r, 4)) * 4;
@@ -430,7 +736,8 @@ extern "C" int tpuimg_guided_twopass(const float* I, int n_i, const float* p,
   if (err != cudaSuccess) return static_cast<int>(err);
   err = allow_smem(guided_q_kernel, bytes_q);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid = grid_of(n, h, w);
+  const dim3 grid((w + kTile - 1) / kTile, (h + kTile - 1) / kTile,
+                  n < 65535 ? n : 65535);
   guided_ab_kernel<<<grid, kThreads, bytes_ab, stream>>>(I, n_i, p, n, h, w,
                                                          r, eps, a, b);
   err = cudaGetLastError();

@@ -1,4 +1,5 @@
-// Global, per-frame and per-group 256-bin histograms: one kernel.
+// Global, per-frame and per-group 256-bin histograms: one kernel body, over
+// u8 pixels or over int32 words of four packed u8 pixels.
 //
 // Replaces tpuimg/kernels/hist.py::hist256_pallas (:115),
 // hist256_frames_pallas (:145) and hist256_groups_pallas (:126), which share
@@ -11,13 +12,19 @@
 // Counts are exact, with no padding corrections: the TPU's bin-0 fix-ups
 // exist only because of its 32x128 alignment pads.
 //
+// The second entry, tpuimg_hist256_packed, replaces
+// hist256_groups_pallas_packed (:167, the same pallas_call with
+// _hist_group_kernel_packed): (G, P4) int32 words, each holding four pixels
+// little-endian, counted byte by byte. It is the same body reading words: a
+// group's base is 4-byte aligned there, not 1.
+//
 // Bound on this card: one byte read and one shared-memory atomic per pixel
 // (8.3 MB and 8.3 M atomics for a 4K frame); the atomics set the time. A
 // thread loads 16 bytes at a time, so it issues 16 independent atomics per
-// load. A group's base (g * P) is 16-byte aligned only by chance, so block 0
-// of each group counts the bytes before the first 16-byte boundary and after
-// the last one byte by byte. A flat frame sends every atomic of a warp to one
-// bin: the hardware serialises them, which is slow but exact.
+// load. A group's base (g * P units) is 16-byte aligned only by chance, so
+// block 0 of each group counts the units before the first 16-byte boundary
+// and after the last one by one. A flat frame sends every atomic of a warp
+// to one bin: the hardware serialises them, which is slow but exact.
 #include <algorithm>
 
 #include "common.cuh"
@@ -37,19 +44,34 @@ __device__ __forceinline__ void count_word(unsigned int word, int* hist) {
   atomicAdd(&hist[word >> 24], 1);
 }
 
+// unit i of a group: a pixel (kUnit 1) or a word of four (kUnit 4)
+template <int kUnit>
+__device__ __forceinline__ void count_unit(const uint8_t* base, long long i,
+                                           int* hist) {
+  if constexpr (kUnit == 1) {
+    atomicAdd(&hist[base[i]], 1);
+  } else {
+    count_word(reinterpret_cast<const unsigned int*>(base)[i], hist);
+  }
+}
+
+// x: groups of p units of kUnit bytes each
+template <int kUnit>
 __global__ void __launch_bounds__(kThreads)
 hist256_kernel(const uint8_t* __restrict__ x, int groups, long long p,
                int* __restrict__ out) {
+  constexpr int kPerVec = 16 / kUnit;  // units in a 16-byte vector
   __shared__ int hist[256];
   for (int g = blockIdx.y; g < groups; g += gridDim.y) {
     hist[threadIdx.x] = 0;
     __syncthreads();
-    const uint8_t* base = x + static_cast<long long>(g) * p;
+    const uint8_t* base = x + static_cast<long long>(g) * p * kUnit;
     const long long head = min(
         p, static_cast<long long>(
-               (16 - (reinterpret_cast<uintptr_t>(base) & 15)) & 15));
-    const long long nvec = (p - head) >> 4;
-    const uint4* vec = reinterpret_cast<const uint4*>(base + head);
+               ((16 - (reinterpret_cast<uintptr_t>(base) & 15)) & 15) /
+               kUnit));
+    const long long nvec = (p - head) / kPerVec;
+    const uint4* vec = reinterpret_cast<const uint4*>(base + head * kUnit);
     const long long stride = static_cast<long long>(gridDim.x) * kThreads;
     for (long long i = static_cast<long long>(blockIdx.x) * kThreads +
                        threadIdx.x;
@@ -61,9 +83,9 @@ hist256_kernel(const uint8_t* __restrict__ x, int groups, long long p,
       count_word(v.w, hist);
     }
     if (blockIdx.x == 0) {  // head and tail: fewer than 16 bytes each
-      const long long tail = head + (nvec << 4) + threadIdx.x;
-      if (threadIdx.x < head) atomicAdd(&hist[base[threadIdx.x]], 1);
-      if (tail < p) atomicAdd(&hist[base[tail]], 1);
+      const long long tail = head + nvec * kPerVec + threadIdx.x;
+      if (threadIdx.x < head) count_unit<kUnit>(base, threadIdx.x, hist);
+      if (tail < p) count_unit<kUnit>(base, tail, hist);
     }
     __syncthreads();
     const int v = hist[threadIdx.x];
@@ -72,15 +94,30 @@ hist256_kernel(const uint8_t* __restrict__ x, int groups, long long p,
   }
 }
 
+template <int kUnit>
+int launch_hist(const uint8_t* x, int groups, long long p, int* out,
+                cudaStream_t stream) {
+  const long long per_block = static_cast<long long>(kThreads) * kVecPerThread;
+  const long long chunks = (p * kUnit / 16 + per_block) / per_block;
+  const dim3 grid(static_cast<unsigned>(std::min(chunks, 65535LL)),
+                  static_cast<unsigned>(std::min(groups, kMaxGridY)));
+  hist256_kernel<kUnit><<<grid, kThreads, 0, stream>>>(x, groups, p, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // x: (groups, p) u8, contiguous; out: zeroed (groups, 256) int32.
 extern "C" int tpuimg_hist256(const uint8_t* x, int groups, long long p,
                               int* out, cudaStream_t stream) {
-  const long long per_block = static_cast<long long>(kThreads) * kVecPerThread;
-  const long long chunks = (p / 16 + per_block) / per_block;
-  const dim3 grid(static_cast<unsigned>(std::min(chunks, 65535LL)),
-                  static_cast<unsigned>(std::min(groups, kMaxGridY)));
-  hist256_kernel<<<grid, kThreads, 0, stream>>>(x, groups, p, out);
-  return static_cast<int>(cudaGetLastError());
+  return launch_hist<1>(x, groups, p, out, stream);
+}
+
+// x: (groups, p4) int32 words of four u8 pixels (little-endian), contiguous;
+// out: zeroed (groups, 256) int32.
+extern "C" int tpuimg_hist256_packed(const int32_t* x, int groups,
+                                     long long p4, int* out,
+                                     cudaStream_t stream) {
+  return launch_hist<4>(reinterpret_cast<const uint8_t*>(x), groups, p4, out,
+                        stream);
 }

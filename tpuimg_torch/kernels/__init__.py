@@ -41,6 +41,11 @@ GAUSS_MAX_RADIUS = 96  # csrc/gaussian.cu kGaussMaxRadius
 # ceiling; larger radii take the row-pass/column-pass route
 MORPH_MAX_TILE_RADIUS = 96
 OPEN_CLOSE_MAX_RADIUS = 39  # csrc/open_close.cu kOpenCloseMaxRadius
+# csrc/guided.cu kSmemMaxRadius: the onepass kernel's shared-memory route, and
+# the frame entry's ceiling; the row-padded entry takes larger radii on its
+# scratch route
+GUIDED_SMEM_MAX_RADIUS = 64
+GUIDED_TWOPASS_MAX_RADIUS = 16  # csrc/guided.cu kTwopassMaxRadius
 
 
 class Taps(ctypes.Structure):
@@ -73,10 +78,14 @@ _SIGNATURES = {
     "tpuimg_guided_onepass": (_P, _I, _P, _I, _I, _I, _I, _F, _I, _P, _P),
     "tpuimg_guided_onepass_ypadded": (_P, _I, _P, _I, _I, _I, _I, _F, _I, _P,
                                       _P),
+    # I, n_i, p, n, h, w, r, eps, self_guided, scratch, q, stream
+    "tpuimg_guided_onepass_ypadded_scratch": (_P, _I, _P, _I, _I, _I, _I, _F,
+                                              _I, _P, _P, _P),
     # I, n_i, p, n, h, w, r, eps, a, b, q, stream
     "tpuimg_guided_twopass": (_P, _I, _P, _I, _I, _I, _I, _F, _P, _P, _P, _P),
     # x, groups, p, out, stream
     "tpuimg_hist256": (_P, _I, _L, _P, _P),
+    "tpuimg_hist256_packed": (_P, _I, _L, _P, _P),
     # img, n, frames, tables, tstride, elem_bytes, out, stream
     "tpuimg_lut_gather": (_P, _L, _I, _P, _I, _I, _P, _P),
     # img, frames, h, w, out, stream
@@ -184,6 +193,9 @@ def load() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         lib.tpuimg_cuda_error_string.argtypes = [ctypes.c_int]
         lib.tpuimg_cuda_error_string.restype = ctypes.c_char_p
+        # n, h, w, r, self_guided -> floats of scratch, or -1
+        lib.tpuimg_guided_onepass_scratch_floats.argtypes = [_I] * 5
+        lib.tpuimg_guided_onepass_scratch_floats.restype = _L
         _lib = lib
     return _lib
 

@@ -10,9 +10,11 @@ I*p and I*I, then a and b, then q = mean_a*I + mean_b.
 ``guided_ypadded_kernel`` (the onepass kernel's row-padded entry) replaces
 ``guided_pallas_ypadded``: I and p blocks whose rows already carry 2r halo
 rows on each side (a shard of ``parallel/sharding.py`` with its neighbours'
-rows), (..., H + 4r, W) in and (..., H, W) out. Its plain version is
-tpuimg's XLA form of ``guided_ypadded``: pad x only by 2r (reflect-101), the
-same chain with valid-window box sums, q on the block's centre.
+rows), (..., H + 4r, W) in and (..., H, W) out, at any radius (above
+GUIDED_SMEM_MAX_RADIUS the kernel keeps its workspace in a device-memory
+scratch, the scratch route). Its plain version is tpuimg's XLA form of
+``guided_ypadded``: pad x only by 2r (reflect-101), the same chain with
+valid-window box sums, q on the block's centre.
 
 ``enhance_tail``, q = guided(I=f, p=gaussian(f)), replaces
 ``enhance_tail_pallas``. Its plain version is ``_tail_chain``'s algebra on the
@@ -35,7 +37,9 @@ import torch
 
 from tpuimg_torch.core.borders import pad_reflect101
 from tpuimg_torch.core.validate import ParamError
-from tpuimg_torch.kernels import MAX_TAPS, Taps, launch, require_cuda_tensor
+from tpuimg_torch.kernels import (
+    GUIDED_SMEM_MAX_RADIUS, GUIDED_TWOPASS_MAX_RADIUS, MAX_TAPS, Taps, launch,
+    load, require_cuda_tensor)
 from tpuimg_torch.kernels.lut import check_clahe_args, clahe_map_plain
 from tpuimg_torch.kernels.sep_stencil import _sep_pass, taps
 
@@ -43,8 +47,10 @@ from tpuimg_torch.kernels.sep_stencil import _sep_pass, taps
 # (``blend * (1.0 / 255.0)``): np.float32(1 / 255), bits 998277249
 INV_255 = float(np.float32(1.0 / 255.0))
 
-GUIDED_MAX_RADIUS = 16  # csrc/guided.cu kMaxRadius; tpuimg's _PALLAS_MAX_RADIUS
 VARIANTS = ("onepass", "twopass")
+# the radius each variant of guided_filter_kernel takes on the card
+GUIDED_MAX_RADIUS = {"onepass": GUIDED_SMEM_MAX_RADIUS,
+                     "twopass": GUIDED_TWOPASS_MAX_RADIUS}
 
 
 def window_sum(x, ksz: int, dim: int):
@@ -92,7 +98,7 @@ def guided_filter_plain(I, p, radius: int, eps: float,
                         self_guided)
 
 
-def _checked_pair(I, p, radius: int, self_guided: bool):
+def _checked_pair(I, p, self_guided: bool):
     """The guided kernels' checks on the card; returns p (I when
     ``self_guided``)."""
     require_cuda_tensor(I, "I", torch.float32, batched=True)
@@ -104,10 +110,6 @@ def _checked_pair(I, p, radius: int, self_guided: bool):
         raise ValueError(
             f"p {tuple(p.shape)} on {p.device} must have the shape of I "
             f"{tuple(I.shape)}, or one more leading dim, on {I.device}")
-    if radius > GUIDED_MAX_RADIUS:
-        raise ParamError(
-            f"the guided-filter kernel takes radius <= {GUIDED_MAX_RADIUS}, "
-            f"got {radius}")
     return p
 
 
@@ -119,12 +121,17 @@ def guided_filter_kernel(I, p, radius: int, eps: float,
     I: float32 (..., H, W). p: float32 of I's shape, or with one more leading
     dim of C channels that share the guide (CN1). ``self_guided``: p is I,
     the onepass kernel's two-sum form (twopass always takes the four sums).
-    Takes radius <= GUIDED_MAX_RADIUS on the card."""
+    Takes radius <= GUIDED_MAX_RADIUS[variant] on the card (64 onepass, 16
+    twopass)."""
     if variant not in VARIANTS:
         raise ParamError(f"variant must be one of {VARIANTS}, got {variant!r}")
     if I.device.type == "cpu":
         return guided_filter_plain(I, p, radius, eps, self_guided)
-    p = _checked_pair(I, p, radius, self_guided)
+    p = _checked_pair(I, p, self_guided)
+    if radius > GUIDED_MAX_RADIUS[variant]:
+        raise ParamError(
+            f"the {variant} guided-filter kernel takes radius <= "
+            f"{GUIDED_MAX_RADIUS[variant]}, got {radius}")
     h, w = I.shape[-2:]
     q = torch.empty_like(p)
     if q.numel() == 0:
@@ -171,12 +178,14 @@ def guided_ypadded_plain(Ipad, ppad, radius: int, eps: float,
 def guided_ypadded_kernel(Ipad, ppad, radius: int, eps: float,
                           self_guided: bool = False):
     """``guided_ypadded_plain`` on a CPU tensor; on a CUDA tensor one launch
-    of the onepass kernel's row-padded entry over all frames. Ipad: float32
-    (..., H + 4r, W), H >= 1; ppad: of its shape, or with one more leading
-    dim (CN1); ignored when ``self_guided``. Radius <= GUIDED_MAX_RADIUS."""
+    of the onepass kernel's row-padded entry over all frames, at any radius.
+    Ipad: float32 (..., H + 4r, W), H >= 1; ppad: of its shape, or with one
+    more leading dim (CN1); ignored when ``self_guided``. Above
+    GUIDED_SMEM_MAX_RADIUS the launch takes the scratch route (its workspace
+    in device memory), counted on ``scratch_launches`` too."""
     if Ipad.device.type == "cpu":
         return guided_ypadded_plain(Ipad, ppad, radius, eps, self_guided)
-    p = _checked_pair(Ipad, ppad, radius, self_guided)
+    p = _checked_pair(Ipad, ppad, self_guided)
     hin, w = Ipad.shape[-2:]
     h = hin - 4 * radius
     q = torch.empty(p.shape[:-2] + (h, w), dtype=torch.float32,
@@ -184,13 +193,27 @@ def guided_ypadded_kernel(Ipad, ppad, radius: int, eps: float,
     if q.numel() == 0:
         return q
     n_i, n = Ipad.numel() // (hin * w), p.numel() // (hin * w)
-    launch("tpuimg_guided_onepass_ypadded", Ipad.device, Ipad.data_ptr(), n_i,
-           p.data_ptr(), n, h, w, radius, eps, int(self_guided), q.data_ptr())
+    args = (Ipad.data_ptr(), n_i, p.data_ptr(), n, h, w, radius, eps,
+            int(self_guided))
+    if radius <= GUIDED_SMEM_MAX_RADIUS:
+        launch("tpuimg_guided_onepass_ypadded", Ipad.device, *args,
+               q.data_ptr())
+    else:
+        floats = load().tpuimg_guided_onepass_scratch_floats(
+            n, h, w, radius, int(self_guided))
+        if floats < 0:
+            raise ParamError(f"the guided-filter kernel takes radius < 2^22, "
+                             f"got {radius}")
+        scratch = torch.empty(floats, dtype=torch.float32, device=p.device)
+        launch("tpuimg_guided_onepass_ypadded_scratch", Ipad.device, *args,
+               scratch.data_ptr(), q.data_ptr())
+        guided_ypadded_kernel.scratch_launches += 1
     guided_ypadded_kernel.launches += 1
     return q
 
 
 guided_ypadded_kernel.launches = 0
+guided_ypadded_kernel.scratch_launches = 0  # launches on the scratch route
 
 
 def enhance_tail_plain(f, radius_g: int, sigma: float, radius: int,

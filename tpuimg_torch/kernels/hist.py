@@ -7,7 +7,9 @@ and its thin forms ``hist256`` (one frame) and ``hist256_frames`` (a stack)
 replace ``hist256_pallas`` and ``hist256_frames_pallas``: the three share one
 kernel, as they share one ``pallas_call`` in tpuimg. ``hist256_groups_plain``
 is the plain form of ``tpuimg/kernels/onehot.py::hist256_tiled`` (a bincount
-per group instead of a one-hot contraction).
+per group instead of a one-hot contraction). ``hist256_groups_packed``, the
+same kernel body reading int32 words of four packed pixels, replaces
+``hist256_groups_pallas_packed``.
 """
 
 from __future__ import annotations
@@ -44,6 +46,38 @@ def hist256_groups(groups: torch.Tensor) -> torch.Tensor:
 
 
 hist256_groups.launches = 0
+
+
+def hist256_groups_packed_plain(words: torch.Tensor) -> torch.Tensor:
+    """Per-group histograms of packed pixels: int32 (G, P4) words, each four
+    u8 pixels little-endian -> (G, 256) int32. The bytes are (word >> 8k) &
+    255: the shift is arithmetic, so the mask keeps a word with its top bit
+    set right."""
+    g = words.shape[0]
+    shifts = torch.tensor([0, 8, 16, 24], dtype=torch.int32,
+                          device=words.device)
+    pixels = (words.reshape(g, -1, 1) >> shifts) & 255
+    return hist256_groups_plain(pixels.to(torch.uint8).reshape(g, -1))
+
+
+def hist256_groups_packed(words: torch.Tensor) -> torch.Tensor:
+    """``hist256_groups_packed_plain`` of an int32 (G, P4) tensor on the
+    CPU; the CUDA kernel otherwise, one launch for every group. Counts are
+    exact, with no bin-0 correction."""
+    if words.device.type == "cpu":
+        return hist256_groups_packed_plain(words)
+    require_cuda_tensor(words, "words", torch.int32)
+    g, p4 = words.shape
+    out = torch.zeros((g, 256), dtype=torch.int32, device=words.device)
+    if words.numel() == 0:
+        return out
+    launch("tpuimg_hist256_packed", words.device, words.data_ptr(), g, p4,
+           out.data_ptr())
+    hist256_groups_packed.launches += 1
+    return out
+
+
+hist256_groups_packed.launches = 0
 
 
 def hist256(img: torch.Tensor) -> torch.Tensor:

@@ -12,9 +12,9 @@ path (gIntegralToMean: windows clamped to the image, normalised by their
 true area), which is also ``box_filter``'s default.
 
 ``guided_ypadded``, the per-shard op of ``parallel.guided_filter_sharded``
-and ``enhance_sharded``, runs the onepass kernel's row-padded entry;
-``box_filter_ypadded`` is plain PyTorch on the tensor's device, as tpuimg's
-is XLA.
+and ``enhance_sharded``, runs the onepass kernel's row-padded entry at any
+radius, as tpuimg runs its Pallas kernel; ``box_filter_ypadded`` is plain
+PyTorch on the tensor's device, as tpuimg's is XLA.
 """
 
 from __future__ import annotations
@@ -29,14 +29,18 @@ from tpuimg_torch.core.validate import (
     ParamError, ShapeError, check_image, check_positive, check_radius,
     check_ypadded_rows)
 from tpuimg_torch.kernels.boxsum import (
-    GUIDED_MAX_RADIUS, guided_chain, guided_filter_kernel,
-    guided_ypadded_kernel, window_sum)
+    guided_chain, guided_filter_kernel, guided_ypadded_kernel, window_sum)
 
 _FLOAT_IN = [torch.float32, torch.float64, torch.uint8]
 
 # below this radius, direct shifted adds; above, cumsum differences
 # (tpuimg/ops/guided.py _DIRECT_MAX_RADIUS)
 _DIRECT_MAX_RADIUS = 5
+
+# guided_filter sends radius <= this to the kernel, larger ones to the plain
+# chain, as tpuimg sends them to Pallas or XLA (tpuimg/ops/guided.py
+# _PALLAS_MAX_RADIUS); the kernel itself takes more
+_PALLAS_MAX_RADIUS = 16
 
 
 def _cumsum0(x, dim: int):
@@ -125,15 +129,10 @@ def guided_ypadded(Ipad, ppad, radius: int, eps: float):
     padded by ``2*radius`` rows on the row axis, (..., H + 4r, W) ->
     float32 (..., H, W); x is reflect-101 in the kernel. Passing the same
     tensor twice is the self-guided form (object identity, as tpuimg's
-    ``ppad is Ipad``). The kernel takes radius <= 16 (its shared-memory
-    ceiling), on every device; tpuimg has none there."""
+    ``ppad is Ipad``). Any radius, as tpuimg's."""
     self_guided = ppad is Ipad
     check_radius(radius)
     check_positive(eps, "eps")
-    if radius > GUIDED_MAX_RADIUS:
-        raise ParamError(
-            f"guided_ypadded takes radius <= {GUIDED_MAX_RADIUS} (the guided "
-            f"kernel's shared-memory ceiling), got {radius}")
     Ipad = as_image(Ipad)
     check_ypadded_rows(Ipad, 2 * radius, "4*radius")
     Ipad = Ipad.to(torch.float32).contiguous()
@@ -162,7 +161,7 @@ def guided_filter(I, p, radius: int, eps: float, border: str = SHRINK):
     box = _box(border, radius)
     I = I.to(torch.float32)
     p = I if self_guided else p.to(torch.float32)
-    if border == SHRINK or radius > GUIDED_MAX_RADIUS:
+    if border == SHRINK or radius > _PALLAS_MAX_RADIUS:
         return guided_chain(I, p, eps, box, self_guided)
     if self_guided:
         I = p = I.contiguous()
