@@ -33,11 +33,17 @@ Phases, each printed on its own line:
    -0.0 planted), on 10x200 at r15, 5x6 at r40 and 1x1 at r3, on a batch of
    two 4K frames and at r200 at 4K (the two-pass route past the tile
    kernel's ceiling), and open and close (open_close) at the same sizes for
-   r 1, 15, 31: all equal to the plain versions, NaNs in the same places;
+   r 1, 15, 31, 39, at each dtype's ceiling (93 u8, 44 int32 and float32:
+   one fused launch) and one past it (two morphology launches), and on
+   frames narrower than a tile or of one row or column at r15 and r16: all
+   equal to the plain versions, NaNs in the same places;
    the fused1 tail (enhance_tail_clahe) at the three sizes for tiles 4, 8,
    16 and a 3x5 grid within 5e-6 of enhance_tail on the card's own CLAHE
    blend times 1/255 (the count of differing pixels printed), and within
-   1e-4 of its plain version; the row-padded kernels at the blocks of a 4K
+   1e-4 of its plain version; both tails at gf r 1, 8, 16, 64 by gaussian
+   r 0, 2, 16 at the three sizes and on frames just above enhance's gate
+   (the scratch route where the workspace passes shared memory), the same
+   contracts; the row-padded kernels at the blocks of a 4K
    shard over sp = 4 (540, 541 of 3839 columns, and 1 output rows, with the
    enhance tail's 2*18 halo rows): gaussian_ypadded r2 <= 1e-5,
    guided_ypadded r8 general and self <= 1e-4 (and r 20, 32, 64 and 80,
@@ -82,7 +88,9 @@ Phases, each printed on its own line:
    its plain version, of enhance on the three impls, and of hist_equalize
    (one frame, and 16 frames of 1080p), integral, erode (r1, r15) and
    morph_open (r15 on two 4K frames, also against two erode/dilate
-   launches) end to end against their plain compositions, at 4K and 1080p;
+   launches, and f32 open) end to end against their plain compositions, at
+   4K and 1080p; the enhance tail against gaussian then guided onepass on
+   the same frame, and a torch.profiler split of enhance in each impl at 4K;
    f32 dilate r15 against max_pool2d, gaussian against a conv2d, hist256
    and hist256_packed against bincount and lut_gather against indexing (the
    one PyTorch call
@@ -126,8 +134,8 @@ from tpuimg_torch.kernels.scan2d import integral_kernel, integral_plain
 from tpuimg_torch.kernels.sep_stencil import (
     gaussian_kernel, gaussian_plain, gaussian_ypadded_kernel,
     gaussian_ypadded_plain, morph_ypadded_kernel, morph_ypadded_plain,
-    morphology_kernel, morphology_plain, open_close_kernel, open_close_plain,
-    taps)
+    morphology_kernel, morphology_plain, open_close_kernel,
+    open_close_max_radius, open_close_plain, taps)
 from tpuimg_torch.ops.gaussian import gaussian_ypadded
 from tpuimg_torch.ops.histogram import (
     _clahe_geometry, _clahe_tables, _he_tables)
@@ -149,7 +157,13 @@ SMALL = (32, 48)  # under the tail kernel's gate: 32 <= 2*(2*8 + 2)
 UHD8K = (4320, 7680)  # 33 Mpx: more than 2^24 pixels, and all-255 sums wrap
 BATCH = (16, 1080, 1920)  # the hist_equalize_1080p_b16 bench row (bench.py:58)
 MORPH_R = [1, 2, 7, 15, 31]
-OPEN_CLOSE_R = [1, 15, 31]
+OPEN_CLOSE_R = [1, 15, 31, 39]
+# frames narrower than a tile or a line shorter than a window
+OPEN_CLOSE_NARROW = [(2160, 40), (40, 3840), (2160, 1), (1, 3840)]
+# the tails' radius range: gf radius (64 the ceiling, on the scratch route at
+# rg 16) by gaussian radius
+TAIL_R = [1, 8, 16, 64]
+TAIL_RG = [0, 2, 16]
 MORPH_TINY = [((10, 200), 15), ((5, 6), 40), ((1, 1), 3)]
 MORPH_BATCH = (2, 2160, 3840)  # morph_31x31_4k_batch2 (bench.py:84): r15
 MORPH_PATH_R = 15
@@ -600,6 +614,91 @@ def check_morph_kernels(dev, card: str, errs: dict) -> None:
           f"({split} of 18)")
 
 
+def check_open_close_limits(dev, card: str, errs: dict) -> None:
+    """Phase 3, open_close at each dtype's ceiling (one fused launch) and one
+    past it (two morphology launches), on frames narrower than a tile or of
+    one row or column, and at r16 (2r + 1 = 33 divides no line)."""
+    h, w = SHAPES[1]
+    for dtype in ("uint8", "int32", "float32"):
+        x = torch.from_numpy(morph_frame((h, w), dtype, SEED + 31)).to(dev)
+        top = open_close_max_radius(x.dtype)
+        line = []
+        for r in (top, top + 1):
+            before = (open_close_kernel.launches, morphology_kernel.launches)
+            for mode in (0, 1):
+                same_values(f"open_close {h}x{w} {dtype} r{r} mode {mode}",
+                            open_close_kernel(x, r, mode),
+                            open_close_plain(x, r, mode), errs, "open_close")
+            got = (open_close_kernel.launches - before[0],
+                   morphology_kernel.launches - before[1])
+            want = (2, 0) if r <= top else (0, 4)
+            check(got == want, f"open_close {dtype} r{r}: (fused, morphology) "
+                  f"launches {got}, not {want}")
+            line.append(f"r{r} {'fused' if r <= top else 'two launches'}")
+        torch.cuda.synchronize()
+        print(f"phase 3 open_close vs plain {h}x{w} {dtype} at its ceiling "
+              f"{top}: {', '.join(line)}, equal, NaNs in place [{card}]")
+    for shape in OPEN_CLOSE_NARROW:
+        for dtype in ("uint8", "int32", "float32"):
+            x = torch.from_numpy(morph_frame(shape, dtype, SEED + 32)).to(dev)
+            for r in (MORPH_PATH_R, 16):
+                for mode in (0, 1):
+                    same_values(f"open_close {shape} {dtype} r{r} mode {mode}",
+                                open_close_kernel(x, r, mode),
+                                open_close_plain(x, r, mode), errs,
+                                "open_close")
+        torch.cuda.synchronize()
+        print(f"phase 3 open_close vs plain {shape[0]}x{shape[1]}: r15 and "
+              f"r16, u8, int32 and float32 equal, NaNs in place [{card}]")
+
+
+def tail_sigma(rg: int) -> float:
+    return 1.5 if rg <= 2 else 5.0
+
+
+def check_tail_radii(dev, card: str, errs: dict) -> None:
+    """Phase 3, both tails over their radius range (gf r TAIL_R by gaussian
+    r TAIL_RG, the scratch route where the workspace passes a block's shared
+    memory) at the three sizes and on frames just above enhance's gate: the
+    f32 tail within 1e-4 of its plain version, the fused1 tail within 5e-6
+    of it on the card's own blend and within 1e-4 of its plain version."""
+    cases = [((h, w), r, rg) for h, w in SHAPES for r in TAIL_R
+             for rg in TAIL_RG]
+    cases += [((2 * (2 * GF_R + RG) + 1, 53), GF_R, RG),
+              ((2 * (2 * 64 + 16) + 1, 300), 64, 16)]
+    frames = {}
+    for shape, r, rg in cases:
+        if shape not in frames:
+            img = torch.from_numpy(make_frame(*shape, SEED + 33)).to(dev)
+            geo, tables = front_at(img, TILES)
+            args = (img, tables, TILES, TILES, *geo)
+            frames[shape] = (args, clahe_map(*args, True) * INV_255)
+        args, f = frames[shape]
+        sigma = tail_sigma(rg)
+        scratch = enhance_tail.scratch_launches
+        got = enhance_tail(f, rg, sigma, r, GF_EPS)
+        err = max_err(got, enhance_tail_plain(f, rg, sigma, r, GF_EPS))
+        fused1 = enhance_tail_clahe(*args, rg, sigma, r, GF_EPS)
+        diff = max_err(fused1, got)
+        err1 = max_err(fused1, enhance_tail_clahe_plain(*args, rg, sigma, r,
+                                                        GF_EPS))
+        label = f"{shape[0]}x{shape[1]} r{r} rg{rg}"
+        check(bool(torch.isfinite(got).all()), f"enhance_tail {label} finite")
+        check(err <= 1e-4, f"enhance_tail {label}: {err} <= 1e-4")
+        check(diff <= 5e-6, f"enhance_tail_clahe {label} vs enhance_tail: "
+              f"{diff} <= 5e-6")
+        check(err1 <= 1e-4, f"enhance_tail_clahe {label}: {err1} <= 1e-4")
+        errs["enhance_tail"] = max(errs["enhance_tail"], err)
+        errs["enhance_tail_clahe"] = max(errs.get("enhance_tail_clahe", 0.0),
+                                         err1)
+        torch.cuda.synchronize()
+        route = ("scratch" if enhance_tail.scratch_launches - scratch
+                 else "shared")
+        print(f"phase 3 tails {label} ({route} route): enhance_tail vs plain "
+              f"{err:.3g}, enhance_tail_clahe vs enhance_tail {diff:.3g} vs "
+              f"plain {err1:.3g} [{card}]")
+
+
 def check_tail_clahe_kernel(dev, card: str, errs: dict) -> None:
     """Phase 3, the fused1 tail against the f32 tail on the card's own
     blend, and against its plain version."""
@@ -814,6 +913,12 @@ def run_main_paths(dev, card: str, batch: np.ndarray) -> dict:
         check_enhance_out(label, out, img, frame, impl, card)
         outs[(shape, impl)] = out
         total = {k: total[k] + got[k] for k in total}
+        if impl == "staged":
+            fused = outs[(shape, "fused")]
+            step = int((out.int() - fused.int()).abs().max())
+            check(step <= 1, f"{label} vs fused: {step} <= 1 step")
+            print(f"phase 4 {label} vs fused: {int((out != fused).sum())} "
+                  f"pixels differ, max {step} step [{card}]")
         if impl == "fused1":
             check(got["clahe_map"] == 0, f"{label} launches no clahe_map")
             fused = outs[(shape, "fused")]
@@ -1169,6 +1274,16 @@ def time_all(dev, card: str) -> dict:
                                                  self_guided=True),
                   lambda x: guided_filter_plain(x, x, GF_R, GF_EPS, True),
                   (f,), card)
+        tail = time_cuda(enhance_tail, f, RG, SIGMA, GF_R, GF_EPS,
+                         iters=ITERS, card=card)
+        comp = time_cuda(lambda x: guided_filter_kernel(
+            x, gaussian_kernel(x, RG, SIGMA), GF_R, GF_EPS), f, iters=ITERS,
+            card=card)
+        print(f"phase 5 time enhance_tail {h}x{w} against its composition: "
+              f"tail {tail.ms:.4f} ms (min {tail.ms_min:.4f}), gaussian then "
+              f"guided onepass {comp.ms:.4f} ms (min {comp.ms_min:.4f}); the "
+              f"tail {'is' if tail.ms < comp.ms else 'is not'} faster, median "
+              f"of {ITERS} [{card}]")
         for impl in ("fused", "staged", "fused1"):
             e = time_cuda(enhance, img, CLIP, TILES, RG, SIGMA, GF_R, GF_EPS,
                           impl, iters=ITERS, card=card)
@@ -1177,6 +1292,14 @@ def time_all(dev, card: str) -> dict:
                   f"{e.ms:.4f} ms (min {e.ms_min:.4f}), plain composition "
                   f"{ep.ms:.4f} ms (min {ep.ms_min:.4f}), median of {ITERS} "
                   f"[{card}]")
+            if (h, w) == SHAPES[0]:
+                busy, idle, nk, top = device_split(
+                    enhance, img, CLIP, TILES, RG, SIGMA, GF_R, GF_EPS, impl)
+                print(f"phase 5 profile enhance {impl} {h}x{w}, 10 calls: "
+                      f"device busy {busy:.4f} ms a call over {nk:.0f} "
+                      f"kernels, idle share {idle:.2%}; largest: "
+                      + "; ".join(f"{k} {v:.4f}" for k, v in top)
+                      + f" [{card}]")
     return at_4k
 
 
@@ -1290,8 +1413,14 @@ def time_morph_tail(dev, card: str) -> dict:
                     card=card)
     print(f"phase 5 time morph_open {label} end to end: {fused.ms:.4f} ms "
           f"(min {fused.ms_min:.4f}), erode then dilate as two morphology "
-          f"launches {two.ms:.4f} ms (min {two.ms_min:.4f}), median of "
-          f"{ITERS} [{card}]")
+          f"launches {two.ms:.4f} ms (min {two.ms_min:.4f}); the fused "
+          f"kernel {'is' if fused.ms < two.ms else 'is not'} faster, median "
+          f"of {ITERS} [{card}]")
+    xf = x.to(torch.float32)
+    time_pair(f"open_close (open) f32 {label}",
+              lambda v: open_close_kernel(v, r, 0),
+              lambda v: open_close_plain(v, r, 0), (xf,), card,
+              work=(2 * nbytes(xf), morph_ops(xf.dtype, passes=2) * xf.numel()))
     time_pair(f"erode {label} end to end", lambda v: erode(v, r),
               lambda v: morphology_plain(v, r, 0), (x,), card)
     return at_4k
@@ -1476,7 +1605,9 @@ def main() -> int:
     check_he_kernels(dev, card, errs, batch)
     check_integral_kernel(dev, card, errs, batch)
     check_morph_kernels(dev, card, errs)
+    check_open_close_limits(dev, card, errs)
     check_tail_clahe_kernel(dev, card, errs)
+    check_tail_radii(dev, card, errs)
     check_ypadded_kernels(dev, card, errs)
     print(f"phase 3 took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()

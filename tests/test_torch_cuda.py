@@ -18,8 +18,8 @@ import torch
 import tpuimg_torch
 from tpuimg_torch.core.validate import ParamError
 from tpuimg_torch.kernels import (
-    GAUSS_MAX_RADIUS, GUIDED_SMEM_MAX_RADIUS, MORPH_MAX_TILE_RADIUS,
-    OPEN_CLOSE_MAX_RADIUS, KernelLaunchError, launch, load)
+    GAUSS_MAX_RADIUS, GUIDED_SMEM_MAX_RADIUS, MAX_TAPS, MORPH_MAX_TILE_RADIUS,
+    TAIL_MAX_RADIUS, launch, load)
 from tpuimg_torch.kernels.boxsum import (
     INV_255, enhance_tail, enhance_tail_clahe, enhance_tail_clahe_plain,
     enhance_tail_plain, guided_filter_kernel, guided_filter_plain,
@@ -35,7 +35,8 @@ from tpuimg_torch.kernels.scan2d import integral_kernel, integral_plain
 from tpuimg_torch.kernels.sep_stencil import (
     gaussian_kernel, gaussian_plain, gaussian_ypadded_kernel,
     gaussian_ypadded_plain, morph_ypadded_kernel, morph_ypadded_plain,
-    morphology_kernel, morphology_plain, open_close_kernel, open_close_plain)
+    morphology_kernel, morphology_plain, open_close_kernel,
+    open_close_max_radius, open_close_plain, open_close_tile)
 from tpuimg_torch.ops.histogram import _clahe_geometry, _clahe_tables
 from tpuimg_torch.pipeline import enhance
 
@@ -101,9 +102,44 @@ def test_enhance_tail_matches_plain(card, shape, rg, sigma, r, eps):
 
 
 def test_enhance_tail_shared_memory_limit_raises(card):
+    """Past the tail's ceilings (gf radius TAIL_MAX_RADIUS, gaussian radius
+    MAX_TAPS // 2) both tails raise ParamError before any launch; at them
+    they run (the largest on the scratch route)."""
     f = torch.zeros((400, 400), device=card)
-    with pytest.raises(KernelLaunchError):
-        enhance_tail(f, 16, 5.0, 16, 1e-3)
+    img = torch.from_numpy(_frame((400, 400), 5)).to(card)
+    geo, tables = _geometry_and_tables(img, 4, 4)
+    before = (enhance_tail.launches, enhance_tail_clahe.launches)
+    for r, rg in ((TAIL_MAX_RADIUS + 1, 2), (8, MAX_TAPS // 2 + 1)):
+        with pytest.raises(ParamError):
+            enhance_tail(f, rg, 5.0, r, 1e-3)
+        with pytest.raises(ParamError):
+            enhance_tail_clahe(img, tables, 4, 4, *geo, rg, 5.0, r, 1e-3)
+    assert (enhance_tail.launches, enhance_tail_clahe.launches) == before
+    scratch = enhance_tail.scratch_launches
+    got = enhance_tail(f + 0.5, MAX_TAPS // 2, 5.0, TAIL_MAX_RADIUS, 1e-3)
+    assert enhance_tail.scratch_launches == scratch + 1
+    assert float((got - 0.5).abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("rg,r", [(0, 1), (2, 8), (16, 16), (2, 53), (2, 54),
+                                  (16, 48), (16, 49), (0, 64), (16, 64)])
+def test_enhance_tails_radius_range_unaligned(card, rg, r):
+    """Both tails on an unaligned 2161x3839 frame across the radius range,
+    either side of the shared-memory route's ceiling (r 53 / 54 at rg 2,
+    48 / 49 at rg 16), at the compile-time gaussian radius (2) and at
+    run-time ones: the f32 tail within 1e-4 of its plain version, the fused1
+    tail within 5e-6 of it on the card's own blend."""
+    frame = _frame((2161, 3839), 6)
+    img = torch.from_numpy(frame).to(card)
+    geo, tables = _geometry_and_tables(img, 8, 8)
+    blend = clahe_map(img, tables, 8, 8, *geo, out_f32=True)
+    f = blend * INV_255
+    got = enhance_tail(f, rg, 2.0, r, 1e-3)
+    assert bool(torch.isfinite(got).all())
+    assert float((got - enhance_tail_plain(f, rg, 2.0, r, 1e-3))
+                 .abs().max()) <= 1e-4
+    fused1 = enhance_tail_clahe(img, tables, 8, 8, *geo, rg, 2.0, r, 1e-3)
+    assert float((fused1 - got).abs().max()) <= 5e-6
 
 
 @pytest.mark.parametrize("shape,tiles,radius,gf_radius", [
@@ -651,24 +687,38 @@ def test_morphology_matches_plain(card, shape, radius, dtype):
 
 
 OPEN_CLOSE_CASES = [((1, 1), 3), ((5, 6), 40), ((15, 33), 8),
-                    ((97, 201), 15), ((300, 257), OPEN_CLOSE_MAX_RADIUS),
-                    ((260, 250), OPEN_CLOSE_MAX_RADIUS + 1), ((200, 230), 60),
-                    ((2, 2, 40, 70), 3)]
+                    ((97, 201), 15), ((300, 257), 39), ((300, 257), 44),
+                    ((260, 250), 45), ((400, 390), 93), ((400, 390), 94),
+                    ((200, 230), 60), ((2, 2, 40, 70), 3), ((1, 500), 7),
+                    ((500, 1), 7), ((300, 20), 15), ((170, 131), 16)]
 
 
 @pytest.mark.parametrize("dtype", ["uint8", "int32", "float32"])
 @pytest.mark.parametrize("shape,radius", OPEN_CLOSE_CASES)
 def test_open_close_matches_plain(card, shape, radius, dtype):
-    """One fused launch up to the ceiling; two morphology launches above
-    it."""
+    """One fused launch up to the dtype's ceiling (93 u8, 44 int32 and
+    float32); two morphology launches above it. Frames of one row or
+    column, narrower than a tile, and radii whose 2r + 1 divides no line."""
     x = torch.from_numpy(_morph_frames(shape, dtype, 41)).to(card)
-    fused = min(radius, max(shape[-2:]) - 1) <= OPEN_CLOSE_MAX_RADIUS
+    r = min(radius, max(shape[-2:]) - 1)
+    fused = open_close_tile(r, x.element_size()) is not None
+    assert fused == (r <= open_close_max_radius(x.dtype))
     for mode in (0, 1):
         before = (open_close_kernel.launches, morphology_kernel.launches)
         got = open_close_kernel(x, radius, mode)
         _same_values(got, open_close_plain(x, radius, mode))
         assert (open_close_kernel.launches, morphology_kernel.launches) == (
             before[0] + fused, before[1] + 2 * (not fused))
+
+
+@pytest.mark.parametrize("dtype", ["uint8", "float32"])
+def test_open_close_batch_over_grid_z(card, dtype):
+    """More frames than a grid's z extent (65535): the blocks loop over
+    frames."""
+    x = torch.from_numpy(_morph_frames((65537, 3, 5), dtype, 48)).to(card)
+    for mode in (0, 1):
+        _same_values(open_close_kernel(x, 2, mode),
+                     open_close_plain(x, 2, mode))
 
 
 @pytest.mark.parametrize("seed", range(8))

@@ -17,9 +17,11 @@ import tpuimg
 import tpuimg_torch
 from tpuimg.kernels.sep_stencil import open_close_pallas
 from tpuimg.oracle import close_ref, dilate_ref, erode_ref, open_ref
+from tpuimg_torch.kernels import SMEM_MAX_BYTES
 from tpuimg_torch.kernels.sep_stencil import (
-    morphology_kernel, morphology_plain, open_close_kernel, open_close_plain,
-    pad_replicate)
+    OPEN_CLOSE_PAIR_BYTES, OPEN_CLOSE_TILES, morphology_kernel,
+    morphology_plain, open_close_kernel, open_close_max_radius,
+    open_close_plain, open_close_smem, open_close_tile, pad_replicate)
 
 OPS = ["erode", "dilate", "morph_open", "morph_close"]
 RADII = [1, 2, 3, 6, 7, 8, 15, 25, 31]
@@ -213,3 +215,95 @@ def test_wrappers_raise_off_the_cpu(monkeypatch):
             getattr(tpuimg_torch, op)(meta, 3)
     with pytest.raises(tpuimg_torch.core.validate.ParamError, match="mode"):
         morphology_kernel(torch.zeros((4, 4)), 1, 2)
+
+
+@pytest.mark.parametrize("dtype,ceiling", [(torch.uint8, 93),
+                                           (torch.int32, 44),
+                                           (torch.float32, 44)])
+def test_open_close_tile_planner(dtype, ceiling):
+    """open_close_tile picks the largest tile whose footprint lets two blocks
+    share an SM, else the largest that fits a block, else None; the fused
+    kernel's ceiling follows from it per dtype."""
+    size = torch.empty((), dtype=dtype).element_size()
+    assert open_close_max_radius(dtype) == ceiling
+    for r in range(0, ceiling + 2):
+        tile = open_close_tile(r, size)
+        assert (tile is None) == (r > ceiling)
+        if tile is None:
+            continue
+        e = tile + 4 * r
+        words = [(n * size + 3) // 4 | 1 for n in (e, tile + 2 * r)]
+        assert open_close_smem(tile, r, size) == 4 * e * sum(words)
+        assert open_close_smem(tile, r, size) <= SMEM_MAX_BYTES
+        bigger = [t for t in OPEN_CLOSE_TILES if t > tile]
+        for t in bigger:  # a larger tile would lose the pair, or not fit
+            assert open_close_smem(t, r, size) > (
+                OPEN_CLOSE_PAIR_BYTES if open_close_smem(tile, r, size)
+                <= OPEN_CLOSE_PAIR_BYTES else SMEM_MAX_BYTES)
+    assert open_close_tile(15, 1) == 128 and open_close_tile(15, 4) == 64
+
+
+def _gil_werman(x, k, fn, ident):
+    """open_close.cu's window_pass along the last axis: out[j] = fn over
+    x[j .. j + k - 1], each thread's block of k outputs from the suffix
+    extremes of its inputs and the prefix extremes of the next block's."""
+    n_out = x.shape[-1] - k + 1
+    out = np.empty(x.shape[:-1] + (n_out,), x.dtype)
+    for j0 in range(0, n_out, k):
+        n = min(k, n_out - j0)
+        h = np.full(x.shape[:-1], ident, x.dtype)
+        for p in range(j0 + k - 1, j0 - 1, -1):
+            h = fn(x[..., p], h)
+            if p < j0 + n:
+                out[..., p] = h
+        g = np.full(x.shape[:-1], ident, x.dtype)
+        for t in range(1, n):
+            g = fn(g, x[..., j0 + k - 1 + t])
+            out[..., j0 + t] = fn(out[..., j0 + t], g)
+    return out
+
+
+def _open_close_model(x, r, mode):
+    """The kernel's four passes in NumPy: stage 1 along the rows, stage 1
+    then stage 2 down the columns, stage 2 along the rows, with each pass's
+    identity outside the frame (the truncated window a replicate border
+    gives a min or max)."""
+    lo, hi = ((np.iinfo(x.dtype).max, np.iinfo(x.dtype).min)
+              if x.dtype.kind in "iu" else (np.inf, -np.inf))
+    fns = (np.minimum, np.maximum)
+    f1, f2 = fns[mode], fns[1 - mode]
+    id1, id2 = ((lo, hi) if mode == 0 else (hi, lo))
+    k = 2 * r + 1
+    p = np.pad(x, 2 * r, constant_values=id1)
+    rows = _gil_werman(p, k, f1, id1)                       # (H+4r, W+2r)
+    s1 = _gil_werman(rows.T, k, f1, id1).T                  # (H+2r, W+2r)
+    s1[:r] = id2
+    s1[s1.shape[0] - r:] = id2
+    cols = _gil_werman(s1.T, k, f2, id2).T                  # (H, W+2r)
+    cols[:, :r] = id2
+    cols[:, cols.shape[1] - r:] = id2
+    return _gil_werman(cols, k, f2, id2)                    # (H, W)
+
+
+@pytest.mark.parametrize("dtype", ["uint8", "int32", "float32"])
+@pytest.mark.parametrize("shape,radius", [((1, 9), 2), ((13, 1), 3),
+                                          ((17, 23), 4), ((30, 26), 7),
+                                          ((9, 40), 15)])
+def test_open_close_kernel_model_matches_oracle(rng, dtype, shape, radius):
+    """The redesigned kernel's decomposition (van Herk/Gil-Werman windows,
+    truncated by identities, the column passes fused) equals tpuimg's open
+    and close oracles, NaNs in place, on frames of one row or column and
+    radii whose 2r + 1 divides no line."""
+    if dtype == "uint8":
+        x = rng.integers(0, 256, shape, dtype=np.uint8)
+    elif dtype == "int32":
+        x = rng.integers(-2 ** 31, 2 ** 31, shape, dtype=np.int64).astype(
+            np.int32)
+        x.flat[::7] = np.iinfo(np.int32).min
+        x.flat[3::11] = np.iinfo(np.int32).max
+    else:
+        x = rng.standard_normal(shape).astype(np.float32)
+        x.flat[::5] = -0.0
+        x.flat[rng.integers(0, x.size, 2)] = (np.nan, np.inf)
+    for mode, ref in ((0, open_ref), (1, close_ref)):
+        _same(_open_close_model(x, radius, mode), ref(x, radius))

@@ -23,8 +23,9 @@ from tpuimg.pipeline import enhance as jax_enhance
 from tpuimg_torch.core import validate as tv
 from tpuimg_torch.core.kernelgen import gaussian_kernel_1d
 from tpuimg_torch.core.params import carry_enhance_state
+from tpuimg_torch.kernels import MAX_TAPS, TAIL_MAX_RADIUS
 from tpuimg_torch.kernels.boxsum import (
-    enhance_tail, enhance_tail_clahe, enhance_tail_clahe_plain)
+    _tail_taps, enhance_tail, enhance_tail_clahe, enhance_tail_clahe_plain)
 from tpuimg_torch.kernels.hist import tile_hist
 from tpuimg_torch.kernels.lut import clahe_map
 from tpuimg_torch.ops.histogram import _clahe_front as torch_clahe_front
@@ -101,6 +102,40 @@ def test_enhance_tail_clahe_matches_pallas(rng, shape, tiles):
     assert q.dtype == np.float32 and q.shape == shape
     assert np.abs(q - jq).max() < 5e-6
     assert np.abs(_to_u8(q).astype(int) - _to_u8(jq).astype(int)).max() <= 1
+
+
+@pytest.mark.parametrize("radius,radius_g", [(20, 4), (3, 16)])
+def test_enhance_tail_wide_radii_match_pallas(rng, radius, radius_g):
+    """The tail's plain version against tpuimg's Pallas kernel (interpret
+    mode) at radii the card's tail kernel now takes: a gf radius past 16
+    and the largest gaussian radius, on frames just above the gate."""
+    n = 2 * (2 * radius + radius_g) + 1
+    f = rng.random((n, n + 9), dtype=np.float32)
+    q = enhance_tail(torch.from_numpy(f), radius_g, 3.0, radius, 1e-3).numpy()
+    jq = np.asarray(enhance_tail_pallas(jnp.asarray(f), radius_g, 3.0, radius,
+                                        1e-3))
+    assert q.shape == f.shape and np.abs(q - jq).max() < 1e-5
+
+
+@pytest.mark.parametrize("radius,radius_g,shape,error", [
+    (TAIL_MAX_RADIUS + 1, 2, (400, 400), tv.ParamError),
+    (0, 2, (400, 400), tv.ParamError),
+    (8, MAX_TAPS // 2 + 1, (400, 400), tv.ParamError),
+    (8, 2, (18, 400), ValueError), (TAIL_MAX_RADIUS, MAX_TAPS // 2,
+                                    (145, 400), None)])
+def test_tail_limits_checked_before_any_launch(radius, radius_g, shape,
+                                               error):
+    """The tails' limits, checked on the host before a launch: gf radius
+    1 .. TAIL_MAX_RADIUS, gaussian radius <= MAX_TAPS // 2, min(H, W) >
+    2r + rg; within them, the taps."""
+    h, w = shape
+    if error is None:
+        tp = _tail_taps(h, w, radius_g, 5.0, radius)
+        assert list(tp.w) == pytest.approx(
+            [float(v) for v in gaussian_kernel_1d(2 * radius_g + 1, 5.0)])
+        return
+    with pytest.raises(error):
+        _tail_taps(h, w, radius_g, 5.0, radius)
 
 
 def test_enhance_small_frame_composes_gaussian_and_guided(rng):

@@ -1,7 +1,8 @@
 """Where the onepass guided kernel's time goes, stage by stage, on the card.
 
-Builds copies of ``tpuimg_torch/csrc/guided.cu`` in which chosen stages of
-the strip walker are skipped (a compile-time mask, inserted into the copy),
+Builds copies of ``tpuimg_torch/csrc/guided.cu`` and the walker body it
+includes (``walker.cuh``) in which chosen stages of the strip walker are
+skipped (a compile-time mask, inserted into the copies),
 times each copy's onepass entries with CUDA events at the shapes
 ``chip_smoke.py`` times (4K r8 and a 4K shard's 572x3840 row-padded block,
 general and self-guided), and prints the time each stage adds: the full
@@ -28,30 +29,37 @@ sys.path.insert(0, str(ROOT))
 from tpuimg_torch import kernels  # noqa: E402
 from tpuimg_torch.core.timing import card_label, time_cuda  # noqa: E402
 
-# stage -> (mask bit, the statement that opens it in the walker, its guard)
+# stage -> (mask bit, the file, the statement that opens it, its guard): the
+# walker's stages live in walker.cuh, its staging in guided.cu's producer
 STAGES = {
-    "stage 1 (vertical sums)": (1, "      {\n        const int splane",
-                                "      if constexpr ((SKIP & 1) == 0) {\n"
-                                "        const int splane"),
-    "stage 2 (row sums)": (2, "      {\n        const int m = tid % pairs_v",
-                           "      if constexpr ((SKIP & 2) == 0) {\n"
-                           "        const int m = tid % pairs_v"),
-    "stage 2 (a and b)": (4, "      {\n        const int u = s * kRows + warp;",
-                          "      if constexpr ((SKIP & 4) == 0) {\n"
-                          "        const int u = s * kRows + warp;"),
-    "stage 3 (row sums of a, b)": (8, "      {\n        const int m = tid % "
-                                   "pairs_ab",
-                                   "      if constexpr ((SKIP & 8) == 0) {\n"
-                                   "        const int m = tid % pairs_ab"),
-    "stage 4 (column sums, q)": (16, "      if (tid < kStrip) {",
-                                 "      if ((SKIP & 16) == 0 && "
-                                 "tid < kStrip) {"),
-    "leaving rows' loads": (32, "            if (u >= 0) {",
-                            "            if ((SKIP & 32) == 0 && u >= 0) {"),
-    "staging (cp.async)": (64, "        if (s + 1 < steps) {",
-                           "        if ((SKIP & 64) == 0 && s + 1 < steps) {"),
+    "stage 1 (vertical sums)": (
+        1, "walker.cuh", "    for (int c = tid; c < ti; c += kWalkThreads) {",
+        "    if constexpr ((SKIP & 1) == 0)\n"
+        "    for (int c = tid; c < ti; c += kWalkThreads) {"),
+    "stage 2 (row sums)": (2, "walker.cuh",
+                           "    {\n      const int m = tid % pairs_v",
+                           "    if constexpr ((SKIP & 2) == 0) {\n"
+                           "      const int m = tid % pairs_v"),
+    "stage 2 (a and b)": (4, "walker.cuh",
+                          "    {\n      const int u = s * kRows + warp;",
+                          "    if constexpr ((SKIP & 4) == 0) {\n"
+                          "      const int u = s * kRows + warp;"),
+    "stage 3 (row sums of a, b)": (8, "walker.cuh",
+                                   "    {\n      const int m = tid % pairs_ab",
+                                   "    if constexpr ((SKIP & 8) == 0) {\n"
+                                   "      const int m = tid % pairs_ab"),
+    "stage 4 (column sums, q)": (16, "walker.cuh", "    if (tid < kStrip) {",
+                                 "    if ((SKIP & 16) == 0 && tid < kStrip) {"),
+    "leaving rows' loads": (32, "walker.cuh",
+                            "        if (u >= 0) prod.leaving",
+                            "        if ((SKIP & 32) == 0 && u >= 0) "
+                            "prod.leaving"),
+    "staging (cp.async)": (64, "guided.cu",
+                           "      if (s + 1 < steps) stage(s + 1);",
+                           "      if ((SKIP & 64) == 0 && s + 1 < steps) "
+                           "stage(s + 1);"),
 }
-MASKS = {"full kernel": 0, **{name: bit for name, (bit, _, _) in
+MASKS = {"full kernel": 0, **{name: bit for name, (bit, _, _, _) in
                               STAGES.items()},
          "staging and barriers only": 63, "barriers only": 127}
 CASES = [  # label, input shape, radius, self-guided, row-padded entry
@@ -62,21 +70,30 @@ CASES = [  # label, input shape, radius, self-guided, row-padded entry
 ]
 
 
-def skipping(src: str, mask: int) -> str:
-    for _, old, new in STAGES.values():
-        if src.count(old) != 1:
-            raise SystemExit(f"guided.cu changed: no single {old.strip()!r}")
-        src = src.replace(old, new)
-    return f"#define SKIP {mask}\n" + src
+def skipping(srcs: dict, mask: int) -> dict:
+    """Copies of guided.cu and walker.cuh with the stages in ``mask``
+    skipped; the guided.cu copy includes the walker.cuh copy."""
+    srcs = dict(srcs)
+    for _, name, old, new in STAGES.values():
+        if srcs[name].count(old) != 1:
+            raise SystemExit(f"{name} changed: no single {old.strip()!r}")
+        srcs[name] = srcs[name].replace(old, new)
+    walker = f"walker_skip{mask}.cuh"
+    srcs["guided.cu"] = f"#define SKIP {mask}\n" + srcs["guided.cu"].replace(
+        '#include "walker.cuh"', f'#include "{walker}"')
+    return {f"guided_skip{mask}.cu": srcs["guided.cu"],
+            walker: f"#define SKIP {mask}\n" + srcs["walker.cuh"]}
 
 
 def build(out: Path) -> dict:
-    src = (kernels.CSRC / "guided.cu").read_text()
+    srcs = {name: (kernels.CSRC / name).read_text()
+            for name in ("guided.cu", "walker.cuh")}
     out.mkdir(parents=True, exist_ok=True)
     procs = {}
     for label, mask in MASKS.items():
+        for name, text in skipping(srcs, mask).items():
+            (out / name).write_text(text)
         cu = out / f"guided_skip{mask}.cu"
-        cu.write_text(skipping(src, mask))
         cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS, f"-I{kernels.CSRC}",
                "-shared", "-o", str(cu.with_suffix(".so")), str(cu)]
         procs[label] = (cu, subprocess.Popen(

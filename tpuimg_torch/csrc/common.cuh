@@ -5,6 +5,9 @@
 
 #include <cstdint>
 
+// the shared memory a block may use on an H100 (227 KB)
+constexpr int kMaxSmemBytes = 232448;
+
 // reflect-101 (mirror without repeating the edge): valid for -n < x < 2n - 1,
 // the map of the reference's reflectBorder / dLimitSize. Kernels whose
 // frames are gated far above their halo use it (tile_hist, enhance_tail).

@@ -7,50 +7,58 @@
 // :389, math _tail_chain :295). The f32 blend never reaches device memory:
 // the kernel reads the u8 frame (1 byte a pixel instead of the blend's 4)
 // and the (ytiles*xtiles, 256) float tables that clahe_map.cu takes, and
-// computes f on its tile's halo extent. The TPU form needs a 128-lane
+// computes f on its strip's halo. The TPU form needs a 128-lane
 // corner-table bank, per-band y-tile candidates and static x-runs because
-// it has no cheap gather; here each extent element reads its own four table
+// it has no cheap gather; here each staged pixel reads its own four table
 // entries (L1/L2 hits), so any tile grid works.
 //
-// Border: the extent's coordinates are mapped through reflect-101 first,
-// and the blend is evaluated at the mirrored pixel's own coordinates, so
+// Border: the producer maps each coordinate through reflect-101 first, and
+// the blend is evaluated at the mirrored pixel's own coordinates, so
 // blend(pad(img)) equals pad(blend(img)) exactly (tpuimg/kernels/lut.py
 // :396-401). f = __fmul_rn(blend, scale) with scale the f32 value of 1/255
 // from the host, the one multiply the fused path does in PyTorch; the blend
 // is common.cuh::clahe_blend and the tail enhance_tail.cuh::tail_kernel, the
 // same code as clahe_map.cu and enhance_tail.cu, so impl="fused1" gives
-// impl="fused"'s values. Bound: as enhance_tail.cu (shared-memory window
-// sums); the blend adds an IEEE division and four cached table reads for
-// each of the extent's (32 + 2*hb2)^2 elements, about 4.5 per output pixel
-// at r = 8, rg = 2.
+// impl="fused"'s values. Bound: as enhance_tail.cu (bytes); the blend, an
+// IEEE division and four cached table reads, runs once per pixel of a strip
+// and its halo ((64 + 4r + 2rg) / 64 columns and (seg + 4r + 2rg) / seg rows
+// of the frame's: about 1.8 a pixel at 4K, r = 8, rg = 2), where the tile
+// design ran it about 4.5 times a pixel. 0.3580 ms at 4K on an NVIDIA H100
+// 80GB HBM3 at 700.00 W (chip_smoke.py; bound 0.0124 ms; the tile design
+// 1.0073).
 #include "enhance_tail.cuh"
 
 namespace {
 
 struct ClaheSrc {
+  using Raw = int;
+  static constexpr bool kAsync = false;  // f is computed: raw, then value
   const uint8_t* img;
   int w;
   ClaheGeom g;
   float scale;
-  __device__ __forceinline__ float operator()(int y, int x) const {
-    const int v = img[static_cast<size_t>(y) * w + x];
+  __device__ __forceinline__ int raw(int y, int x) const {
+    return __ldg(img + static_cast<size_t>(y) * w + x);
+  }
+  __device__ __forceinline__ float value(int v, int y, int x) const {
     return __fmul_rn(clahe_blend(g, v, y, x), scale);
   }
 };
 
 }  // namespace
 
-// img: (h, w) u8; tables: (ytiles*xtiles, 256) float32; out: (h, w) float32.
+// img: (h, w) u8; tables: (ytiles*xtiles, 256) float32; out: (h, w) float32;
+// scratch as tpuimg_enhance_tail's.
 extern "C" int tpuimg_enhance_tail_clahe(const uint8_t* img, int h, int w,
                                          const float* tables, int ytiles,
                                          int xtiles, int th, int pad_top,
                                          int pad_left, float inv_tw,
                                          float scale, Taps taps, int rg,
-                                         int r, float eps, float* out,
-                                         cudaStream_t stream) {
+                                         int r, float eps, float* scratch,
+                                         float* out, cudaStream_t stream) {
   const ClaheGeom g{tables, ytiles, xtiles, static_cast<float>(th),
                     static_cast<float>(pad_top), static_cast<float>(pad_left),
                     inv_tw};
-  return tail::launch(ClaheSrc{img, w, g, scale}, h, w, taps, rg, r, eps, out,
-                      stream);
+  return tail::launch(ClaheSrc{img, w, g, scale}, h, w, taps, rg, r, eps,
+                      scratch, out, stream);
 }

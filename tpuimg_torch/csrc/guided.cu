@@ -78,91 +78,30 @@
 //   running sums of its column strip to the end of the segment, where direct
 //   sums keep it to its windows.
 //
+// The walker's body (walker.cuh) is templated on the producer of its rows
+// of I and p; here GuidedRows reads them from device memory, and the enhance
+// tails (enhance_tail.cuh) produce them on chip from the frame.
+//
 // Twopass keeps the earlier tile design: one block per 32x32 output tile, the
 // tile's (32 + 2r)^2 extent staged through the reflect-101 index, direct
 // window sums in the plain version's order; r <= kTwopassMaxRadius = 16.
-#include <algorithm>
-
-#include "common.cuh"
+#include "walker.cuh"
 
 namespace {
+
+using walker::ab_of;
+using walker::kRows;
+using walker::kStrip;
+using walker::kWalkBlocks;
+using walker::kWalkThreads;
+using walker::q_of;
 
 constexpr int kThreads = 256;
 
 // ---- onepass: the strip walker ---------------------------------------------
 
-constexpr int kStrip = 64;               // output columns of a block
-constexpr int kWalkThreads = 128;
-// the launch bound: 6 blocks an SM, so 80 registers a thread
-constexpr int kWalkBlocks = 6;
-constexpr int kRows = kWalkThreads / 32;  // rows a step takes in: a warp each
 constexpr int kSmemMaxRadius = 64;       // the shared-memory route's ceiling
 constexpr int kScratchMaxRadius = 1 << 22;  // keeps every index in an int
-constexpr int kMinSegRows = 32;
-constexpr int kScratchFrames = 8;        // frames in flight, scratch route
-
-constexpr int kStripPad = kStrip + 1;    // row stride of the ring
-
-// A block's workspace, offsets in floats: f64 column sums of the vertical
-// pass (np a column), the two buffers of staged input rows (shared-memory
-// route only), a step's vertical sums rounded to f32 (np planes of kRows
-// rows of ti + 1), their window sums along the rows and then a and b in
-// place (np planes of kRows rows of ta + 1), the ring of the second box
-// filter's row sums (2 x kr rows of kStrip + 1), and the ring of I at the
-// output columns (ki x kStrip: from the row a step takes in until its q is
-// written, 2r rows later). The odd row strides put the rows of a column in
-// distinct banks, for the lanes that walk along rows side by side.
-struct Workspace {
-  long long vst, stg, vsum, hab, ring, iring, total;
-};
-
-__host__ __device__ inline Workspace workspace_of(int r, bool self_guided,
-                                                  bool staged) {
-  const long long ti = kStrip + 4LL * r, ta = kStrip + 2LL * r;
-  const long long kr = 2LL * r + 1 + kRows, ki = 2LL * r + kRows;
-  const long long np = self_guided ? 2 : 4, ns = self_guided ? 1 : 2;
-  Workspace ws;
-  ws.vst = 0;
-  ws.stg = 2 * np * ti;
-  ws.vsum = ws.stg + (staged ? 2 * ns * kRows * ti : 0);
-  ws.hab = ws.vsum + np * kRows * (ti + 1);
-  ws.ring = ws.hab + np * kRows * (ta + 1);
-  ws.iring = ws.ring + 2 * kr * kStripPad;
-  ws.total = (ws.iring + ki * kStrip + 3) & ~3LL;  // whole 16-byte blocks
-  return ws;
-}
-
-// out[c] = src[c] + ... + src[c + 2r] for c in [c0, c1): a running sum along
-// the row, 2r warm-up adds and then one add and one subtract a column, in
-// the plain version's order within each window's first sum
-__device__ __forceinline__ void row_window_sums(const float* src, int c0,
-                                                int c1, int r, float* out) {
-  if (c0 >= c1) return;
-  float sum = 0.0f;
-  for (int t = c0; t < c0 + 2 * r; ++t) sum += src[t];
-#pragma unroll 4
-  for (int c = c0; c < c1; ++c) {
-    sum += src[c + 2 * r];
-    out[c] = sum;
-    sum -= src[c];
-  }
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// wait until at most one committed group (the newest) is still in flight
-__device__ __forceinline__ void cp_async_wait_one() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
 
 // the source row of extended row e: reflect-101 in a frame; in a row-padded
 // block e + 2r (its own halo rows), clamped at its last row for the rows a
@@ -172,47 +111,100 @@ __device__ __forceinline__ int source_row(int e, int h, int r) {
   return kYPadded ? min(e + 2 * r, h + 4 * r - 1) : reflect101_fast(e, h);
 }
 
-// a and b from the four window sums (sums, not means)
-__device__ __forceinline__ void ab_of(float si, float sp, float sip, float sii,
-                                      float coef, float eps, float* a,
-                                      float* b) {
-  const float imu = __fmul_rn(si, coef), pmu = __fmul_rn(sp, coef);
-  const float ipmu = __fmul_rn(sip, coef), iimu = __fmul_rn(sii, coef);
-  const float num = __fsub_rn(ipmu, __fmul_rn(pmu, imu));
-  const float den = __fadd_rn(__fsub_rn(iimu, __fmul_rn(imu, imu)), eps);
-  *a = __fdiv_rn(num, den);
-  *b = __fsub_rn(pmu, __fmul_rn(*a, imu));
-}
+// The walker's producer for I and p frames in device memory: on the
+// shared-memory route each step's kRows input rows of I (and p) over the
+// strip's ti columns come into a double buffer with cp.async (a warp a row,
+// lanes along it) while the step before computes; on the scratch route they
+// are read with __ldg. The leaving rows are re-read with __ldg (L1/L2).
+template <bool kSelf_, bool kYPadded, bool kShared>
+struct GuidedRows {
+  static constexpr bool kSelf = kSelf_;
+  static constexpr bool kCentre = false;
+  static constexpr int ns = kSelf ? 1 : 2;  // planes staged: I, p
+  const float* Iz;
+  const float* pz;
+  float* stg;
+  int e0, x0, h, w, r, ti;
 
-// q = mean_a * I + mean_b from the window sums of a and b
-__device__ __forceinline__ float q_of(float sa, float sb, float i,
-                                      float coef) {
-  return __fadd_rn(__fmul_rn(__fmul_rn(sa, coef), i), __fmul_rn(sb, coef));
-}
-
-// Step t's kRows input rows of I (and p) over the strip's ti columns into
-// buffer t & 1 with cp.async: a warp a row, lanes along it.
-template <bool kSelf, bool kYPadded>
-__device__ __forceinline__ void stage_step(int t, const float* Iz,
-                                           const float* pz, int e0, int x0,
-                                           int h, int w, int r, int ti,
-                                           float* stg) {
-  constexpr int ns = kSelf ? 1 : 2;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const size_t row =
-      static_cast<size_t>(source_row<kYPadded>(e0 + t * kRows + warp, h, r)) *
-      w;
-  float* dst = stg + static_cast<size_t>((t & 1) * ns * kRows + warp) * ti;
-  for (int c = lane; c < ti; c += 32) {
-    const int x = reflect101_fast(x0 - 2 * r + c, w);
-    cp_async4(dst + c, Iz + row + x);
-    if constexpr (!kSelf) cp_async4(dst + kRows * ti + c, pz + row + x);
+  // the floats of the staging buffers
+  __host__ __device__ static long long floats(int r) {
+    return kShared ? 2LL * ns * kRows * (kStrip + 4LL * r) : 0;
   }
+
+  __device__ __forceinline__ void stage(int t) const {
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const size_t row =
+        static_cast<size_t>(source_row<kYPadded>(e0 + t * kRows + warp, h,
+                                                 r)) * w;
+    float* dst = stg + static_cast<size_t>((t & 1) * ns * kRows + warp) * ti;
+    for (int c = lane; c < ti; c += 32) {
+      const int x = reflect101_fast(x0 - 2 * r + c, w);
+      walker::cp_async4(dst + c, Iz + row + x);
+      if constexpr (!kSelf) {
+        walker::cp_async4(dst + kRows * ti + c, pz + row + x);
+      }
+    }
+  }
+
+  __device__ __forceinline__ void begin(int) const {
+    if constexpr (kShared) {
+      stage(0);
+      walker::cp_async_commit();
+    }
+  }
+
+  __device__ __forceinline__ void top(int s, int steps) const {
+    if constexpr (kShared) {
+      if (s + 1 < steps) stage(s + 1);
+      walker::cp_async_commit();
+      walker::cp_async_wait_one();
+    }
+  }
+
+  __device__ __forceinline__ int column(int c) const {
+    return reflect101_fast(x0 - 2 * r + c, w);
+  }
+
+  __device__ __forceinline__ void leaving(int u, int, int x, int, int,
+                                          float& li, float& lp) const {
+    const size_t o =
+        static_cast<size_t>(source_row<kYPadded>(e0 + u, h, r)) * w + x;
+    li = __ldg(Iz + o);
+    if constexpr (!kSelf) lp = __ldg(pz + o);
+  }
+
+  __device__ __forceinline__ void entering(int s, int i, int x, int c, int,
+                                           float& ie, float& pe) const {
+    if constexpr (kShared) {
+      const int splane = kRows * ti;  // a plane of a staging buffer
+      // (s & 1) selects the buffer; a select, not a multiply, keeps the
+      // row-padded general instance within its 80 registers
+      const float* sI = stg + ((s & 1) ? ns * splane : 0);
+      ie = sI[i * ti + c];
+      pe = kSelf ? ie : sI[splane + i * ti + c];
+    } else {
+      const size_t o = static_cast<size_t>(source_row<kYPadded>(
+                           e0 + s * kRows + i, h, r)) * w + x;
+      ie = __ldg(Iz + o);
+      pe = kSelf ? ie : __ldg(pz + o);
+    }
+  }
+
+  __device__ __forceinline__ void before4(int, int) const {}
+  __device__ __forceinline__ void spare(int, int) const {}
+  __device__ __forceinline__ void late(int, int) const {}
+  __device__ __forceinline__ void advance() const {}
+};
+
+template <bool kSelf, bool kYPadded, bool kShared>
+walker::Workspace guided_workspace(int r) {
+  return walker::workspace_of(r, kSelf,
+                              GuidedRows<kSelf, kYPadded, kShared>::floats(r));
 }
 
 // kYPadded: I and p frames are (h + 4r, w) blocks whose rows are padded.
 // kShared: the workspace in shared memory and input rows staged there, or
-// (the scratch route) in device memory at scratch, workspace_of(...).total
+// (the scratch route) in device memory at scratch, guided_workspace(r).total
 // floats a block.
 template <bool kSelf, bool kYPadded, bool kShared>
 __global__ void __launch_bounds__(kWalkThreads, kWalkBlocks)
@@ -221,232 +213,21 @@ guided_walk_kernel(const float* __restrict__ I, int n_i,
                    float eps, int seg_rows, float* __restrict__ scratch,
                    float* __restrict__ q) {
   extern __shared__ __align__(16) float smem[];
-  constexpr int np = kSelf ? 2 : 4;  // planes summed: I, p, I*p, I*I
-  constexpr int ns = kSelf ? 1 : 2;  // planes staged: I, p
-  const Workspace wl = workspace_of(r, kSelf, kShared);
-  float* ws;
-  if constexpr (kShared) {
-    ws = smem;
-  } else {
-    const size_t block =
-        (static_cast<size_t>(blockIdx.z) * gridDim.y + blockIdx.y) *
-            gridDim.x + blockIdx.x;
-    ws = scratch + block * wl.total;
-  }
-  double* vst = reinterpret_cast<double*>(ws + wl.vst);
-  float* stg = ws + wl.stg;
-  float* vsum = ws + wl.vsum;
-  float* hab = ws + wl.hab;
-  float* ring = ws + wl.ring;
-  float* iring = ws + wl.iring;
-
-  const int k = 2 * r + 1;
-  const int ti = kStrip + 4 * r, ta = kStrip + 2 * r, kr = k + kRows;
-  const int ki = 2 * r + kRows;
-  const int tip = ti + 1, tap = ta + 1;  // odd row strides
-  const int vplane = kRows * tip;        // a plane of vsum
-  const int hplane = kRows * tap;        // a plane of hab
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  // the same f32 coefficient as the host's float32(1.0 / ksz^2)
-  const float coef = static_cast<float>(1.0 / (static_cast<double>(k) * k));
+  using Rows = GuidedRows<kSelf, kYPadded, kShared>;
+  const walker::Workspace wl =
+      walker::workspace_of(r, kSelf, Rows::floats(r));
+  float* ws = walker::block_workspace<kShared>(smem, scratch, wl.total);
   const int hin = kYPadded ? h + 4 * r : h;  // rows of a source frame
   const size_t in_plane = static_cast<size_t>(hin) * w;
   const size_t out_plane = static_cast<size_t>(h) * w;
-  const int x0 = blockIdx.x * kStrip;
-  const int y0 = blockIdx.y * seg_rows;
-  const int y1 = min(y0 + seg_rows, h);
-  const int rows_in = y1 - y0 + 4 * r;  // input rows the walk takes in
-  const int steps = (rows_in + kRows - 1) / kRows;
-  const int e0 = y0 - 2 * r;  // extended row of the walk's first input row
-  // the horizontal passes: a thread runs along one part (of len_v or len_ab
-  // columns) of one (row, plane) pair of a step, np planes of the vertical
-  // sums (stage 2) and then a and b (stage 3). The self-guided form cuts its
-  // rows into the general form's parts, so that it sums in the same order
-  // and equals the general form with p = I bit for bit.
-  constexpr int pairs_v = kRows * np, pairs_ab = kRows * 2;
-  constexpr int parts_v = kWalkThreads / (kRows * 4);
-  constexpr int parts_ab = kWalkThreads / pairs_ab;
-  const int len_v = ((ta + parts_v - 1) / parts_v) | 1;
-  const int len_ab = ((kStrip + parts_ab - 1) / parts_ab) | 1;
-
   for (int z = blockIdx.z; z < n; z += gridDim.z) {
     const float* Iz = I + static_cast<size_t>(z % n_i) * in_plane;
-    const float* pz = kSelf ? Iz : p + static_cast<size_t>(z) * in_plane;
-    float* qz = q + static_cast<size_t>(z) * out_plane;
-    for (int i = tid; i < np * ti; i += kWalkThreads) vst[i] = 0.0;
-    for (int i = tid; i < 2 * kr * kStripPad; i += kWalkThreads) {
-      ring[i] = 0.0f;
-    }
-    double sa = 0.0, sb = 0.0;  // output column tid's sums of a and b
-    int base = 0;   // ring slot of this step's first row
-    int ibase = 0;  // iring slot of this step's first row
-    if constexpr (kShared) {
-      stage_step<kSelf, kYPadded>(0, Iz, pz, e0, x0, h, w, r, ti, stg);
-      cp_async_commit();
-    }
-
-    for (int s = 0; s < steps; ++s) {
-      if constexpr (kShared) {
-        if (s + 1 < steps) {
-          stage_step<kSelf, kYPadded>(s + 1, Iz, pz, e0, x0, h, w, r, ti,
-                                      stg);
-        }
-        cp_async_commit();
-        cp_async_wait_one();
-      }
-      __syncthreads();
-
-      // 1. vertical running sums, a thread per input column: after row u the
-      //    column's sums cover input rows u - 2r .. u (centre row u - r)
-      {
-        const int splane = kRows * ti;  // a plane of a staging buffer
-        const float* sI = stg + static_cast<size_t>((s & 1) * ns) * splane;
-        for (int c = tid; c < ti; c += kWalkThreads) {
-          const int x = reflect101_fast(x0 - 2 * r + c, w);
-          const int j = c - 2 * r;  // output column j keeps its I in iring
-          const bool keep = j >= 0 && j < kStrip;
-          // the rows leaving the window this step (2r + 1 rows above the
-          // entering ones; zero before the window is full), all loaded
-          // before the running sums wait on the first
-          float li[kRows], lp[kRows];
-#pragma unroll
-          for (int i = 0; i < kRows; ++i) {
-            const int u = s * kRows + i - k;
-            li[i] = 0.0f;
-            lp[i] = 0.0f;
-            if (u >= 0) {
-              const size_t o =
-                  static_cast<size_t>(source_row<kYPadded>(e0 + u, h, r)) * w +
-                  x;
-              li[i] = __ldg(Iz + o);
-              if constexpr (!kSelf) lp[i] = __ldg(pz + o);
-            }
-          }
-          double v[np];
-#pragma unroll
-          for (int pl = 0; pl < np; ++pl) v[pl] = vst[pl * ti + c];
-#pragma unroll
-          for (int i = 0; i < kRows; ++i) {
-            float ie, pe;
-            if constexpr (kShared) {
-              ie = sI[i * ti + c];
-              pe = kSelf ? ie : sI[splane + i * ti + c];
-            } else {
-              const size_t o = static_cast<size_t>(source_row<kYPadded>(
-                                   e0 + s * kRows + i, h, r)) * w + x;
-              ie = __ldg(Iz + o);
-              pe = kSelf ? ie : __ldg(pz + o);
-            }
-            if (keep) {
-              int slot = ibase + i;
-              if (slot >= ki) slot -= ki;
-              iring[slot * kStrip + j] = ie;
-            }
-            // entering minus leaving; f32 values and their products are
-            // exact in f64
-            const double di = ie, dl = li[i];
-            v[0] += di - dl;
-            if constexpr (kSelf) {
-              v[1] += di * di - dl * dl;
-            } else {
-              const double dp = pe, dq = lp[i];
-              v[1] += dp - dq;
-              v[2] += di * dp - dl * dq;
-              v[3] += di * di - dl * dl;
-            }
-#pragma unroll
-            for (int pl = 0; pl < np; ++pl) {
-              vsum[pl * vplane + i * tip + c] = static_cast<float>(v[pl]);
-            }
-          }
-#pragma unroll
-          for (int pl = 0; pl < np; ++pl) vst[pl * ti + c] = v[pl];
-        }
-      }
-      __syncthreads();
-
-      // 2. window sums along the rows of each plane (a thread a part of a
-      //    (row, plane) pair), then a and b in place (a warp a row); zero on
-      //    rows whose vertical window is not full, so that they add nothing
-      //    below
-      {
-        const int m = tid % pairs_v, i = m % kRows, u = s * kRows + i;
-        const int c0 = tid / pairs_v * len_v, c1 = min(c0 + len_v, ta);
-        const int o = m / kRows * vplane + i * tip;  // plane m / kRows, row i
-        if (u >= 2 * r && u < rows_in) {
-          row_window_sums(vsum + o, c0, c1, r,
-                          hab + m / kRows * hplane + i * tap);
-        }
-      }
-      __syncthreads();
-      {
-        const int u = s * kRows + warp;
-        const bool full = u >= 2 * r && u < rows_in;
-        float* h0 = hab + warp * tap;  // plane 0 of row warp
-        for (int c = lane; c < ta; c += 32) {
-          float a = 0.0f, b = 0.0f;
-          if (full) {
-            if constexpr (kSelf) {
-              ab_of(h0[c], h0[c], h0[hplane + c], h0[hplane + c], coef, eps,
-                    &a, &b);
-            } else {
-              ab_of(h0[c], h0[hplane + c], h0[2 * hplane + c],
-                    h0[3 * hplane + c], coef, eps, &a, &b);
-            }
-          }
-          h0[c] = a;
-          h0[hplane + c] = b;
-        }
-      }
-      __syncthreads();
-
-      // 3. window sums of a and b along each row into the ring (a thread a
-      //    part of a (row, a or b) pair)
-      {
-        const int m = tid % pairs_ab, i = m % kRows, pl = m / kRows;
-        const int c0 = tid / pairs_ab * len_ab, c1 = min(c0 + len_ab, kStrip);
-        int slot = base + i;
-        if (slot >= kr) slot -= kr;
-        row_window_sums(hab + pl * hplane + i * tap, c0, c1, r,
-                        ring + (pl * kr + slot) * kStripPad);
-      }
-      __syncthreads();
-
-      // 4. running sums of the ring down each output column, then q. Ring
-      //    slot of row v: v mod kr; the row leaving (v - k) sits kRows slots
-      //    ahead. Output row yo = u - 4r + y0 once its window is full; its I
-      //    is walker row u - 2r's, in iring slot (u - 2r) mod ki.
-      if (tid < kStrip) {
-        const int x = x0 + tid;
-#pragma unroll
-        for (int i = 0; i < kRows; ++i) {
-          int slot = base + i;
-          if (slot >= kr) slot -= kr;
-          int old = slot + kRows;
-          if (old >= kr) old -= kr;
-          sa += static_cast<double>(ring[slot * kStripPad + tid]) -
-                static_cast<double>(ring[old * kStripPad + tid]);
-          sb += static_cast<double>(ring[(kr + slot) * kStripPad + tid]) -
-                static_cast<double>(ring[(kr + old) * kStripPad + tid]);
-          const int yo = y0 + s * kRows + i - 4 * r;
-          if (yo >= y0 && yo < y1 && x < w) {
-            int is = ibase + i - 2 * r;
-            if (is < 0) {
-              is += ki;
-            } else if (is >= ki) {
-              is -= ki;
-            }
-            qz[static_cast<size_t>(yo) * w + x] =
-                q_of(static_cast<float>(sa), static_cast<float>(sb),
-                     iring[is * kStrip + tid], coef);
-          }
-        }
-      }
-      base += kRows;
-      if (base >= kr) base -= kr;
-      ibase += kRows;
-      if (ibase >= ki) ibase -= ki;
-    }
+    Rows rows{Iz, kSelf ? Iz : p + static_cast<size_t>(z) * in_plane,
+              ws + wl.prod, static_cast<int>(blockIdx.y) * seg_rows - 2 * r,
+              static_cast<int>(blockIdx.x) * kStrip, h, w, r,
+              kStrip + 4 * r};
+    walker::walk_frame(rows, ws, wl, h, w, r, eps, seg_rows,
+                       q + static_cast<size_t>(z) * out_plane);
     __syncthreads();  // the next frame zeroes what step 4 read
   }
 }
@@ -591,70 +372,25 @@ guided_q_kernel(const float* __restrict__ I, int n_i,
 
 // ---- launches --------------------------------------------------------------
 
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t bytes) {
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes));
-  if (err != cudaSuccess) cudaGetLastError();  // clear it; returned below
-  return err;
-}
+using walker::allow_smem;
 
 bool bad_frames(int n_i, int n, int h, int w) {
   return n_i < 1 || n < 1 || n % n_i != 0 || h < 1 || w < 1;
 }
-
-// The walker's grid: strips of kStrip columns, segments of seg_rows output
-// rows, and frames. Segments are as many as fit in one wave of `slots`
-// resident blocks (a second, partial wave would double the time), none
-// shorter than max(kMinSegRows, 4r), whose halo each pays.
-struct WalkGrid {
-  dim3 grid;
-  int seg_rows;
-};
-
-WalkGrid walk_grid(int n, int h, int w, int r, bool shared, long long slots) {
-  const long long strips = (w + kStrip - 1) / kStrip;
-  const long long frames = std::min(n, shared ? 65535 : kScratchFrames);
-  const long long min_rows = std::max(kMinSegRows, 4 * r);
-  const long long segs = std::max(
-      1LL, std::min(slots / (strips * frames), (h + min_rows - 1) / min_rows));
-  const int rows = static_cast<int>((h + segs - 1) / segs);
-  return {dim3(static_cast<unsigned>(strips),
-               static_cast<unsigned>((h + rows - 1) / rows),
-               static_cast<unsigned>(frames)),
-          rows};
-}
-
-// The scratch route sizes its scratch from the grid, so its wave is fixed:
-// kWalkBlocks on each of an H100's 132 SMs.
-constexpr long long kScratchSlots = kWalkBlocks * 132LL;
 
 template <bool kSelf, bool kYPadded, bool kShared>
 int launch_walk(const float* I, int n_i, const float* p, int n, int h, int w,
                 int r, float eps, float* scratch, float* q,
                 cudaStream_t stream) {
   auto kernel = guided_walk_kernel<kSelf, kYPadded, kShared>;
-  size_t bytes = 0;
-  long long slots = kScratchSlots;
-  if (kShared) {
-    bytes = static_cast<size_t>(workspace_of(r, kSelf, true).total) *
-            sizeof(float);
-    cudaError_t err = allow_smem(kernel, bytes);
-    // the blocks this card holds at once at this shared-memory footprint
-    int dev = 0, sms = 0, per_sm = 0;
-    if (err == cudaSuccess) err = cudaGetDevice(&dev);
-    if (err == cudaSuccess) {
-      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    }
-    if (err == cudaSuccess) {
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                          kWalkThreads, bytes);
-    }
-    if (err != cudaSuccess) return static_cast<int>(err);
-    slots = std::max(1LL, static_cast<long long>(sms) * per_sm);
-  }
-  const WalkGrid g = walk_grid(n, h, w, r, kShared, slots);
+  const size_t bytes =
+      kShared ? static_cast<size_t>(
+                    guided_workspace<kSelf, kYPadded, true>(r).total) *
+                    sizeof(float)
+              : 0;
+  walker::WalkGrid g;
+  const int err = walker::plan_walk(kernel, bytes, n, h, w, r, &g);
+  if (err != 0) return err;
   kernel<<<g.grid, kWalkThreads, bytes, stream>>>(I, n_i, p, n, h, w, r, eps,
                                                   g.seg_rows, scratch, q);
   return static_cast<int>(cudaGetLastError());
@@ -706,9 +442,12 @@ extern "C" long long tpuimg_guided_onepass_scratch_floats(int n, int h, int w,
                                                           int r,
                                                           int self_guided) {
   if (n < 1 || h < 1 || w < 1 || r < 1 || r > kScratchMaxRadius) return -1;
-  const WalkGrid g = walk_grid(n, h, w, r, false, kScratchSlots);
-  return workspace_of(r, self_guided != 0, false).total * g.grid.x *
-         g.grid.y * g.grid.z;
+  const walker::WalkGrid g =
+      walker::walk_grid(n, h, w, r, false, walker::kScratchSlots);
+  const long long total =
+      self_guided ? guided_workspace<true, true, false>(r).total
+                  : guided_workspace<false, true, false>(r).total;
+  return total * g.grid.x * g.grid.y * g.grid.z;
 }
 
 // As tpuimg_guided_onepass_ypadded at any r < 2^22, the walker's workspace

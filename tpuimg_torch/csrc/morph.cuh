@@ -1,6 +1,6 @@
 // Shared pieces of the morphology kernels (morphology.cu, open_close.cu):
 // the dtype codes, the extreme of two values, the clamped staging of a
-// tile's extent and the launch over a batch of frames.
+// tile's extent (morphology.cu) and the launch over a batch of frames.
 #pragma once
 
 #include "common.cuh"
@@ -45,15 +45,15 @@ __device__ __forceinline__ void stage_clamped(const T* __restrict__ src,
   }
 }
 
-inline dim3 tile_grid(int n, int h, int w) {
-  return dim3((w + kTile - 1) / kTile, (h + kTile - 1) / kTile,
+inline dim3 tile_grid(int n, int h, int w, int tile) {
+  return dim3((w + tile - 1) / tile, (h + tile - 1) / tile,
               n < kMaxGridZ ? n : kMaxGridZ);
 }
 
 // Raise the kernel's dynamic shared memory limit to `bytes`, then launch
-// it on the tile grid; returns the CUDA error code.
+// it on the grid of tile x tile outputs; returns the CUDA error code.
 template <class K, class... Args>
-int launch_tiles(K kernel, size_t bytes, int n, int h, int w,
+int launch_tiles(K kernel, size_t bytes, int n, int h, int w, int tile,
                  cudaStream_t stream, Args... args) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -62,7 +62,7 @@ int launch_tiles(K kernel, size_t bytes, int n, int h, int w,
     cudaGetLastError();  // clear it; the caller gets the code
     return static_cast<int>(err);
   }
-  kernel<<<tile_grid(n, h, w), kThreads, bytes, stream>>>(args...);
+  kernel<<<tile_grid(n, h, w, tile), kThreads, bytes, stream>>>(args...);
   return static_cast<int>(cudaGetLastError());
 }
 

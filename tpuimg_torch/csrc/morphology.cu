@@ -146,7 +146,7 @@ int run(const T* src, int n, int h, int w, int r, int yoff, T* scratch,
     const int e = kTile + 2 * r;
     const size_t bytes = static_cast<size_t>(e * e + e * kTile) * sizeof(T);
     return morph::launch_tiles(morph_tile_kernel<T, kMin>, bytes, n, h, w,
-                               stream, src, n, h, w, r, yoff, dst);
+                               kTile, stream, src, n, h, w, r, yoff, dst);
   }
   if (scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   const size_t total_in = static_cast<size_t>(n) * (h + 2 * yoff) * w;

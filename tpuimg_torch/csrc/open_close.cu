@@ -5,147 +5,319 @@
 // Replaces tpuimg/kernels/sep_stencil.py::open_close_pallas (:509;
 // _open_close :478, kernel _open_close_kernel :436). The stage-1 result
 // never reaches device memory. The composed op's replicate border acts on
-// the stage-1 result (sep_stencil.py:441-445), so stage 2 reads stage 1
-// only at in-frame positions, clamped: a fresh extreme over replicated raw
-// pixels would differ at the border.
+// the stage-1 result (sep_stencil.py:441-445): stage 2 reads stage 1 only at
+// in-frame positions, clamped.
 //
-// Design on this card: one block per 32x32 output tile of one frame
-// (gridDim.z over the frames) stages its (32 + 4r)^2 input extent, clamped
-// (the replicate border of stage 1; see morphology.cu), then
-//   1. stage 1 along the rows, at the (32 + 2r) clamped columns
-//      cx = clamp(x0 - r + i) that stage 2 reads;
-//   2. stage 1 down the columns, at the clamped rows cy = clamp(y0 - r + j):
-//      the (32 + 2r)^2 stage-1 values stage 2 needs, border clamp included;
-//   3. stage 2 along the rows and 4. down the columns, into the tile.
-// Each pass is a direct (2r+1)-tap loop in shared memory, unrolled by 8
-// (at nvcc's default the u8 instances spill 64 bytes); stage 1's
-// result and stage 2's row pass reuse the input's and stage 1's row
-// buffers. Shared memory is ((32 + 4r)^2 + (32 + 4r)(32 + 2r)) elements:
-// 224,096 bytes for 4-byte elements at r = 39, the largest under the
-// 227 KB a block may use (kOpenCloseMaxRadius); above it the wrapper
-// composes two morphology.cu launches, as tpuimg composes two kernels for
-// frames wider than its lane limit (sep_stencil.py:518-520).
-// Bound: shared-memory loads, (2r + 1) for each of the four passes' outputs
-// over the tile: about 380 per output pixel at r = 15, four times a single
-// erode's 91, against one element read and one written per pixel of device
-// memory (half the composed form's traffic).
+// The replicate border of a min or max is the truncated window: a clamped
+// index repeats an edge value the window already holds. So each stage is its
+// 1-D extreme along the rows and down the columns, each over the part of the
+// window inside the frame, and the four passes (stage 1's row and column
+// passes commute, as do stage 2's) run as: stage 1 along the rows; stage 1
+// down the columns, then stage 2 down the columns (a 1-D opening or closing
+// of each column); stage 2 along the rows. Positions outside the frame hold
+// the identity of the pass that reads them (+inf/-inf, INT_MAX/INT_MIN,
+// 255/0), which is what truncation means. NaN propagates as morph::extreme
+// does, in any order, so the values equal open_close_plain's (+0 and -0 may
+// come out either way).
+//
+// What held the tile kernel this replaces at 127x its bound (1.2534 ms
+// against 0.0099 for open r15 on 2x2160x3840 u8, NVIDIA H100 80GB HBM3,
+// 700.00 W) was on-chip work: four direct (2r+1)-tap loops (~380 shared
+// loads and compares a pixel at r = 15), a 32x32 tile re-staging a
+// (32 + 4r)^2 extent, u8 compared a byte at a time, divisions in every loop.
+// This design:
+// - Window extremes by van Herk/Gil-Werman: a thread takes one window's
+//   worth (2r + 1) of outputs of one line, runs the suffix extremes of its
+//   block of inputs backwards, then the prefix extremes of the next block
+//   forwards: about 3 compares and 5 shared accesses an output at any r.
+// - Tiles of T x T outputs, T the largest of 128, 64, 32, 16 whose workspace
+//   fits (the host's planner, kernels/sep_stencil.py::open_close_tile, which
+//   prefers a footprint that lets two blocks share an SM): 128 for u8 and 64
+//   for int32/float32 at r = 15, so the (T + 4r)^2 staged extent is 2.2x
+//   (u8) and 3.8x the outputs, not 8.3x.
+// - u8 down the columns four to a 32-bit word, with __vminu4/__vmaxu4.
+// - Threads take (line, block) items line-fastest, with counters instead of
+//   divisions; odd word strides keep the row passes' lanes in distinct banks.
+// Shared memory: (T + 4r) rows of (T + 4r) and of (T + 2r) elements, each
+// row an odd number of words. The ceiling is the radius whose 16x16 tile
+// still fits a block's 227 KB: r = 44 for int32/float32, 93 for u8; above,
+// the wrapper composes two morphology.cu launches, as tpuimg composes two
+// kernels for frames wider than its lane limit (sep_stencil.py:518-520).
+// Bound: bytes (one element read and one written a pixel, half the composed
+// form's traffic; the compares, packed four to an operation for u8, take
+// less): 0.0099 ms for open r15 on 2x2160x3840 u8, which this kernel runs in
+// 0.1248 ms on an NVIDIA H100 80GB HBM3 at 700.00 W (chip_smoke.py; two
+// morphology.cu launches 0.6054, f32 0.5574), 48 registers for u8 and 80 for
+// int32/float32, no spills.
 #include "morph.cuh"
-
-constexpr int kOpenCloseMaxRadius = 39;
 
 namespace {
 
-using morph::clamp_index;
 using morph::extreme;
 using morph::kThreads;
-using morph::kTile;
 
+// the unit of a pass down the columns: four u8 pixels packed in a word
+template <class T>
+struct ColUnit {
+  using U = T;
+  static constexpr int kPer = 1;
+};
+template <>
+struct ColUnit<uint8_t> {
+  using U = uint32_t;
+  static constexpr int kPer = 4;
+};
+
+template <bool kMin, class U>
+__device__ __forceinline__ U ext(U a, U b) {
+  return extreme<kMin>(a, b);
+}
+template <>
+__device__ __forceinline__ uint32_t ext<true, uint32_t>(uint32_t a,
+                                                        uint32_t b) {
+  return __vminu4(a, b);
+}
+template <>
+__device__ __forceinline__ uint32_t ext<false, uint32_t>(uint32_t a,
+                                                         uint32_t b) {
+  return __vmaxu4(a, b);
+}
+
+// the value a min (kMin) or max leaves unchanged
+template <bool kMin, class U>
+__device__ __forceinline__ U identity();
+template <>
+__device__ __forceinline__ float identity<true, float>() {
+  return __int_as_float(0x7f800000);  // +inf
+}
+template <>
+__device__ __forceinline__ float identity<false, float>() {
+  return __int_as_float(0xff800000);  // -inf
+}
+template <>
+__device__ __forceinline__ int32_t identity<true, int32_t>() {
+  return INT32_MAX;
+}
+template <>
+__device__ __forceinline__ int32_t identity<false, int32_t>() {
+  return INT32_MIN;
+}
+template <>
+__device__ __forceinline__ uint8_t identity<true, uint8_t>() { return 255; }
+template <>
+__device__ __forceinline__ uint8_t identity<false, uint8_t>() { return 0; }
+template <>
+__device__ __forceinline__ uint32_t identity<true, uint32_t>() {
+  return 0xffffffffu;
+}
+template <>
+__device__ __forceinline__ uint32_t identity<false, uint32_t>() {
+  return 0u;
+}
+
+// words of a row of n elements of `size` bytes, made odd
+__host__ __device__ inline int row_words(int n, int size) {
+  return ((n * size + 3) / 4) | 1;
+}
+
+// The tile's geometry: e rows (and columns) of the staged extent, w2 the
+// columns of the stage-1 result stage 2 reads, and the two buffers' row
+// strides in words (pa: the extent's, pb: the narrower rows').
+struct OcGeom {
+  int e, w2, pa, pb;
+  __host__ __device__ OcGeom(int tile, int r, int size)
+      : e(tile + 4 * r),
+        w2(tile + 2 * r),
+        pa(row_words(tile + 4 * r, size)),
+        pb(row_words(tile + 2 * r, size)) {}
+  __host__ __device__ long long bytes() const {
+    return 4LL * e * (pa + pb);
+  }
+};
+
+// out[line][j] = the extreme of in[line][j .. j + k - 1] for j < lout, over
+// `lines` lines; a line's elements are `es` apart, lines `ls` apart (in units
+// of U). Van Herk/Gil-Werman: a thread takes the k outputs of one block,
+// writes the suffix extremes of its k inputs, then folds in the prefix
+// extremes of the next block's. Items go line-fastest, so neighbouring
+// threads work on neighbouring lines.
+template <bool kMin, class U>
+__device__ __forceinline__ void window_pass(const U* in, int ls, int es,
+                                            U* out, int ols, int oes,
+                                            int lines, int lout, int k) {
+  const int nb = (lout + k - 1) / k;
+  // (line, blk) of item tid, and the step of kThreads items, divided once
+  const int dq = kThreads / lines, dr = kThreads - dq * lines;
+  int line = threadIdx.x % lines, blk = threadIdx.x / lines;
+  const U id = identity<kMin, U>();
+  while (blk < nb) {
+    const int j0 = blk * k;
+    const int n = min(k, lout - j0);
+    const U* src = in + line * ls;
+    U* dst = out + line * ols;
+    U h = id;
+    for (int p = j0 + k - 1; p >= j0 + n; --p) h = ext<kMin>(src[p * es], h);
+#pragma unroll 4
+    for (int p = j0 + n - 1; p >= j0; --p) {
+      h = ext<kMin>(src[p * es], h);
+      dst[p * oes] = h;
+    }
+    U g = id;
+#pragma unroll 4
+    for (int t = 1; t < n; ++t) {
+      g = ext<kMin>(g, src[(j0 + k - 1 + t) * es]);
+      dst[(j0 + t) * oes] = ext<kMin>(dst[(j0 + t) * oes], g);
+    }
+    line += dr;
+    blk += dq;
+    if (line >= lines) {
+      line -= lines;
+      ++blk;
+    }
+  }
+}
+
+// two blocks an SM: 128 registers a thread; at nvcc's own choice the int32
+// instances spilled 12 bytes
 template <class T, bool kMinFirst>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 2)
 open_close_kernel(const T* __restrict__ src, int n, int h, int w, int r,
-                  T* __restrict__ dst) {
-  constexpr bool kMinSecond = !kMinFirst;
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int e1 = kTile + 4 * r, e2 = kTile + 2 * r;
-  T* E = reinterpret_cast<T*>(smem);  // e1 x e1 input; then S1, e2 x e2
-  T* R = E + e1 * e1;                 // e1 x e2 stage-1 rows; then e2 x kTile
-  T* S1 = E;
-  T* R2 = R;
-  const int y0 = blockIdx.y * kTile, x0 = blockIdx.x * kTile;
-  const int tid = threadIdx.x;
+                  int tile, T* __restrict__ dst) {
+  using U = typename ColUnit<T>::U;
+  constexpr int kPer = ColUnit<T>::kPer;
+  constexpr bool kMin2 = !kMinFirst;
+  constexpr int kPerWord = 4 / sizeof(T);  // elements a word
+  extern __shared__ __align__(16) uint32_t smem_words[];
+  const OcGeom g(tile, r, sizeof(T));
+  const int k = 2 * r + 1;
+  const int pa = g.pa * kPerWord, pb = g.pb * kPerWord;  // in elements
+  // A: the extent (e x e, stride pa); then stage 1 after both passes
+  // ((t + 2r) x w2, stride pb); then the output tile (t x t, stride pb).
+  // B: stage 1 along the rows (e x w2, stride pb); then both stages down
+  // the columns (t x w2, stride pb).
+  T* A = reinterpret_cast<T*>(smem_words);
+  T* B = reinterpret_cast<T*>(smem_words + g.e * g.pa);
+  const int y0 = blockIdx.y * tile, x0 = blockIdx.x * tile;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  constexpr int kWarps = kThreads / 32;
   const size_t plane = static_cast<size_t>(h) * w;
+  // column units of a B row; a unit is a word, so rows are g.pb units apart
+  const int wcols = (g.w2 + kPer - 1) / kPer;
 
   for (int z = blockIdx.z; z < n; z += gridDim.z) {
-    morph::stage_clamped(src + z * plane, h, w, y0 - 2 * r, e1, x0 - 2 * r,
-                         e1, E);
-    __syncthreads();
-
-    // 1. stage 1 along the rows: R[row][i] over E[row][c .. c + 2r], c the
-    //    extent column of clamp(x0 - r + i) - r
-    for (int idx = tid; idx < e1 * e2; idx += kThreads) {
-      const int row = idx / e2, i = idx - row * e2;
-      const T* c = E + row * e1 + clamp_index(x0 - r + i, w) - x0 + r;
-      T acc = c[0];
-#pragma unroll 8
-      for (int k = 1; k <= 2 * r; ++k) acc = extreme<kMinFirst>(acc, c[k]);
-      R[idx] = acc;
-    }
-    __syncthreads();
-
-    // 2. stage 1 down the columns: S1[j][i] over the extent rows of
-    //    clamp(y0 - r + j) - r .. + r
-    for (int idx = tid; idx < e2 * e2; idx += kThreads) {
-      const int j = idx / e2, i = idx - j * e2;
-      const T* c = R + (clamp_index(y0 - r + j, h) - y0 + r) * e2 + i;
-      T acc = c[0];
-#pragma unroll 8
-      for (int k = 1; k <= 2 * r; ++k) {
-        acc = extreme<kMinFirst>(acc, c[k * e2]);
+    const T* sz = src + z * plane;
+    // the extent: rows y0 - 2r .., columns x0 - 2r .., stage 1's identity
+    // outside the frame
+    for (int ey = warp; ey < g.e; ey += kWarps) {
+      const int y = y0 - 2 * r + ey;
+      T* row = A + ey * pa;
+      if (y < 0 || y >= h) {
+        for (int ex = lane; ex < g.e; ex += 32) {
+          row[ex] = identity<kMinFirst, T>();
+        }
+        continue;
       }
-      S1[idx] = acc;
-    }
-    __syncthreads();
-
-    // 3. stage 2 along the rows: R2[j][col] over S1[j][col .. col + 2r]
-    for (int idx = tid; idx < e2 * kTile; idx += kThreads) {
-      const int j = idx / kTile, col = idx - j * kTile;
-      const T* c = S1 + j * e2 + col;
-      T acc = c[0];
-#pragma unroll 8
-      for (int k = 1; k <= 2 * r; ++k) acc = extreme<kMinSecond>(acc, c[k]);
-      R2[idx] = acc;
-    }
-    __syncthreads();
-
-    // 4. stage 2 down the columns: out[row][col] over R2[row .. row + 2r]
-    for (int idx = tid; idx < kTile * kTile; idx += kThreads) {
-      const int row = idx / kTile, col = idx - row * kTile;
-      const int y = y0 + row, x = x0 + col;
-      if (y >= h || x >= w) continue;
-      const T* c = R2 + row * kTile + col;
-      T acc = c[0];
-#pragma unroll 8
-      for (int k = 1; k <= 2 * r; ++k) {
-        acc = extreme<kMinSecond>(acc, c[k * kTile]);
+      const T* srow = sz + static_cast<size_t>(y) * w;
+      for (int ex = lane; ex < g.e; ex += 32) {
+        const int x = x0 - 2 * r + ex;
+        row[ex] = (x >= 0 && x < w) ? srow[x] : identity<kMinFirst, T>();
       }
-      dst[z * plane + static_cast<size_t>(y) * w + x] = acc;
     }
-    __syncthreads();  // E and R are refilled for the next frame
+    __syncthreads();
+
+    // stage 1 along the rows: B[row][c] over A[row][c .. c + 2r]
+    window_pass<kMinFirst, T>(A, pa, 1, B, pb, 1, g.e, g.w2, k);
+    __syncthreads();
+    // stage 1 down the columns: A[j][c] over B[j .. j + 2r][c], j < t + 2r
+    window_pass<kMinFirst, U>(reinterpret_cast<const U*>(B), 1, g.pb,
+                              reinterpret_cast<U*>(A), 1, g.pb, wcols,
+                              tile + 2 * r, k);
+    __syncthreads();
+    // stage-1 rows outside the frame: stage 2's identity (its border acts
+    // on in-frame stage-1 values only)
+    {
+      const int lo = min(max(r - y0, 0), tile + 2 * r);   // rows j < lo
+      const int hi = max(min(h - y0 + r, tile + 2 * r), lo);  // and >= hi
+      for (int j = warp; j < tile + 2 * r; j += kWarps) {
+        if (j >= lo && j < hi) continue;
+        U* row = reinterpret_cast<U*>(A + j * pb);
+        for (int c = lane; c < wcols; c += 32) row[c] = identity<kMin2, U>();
+      }
+    }
+    __syncthreads();
+    // stage 2 down the columns: B[i][c] over A[i .. i + 2r][c], i < t
+    window_pass<kMin2, U>(reinterpret_cast<const U*>(A), 1, g.pb,
+                          reinterpret_cast<U*>(B), 1, g.pb, wcols, tile, k);
+    __syncthreads();
+    // columns outside the frame: stage 2's identity, for its row pass
+    {
+      const int lo = min(max(r - x0, 0), g.w2);          // columns c < lo
+      const int hi = max(min(w - x0 + r, g.w2), lo);     // and >= hi
+      const int nbad = lo + g.w2 - hi;
+      if (nbad > 0) {
+        for (int i = warp; i < tile; i += kWarps) {
+          for (int m = lane; m < nbad; m += 32) {
+            B[i * pb + (m < lo ? m : hi + m - lo)] = identity<kMin2, T>();
+          }
+        }
+      }
+    }
+    __syncthreads();
+    // stage 2 along the rows: A[i][col] over B[i][col .. col + 2r]
+    window_pass<kMin2, T>(B, pb, 1, A, pb, 1, tile, tile, k);
+    __syncthreads();
+    // the tile out, a warp a row
+    for (int i = warp; i < tile; i += kWarps) {
+      const int y = y0 + i;
+      if (y >= h) break;
+      T* drow = dst + z * plane + static_cast<size_t>(y) * w;
+      const T* row = A + i * pb;
+      for (int c = lane; c < tile; c += 32) {
+        if (x0 + c < w) drow[x0 + c] = row[c];
+      }
+    }
+    __syncthreads();  // A and B are refilled for the next frame
   }
 }
 
 template <class T>
-int open_close(const void* src, int n, int h, int w, int r, int mode,
-               void* dst, cudaStream_t stream) {
-  const int e1 = kTile + 4 * r, e2 = kTile + 2 * r;
-  const size_t bytes = static_cast<size_t>(e1 * e1 + e1 * e2) * sizeof(T);
+int open_close(const void* src, int n, int h, int w, int r, int tile,
+               int mode, void* dst, cudaStream_t stream) {
+  const OcGeom g(tile, r, sizeof(T));
+  if (g.bytes() > kMaxSmemBytes) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t bytes = static_cast<size_t>(g.bytes());
   const T* s = static_cast<const T*>(src);
   T* d = static_cast<T*>(dst);
   return mode == 0 ? morph::launch_tiles(open_close_kernel<T, true>, bytes, n,
-                                         h, w, stream, s, n, h, w, r, d)
-                   : morph::launch_tiles(open_close_kernel<T, false>, bytes, n,
-                                         h, w, stream, s, n, h, w, r, d);
+                                         h, w, tile, stream, s, n, h, w, r,
+                                         tile, d)
+                   : morph::launch_tiles(open_close_kernel<T, false>, bytes,
+                                         n, h, w, tile, stream, s, n, h, w, r,
+                                         tile, d);
 }
 
 }  // namespace
 
 // src, dst: n frames of (h, w), contiguous, of dtype code `dtype`
 // (morph::Dtype); mode 0 opens (erode first), 1 closes (dilate first);
-// 0 <= r <= kOpenCloseMaxRadius.
+// tile: 16, 32, 64 or 128 (kernels/sep_stencil.py::open_close_tile), whose
+// workspace at radius r must fit a block's shared memory.
 extern "C" int tpuimg_open_close(const void* src, int n, int h, int w,
-                                 int dtype, int r, int mode, void* dst,
-                                 cudaStream_t stream) {
-  if (n < 1 || h < 1 || w < 1 || r < 0 || r > kOpenCloseMaxRadius ||
-      (mode != 0 && mode != 1)) {
+                                 int dtype, int r, int tile, int mode,
+                                 void* dst, cudaStream_t stream) {
+  if (n < 1 || h < 1 || w < 1 || r < 0 || (mode != 0 && mode != 1) ||
+      (tile != 16 && tile != 32 && tile != 64 && tile != 128)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   switch (dtype) {
     case morph::kU8:
-      return open_close<uint8_t>(src, n, h, w, r, mode, dst, stream);
+      return open_close<uint8_t>(src, n, h, w, r, tile, mode, dst, stream);
     case morph::kI32:
-      return open_close<int32_t>(src, n, h, w, r, mode, dst, stream);
+      return open_close<int32_t>(src, n, h, w, r, tile, mode, dst, stream);
     case morph::kF32:
-      return open_close<float>(src, n, h, w, r, mode, dst, stream);
+      return open_close<float>(src, n, h, w, r, tile, mode, dst, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -1,0 +1,408 @@
+// The guided-filter strip walker's body, shared by guided.cu's onepass
+// entries (frame and row-padded) and the enhance tails (enhance_tail.cuh).
+// The design and its bounds are described in guided.cu's header; this file
+// holds the body, templated on its row producer, so that each kernel differs
+// only in where its rows of I and p come from.
+//
+// A producer (Prod) supplies, for walker row u (extended row e0 + u of the
+// block's segment), the values of I and p at strip column c, and does its
+// own staging around the walker's barriers:
+//   kSelf                    p is I (two of the four sums)
+//   kCentre                  the producer gives I at the output pixels
+//                            (centre(s, i, j): walker row s*kRows + i - 2r,
+//                            output column j), so the walker keeps no iring
+//   begin(steps)             before the first step (no barrier before it)
+//   top(s, steps)            at the top of step s, before its first barrier
+//   column(c)                a per-column context for the two calls below
+//   leaving(u, i, ctx, c, base, li, lp)   row u = s*kRows + i - (2r + 1)
+//   entering(s, i, ctx, c, base, ie, pe)  row s*kRows + i
+//   before4(s, steps)        on every thread, before stage 4's barrier
+//   spare(s, steps)          on the threads that stage 4 leaves idle
+//   late(s, steps)           on every thread, after stage 4, in its phase
+//   advance()                at the end of a step
+// `base` is the walker's ring slot of this step's first row (mod 2r + 1 +
+// kRows), which a producer may use for a ring of its own.
+#pragma once
+
+#include <algorithm>
+
+#include "common.cuh"
+
+namespace walker {
+
+constexpr int kStrip = 64;               // output columns of a block
+constexpr int kWalkThreads = 128;
+// the launch bound: 6 blocks an SM, so 80 registers a thread
+constexpr int kWalkBlocks = 6;
+constexpr int kRows = kWalkThreads / 32;  // rows a step takes in: a warp each
+constexpr int kMinSegRows = 32;
+constexpr int kScratchFrames = 8;        // frames in flight, scratch route
+constexpr int kStripPad = kStrip + 1;    // row stride of the ring
+
+// A block's workspace, offsets in floats: f64 column sums of the vertical
+// pass (np a column), the producer's region (prod floats), a step's vertical
+// sums rounded to f32 (np planes of kRows rows of ti + 1), their window sums
+// along the rows and then a and b in place (np planes of kRows rows of
+// ta + 1), the ring of the second box filter's row sums (2 x kr rows of
+// kStrip + 1), and the ring of I at the output columns (ki x kStrip: from the
+// row a step takes in until its q is written, 2r rows later). The odd row
+// strides put the rows of a column in distinct banks, for the lanes that
+// walk along rows side by side.
+struct Workspace {
+  long long vst, prod, vsum, hab, ring, iring, total;
+};
+
+__host__ __device__ inline Workspace workspace_of(int r, bool self_guided,
+                                                  long long prod,
+                                                  bool iring = true) {
+  const long long ti = kStrip + 4LL * r, ta = kStrip + 2LL * r;
+  const long long kr = 2LL * r + 1 + kRows, ki = 2LL * r + kRows;
+  const long long np = self_guided ? 2 : 4;
+  Workspace ws;
+  ws.vst = 0;
+  ws.prod = 2 * np * ti;
+  ws.vsum = ws.prod + prod;
+  ws.hab = ws.vsum + np * kRows * (ti + 1);
+  ws.ring = ws.hab + np * kRows * (ta + 1);
+  ws.iring = ws.ring + 2 * kr * kStripPad;
+  ws.total = (ws.iring + (iring ? ki * kStrip : 0) + 3) &
+             ~3LL;  // whole 16-byte blocks
+  return ws;
+}
+
+// out[c] = src[c] + ... + src[c + 2r] for c in [c0, c1): a running sum along
+// the row, 2r warm-up adds and then one add and one subtract a column, in
+// the plain version's order within each window's first sum
+__device__ __forceinline__ void row_window_sums(const float* src, int c0,
+                                                int c1, int r, float* out) {
+  if (c0 >= c1) return;
+  float sum = 0.0f;
+  for (int t = c0; t < c0 + 2 * r; ++t) sum += src[t];
+#pragma unroll 4
+  for (int c = c0; c < c1; ++c) {
+    sum += src[c + 2 * r];
+    out[c] = sum;
+    sum -= src[c];
+  }
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+
+// 16 bytes, cached in L2 only (the source may be this block's own stores)
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most one committed group (the newest) is still in flight
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// a and b from the four window sums (sums, not means)
+__device__ __forceinline__ void ab_of(float si, float sp, float sip, float sii,
+                                      float coef, float eps, float* a,
+                                      float* b) {
+  const float imu = __fmul_rn(si, coef), pmu = __fmul_rn(sp, coef);
+  const float ipmu = __fmul_rn(sip, coef), iimu = __fmul_rn(sii, coef);
+  const float num = __fsub_rn(ipmu, __fmul_rn(pmu, imu));
+  const float den = __fadd_rn(__fsub_rn(iimu, __fmul_rn(imu, imu)), eps);
+  *a = __fdiv_rn(num, den);
+  *b = __fsub_rn(pmu, __fmul_rn(*a, imu));
+}
+
+// q = mean_a * I + mean_b from the window sums of a and b
+__device__ __forceinline__ float q_of(float sa, float sb, float i,
+                                      float coef) {
+  return __fadd_rn(__fmul_rn(__fmul_rn(sa, coef), i), __fmul_rn(sb, coef));
+}
+
+// The block's workspace: shared memory, or (the scratch route) its slice of
+// a device-memory scratch of `total` floats a block.
+template <bool kShared>
+__device__ __forceinline__ float* block_workspace(float* smem, float* scratch,
+                                                  long long total) {
+  if constexpr (kShared) return smem;
+  const size_t block =
+      (static_cast<size_t>(blockIdx.z) * gridDim.y + blockIdx.y) * gridDim.x +
+      blockIdx.x;
+  return scratch + block * total;
+}
+
+// Walk the block's strip (blockIdx.x) over its segment (blockIdx.y) of one
+// (h, w) frame, writing q at its output pixels. ws and wl: the workspace.
+template <class Prod>
+__device__ __forceinline__ void walk_frame(Prod& prod, float* ws,
+                                           const Workspace& wl, int h, int w,
+                                           int r, float eps, int seg_rows,
+                                           float* __restrict__ qz) {
+  constexpr bool kSelf = Prod::kSelf;
+  constexpr int np = kSelf ? 2 : 4;  // planes summed: I, p, I*p, I*I
+  double* vst = reinterpret_cast<double*>(ws + wl.vst);
+  float* vsum = ws + wl.vsum;
+  float* hab = ws + wl.hab;
+  float* ring = ws + wl.ring;
+  float* iring = ws + wl.iring;
+
+  const int k = 2 * r + 1;
+  const int ti = kStrip + 4 * r, ta = kStrip + 2 * r, kr = k + kRows;
+  const int ki = 2 * r + kRows;
+  const int tip = ti + 1, tap = ta + 1;  // odd row strides
+  const int vplane = kRows * tip;        // a plane of vsum
+  const int hplane = kRows * tap;        // a plane of hab
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  // the same f32 coefficient as the host's float32(1.0 / ksz^2)
+  const float coef = static_cast<float>(1.0 / (static_cast<double>(k) * k));
+  const int x0 = blockIdx.x * kStrip;
+  const int y0 = blockIdx.y * seg_rows;
+  const int y1 = min(y0 + seg_rows, h);
+  const int rows_in = y1 - y0 + 4 * r;  // input rows the walk takes in
+  const int steps = (rows_in + kRows - 1) / kRows;
+  // the horizontal passes: a thread runs along one part (of len_v or len_ab
+  // columns) of one (row, plane) pair of a step, np planes of the vertical
+  // sums (stage 2) and then a and b (stage 3). The self-guided form cuts its
+  // rows into the general form's parts, so that it sums in the same order
+  // and equals the general form with p = I bit for bit.
+  constexpr int pairs_v = kRows * np, pairs_ab = kRows * 2;
+  constexpr int parts_v = kWalkThreads / (kRows * 4);
+  constexpr int parts_ab = kWalkThreads / pairs_ab;
+  const int len_v = ((ta + parts_v - 1) / parts_v) | 1;
+  const int len_ab = ((kStrip + parts_ab - 1) / parts_ab) | 1;
+
+  for (int i = tid; i < np * ti; i += kWalkThreads) vst[i] = 0.0;
+  for (int i = tid; i < 2 * kr * kStripPad; i += kWalkThreads) ring[i] = 0.0f;
+  double sa = 0.0, sb = 0.0;  // output column tid's sums of a and b
+  int base = 0;   // ring slot of this step's first row
+  int ibase = 0;  // iring slot of this step's first row
+  prod.begin(steps);
+
+  for (int s = 0; s < steps; ++s) {
+    prod.top(s, steps);
+    __syncthreads();
+
+    // 1. vertical running sums, a thread per input column: after row u the
+    //    column's sums cover input rows u - 2r .. u (centre row u - r)
+    for (int c = tid; c < ti; c += kWalkThreads) {
+      const auto ctx = prod.column(c);
+      const int j = c - 2 * r;  // output column j keeps its I in iring
+      const bool keep = !Prod::kCentre && j >= 0 && j < kStrip;
+      // the rows leaving the window this step (2r + 1 rows above the
+      // entering ones; zero before the window is full), all loaded before
+      // the running sums wait on the first
+      float li[kRows], lp[kRows];
+#pragma unroll
+      for (int i = 0; i < kRows; ++i) {
+        const int u = s * kRows + i - k;
+        li[i] = 0.0f;
+        lp[i] = 0.0f;
+        if (u >= 0) prod.leaving(u, i, ctx, c, base, li[i], lp[i]);
+      }
+      double v[np];
+#pragma unroll
+      for (int pl = 0; pl < np; ++pl) v[pl] = vst[pl * ti + c];
+#pragma unroll
+      for (int i = 0; i < kRows; ++i) {
+        float ie, pe;
+        prod.entering(s, i, ctx, c, base, ie, pe);
+        if (keep) {
+          int slot = ibase + i;
+          if (slot >= ki) slot -= ki;
+          iring[slot * kStrip + j] = ie;
+        }
+        // entering minus leaving; f32 values and their products are exact
+        // in f64
+        const double di = ie, dl = li[i];
+        v[0] += di - dl;
+        if constexpr (kSelf) {
+          v[1] += di * di - dl * dl;
+        } else {
+          const double dp = pe, dq = lp[i];
+          v[1] += dp - dq;
+          v[2] += di * dp - dl * dq;
+          v[3] += di * di - dl * dl;
+        }
+#pragma unroll
+        for (int pl = 0; pl < np; ++pl) {
+          vsum[pl * vplane + i * tip + c] = static_cast<float>(v[pl]);
+        }
+      }
+#pragma unroll
+      for (int pl = 0; pl < np; ++pl) vst[pl * ti + c] = v[pl];
+    }
+    __syncthreads();
+
+    // 2. window sums along the rows of each plane (a thread a part of a
+    //    (row, plane) pair), then a and b in place (a warp a row); zero on
+    //    rows whose vertical window is not full, so that they add nothing
+    //    below
+    {
+      const int m = tid % pairs_v, i = m % kRows, u = s * kRows + i;
+      const int c0 = tid / pairs_v * len_v, c1 = min(c0 + len_v, ta);
+      const int o = m / kRows * vplane + i * tip;  // plane m / kRows, row i
+      if (u >= 2 * r && u < rows_in) {
+        row_window_sums(vsum + o, c0, c1, r,
+                        hab + m / kRows * hplane + i * tap);
+      }
+    }
+    __syncthreads();
+    {
+      const int u = s * kRows + warp;
+      const bool full = u >= 2 * r && u < rows_in;
+      float* h0 = hab + warp * tap;  // plane 0 of row warp
+      for (int c = lane; c < ta; c += 32) {
+        float a = 0.0f, b = 0.0f;
+        if (full) {
+          if constexpr (kSelf) {
+            ab_of(h0[c], h0[c], h0[hplane + c], h0[hplane + c], coef, eps, &a,
+                  &b);
+          } else {
+            ab_of(h0[c], h0[hplane + c], h0[2 * hplane + c],
+                  h0[3 * hplane + c], coef, eps, &a, &b);
+          }
+        }
+        h0[c] = a;
+        h0[hplane + c] = b;
+      }
+    }
+    __syncthreads();
+
+    // 3. window sums of a and b along each row into the ring (a thread a
+    //    part of a (row, a or b) pair)
+    {
+      const int m = tid % pairs_ab, i = m % kRows, pl = m / kRows;
+      const int c0 = tid / pairs_ab * len_ab, c1 = min(c0 + len_ab, kStrip);
+      int slot = base + i;
+      if (slot >= kr) slot -= kr;
+      row_window_sums(hab + pl * hplane + i * tap, c0, c1, r,
+                      ring + (pl * kr + slot) * kStripPad);
+    }
+    prod.before4(s, steps);
+    __syncthreads();
+
+    // 4. running sums of the ring down each output column, then q. Ring
+    //    slot of row v: v mod kr; the row leaving (v - k) sits kRows slots
+    //    ahead. Output row yo = u - 4r + y0 once its window is full; its I
+    //    is walker row u - 2r's, in iring slot (u - 2r) mod ki. The other
+    //    threads do the producer's spare work.
+    if (tid < kStrip) {
+      const int x = x0 + tid;
+#pragma unroll
+      for (int i = 0; i < kRows; ++i) {
+        int slot = base + i;
+        if (slot >= kr) slot -= kr;
+        int old = slot + kRows;
+        if (old >= kr) old -= kr;
+        sa += static_cast<double>(ring[slot * kStripPad + tid]) -
+              static_cast<double>(ring[old * kStripPad + tid]);
+        sb += static_cast<double>(ring[(kr + slot) * kStripPad + tid]) -
+              static_cast<double>(ring[(kr + old) * kStripPad + tid]);
+        const int yo = y0 + s * kRows + i - 4 * r;
+        if (yo >= y0 && yo < y1 && x < w) {
+          float ic;
+          if constexpr (Prod::kCentre) {
+            ic = prod.centre(s, i, tid);
+          } else {
+            int is = ibase + i - 2 * r;
+            if (is < 0) {
+              is += ki;
+            } else if (is >= ki) {
+              is -= ki;
+            }
+            ic = iring[is * kStrip + tid];
+          }
+          qz[static_cast<size_t>(yo) * w + x] =
+              q_of(static_cast<float>(sa), static_cast<float>(sb), ic, coef);
+        }
+      }
+    } else {
+      prod.spare(s, steps);
+    }
+    prod.late(s, steps);
+    base += kRows;
+    if (base >= kr) base -= kr;
+    ibase += kRows;
+    if (ibase >= ki) ibase -= ki;
+    prod.advance();
+  }
+}
+
+// ---- launches --------------------------------------------------------------
+
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t bytes) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
+  if (err != cudaSuccess) cudaGetLastError();  // clear it; returned below
+  return err;
+}
+
+// The walker's grid: strips of kStrip columns, segments of seg_rows output
+// rows, and frames. Segments are as many as fit in one wave of `slots`
+// resident blocks (a second, partial wave would double the time), none
+// shorter than max(kMinSegRows, 4r), whose halo each pays.
+struct WalkGrid {
+  dim3 grid;
+  int seg_rows;
+};
+
+inline WalkGrid walk_grid(int n, int h, int w, int r, bool shared,
+                          long long slots) {
+  const long long strips = (w + kStrip - 1) / kStrip;
+  const long long frames = std::min(n, shared ? 65535 : kScratchFrames);
+  const long long min_rows = std::max(kMinSegRows, 4 * r);
+  const long long segs = std::max(
+      1LL, std::min(slots / (strips * frames), (h + min_rows - 1) / min_rows));
+  const int rows = static_cast<int>((h + segs - 1) / segs);
+  return {dim3(static_cast<unsigned>(strips),
+               static_cast<unsigned>((h + rows - 1) / rows),
+               static_cast<unsigned>(frames)),
+          rows};
+}
+
+// The scratch route sizes its scratch from the grid, so its wave is fixed:
+// kWalkBlocks on each of an H100's 132 SMs.
+constexpr long long kScratchSlots = kWalkBlocks * 132LL;
+
+// Raise `kernel`'s shared memory to `bytes` (the shared-memory route) and
+// find the grid: one wave of the blocks this card holds at once at that
+// footprint, or (bytes == 0, the scratch route) kScratchSlots. Returns the
+// CUDA error code; the grid in *g.
+template <typename Kernel>
+int plan_walk(Kernel kernel, size_t bytes, int n, int h, int w, int r,
+              WalkGrid* g) {
+  long long slots = kScratchSlots;
+  if (bytes > 0) {
+    cudaError_t err = allow_smem(kernel, bytes);
+    int dev = 0, sms = 0, per_sm = 0;
+    if (err == cudaSuccess) err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) {
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    }
+    if (err == cudaSuccess) {
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                          kWalkThreads, bytes);
+    }
+    if (err != cudaSuccess) return static_cast<int>(err);
+    slots = std::max(1LL, static_cast<long long>(sms) * per_sm);
+  }
+  *g = walk_grid(n, h, w, r, bytes > 0, slots);
+  return 0;
+}
+
+}  // namespace walker

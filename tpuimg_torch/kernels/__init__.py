@@ -36,11 +36,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                   ctypes.c_float)
 MAX_TAPS = 33  # csrc/enhance_tail.cuh kMaxTaps
+TAIL_MAX_RADIUS = 64  # csrc/enhance_tail.cuh kTailMaxRadius
 GAUSS_MAX_RADIUS = 96  # csrc/gaussian.cu kGaussMaxRadius
 # csrc/morphology.cu kMorphMaxTileRadius: the one-launch tile route's
 # ceiling; larger radii take the row-pass/column-pass route
 MORPH_MAX_TILE_RADIUS = 96
-OPEN_CLOSE_MAX_RADIUS = 39  # csrc/open_close.cu kOpenCloseMaxRadius
+# a block's shared memory on the card (227 KB), the kernels' ceiling
+SMEM_MAX_BYTES = 232_448
 # csrc/guided.cu kSmemMaxRadius: the onepass kernel's shared-memory route, and
 # the frame entry's ceiling; the row-padded entry takes larger radii on its
 # scratch route
@@ -68,8 +70,8 @@ _SIGNATURES = {
     # out_f32, out, stream
     "tpuimg_clahe_map": (_P, _I, _I, _I, _P, _I, _I, _I, _I, _I, _F, _I, _P,
                          _P),
-    # f, h, w, taps, rg, r, eps, out, stream
-    "tpuimg_enhance_tail": (_P, _I, _I, Taps, _I, _I, _F, _P, _P),
+    # f, h, w, taps, rg, r, eps, scratch, out, stream
+    "tpuimg_enhance_tail": (_P, _I, _I, Taps, _I, _I, _F, _P, _P, _P),
     # src, n, h, w, taps, r, out, stream (ypadded: src rows h + 2r)
     "tpuimg_gaussian": (_P, _I, _I, _I, GaussTaps, _I, _P, _P),
     "tpuimg_gaussian_ypadded": (_P, _I, _I, _I, GaussTaps, _I, _P, _P),
@@ -94,12 +96,12 @@ _SIGNATURES = {
     # h + 2r)
     "tpuimg_morphology": (_P, _I, _I, _I, _I, _I, _I, _P, _P, _P),
     "tpuimg_morphology_ypadded": (_P, _I, _I, _I, _I, _I, _I, _P, _P, _P),
-    # src, n, h, w, dtype, r, mode, dst, stream
-    "tpuimg_open_close": (_P, _I, _I, _I, _I, _I, _I, _P, _P),
+    # src, n, h, w, dtype, r, tile, mode, dst, stream
+    "tpuimg_open_close": (_P, _I, _I, _I, _I, _I, _I, _I, _P, _P),
     # img, h, w, tables, ytiles, xtiles, th, pad_top, pad_left, inv_tw,
-    # scale, taps, rg, r, eps, out, stream
+    # scale, taps, rg, r, eps, scratch, out, stream
     "tpuimg_enhance_tail_clahe": (_P, _I, _I, _P, _I, _I, _I, _I, _I, _F, _F,
-                                  Taps, _I, _I, _F, _P, _P),
+                                  Taps, _I, _I, _F, _P, _P, _P),
 }
 
 _lib = None
@@ -196,6 +198,12 @@ def load() -> ctypes.CDLL:
         # n, h, w, r, self_guided -> floats of scratch, or -1
         lib.tpuimg_guided_onepass_scratch_floats.argtypes = [_I] * 5
         lib.tpuimg_guided_onepass_scratch_floats.restype = _L
+        # h, w, rg, r -> floats of scratch, -1 (refused) or -2 - a CUDA error
+        lib.tpuimg_enhance_tail_scratch_floats.argtypes = [_I] * 4
+        lib.tpuimg_enhance_tail_scratch_floats.restype = _L
+        # rg, r -> 1 on the shared-memory route, 0 on the scratch route
+        lib.tpuimg_enhance_tail_shared.argtypes = [_I] * 2
+        lib.tpuimg_enhance_tail_shared.restype = _I
         _lib = lib
     return _lib
 

@@ -17,15 +17,26 @@ scratch, the scratch route). Its plain version is tpuimg's XLA form of
 valid-window box sums, q on the block's centre.
 
 ``enhance_tail``, q = guided(I=f, p=gaussian(f)), replaces
-``enhance_tail_pallas``. Its plain version is ``_tail_chain``'s algebra on the
+``enhance_tail_pallas``. Its kernel is the guided filter's strip walker
+(csrc/walker.cuh, the onepass kernel's body) with a producer that makes f
+once per pixel of a strip and its halo and p = gaussian(f) from a ring of f
+rows, on chip: gf radius <= TAIL_MAX_RADIUS, gaussian radius <= MAX_TAPS //
+2, each block's ring of p rows in a device-memory scratch this module
+allocates, and the whole workspace there past a block's shared memory (the
+scratch route, counted on ``scratch_launches``). At 4K, r8, rg2: 0.2918 ms
+on an NVIDIA H100 80GB HBM3 at 700.00 W (chip_smoke.py; bound 0.0198 ms, by
+bytes; the gaussian then guided kernels 0.3160; the tile kernel it replaced
+took 0.9078). Its plain
+version is ``_tail_chain``'s algebra on the
 whole frame: pad once by the total halo 2r + rg (reflect-101), smooth (down
 the columns, then along the rows), then the guided chain in valid mode, so it
 never pads again.
 
 ``enhance_tail_clahe`` (csrc/enhance_tail_clahe.cu), the same tail with f =
-clahe_blend(img) / 255 computed inside the kernel, replaces
-``enhance_tail_clahe_pallas``. Its plain version is the f32 CLAHE blend
-times 1/255, then ``enhance_tail_plain``.
+clahe_blend(img) / 255 computed inside the kernel (once per staged pixel),
+replaces ``enhance_tail_clahe_pallas`` (4K: 0.3580 ms, same card; bound
+0.0124 ms; the tile kernel took 1.0073). Its plain version is the f32 CLAHE
+blend times 1/255, then ``enhance_tail_plain``.
 """
 
 from __future__ import annotations
@@ -38,8 +49,8 @@ import torch
 from tpuimg_torch.core.borders import pad_reflect101
 from tpuimg_torch.core.validate import ParamError
 from tpuimg_torch.kernels import (
-    GUIDED_SMEM_MAX_RADIUS, GUIDED_TWOPASS_MAX_RADIUS, MAX_TAPS, Taps, launch,
-    load, require_cuda_tensor)
+    GUIDED_SMEM_MAX_RADIUS, GUIDED_TWOPASS_MAX_RADIUS, MAX_TAPS,
+    TAIL_MAX_RADIUS, Taps, launch, load, require_cuda_tensor)
 from tpuimg_torch.kernels.lut import check_clahe_args, clahe_map_plain
 from tpuimg_torch.kernels.sep_stencil import _sep_pass, taps
 
@@ -243,11 +254,16 @@ def enhance_tail_plain(f, radius_g: int, sigma: float, radius: int,
 
 
 def _tail_taps(h: int, w: int, radius_g: int, sigma: float, radius: int):
-    """The tail kernels' limits, then their gaussian taps."""
+    """The tail kernels' limits, checked before any launch, then their
+    gaussian taps."""
     if 2 * radius_g + 1 > MAX_TAPS:
         raise ParamError(
             f"the tail kernel takes a gaussian radius <= {MAX_TAPS // 2}, "
             f"got {radius_g}")
+    if not 1 <= radius <= TAIL_MAX_RADIUS:
+        raise ParamError(
+            f"the tail kernel takes 1 <= radius <= {TAIL_MAX_RADIUS}, got "
+            f"{radius}")
     if min(h, w) <= 2 * radius + radius_g:
         raise ValueError(
             f"the tail kernel needs min(H, W) > 2*radius + radius_g = "
@@ -258,22 +274,42 @@ def _tail_taps(h: int, w: int, radius_g: int, sigma: float, radius: int):
     return tp
 
 
+def _tail_scratch(h: int, w: int, radius_g: int, radius: int, device):
+    """The device memory a tail launch needs: each block's ring of p rows,
+    and past a block's shared memory (the scratch route) its workspace."""
+    lib = load()
+    floats = lib.tpuimg_enhance_tail_scratch_floats(h, w, radius_g, radius)
+    if floats == -1:
+        raise ParamError(f"the tail kernel refuses radius {radius}, gaussian "
+                         f"radius {radius_g} on {h}x{w}")
+    if floats < 0:
+        raise RuntimeError(f"CUDA error {-floats - 2} sizing the tail's "
+                           f"scratch")
+    if not lib.tpuimg_enhance_tail_shared(radius_g, radius):
+        enhance_tail.scratch_launches += 1
+    return torch.empty(floats, dtype=torch.float32, device=device)
+
+
 def enhance_tail(f, radius_g: int, sigma: float, radius: int, eps: float):
     """``enhance_tail_plain`` on a CPU tensor; the CUDA kernel otherwise.
-    Needs min(H, W) > 2*radius + radius_g."""
+    Needs min(H, W) > 2*radius + radius_g, radius <= TAIL_MAX_RADIUS and
+    radius_g <= MAX_TAPS // 2 (``ParamError`` before any launch)."""
     if f.device.type == "cpu":
         return enhance_tail_plain(f, radius_g, sigma, radius, eps)
     require_cuda_tensor(f, "f", torch.float32)
     h, w = f.shape
     tp = _tail_taps(h, w, radius_g, sigma, radius)
+    scratch = _tail_scratch(h, w, radius_g, radius, f.device)
     out = torch.empty_like(f)
     launch("tpuimg_enhance_tail", f.device, f.data_ptr(), h, w, tp, radius_g,
-           radius, eps, out.data_ptr())
+           radius, eps, scratch.data_ptr(), out.data_ptr())
     enhance_tail.launches += 1
     return out
 
 
 enhance_tail.launches = 0
+# launches of either tail on the scratch route
+enhance_tail.scratch_launches = 0
 
 
 def enhance_tail_clahe_plain(img, tables, ytiles: int, xtiles: int, th: int,
@@ -292,8 +328,8 @@ def enhance_tail_clahe(img, tables, ytiles: int, xtiles: int, th: int,
                        tw: int, pad_top: int, pad_left: int, radius_g: int,
                        sigma: float, radius: int, eps: float):
     """``enhance_tail_clahe_plain`` on a CPU tensor; on a CUDA tensor one
-    launch, the blend recomputed on each tile's halo and never stored.
-    Takes any tile grid; needs min(H, W) > 2*radius + radius_g."""
+    launch, the blend computed once per pixel of each strip and its halo and
+    never stored. Takes any tile grid; the limits of ``enhance_tail``."""
     if img.device.type == "cpu":
         return enhance_tail_clahe_plain(img, tables, ytiles, xtiles, th, tw,
                                         pad_top, pad_left, radius_g, sigma,
@@ -301,11 +337,13 @@ def enhance_tail_clahe(img, tables, ytiles: int, xtiles: int, th: int,
     check_clahe_args(img, tables, ytiles, xtiles, th, tw, pad_top, pad_left)
     h, w = img.shape
     tp = _tail_taps(h, w, radius_g, sigma, radius)
+    scratch = _tail_scratch(h, w, radius_g, radius, img.device)
     out = torch.empty((h, w), dtype=torch.float32, device=img.device)
     inv_tw = float(np.float32(1.0) / np.float32(tw))
     launch("tpuimg_enhance_tail_clahe", img.device, img.data_ptr(), h, w,
            tables.data_ptr(), ytiles, xtiles, th, pad_top, pad_left, inv_tw,
-           INV_255, tp, radius_g, radius, eps, out.data_ptr())
+           INV_255, tp, radius_g, radius, eps, scratch.data_ptr(),
+           out.data_ptr())
     enhance_tail_clahe.launches += 1
     return out
 

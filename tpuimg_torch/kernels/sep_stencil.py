@@ -15,7 +15,12 @@ is tpuimg's XLA form of ``gaussian_ypadded``: pad x only (reflect-101), the
 row pass, then the column pass over the block's own rows.
 
 ``morphology_kernel`` replaces ``morphology_pallas`` and
-``open_close_kernel`` replaces ``open_close_pallas``;
+``open_close_kernel`` replaces ``open_close_pallas``: van Herk/Gil-Werman
+window extremes (about three compares an output at any radius) over square
+tiles that ``open_close_tile`` sizes, u8 four to a word down the columns,
+stage 1 kept in shared memory; open r15 on two 2160x3840 u8 frames in
+0.1248 ms on an NVIDIA H100 80GB HBM3 at 700.00 W (chip_smoke.py; bound
+0.0099 ms, by bytes; the tile kernel it replaced took 1.2534);
 ``morph_ypadded_kernel`` (csrc/morphology.cu) replaces
 ``morph_pallas_ypadded``, on a row-padded block as above, replicate in x
 only. The plain versions are
@@ -34,8 +39,8 @@ from tpuimg_torch.core.borders import pad_reflect101
 from tpuimg_torch.core.kernelgen import gaussian_kernel_1d
 from tpuimg_torch.core.validate import ParamError
 from tpuimg_torch.kernels import (
-    GAUSS_MAX_RADIUS, MORPH_MAX_TILE_RADIUS, OPEN_CLOSE_MAX_RADIUS, GaussTaps,
-    launch, require_cuda_tensor)
+    GAUSS_MAX_RADIUS, MORPH_MAX_TILE_RADIUS, SMEM_MAX_BYTES, GaussTaps, launch,
+    require_cuda_tensor)
 
 # the dtypes the morphology kernels take, and their csrc/morph.cuh codes
 MORPH_DTYPES = {torch.uint8: 0, torch.int32: 1, torch.float32: 2}
@@ -244,12 +249,56 @@ morph_ypadded_kernel.launches = 0
 morph_ypadded_kernel.split_launches = 0
 
 
+# csrc/open_close.cu's tiles, largest first, and the footprint under which
+# two blocks share an SM (half of its 228 KB, less the 1 KB the card keeps
+# for each block)
+OPEN_CLOSE_TILES = (128, 64, 32, 16)
+OPEN_CLOSE_PAIR_BYTES = 233_472 // 2 - 1024
+
+
+def _row_words(n: int, itemsize: int) -> int:
+    """csrc/open_close.cu row_words: the words of a row of n elements, made
+    odd."""
+    return (n * itemsize + 3) // 4 | 1
+
+
+def open_close_smem(tile: int, radius: int, itemsize: int) -> int:
+    """The shared-memory bytes of the open/close kernel (csrc/open_close.cu
+    OcGeom::bytes): (tile + 4r) rows of (tile + 4r) and (tile + 2r)
+    elements."""
+    e = tile + 4 * radius
+    return 4 * e * (_row_words(e, itemsize)
+                    + _row_words(tile + 2 * radius, itemsize))
+
+
+def open_close_tile(radius: int, itemsize: int) -> int | None:
+    """The open/close kernel's output tile side at this radius and element
+    size: the largest of OPEN_CLOSE_TILES whose footprint lets two blocks
+    share an SM, else the largest that fits a block, else None (past the
+    kernel's ceiling)."""
+    fits = [t for t in OPEN_CLOSE_TILES
+            if open_close_smem(t, radius, itemsize) <= SMEM_MAX_BYTES]
+    pair = [t for t in fits
+            if open_close_smem(t, radius, itemsize) <= OPEN_CLOSE_PAIR_BYTES]
+    return (pair or fits or [None])[0]
+
+
+def open_close_max_radius(dtype: torch.dtype) -> int:
+    """The largest radius the fused kernel takes in one launch for
+    ``dtype``: 93 for u8, 44 for int32 and float32."""
+    size = torch.empty((), dtype=dtype).element_size()
+    r = 0
+    while open_close_tile(r + 1, size) is not None:
+        r += 1
+    return r
+
+
 def open_close_kernel(img, radius: int, mode: int):
     """``open_close_plain`` on a CPU tensor; on a CUDA tensor one launch of
     the fused kernel over all leading dims, the stage-1 result kept in
-    shared memory, for min(radius, max(H, W) - 1) <= OPEN_CLOSE_MAX_RADIUS
-    (its (32 + 4r)^2 extent then fits a block's 227 KB). Above that the
-    two stages are two ``morphology_kernel`` calls, which count on
+    shared memory, for min(radius, max(H, W) - 1) <=
+    open_close_max_radius(dtype), over tiles of ``open_close_tile``. Above
+    that the two stages are two ``morphology_kernel`` calls, which count on
     ``morphology_kernel.launches`` and not on ``launches``."""
     _check_morph(img, mode)
     if img.device.type == "cpu":
@@ -258,12 +307,13 @@ def open_close_kernel(img, radius: int, mode: int):
         return torch.empty_like(img)
     n, h, w = _frames(img)
     r = min(radius, max(h, w) - 1)
-    if r > OPEN_CLOSE_MAX_RADIUS:
+    tile = open_close_tile(r, img.element_size())
+    if tile is None:
         return morphology_kernel(morphology_kernel(img, radius, mode), radius,
                                  1 - mode)
     out = torch.empty_like(img)
     launch("tpuimg_open_close", img.device, img.data_ptr(), n, h, w,
-           MORPH_DTYPES[img.dtype], r, mode, out.data_ptr())
+           MORPH_DTYPES[img.dtype], r, tile, mode, out.data_ptr())
     open_close_kernel.launches += 1
     return out
 
