@@ -17,7 +17,7 @@ Phases, each printed on its own line:
    tile histograms bit-exact, CLAHE f32 blend <= 1e-3 and u8 <= 1 step,
    enhance tail <= 1e-4 (the fused guided-filter contract); gaussian
    (r 1, 2, 7, plus a batch of three 1080p frames and a 3x9 frame at r 4)
-   <= 1e-5; guided filter onepass (self-guided and general) and twopass
+   equal to its plain version bit for bit; guided filter onepass (self-guided and general) and twopass
    (r 1, 8, 16, plus a 6x40 frame at r 8) <= 1e-4 and finite; bit-exact:
    hist256 at those sizes, at 4320x7680 and on a flat 4K frame,
    hist256_frames on 16 frames of 1080p and on 3 odd-sized frames,
@@ -31,8 +31,9 @@ Phases, each printed on its own line:
    dilate (morphology) at those three sizes for r 1, 2, 7, 15, 31 in u8,
    int32 (INT_MIN and INT_MAX planted) and float32 (NaNs, infinities and
    -0.0 planted), on 10x200 at r15, 5x6 at r40 and 1x1 at r3, on a batch of
-   two 4K frames and at r200 at 4K (the two-pass route past the tile
-   kernel's ceiling), and open and close (open_close) at the same sizes for
+   two 4K frames and at r200 at 4K, at each dtype's tile ceiling (226 u8,
+   108 int32 and float32: one launch) and one past it (the two-pass route),
+   and open and close (open_close) at the same sizes for
    r 1, 15, 31, 39, at each dtype's ceiling (93 u8, 44 int32 and float32:
    one fused launch) and one past it (two morphology launches), and on
    frames narrower than a tile or of one row or column at r15 and r16: all
@@ -45,12 +46,13 @@ Phases, each printed on its own line:
    (the scratch route where the workspace passes shared memory), the same
    contracts; the row-padded kernels at the blocks of a 4K
    shard over sp = 4 (540, 541 of 3839 columns, and 1 output rows, with the
-   enhance tail's 2*18 halo rows): gaussian_ypadded r2 <= 1e-5,
+   enhance tail's 2*18 halo rows): gaussian_ypadded r2 bit for bit,
    guided_ypadded r8 general and self <= 1e-4 (and r 20, 32, 64 and 80,
    the last on its scratch route, on 540-row and one-row 4K blocks),
    morph_ypadded r1 and r15 on
-   2x4K-shard, unaligned and one-row blocks and r120 (its two-pass route)
-   in u8, int32 and float32 with NaNs, equal; clahe_band_map on 540-row
+   2x4K-shard, unaligned and one-row blocks, r120 and at each dtype's tile
+   ceiling and one past it (the two-pass route) in u8, int32 and float32
+   with NaNs, equal; clahe_band_map on 540-row
    4K bands at y0 0, 537 and 1620, tiles 8 and 16: f32 <= 1e-3, u8 <= 1
    step, and equal to clahe_map's rows;
 4. the main paths, each run once with every launch counter reset just
@@ -133,9 +135,10 @@ from tpuimg_torch.kernels.lut import (
 from tpuimg_torch.kernels.scan2d import integral_kernel, integral_plain
 from tpuimg_torch.kernels.sep_stencil import (
     gaussian_kernel, gaussian_plain, gaussian_ypadded_kernel,
-    gaussian_ypadded_plain, morph_ypadded_kernel, morph_ypadded_plain,
-    morphology_kernel, morphology_plain, open_close_kernel,
-    open_close_max_radius, open_close_plain, taps)
+    gaussian_ypadded_plain, morph_max_radius, morph_tile,
+    morph_ypadded_kernel, morph_ypadded_plain, morphology_kernel,
+    morphology_plain, open_close_kernel, open_close_max_radius,
+    open_close_plain, taps)
 from tpuimg_torch.ops.gaussian import gaussian_ypadded
 from tpuimg_torch.ops.histogram import (
     _clahe_geometry, _clahe_tables, _he_tables)
@@ -165,6 +168,10 @@ OPEN_CLOSE_NARROW = [(2160, 40), (40, 3840), (2160, 1), (1, 3840)]
 TAIL_R = [1, 8, 16, 64]
 TAIL_RG = [0, 2, 16]
 MORPH_TINY = [((10, 200), 15), ((5, 6), 40), ((1, 1), 3)]
+# the gaussian kernel's routes: its own register-window instances (r 1-4),
+# the 8 and 16 windows (r 5-16), the tile body (r 17-96)
+GAUSS_ROUTES_SHAPE = (300, 257)
+GAUSS_ROUTES_R = [3, 4, 5, 8, 9, 16, 17, 96]
 MORPH_BATCH = (2, 2160, 3840)  # morph_31x31_4k_batch2 (bench.py:84): r15
 MORPH_PATH_R = 15
 TAIL_GRIDS = [(4, 4), (8, 8), (16, 16), (3, 5)]  # (ytiles, xtiles)
@@ -374,15 +381,18 @@ def check_filter_kernels(dev, card: str, errs: dict) -> None:
     """Phase 3, the gaussian and guided-filter kernels."""
     cases = [(shape, r, s) for shape in SHAPES for r, s in GAUSS]
     cases += [((3, 1080, 1920), 2, 1.5), ((3, 9), 4, 1.5)]
+    cases += [(GAUSS_ROUTES_SHAPE, r, 0.3 * r + 0.8) for r in GAUSS_ROUTES_R]
     for shape, r, sigma in cases:
         f, _ = guide_pair(shape, SEED + r, dev)
         got = gaussian_kernel(f, r, sigma)
-        err = max_err(got, gaussian_plain(f, r, sigma))
+        ref = gaussian_plain(f, r, sigma)
+        err = max_err(got, ref)
         label = "x".join(map(str, shape))
         check(bool(torch.isfinite(got).all()), f"gaussian {label} finite")
-        check(err <= 1e-5, f"gaussian {label} r{r}: {err} <= 1e-5")
+        check(torch.equal(got, ref), f"gaussian {label} r{r}: {err} from "
+              f"the plain version, not equal")
         errs["gaussian"] = max(errs.get("gaussian", 0.0), err)
-        print(f"phase 3 gaussian vs plain {label} r{r}: {err:.3g} [{card}]")
+        print(f"phase 3 gaussian vs plain {label} r{r}: equal [{card}]")
     cases = [(shape, r) for shape in SHAPES for r in GUIDED_R]
     cases += [((6, 40), 8)]
     for shape, r in cases:
@@ -610,8 +620,44 @@ def check_morph_kernels(dev, card: str, errs: dict) -> None:
         print(f"phase 3 morphology vs plain {label}: erode and dilate r "
               f"{radii}, open and close r {oc_radii}, u8, int32 and float32 "
               f"equal, NaNs in place; two-pass route {split} times [{card}]")
-    check(split == 18, f"r200 at 4K takes the two-pass route every time "
-          f"({split} of 18)")
+    # r200: the two-pass route past each dtype's tile ceiling, for erode and
+    # dilate and the two morphology launches of open and close each
+    want = sum(6 * (200 > morph_max_radius(getattr(torch, d)))
+               for d in ("uint8", "int32", "float32"))
+    check(split == want, f"r200 at 4K takes the two-pass route {split} "
+          f"times, not {want}")
+
+
+def check_morph_limits(dev, card: str, errs: dict) -> None:
+    """Phase 3, erode and dilate at each dtype's tile ceiling (one launch)
+    and one past it (the two-pass route), on an unaligned frame and on a
+    row-padded block of the same width."""
+    h, w = SHAPES[1]
+    for dtype in ("uint8", "int32", "float32"):
+        x = torch.from_numpy(morph_frame((h, w), dtype, SEED + 33)).to(dev)
+        top = morph_max_radius(x.dtype)
+        for r in (top, top + 1):
+            blk = torch.from_numpy(morph_frame((7 + 2 * r, w), dtype,
+                                               SEED + 34)).to(dev)
+            before = (morphology_kernel.split_launches,
+                      morph_ypadded_kernel.split_launches)
+            for mode in (0, 1):
+                same_values(f"morphology {h}x{w} {dtype} r{r} mode {mode}",
+                            morphology_kernel(x, r, mode),
+                            morphology_plain(x, r, mode), errs, "morphology")
+                same_values(f"morph_ypadded {tuple(blk.shape)} {dtype} r{r} "
+                            f"mode {mode}", morph_ypadded_kernel(blk, r, mode),
+                            morph_ypadded_plain(blk, r, mode), errs,
+                            "morph_ypadded")
+            got = (morphology_kernel.split_launches - before[0],
+                   morph_ypadded_kernel.split_launches - before[1])
+            want = (0, 0) if r <= top else (2, 2)
+            check(got == want, f"morphology {dtype} r{r}: two-pass routes "
+                  f"{got}, not {want}")
+        torch.cuda.synchronize()
+        print(f"phase 3 morphology and morph_ypadded vs plain {h}x{w} "
+              f"{dtype} at the tile ceiling {top}: r{top} one launch, "
+              f"r{top + 1} two-pass route, equal, NaNs in place [{card}]")
 
 
 def check_open_close_limits(dev, card: str, errs: dict) -> None:
@@ -738,12 +784,14 @@ def check_ypadded_kernels(dev, card: str, errs: dict) -> None:
         w = SHAPES[1][1] if rows == SHARD_ROWS[1] else SHAPES[0][1]
         fp, p = guide_pair((rows + 2 * REACH, w), SEED + 40 + rows, dev)
         smooth = gaussian_ypadded_kernel(fp, RG, SIGMA)
-        err_g = max_err(smooth, gaussian_ypadded_plain(fp, RG, SIGMA))
+        ref_g = gaussian_ypadded_plain(fp, RG, SIGMA)
+        err_g = max_err(smooth, ref_g)
         check(smooth.shape == (rows + 4 * GF_R, w), f"gaussian_ypadded shape "
               f"{tuple(smooth.shape)}")
         Ip = fp[RG:fp.shape[0] - RG]
         line = [f"gaussian r{RG} {err_g:.3g}"]
-        check(err_g <= 1e-5, f"gaussian_ypadded {rows}x{w}: {err_g} <= 1e-5")
+        check(torch.equal(smooth, ref_g), f"gaussian_ypadded {rows}x{w}: "
+              f"{err_g} from the plain version, not equal")
         errs["gaussian_ypadded"] = max(errs.get("gaussian_ypadded", 0.0),
                                        err_g)
         for what, pp, self_g in (("general", smooth, False),
@@ -761,9 +809,9 @@ def check_ypadded_kernels(dev, card: str, errs: dict) -> None:
         print(f"phase 3 ypadded vs plain, {rows}x{w} shard "
               f"({rows + 2 * REACH} rows in): {', '.join(line)} [{card}]")
     one, _ = guide_pair((1 + 2 * RG, SHAPES[0][1]), SEED + 45, dev)
-    err = max_err(gaussian_ypadded_kernel(one, RG, SIGMA),
-                  gaussian_ypadded_plain(one, RG, SIGMA))
-    check(err <= 1e-5, f"gaussian_ypadded one-row block: {err} <= 1e-5")
+    check(torch.equal(gaussian_ypadded_kernel(one, RG, SIGMA),
+                      gaussian_ypadded_plain(one, RG, SIGMA)),
+          "gaussian_ypadded one-row block equals its plain version")
     check_guided_ypadded_large(dev, card, errs)
 
     w = SHAPES[0][1]
@@ -788,8 +836,10 @@ def check_ypadded_kernels(dev, card: str, errs: dict) -> None:
                                 "morph_ypadded")
             torch.cuda.synchronize()
             split = morph_ypadded_kernel.split_launches - split
-            check(split == (6 if r > kernels.MORPH_MAX_TILE_RADIUS else 0),
-                  f"morph_ypadded r{r} took the two-pass route {split} times")
+            want = sum(2 * (r > morph_max_radius(getattr(torch, d)))
+                       for d in ("uint8", "int32", "float32"))
+            check(split == want, f"morph_ypadded r{r} took the two-pass "
+                  f"route {split} times, not {want}")
             print(f"phase 3 morph_ypadded vs plain {'x'.join(map(str, shape))}"
                   f" r{r}: u8, int32 and float32 equal, NaNs in place; "
                   f"two-pass route {split} times [{card}]")
@@ -1397,10 +1447,12 @@ def time_morph_tail(dev, card: str) -> dict:
         if (h, w) == SHAPES[0]:
             at_4k["enhance_tail_clahe"] = row(t, *work)
     img = torch.from_numpy(make_frame(*SHAPES[0], SEED)).to(dev)
-    t = time_cuda(morphology_kernel, img, 200, 0, iters=ITERS, card=card)
-    print(f"phase 5 time erode u8 r200 {SHAPES[0][0]}x{SHAPES[0][1]} "
-          f"(two-pass route): kernel {t.ms:.4f} ms (min {t.ms_min:.4f}), "
-          f"median of {ITERS} [{card}]")
+    for rr in (200, morph_max_radius(img.dtype) + 1):
+        route = "tile" if morph_tile(rr, 1) else "two-pass"
+        t = time_cuda(morphology_kernel, img, rr, 0, iters=ITERS, card=card)
+        print(f"phase 5 time erode u8 r{rr} {SHAPES[0][0]}x{SHAPES[0][1]} "
+              f"({route} route): kernel {t.ms:.4f} ms (min {t.ms_min:.4f}), "
+              f"median of {ITERS} [{card}]")
     x = torch.from_numpy(morph_frame(MORPH_BATCH, "uint8", SEED + 6)).to(dev)
     label = f"r{r} {'x'.join(map(str, MORPH_BATCH))}"
     work = (2 * nbytes(x), morph_ops(x.dtype, passes=2) * x.numel())
@@ -1496,23 +1548,26 @@ def time_sharded(dev, card: str, batch: np.ndarray) -> dict:
               lambda a: guided_ypadded_kernel(a, a, GF_R, GF_EPS, True),
               lambda a: guided_ypadded_plain(a, a, GF_R, GF_EPS, True),
               (Ip,), card, work=(nbytes(Ip, out), guided_ops(2) * out.numel()))
+    # the JSON row: u8 erode r15, what stencil_sharded launches (no one
+    # PyTorch call computes it); f32 dilate against max_pool2d on a line of
+    # its own
     r = MORPH_PATH_R
     blk = torch.from_numpy(make_frame(rows + 2 * r, w, SEED + 71)).to(dev)
-    time_pair(f"morph_ypadded erode u8 r{r} {tuple(blk.shape)}",
-              lambda x: morph_ypadded_kernel(x, r, 0),
-              lambda x: morph_ypadded_plain(x, r, 0), (blk,), card,
-              work=(blk.numel() + rows * w,
-                    morph_ops(blk.dtype) * rows * w))
+    work = (blk.numel() + rows * w, morph_ops(blk.dtype) * rows * w)
+    at["morph_ypadded"] = row(time_pair(
+        f"morph_ypadded erode u8 r{r} {tuple(blk.shape)}",
+        lambda x: morph_ypadded_kernel(x, r, 0),
+        lambda x: morph_ypadded_plain(x, r, 0), (blk,), card, work=work),
+        *work)
     fblk = blk.to(torch.float32)
     dil = morph_ypadded_kernel(fblk, r, 1)
     check(torch.equal(dil, max_pool(r, pad_rows=False)(fblk)),
           "morph_ypadded f32 dilate equals max_pool2d")
-    work = (nbytes(fblk, dil), morph_ops(fblk.dtype) * dil.numel())
-    at["morph_ypadded"] = row(time_pair(
-        f"morph_ypadded dilate f32 r{r} {tuple(fblk.shape)}",
-        lambda x: morph_ypadded_kernel(x, r, 1),
-        lambda x: morph_ypadded_plain(x, r, 1), (fblk,), card,
-        max_pool(r, pad_rows=False), work), *work)
+    time_pair(f"morph_ypadded dilate f32 r{r} {tuple(fblk.shape)}",
+              lambda x: morph_ypadded_kernel(x, r, 1),
+              lambda x: morph_ypadded_plain(x, r, 1), (fblk,), card,
+              max_pool(r, pad_rows=False),
+              (nbytes(fblk, dil), morph_ops(fblk.dtype) * dil.numel()))
     img = torch.from_numpy(make_frame(h, w, SEED + 72)).to(dev)
     geo, tables = front_at(img, TILES)
     band = img[rows:2 * rows]
@@ -1605,6 +1660,7 @@ def main() -> int:
     check_he_kernels(dev, card, errs, batch)
     check_integral_kernel(dev, card, errs, batch)
     check_morph_kernels(dev, card, errs)
+    check_morph_limits(dev, card, errs)
     check_open_close_limits(dev, card, errs)
     check_tail_clahe_kernel(dev, card, errs)
     check_tail_radii(dev, card, errs)

@@ -18,8 +18,8 @@ import torch
 import tpuimg_torch
 from tpuimg_torch.core.validate import ParamError
 from tpuimg_torch.kernels import (
-    GAUSS_MAX_RADIUS, GUIDED_SMEM_MAX_RADIUS, MAX_TAPS, MORPH_MAX_TILE_RADIUS,
-    TAIL_MAX_RADIUS, launch, load)
+    GAUSS_MAX_RADIUS, GUIDED_SMEM_MAX_RADIUS, MAX_TAPS, TAIL_MAX_RADIUS,
+    launch, load)
 from tpuimg_torch.kernels.boxsum import (
     INV_255, enhance_tail, enhance_tail_clahe, enhance_tail_clahe_plain,
     enhance_tail_plain, guided_filter_kernel, guided_filter_plain,
@@ -34,9 +34,10 @@ from tpuimg_torch.kernels.lut import (
 from tpuimg_torch.kernels.scan2d import integral_kernel, integral_plain
 from tpuimg_torch.kernels.sep_stencil import (
     gaussian_kernel, gaussian_plain, gaussian_ypadded_kernel,
-    gaussian_ypadded_plain, morph_ypadded_kernel, morph_ypadded_plain,
-    morphology_kernel, morphology_plain, open_close_kernel,
-    open_close_max_radius, open_close_plain, open_close_tile)
+    gaussian_ypadded_plain, morph_max_radius, morph_tile, morph_ypadded_kernel,
+    morph_ypadded_plain, morphology_kernel, morphology_plain,
+    open_close_kernel, open_close_max_radius, open_close_plain,
+    open_close_tile)
 from tpuimg_torch.ops.histogram import _clahe_geometry, _clahe_tables
 from tpuimg_torch.pipeline import enhance
 
@@ -219,6 +220,46 @@ def test_gaussian_batches_and_promotes(card):
     assert not strided.is_contiguous()
     assert torch.equal(tpuimg_torch.gaussian(strided, 1, 1.0),
                        gaussian_kernel(strided.contiguous(), 1, 1.0))
+
+
+@pytest.mark.parametrize("ypadded", [False, True])
+@pytest.mark.parametrize("radius", [1, 2, 3, 4, 7, 9, 16, 17, 96])
+def test_gaussian_entries_equal_plain(card, ypadded, radius):
+    """Both entries, over each route (r 1-4 their own register windows, r
+    5-16 the 8 and 16 windows, r 17-96 the tile body), equal their plain
+    versions bit for bit."""
+    g = np.random.default_rng(radius)
+    rows = 77 + (2 * radius if ypadded else 0)
+    x = torch.from_numpy(g.random((2, rows, 301), dtype=np.float32)).to(card)
+    sigma = 0.3 * radius + 0.8
+    if ypadded:
+        got = gaussian_ypadded_kernel(x, radius, sigma)
+        ref = gaussian_ypadded_plain(x, radius, sigma)
+    else:
+        got = gaussian_kernel(x, radius, sigma)
+        ref = gaussian_plain(x, radius, sigma)
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("width", [256, 259, 3839])
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+def test_gaussian_unaligned_inputs(card, width, offset):
+    """Frames whose base is 4, 8 or 12 bytes past a 16-byte boundary (a
+    contiguous slice with a storage offset) and widths that are not a
+    multiple of 4 come in by the kernel's 4-byte copies where the 16-byte
+    ones do not apply; both entries stay bit-equal to plain and the wrapper
+    copies nothing."""
+    g = np.random.default_rng(width + offset)
+    rows = 70
+    buf = torch.from_numpy(g.random(rows * width + 8, dtype=np.float32)).to(
+        card)
+    x = buf[offset:offset + rows * width].view(rows, width)
+    assert x.is_contiguous() and x.data_ptr() % 16 == 4 * offset
+    for r in (1, 2, 5):
+        assert torch.equal(gaussian_kernel(x, r, 1.5),
+                           gaussian_plain(x, r, 1.5))
+        assert torch.equal(gaussian_ypadded_kernel(x, r, 1.5),
+                           gaussian_ypadded_plain(x, r, 1.5))
 
 
 def test_gaussian_radius_ceiling_raises(card):
@@ -669,9 +710,8 @@ def _same_values(got, ref):
 
 
 MORPH_CASES = [((1, 1), 3), ((5, 6), 40), ((10, 200), 15), ((33, 1000), 7),
-               ((300, 257), 31), ((129, 130), MORPH_MAX_TILE_RADIUS),
-               ((250, 260), MORPH_MAX_TILE_RADIUS + 1), ((400, 300), 200),
-               ((2, 3, 40, 50), 2), ((70, 1), 1)]
+               ((300, 257), 31), ((129, 130), 96), ((250, 260), 97),
+               ((400, 300), 200), ((2, 3, 40, 50), 2), ((70, 1), 1)]
 
 
 @pytest.mark.parametrize("dtype", ["uint8", "int32", "float32"])
@@ -682,8 +722,55 @@ def test_morphology_matches_plain(card, shape, radius, dtype):
         before = morphology_kernel.split_launches
         got = morphology_kernel(x, radius, mode)
         _same_values(got, morphology_plain(x, radius, mode))
-        split = min(radius, max(shape[-2:]) - 1) > MORPH_MAX_TILE_RADIUS
+        split = min(radius, max(shape[-2:]) - 1) > morph_max_radius(x.dtype)
         assert morphology_kernel.split_launches == before + split
+
+
+@pytest.mark.parametrize("dtype", ["uint8", "int32", "float32"])
+def test_morphology_tile_ceiling(card, dtype):
+    """One launch at the dtype's tile ceiling (226 u8, 108 int32 and
+    float32), the two-launch route one past it, both entries; tiles cut
+    by an unaligned frame's edges."""
+    x = torch.from_numpy(_morph_frames((250, 261), dtype, 46)).to(card)
+    top = morph_max_radius(x.dtype)
+    for r in (top, top + 1):
+        blk = torch.from_numpy(_morph_frames((5 + 2 * r, 261), dtype,
+                                             47)).to(card)
+        for mode in (0, 1):
+            before = (morphology_kernel.split_launches,
+                      morph_ypadded_kernel.split_launches)
+            _same_values(morphology_kernel(x, r, mode),
+                         morphology_plain(x, r, mode))
+            _same_values(morph_ypadded_kernel(blk, r, mode),
+                         morph_ypadded_plain(blk, r, mode))
+            split = r > top
+            assert (morphology_kernel.split_launches,
+                    morph_ypadded_kernel.split_launches) == (
+                before[0] + split, before[1] + split)
+
+
+def test_morph_tile_matches_the_c_planner(card):
+    """csrc/morphology.cu's morph_tile, which picks the tile the C entry
+    launches, is kernels/sep_stencil.py::morph_tile, which decides the
+    route and the scratch."""
+    lib = load()
+    for size in (1, 4):
+        for r in range(0, 260):
+            assert lib.tpuimg_morph_tile(r, size) == (morph_tile(r, size)
+                                                      or 0)
+
+
+@pytest.mark.parametrize("dtype", ["uint8", "int32", "float32"])
+@pytest.mark.parametrize("radius", [1, 15, 31, 44])
+def test_open_close_equals_two_morphology_launches(card, dtype, radius):
+    """open_close.cu, whose window pass now lives in csrc/morph.cuh beside
+    the erode/dilate tiles that use it too, equals the composition of two
+    morphology launches."""
+    x = torch.from_numpy(_morph_frames((2, 301, 517), dtype, 49)).to(card)
+    for mode in (0, 1):
+        _same_values(open_close_kernel(x, radius, mode),
+                     morphology_kernel(morphology_kernel(x, radius, mode),
+                                       radius, 1 - mode))
 
 
 OPEN_CLOSE_CASES = [((1, 1), 3), ((5, 6), 40), ((15, 33), 8),
@@ -863,9 +950,8 @@ def test_gaussian_ypadded_matches_plain(card, out_shape, radius):
 
 
 YPAD_MORPH_CASES = [((1, 1), 3), ((5, 6), 40), ((10, 200), 15),
-                    ((33, 1000), 7), ((2, 3, 40, 50), 2),
-                    ((20, 130), MORPH_MAX_TILE_RADIUS),
-                    ((7, 300), MORPH_MAX_TILE_RADIUS + 4)]
+                    ((33, 1000), 7), ((2, 3, 40, 50), 2), ((20, 130), 96),
+                    ((7, 300), 100), ((3, 129), 120)]
 
 
 @pytest.mark.parametrize("dtype", ["uint8", "int32", "float32"])
@@ -880,7 +966,7 @@ def test_morph_ypadded_matches_plain(card, out_shape, radius, dtype):
         assert got.shape == out_shape
         _same_values(got, morph_ypadded_plain(x, radius, mode))
         assert morph_ypadded_kernel.split_launches - before == (
-            radius > MORPH_MAX_TILE_RADIUS)
+            radius > morph_max_radius(x.dtype))
 
 
 @pytest.mark.parametrize("out_shape,radius", [

@@ -17,9 +17,12 @@ import tpuimg
 import tpuimg_torch
 from tpuimg.kernels.boxsum import guided_filter_pallas
 from tpuimg.kernels.sep_stencil import gaussian_pallas
+from tpuimg.ops.gaussian import gaussian_ypadded as jax_gaussian_ypadded
 from tpuimg.pipeline import enhance as jax_enhance
+from tpuimg_torch.core.borders import reflect101_index
 from tpuimg_torch.kernels.boxsum import guided_filter_kernel
-from tpuimg_torch.kernels.sep_stencil import gaussian_kernel
+from tpuimg_torch.kernels.sep_stencil import (
+    gaussian_kernel, gaussian_plain, gaussian_ypadded_plain, taps)
 
 SHAPE = (70, 150)  # unaligned to every tile and lane width
 
@@ -192,3 +195,72 @@ def test_guided_variant_is_checked(rng):
     with pytest.raises(tpuimg_torch.core.validate.ParamError,
                        match="variant"):
         guided_filter_kernel(f, f, 2, 1e-3, variant="threepass")
+
+
+def _gauss_register_model(src, r, sigma, ypadded, kr, tw, th):
+    """csrc/gaussian.cu's register route in NumPy, float32 rounding after
+    every multiply and add: tiles of th rows by tw columns; each tile's
+    extent, (th + 2r) rows by tw + 2*ra columns (ra = r rounded up to 4),
+    through the iterated reflect-101 map (the block's own rows, clamped, for
+    a row-padded block); then down each column a window of 2*kr + 1
+    row-pass values (kr >= r: the taps past r switched off), from which the
+    column pass takes each output."""
+    wts = np.float32(taps(r, sigma))
+    wk = [wts[r - k] if k <= r else np.float32(0) for k in range(kr + 1)]
+    hin, w = src.shape
+    h = hin - 2 * r if ypadded else hin
+    ra = (r + 3) & ~3
+    eh, ew = th + 2 * r, tw + 2 * ra
+    out = np.empty((h, w), np.float32)
+    for y0 in range(0, h, th):
+        for x0 in range(0, w, tw):
+            ys = np.arange(y0 - r, y0 - r + eh)
+            ys = (np.minimum(ys + r, hin - 1) if ypadded
+                  else reflect101_index(ys, h))
+            xs = reflect101_index(np.arange(x0 - ra, x0 - ra + ew), w)
+            ext = src[np.ix_(ys, xs)]
+            c = ra + np.arange(tw)  # each thread's column in the extent
+            win = [np.zeros(tw, np.float32)] * (2 * kr + 1)
+            rows = []
+            for step in range(th + 2 * kr):
+                q = step - kr + r
+                v = np.zeros(tw, np.float32)
+                if 0 <= q < eh:
+                    v = wk[0] * ext[q, c]
+                    for k in range(1, r + 1):
+                        v = v + wk[k] * (ext[q, c - k] + ext[q, c + k])
+                win = win[1:] + [v]
+                if step >= 2 * kr:
+                    acc = wk[0] * win[kr]
+                    for k in range(1, r + 1):
+                        acc = acc + wk[k] * (win[kr - k] + win[kr + k])
+                    rows.append(acc)
+            tile = np.stack(rows)
+            ty, tx = min(th, h - y0), min(tw, w - x0)
+            out[y0:y0 + ty, x0:x0 + tx] = tile[:ty, :tx]
+    return out
+
+
+@pytest.mark.parametrize("shape,radius,kr", [
+    ((1, 7), 2, 2), ((3, 9), 4, 4), ((33, 1), 3, 3), ((45, 70), 1, 1),
+    ((37, 131), 2, 2), ((20, 50), 5, 8), ((29, 61), 11, 16)])
+def test_gaussian_kernel_model_matches_plain_and_pallas(rng, shape, radius,
+                                                        kr):
+    """The redesigned gaussian's register route (tiles cut by the frame's
+    edges, reflect-101 extents, a register window down each column, r 5-16
+    on the wider windows with taps switched off) equals the plain version
+    bit for bit and tpuimg within its 1e-5 contract (its Pallas kernels in
+    interpret mode; its XLA path where a frame is smaller than the halo,
+    which the Pallas kernels refuse), frame and row-padded entries."""
+    impl = "pallas" if min(shape) > radius else "xla"
+    img = rng.random(shape, dtype=np.float32)
+    got = _gauss_register_model(img, radius, 1.5, False, kr, 16, 8)
+    want = gaussian_plain(torch.from_numpy(img), radius, 1.5).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert _maxdiff(got, tpuimg.gaussian(img, radius, 1.5, impl=impl)) <= 1e-5
+    p = rng.random((shape[0] + 2 * radius, shape[1]), dtype=np.float32)
+    got = _gauss_register_model(p, radius, 1.5, True, kr, 16, 8)
+    want = gaussian_ypadded_plain(torch.from_numpy(p), radius, 1.5).numpy()
+    np.testing.assert_array_equal(got, want)
+    ref = jax_gaussian_ypadded(p, radius, 1.5, impl=impl)
+    assert _maxdiff(got, ref) <= 1e-5

@@ -15,13 +15,14 @@ import torch
 
 import tpuimg
 import tpuimg_torch
-from tpuimg.kernels.sep_stencil import open_close_pallas
+from tpuimg.kernels.sep_stencil import morph_pallas_ypadded, open_close_pallas
 from tpuimg.oracle import close_ref, dilate_ref, erode_ref, open_ref
 from tpuimg_torch.kernels import SMEM_MAX_BYTES
 from tpuimg_torch.kernels.sep_stencil import (
-    OPEN_CLOSE_PAIR_BYTES, OPEN_CLOSE_TILES, morphology_kernel,
-    morphology_plain, open_close_kernel, open_close_max_radius,
-    open_close_plain, open_close_smem, open_close_tile, pad_replicate)
+    OPEN_CLOSE_PAIR_BYTES, OPEN_CLOSE_TILES, morph_max_radius, morph_smem,
+    morph_tile, morph_ypadded_kernel, morphology_kernel, morphology_plain,
+    open_close_kernel, open_close_max_radius, open_close_plain,
+    open_close_smem, open_close_tile, pad_replicate)
 
 OPS = ["erode", "dilate", "morph_open", "morph_close"]
 RADII = [1, 2, 3, 6, 7, 8, 15, 25, 31]
@@ -307,3 +308,122 @@ def test_open_close_kernel_model_matches_oracle(rng, dtype, shape, radius):
         x.flat[rng.integers(0, x.size, 2)] = (np.nan, np.inf)
     for mode, ref in ((0, open_ref), (1, close_ref)):
         _same(_open_close_model(x, radius, mode), ref(x, radius))
+
+
+def _identities(dtype):
+    """(the min's identity, the max's) for a NumPy dtype."""
+    if dtype.kind in "iu":
+        return np.iinfo(dtype).max, np.iinfo(dtype).min
+    return np.inf, -np.inf
+
+
+def _morph_tile_model(x, r, mode, tile, yoff=0):
+    """csrc/morphology.cu's tile route in NumPy: for each tile x tile block
+    of outputs, the (tile + 2r)^2 extent from source rows y0 + yoff - r ..
+    and columns x0 - r .., the pass's identity outside the frame (the
+    truncated window a replicate border gives a min or max), a van
+    Herk/Gil-Werman pass along the rows, then one down the columns. yoff = r
+    is the row-padded entry: x holds h + 2r rows for h outputs."""
+    fn = (np.minimum, np.maximum)[mode]
+    ident = _identities(x.dtype)[mode]
+    k = 2 * r + 1
+    hin, w = x.shape
+    h = hin - 2 * yoff
+    e = tile + 2 * r
+    out = np.empty((h, w), x.dtype)
+    for y0 in range(0, h, tile):
+        for x0 in range(0, w, tile):
+            ext = np.full((e, e), ident, x.dtype)
+            ys = np.arange(y0 + yoff - r, y0 + yoff - r + e)
+            xs = np.arange(x0 - r, x0 - r + e)
+            yi, xi = (ys >= 0) & (ys < hin), (xs >= 0) & (xs < w)
+            ext[np.ix_(yi, xi)] = x[np.ix_(ys[yi], xs[xi])]
+            rows = _gil_werman(ext, k, fn, ident)             # (e, tile)
+            cols = _gil_werman(rows.T, k, fn, ident).T        # (tile, tile)
+            th, tw = min(tile, h - y0), min(tile, w - x0)
+            out[y0:y0 + th, x0:x0 + tw] = cols[:th, :tw]
+    return out
+
+
+def _model_frame(rng, dtype, shape):
+    if dtype == "uint8":
+        return rng.integers(0, 256, shape, dtype=np.uint8)
+    if dtype == "int32":
+        return _int32_frame(rng, shape)
+    x = rng.standard_normal(shape).astype(np.float32)
+    x.flat[::5] = -0.0
+    x.flat[rng.integers(0, x.size, 3)] = (np.nan, np.inf, -np.inf)
+    return x
+
+
+@pytest.mark.parametrize("dtype", ["uint8", "int32", "float32"])
+@pytest.mark.parametrize("shape,radius,tile", [
+    ((1, 9), 2, 4), ((13, 1), 3, 4), ((1, 1), 3, 16), ((17, 23), 4, 8),
+    ((30, 26), 7, 16), ((9, 40), 15, 16), ((21, 35), 6, 8)])
+def test_morphology_kernel_model_matches_oracle(rng, dtype, shape, radius,
+                                                tile):
+    """The redesigned erode/dilate tiles (identity outside the frame, van
+    Herk/Gil-Werman along the rows, then down the columns) equal tpuimg's
+    erode and dilate oracles, NaNs in place, on frames of one row or column,
+    tiles cut by the frame's edge, and radii whose 2r + 1 divides no line."""
+    x = _model_frame(rng, dtype, shape)
+    for mode, ref in ((0, erode_ref), (1, dilate_ref)):
+        _same(_morph_tile_model(x, radius, mode, tile), ref(x, radius))
+
+
+@pytest.mark.parametrize("dtype", ["uint8", "int32", "float32"])
+@pytest.mark.parametrize("shape,radius,tile", [
+    ((1, 9), 2, 4), ((5, 1), 3, 4), ((17, 23), 4, 8), ((12, 40), 7, 16)])
+def test_morph_ypadded_kernel_model_matches_pallas(rng, dtype, shape, radius,
+                                                   tile):
+    """The row-padded entry's tiles (rows from the block at offset r, only
+    x truncated) equal tpuimg's morph_pallas_ypadded in interpret mode and
+    the port's plain version."""
+    h, w = shape
+    p = _model_frame(rng, dtype, (h + 2 * radius, w))
+    for mode in (0, 1):
+        got = _morph_tile_model(p, radius, mode, tile, yoff=radius)
+        _same(got, morph_pallas_ypadded(p, radius, mode))
+        _same(got, morph_ypadded_kernel(torch.from_numpy(p), radius,
+                                        mode).numpy())
+
+
+@pytest.mark.parametrize("dtype,ceiling", [(torch.uint8, 191),
+                                           (torch.int32, 96),
+                                           (torch.float32, 96)])
+def test_morph_tile_planner(dtype, ceiling):
+    """morph_tile (csrc/morphology.cu morph_tile) picks the largest tile
+    whose footprint lets two blocks share an SM, unless the largest tile
+    that fits a block stages less than half as many elements an output
+    ((t + 2r)^2 / t^2); tiles narrower than 64 only up to r = 96, else
+    None. The tile route's ceiling follows per dtype and never falls below
+    the r = 96 of the 32x32 tiles it replaced."""
+    size = torch.empty((), dtype=dtype).element_size()
+    assert morph_max_radius(dtype) == ceiling >= 96
+    for r in range(0, ceiling + 2):
+        tile = morph_tile(r, size)
+        assert (tile is None) == (r > ceiling)
+        if tile is None:
+            continue
+        e = tile + 2 * r
+        words = [(n * size + 3) // 4 | 1 for n in (e, tile)]
+        assert morph_smem(tile, r, size) == 4 * e * sum(words)
+        assert morph_smem(tile, r, size) <= SMEM_MAX_BYTES
+        fits = [t for t in OPEN_CLOSE_TILES
+                if morph_smem(t, r, size) <= SMEM_MAX_BYTES]
+        pair = [t for t in fits
+                if morph_smem(t, r, size) <= OPEN_CLOSE_PAIR_BYTES]
+        assert tile >= 64 or r <= 96
+        if not pair:
+            assert tile == fits[0]
+            continue
+
+        def halves(big, small):  # big stages under half of small's an output
+            return 2 * (big + 2 * r) ** 2 * small ** 2 < (
+                (small + 2 * r) ** 2 * big ** 2)
+
+        assert tile == (fits[0] if halves(fits[0], pair[0]) else pair[0])
+    assert morph_tile(15, 1) == 128 and morph_tile(15, 4) == 64
+    assert morph_tile(64, 4) == 64  # not the two-block 16, 9x the staging
+    assert morph_tile(96, 4) == 32 and morph_tile(97, 4) is None
+    assert morph_tile(191, 1) == 64 and morph_tile(192, 1) is None

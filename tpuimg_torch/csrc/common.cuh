@@ -8,6 +8,35 @@
 // the shared memory a block may use on an H100 (227 KB)
 constexpr int kMaxSmemBytes = 232448;
 
+// 4 bytes from device memory into shared memory, asynchronously
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+
+// 16 bytes, cached in L2 only (the source may be this block's own stores)
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most one committed group (the newest) is still in flight
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
 // reflect-101 (mirror without repeating the edge): valid for -n < x < 2n - 1,
 // the map of the reference's reflectBorder / dLimitSize. Kernels whose
 // frames are gated far above their halo use it (tile_hist, enhance_tail).

@@ -86,33 +86,12 @@ __device__ __forceinline__ void row_window_sums(const float* src, int c0,
   }
 }
 
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
-               "l"(src)
-               : "memory");
-}
-
-// 16 bytes, cached in L2 only (the source may be this block's own stores)
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// wait until at most one committed group (the newest) is still in flight
-__device__ __forceinline__ void cp_async_wait_one() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
+// cp.async copies and their groups (common.cuh)
+using ::cp_async16;
+using ::cp_async4;
+using ::cp_async_commit;
+using ::cp_async_wait_all;
+using ::cp_async_wait_one;
 
 // a and b from the four window sums (sums, not means)
 __device__ __forceinline__ void ab_of(float si, float sp, float sip, float sii,

@@ -38,9 +38,6 @@ _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 MAX_TAPS = 33  # csrc/enhance_tail.cuh kMaxTaps
 TAIL_MAX_RADIUS = 64  # csrc/enhance_tail.cuh kTailMaxRadius
 GAUSS_MAX_RADIUS = 96  # csrc/gaussian.cu kGaussMaxRadius
-# csrc/morphology.cu kMorphMaxTileRadius: the one-launch tile route's
-# ceiling; larger radii take the row-pass/column-pass route
-MORPH_MAX_TILE_RADIUS = 96
 # a block's shared memory on the card (227 KB), the kernels' ceiling
 SMEM_MAX_BYTES = 232_448
 # csrc/guided.cu kSmemMaxRadius: the onepass kernel's shared-memory route, and
@@ -96,6 +93,8 @@ _SIGNATURES = {
     # h + 2r)
     "tpuimg_morphology": (_P, _I, _I, _I, _I, _I, _I, _P, _P, _P),
     "tpuimg_morphology_ypadded": (_P, _I, _I, _I, _I, _I, _I, _P, _P, _P),
+    # r, element size -> the tile route's side, 0 past it
+    "tpuimg_morph_tile": (_I, _I),
     # src, n, h, w, dtype, r, tile, mode, dst, stream
     "tpuimg_open_close": (_P, _I, _I, _I, _I, _I, _I, _I, _P, _P),
     # img, h, w, tables, ytiles, xtiles, th, pad_top, pad_left, inv_tw,
@@ -184,27 +183,39 @@ def build() -> Path:
     return lib
 
 
+# entries that are not launches: argument types and result type
+_QUERIES = {
+    "tpuimg_cuda_error_string": ([_I], ctypes.c_char_p),
+    # n, h, w, r, self_guided -> floats of scratch, or -1
+    "tpuimg_guided_onepass_scratch_floats": ([_I] * 5, _L),
+    # h, w, rg, r -> floats of scratch, -1 (refused) or -2 - a CUDA error
+    "tpuimg_enhance_tail_scratch_floats": ([_I] * 4, _L),
+    # rg, r -> 1 on the shared-memory route, 0 on the scratch route
+    "tpuimg_enhance_tail_shared": ([_I] * 2, _I),
+}
+
+
+def bind(path: Path, missing_ok: bool = False) -> ctypes.CDLL:
+    """Load a library built from csrc/ and declare its entries' types;
+    ``missing_ok`` skips the entries it lacks (a library of another
+    checkout, or of a few sources, as tools/stencil_ab.py loads)."""
+    lib = ctypes.CDLL(str(path))
+    entries = {name: (list(args), ctypes.c_int)
+               for name, args in _SIGNATURES.items()}
+    for name, (argtypes, restype) in {**entries, **_QUERIES}.items():
+        if missing_ok and not hasattr(lib, name):
+            continue
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = restype
+    return lib
+
+
 def load() -> ctypes.CDLL:
     """Build if needed, then load the library once per process."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = list(argtypes)
-            fn.restype = ctypes.c_int
-        lib.tpuimg_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.tpuimg_cuda_error_string.restype = ctypes.c_char_p
-        # n, h, w, r, self_guided -> floats of scratch, or -1
-        lib.tpuimg_guided_onepass_scratch_floats.argtypes = [_I] * 5
-        lib.tpuimg_guided_onepass_scratch_floats.restype = _L
-        # h, w, rg, r -> floats of scratch, -1 (refused) or -2 - a CUDA error
-        lib.tpuimg_enhance_tail_scratch_floats.argtypes = [_I] * 4
-        lib.tpuimg_enhance_tail_scratch_floats.restype = _L
-        # rg, r -> 1 on the shared-memory route, 0 on the scratch route
-        lib.tpuimg_enhance_tail_shared.argtypes = [_I] * 2
-        lib.tpuimg_enhance_tail_shared.restype = _I
-        _lib = lib
+        _lib = bind(build())
     return _lib
 
 

@@ -14,16 +14,16 @@ neighbours' rows), (..., H + 2r, W) in and (..., H, W) out. Its plain version
 is tpuimg's XLA form of ``gaussian_ypadded``: pad x only (reflect-101), the
 row pass, then the column pass over the block's own rows.
 
-``morphology_kernel`` replaces ``morphology_pallas`` and
-``open_close_kernel`` replaces ``open_close_pallas``: van Herk/Gil-Werman
-window extremes (about three compares an output at any radius) over square
-tiles that ``open_close_tile`` sizes, u8 four to a word down the columns,
-stage 1 kept in shared memory; open r15 on two 2160x3840 u8 frames in
-0.1248 ms on an NVIDIA H100 80GB HBM3 at 700.00 W (chip_smoke.py; bound
-0.0099 ms, by bytes; the tile kernel it replaced took 1.2534);
-``morph_ypadded_kernel`` (csrc/morphology.cu) replaces
-``morph_pallas_ypadded``, on a row-padded block as above, replicate in x
-only. The plain versions are
+``morphology_kernel`` replaces ``morphology_pallas``,
+``morph_ypadded_kernel`` (the same source) ``morph_pallas_ypadded``, on a
+row-padded block as above, replicate in x only, and ``open_close_kernel``
+replaces ``open_close_pallas``. All three run van Herk/Gil-Werman window
+extremes (about three compares an output at any radius, csrc/morph.cuh)
+over square tiles that ``morph_tile`` and ``open_close_tile`` size, u8 four
+to a word down the columns; open/close keeps stage 1 in shared memory: open
+r15 on two 2160x3840 u8 frames in 0.1248 ms on an NVIDIA H100 80GB HBM3 at
+700.00 W (chip_smoke.py; bound 0.0099 ms, by bytes; the tile kernel it
+replaced took 1.2534). The plain versions are
 tpuimg's XLA form (``tpuimg/ops/morphology.py``): replicate pad, then the
 minimum or maximum over the 2r+1 shifted slices, along the rows, then down
 the columns; open and close compose two of them. u8, int32 and float32 are
@@ -39,8 +39,7 @@ from tpuimg_torch.core.borders import pad_reflect101
 from tpuimg_torch.core.kernelgen import gaussian_kernel_1d
 from tpuimg_torch.core.validate import ParamError
 from tpuimg_torch.kernels import (
-    GAUSS_MAX_RADIUS, MORPH_MAX_TILE_RADIUS, SMEM_MAX_BYTES, GaussTaps, launch,
-    require_cuda_tensor)
+    GAUSS_MAX_RADIUS, SMEM_MAX_BYTES, GaussTaps, launch, require_cuda_tensor)
 
 # the dtypes the morphology kernels take, and their csrc/morph.cuh codes
 MORPH_DTYPES = {torch.uint8: 0, torch.int32: 1, torch.float32: 2}
@@ -196,10 +195,11 @@ def _frames(img):
 def morphology_kernel(img, radius: int, mode: int):
     """``morphology_plain`` on a CPU tensor; on a CUDA tensor one call of
     the kernel over all leading dims: one launch for
-    min(radius, max(H, W) - 1) <= MORPH_MAX_TILE_RADIUS (a larger radius
-    reaches past every edge and clamps), two above it, a row pass into a
-    scratch frame and a column pass out of it. ``launches`` counts the
-    calls, ``split_launches`` those that took the two-launch route."""
+    min(radius, max(H, W) - 1) <= morph_max_radius(dtype) (a larger radius
+    reaches past every edge and clamps), over tiles of ``morph_tile``; two
+    above it, a row pass into a scratch frame and a column pass out of it.
+    ``launches`` counts the calls, ``split_launches`` those that took the
+    two-launch route."""
     _check_morph(img, mode)
     if img.device.type == "cpu":
         return morphology_plain(img, radius, mode)
@@ -208,12 +208,13 @@ def morphology_kernel(img, radius: int, mode: int):
         return out
     n, h, w = _frames(img)
     r = min(radius, max(h, w) - 1)  # a window past every edge clamps
-    scratch = torch.empty_like(img) if r > MORPH_MAX_TILE_RADIUS else None
+    split = morph_tile(r, img.element_size()) is None
+    scratch = torch.empty_like(img) if split else None
     launch("tpuimg_morphology", img.device, img.data_ptr(), n, h, w,
            MORPH_DTYPES[img.dtype], r, mode,
            None if scratch is None else scratch.data_ptr(), out.data_ptr())
     morphology_kernel.launches += 1
-    morphology_kernel.split_launches += scratch is not None
+    morphology_kernel.split_launches += split
     return out
 
 
@@ -224,7 +225,7 @@ morphology_kernel.split_launches = 0
 def morph_ypadded_kernel(p, radius: int, mode: int):
     """``morph_ypadded_plain`` on a CPU tensor; on a CUDA tensor one call of
     the kernel over all leading dims: one launch for radius <=
-    MORPH_MAX_TILE_RADIUS, a row pass into a scratch block and a column
+    morph_max_radius(dtype), a row pass into a scratch block and a column
     pass out of it above (counted on ``split_launches`` too). The radius is
     the block's halo depth and is never shrunk to the frame. ``p`` is
     (..., H + 2r, W) with H >= 1."""
@@ -236,12 +237,13 @@ def morph_ypadded_kernel(p, radius: int, mode: int):
     out = torch.empty(p.shape[:-2] + (h, w), dtype=p.dtype, device=p.device)
     if out.numel() == 0:
         return out
-    scratch = torch.empty_like(p) if radius > MORPH_MAX_TILE_RADIUS else None
+    split = morph_tile(radius, p.element_size()) is None
+    scratch = torch.empty_like(p) if split else None
     launch("tpuimg_morphology_ypadded", p.device, p.data_ptr(), n, h, w,
            MORPH_DTYPES[p.dtype], radius, mode,
            None if scratch is None else scratch.data_ptr(), out.data_ptr())
     morph_ypadded_kernel.launches += 1
-    morph_ypadded_kernel.split_launches += scratch is not None
+    morph_ypadded_kernel.split_launches += split
     return out
 
 
@@ -249,17 +251,25 @@ morph_ypadded_kernel.launches = 0
 morph_ypadded_kernel.split_launches = 0
 
 
-# csrc/open_close.cu's tiles, largest first, and the footprint under which
-# two blocks share an SM (half of its 228 KB, less the 1 KB the card keeps
-# for each block)
+# the tiles of csrc/morphology.cu and csrc/open_close.cu, largest first, and
+# the footprint under which two blocks share an SM (half of its 228 KB, less
+# the 1 KB the card keeps for each block)
 OPEN_CLOSE_TILES = (128, 64, 32, 16)
 OPEN_CLOSE_PAIR_BYTES = 233_472 // 2 - 1024
 
 
 def _row_words(n: int, itemsize: int) -> int:
-    """csrc/open_close.cu row_words: the words of a row of n elements, made
+    """csrc/morph.cuh row_words: the words of a row of n elements, made
     odd."""
     return (n * itemsize + 3) // 4 | 1
+
+
+def morph_smem(tile: int, radius: int, itemsize: int) -> int:
+    """The shared-memory bytes of the erode/dilate tile kernel
+    (csrc/morphology.cu MorphGeom::bytes): (tile + 2r) rows of (tile + 2r)
+    and of tile elements."""
+    e = tile + 2 * radius
+    return 4 * e * (_row_words(e, itemsize) + _row_words(tile, itemsize))
 
 
 def open_close_smem(tile: int, radius: int, itemsize: int) -> int:
@@ -269,6 +279,51 @@ def open_close_smem(tile: int, radius: int, itemsize: int) -> int:
     e = tile + 4 * radius
     return 4 * e * (_row_words(e, itemsize)
                     + _row_words(tile + 2 * radius, itemsize))
+
+
+def _max_radius(plan, dtype: torch.dtype) -> int:
+    size = torch.empty((), dtype=dtype).element_size()
+    r = 0
+    while plan(r + 1, size) is not None:
+        r += 1
+    return r
+
+
+# csrc/morphology.cu kWideTile, kNarrowMaxRadius: tiles narrower than 64
+# stage over 9x their outputs at the radii that need them and lose to the
+# two-launch route; they run only up to the r = 96 the 32x32 tiles reached
+MORPH_WIDE_TILE = 64
+MORPH_NARROW_MAX_RADIUS = 96
+
+
+def morph_tile(radius: int, itemsize: int) -> int | None:
+    """The erode/dilate tile kernel's output tile side at this radius and
+    element size (csrc/morphology.cu morph_tile): the largest of
+    OPEN_CLOSE_TILES whose footprint lets two blocks share an SM, unless the
+    largest that fits a block stages less than half as much an output
+    ((tile + 2r)^2 / tile^2); None where no tile fits, or where the tile
+    would be narrower than MORPH_WIDE_TILE past MORPH_NARROW_MAX_RADIUS:
+    there the two-launch route runs."""
+    fits = [t for t in OPEN_CLOSE_TILES
+            if morph_smem(t, radius, itemsize) <= SMEM_MAX_BYTES]
+    pair = [t for t in fits
+            if morph_smem(t, radius, itemsize) <= OPEN_CLOSE_PAIR_BYTES]
+    if not fits:
+        return None
+    tile = fits[0]
+    if pair:
+        big, small = fits[0], pair[0]
+        eb, es = big + 2 * radius, small + 2 * radius
+        if not 2 * eb * eb * small * small < es * es * big * big:
+            tile = small
+    narrow = tile < MORPH_WIDE_TILE and radius > MORPH_NARROW_MAX_RADIUS
+    return None if narrow else tile
+
+
+def morph_max_radius(dtype: torch.dtype) -> int:
+    """The largest radius the erode/dilate tile kernel takes in one launch
+    for ``dtype``: 191 for u8, 96 for int32 and float32."""
+    return _max_radius(morph_tile, dtype)
 
 
 def open_close_tile(radius: int, itemsize: int) -> int | None:
@@ -286,11 +341,7 @@ def open_close_tile(radius: int, itemsize: int) -> int | None:
 def open_close_max_radius(dtype: torch.dtype) -> int:
     """The largest radius the fused kernel takes in one launch for
     ``dtype``: 93 for u8, 44 for int32 and float32."""
-    size = torch.empty((), dtype=dtype).element_size()
-    r = 0
-    while open_close_tile(r + 1, size) is not None:
-        r += 1
-    return r
+    return _max_radius(open_close_tile, dtype)
 
 
 def open_close_kernel(img, radius: int, mode: int):
