@@ -18,15 +18,18 @@ Phases, each printed on its own line:
    enhance tail <= 1e-4 (the fused guided-filter contract); gaussian
    (r 1, 2, 7, plus a batch of three 1080p frames and a 3x9 frame at r 4)
    equal to its plain version bit for bit; guided filter onepass (self-guided and general) and twopass
-   (r 1, 8, 16, plus a 6x40 frame at r 8) <= 1e-4 and finite; bit-exact:
+   (r 1, 8, 16, plus a 6x40 frame at r 8; twopass also at r 17 and 32 on
+   1080p and r 64 on 2161x3839 and 6x40) <= 1e-4 and finite; bit-exact:
    hist256 at those sizes, at 4320x7680 and on a flat 4K frame,
    hist256_frames on 16 frames of 1080p and on 3 odd-sized frames,
    hist256_groups on (64, 8161) groups, hist256_groups_packed on a 4K
    frame seen as (2160, 960) int32 words and on (64, 2041) random words
    with top bits set, lut_gather with u8, int32 and
    float32 tables (compared as int32 bits), lut_gather_frames on 16 frames
-   of 1080p, integral at 4K, 2161x3839, on three 1080p frames and on an
-   all-255 4320x7680 frame whose sums wrap; hist_equalize at 8K and on a
+   of 1080p, integral at 4K, 2161x3839, on three and on 16 1080p frames
+   and on an all-255 4320x7680 frame whose sums wrap, each also on its
+   mirror image in the next call and at a storage offset of 3 bytes;
+   hist_equalize at 8K and on a
    flat frame, and every integral, also against NumPy formulas; erode and
    dilate (morphology) at those three sizes for r 1, 2, 7, 15, 31 in u8,
    int32 (INT_MIN and INT_MAX planted) and float32 (NaNs, infinities and
@@ -88,10 +91,14 @@ Phases, each printed on its own line:
    2161x3840 (1 step);
 5. CUDA-event timing (median of 30 after 3 warm-up runs) of every kernel and
    its plain version, of enhance on the three impls, and of hist_equalize
-   (one frame, and 16 frames of 1080p), integral, erode (r1, r15) and
+   (one frame, and 16 frames of 1080p), integral (also on 16 frames of
+   1080p, with the profiler's split into its launches and the time of
+   x.int().cumsum(-1).cumsum(-2) beside it), erode (r1, r15) and
    morph_open (r15 on two 4K frames, also against two erode/dilate
    launches, and f32 open) end to end against their plain compositions, at
-   4K and 1080p; the enhance tail against gaussian then guided onepass on
+   4K and 1080p (twopass with its own floor of 32 bytes a pixel beside the
+   function's bound, and the profiler's split into its two launches); the
+   enhance tail against gaussian then guided onepass on
    the same frame, and a torch.profiler split of enhance in each impl at 4K;
    f32 dilate r15 against max_pool2d, gaussian against a conv2d, hist256
    and hist256_packed against bincount and lut_gather against indexing (the
@@ -156,6 +163,9 @@ TIMED = [(2160, 3840), (1080, 1920)]
 CLIP, TILES, RG, SIGMA, GF_R, GF_EPS = 2.0, 8, 2, 1.5, 8, 1e-3
 GAUSS = [(1, 0.8), (2, 1.5), (7, 3.0)]  # radius, sigma
 GUIDED_R = [1, 8, 16]
+# twopass past the tile kernel's ceiling of 16, up to its own of 64
+TWOPASS_LARGE = [((1080, 1920), 17), ((1080, 1920), 32), ((2161, 3839), 64),
+                 ((6, 40), 64)]
 SMALL = (32, 48)  # under the tail kernel's gate: 32 <= 2*(2*8 + 2)
 UHD8K = (4320, 7680)  # 33 Mpx: more than 2^24 pixels, and all-255 sums wrap
 BATCH = (16, 1080, 1920)  # the hist_equalize_1080p_b16 bench row (bench.py:58)
@@ -418,6 +428,16 @@ def check_filter_kernels(dev, card: str, errs: dict) -> None:
             errs[name] = max(errs.get(name, 0.0), err)
             line.append(f"{what} {err:.3g}")
         print(f"phase 3 guided vs plain {label}: {', '.join(line)} [{card}]")
+    for shape, r in TWOPASS_LARGE:
+        I, p = guide_pair(shape, SEED + 10 + r, dev)
+        got = guided_filter_kernel(I, p, r, GF_EPS, variant="twopass")
+        err = max_err(got, guided_filter_plain(I, p, r, GF_EPS))
+        label = f"{shape[0]}x{shape[1]} r{r}"
+        check(bool(torch.isfinite(got).all()),
+              f"guided_twopass {label} finite")
+        check(err <= 1e-4, f"guided_twopass {label}: {err} <= 1e-4")
+        errs["guided_twopass"] = max(errs["guided_twopass"], err)
+        print(f"phase 3 guided_twopass vs plain {label}: {err:.3g} [{card}]")
 
 
 def he_numpy(frame: np.ndarray) -> np.ndarray:
@@ -535,11 +555,21 @@ def check_integral_kernel(dev, card: str, errs: dict,
     """Phase 3, the scan kernel, against its plain version and NumPy."""
     cases = [(f"{h}x{w}", make_frame(h, w, SEED)) for h, w in SHAPES[:2]]
     cases.append(("x".join(map(str, batch[:3].shape)), batch[:3]))
+    cases.append(("x".join(map(str, batch.shape)), batch))
     cases.append((f"all-255 {UHD8K[0]}x{UHD8K[1]}",
                   np.full(UHD8K, 255, np.uint8)))
     for label, frame in cases:
         img = torch.from_numpy(frame).to(dev)
         got = integral_kernel(img)
+        # a second call on another frame, and one on a slice that starts 3
+        # bytes into its storage: nothing of a call may linger in the next
+        again = integral_kernel(torch.flip(img, (-1,)).contiguous())
+        exact(f"integral {label} flipped, the call after",
+              again, integral_plain(torch.flip(img, (-1,))), errs,
+              "integral")
+        off = torch.cat((img.reshape(-1)[:3], img.reshape(-1)))[3:]
+        exact(f"integral {label} at a storage offset of 3 bytes",
+              integral_kernel(off.view(img.shape)), got, errs, "integral")
         exact(f"integral {label}", got, integral_plain(img), errs,
               "integral")
         want = integral_numpy(frame)
@@ -1318,6 +1348,15 @@ def time_all(dev, card: str) -> dict:
                           args[name], card, library.get(name), work[name])
             if (h, w) == SHAPES[0]:
                 at_4k[name] = row(t, *work[name])
+        # twopass keeps a and b in device memory by design: its own floor
+        busy, _, nk, top = device_split(wrappers["guided_twopass"],
+                                        *args["guided_twopass"])
+        print(f"phase 5 guided_twopass {h}x{w}: its own floor (32 bytes a "
+              f"pixel: I, p in, a, b out; a, b, I in, q out) "
+              f"{bound(32 * n, 0)[0]:.4f} ms beside the function's bound "
+              f"{bound(*work['guided_twopass'])[0]:.4f} ms; profile, 10 "
+              f"calls: {busy:.4f} ms a call over {nk:.0f} kernels: "
+              + "; ".join(f"{k} {v:.4f}" for k, v in top) + f" [{card}]")
         f = args["gaussian"][0]
         time_pair(f"guided self-guided {h}x{w}",
                   lambda x: guided_filter_kernel(x, x, GF_R, GF_EPS,
@@ -1387,6 +1426,7 @@ def time_he_integral(dev, card: str, batch: np.ndarray) -> dict:
                   he_plain, (img,), card)
         time_pair(f"integral {h}x{w} end to end", integral, integral_plain,
                   (img,), card)
+        integral_split(f"{h}x{w}", img, card)
     flat = torch.full(SHAPES[0], 77, dtype=torch.uint8, device=dev)
     time_pair(f"hist256 flat {SHAPES[0][0]}x{SHAPES[0][1]}", hist256,
               lambda x: hist256_groups_plain(x.reshape(1, -1))[0], (flat,),
@@ -1407,7 +1447,23 @@ def time_he_integral(dev, card: str, batch: np.ndarray) -> dict:
               work=(2 * stack.numel() + nbytes(tables), stack.numel()))
     time_pair(f"hist_equalize {label} end to end", hist_equalize, he_plain,
               (stack,), card)
+    time_pair(f"integral {label}", integral_kernel, integral_plain, (stack,),
+              card, work=(5 * stack.numel(), 2 * stack.numel()))
+    integral_split(label, stack, card)
     return at_4k
+
+
+def integral_split(label: str, img, card: str) -> None:
+    """Phase 5: the integral kernel's launches by the profiler, and its
+    yardstick of PyTorch calls (a cast and two cumsums: no one call computes
+    the integral)."""
+    yard = time_cuda(lambda x: x.int().cumsum(-1).cumsum(-2), img,
+                     iters=ITERS, card=card)
+    busy, _, nk, top = device_split(integral_kernel, img)
+    print(f"phase 5 integral {label}: x.int().cumsum(-1).cumsum(-2) "
+          f"{yard.ms:.4f} ms (min {yard.ms_min:.4f}), median of {ITERS}; "
+          f"profile, 10 calls: {busy:.4f} ms a call over {nk:.0f} kernels: "
+          + "; ".join(f"{k} {v:.4f}" for k, v in top) + f" [{card}]")
 
 
 def time_morph_tail(dev, card: str) -> dict:
@@ -1493,7 +1549,9 @@ def host_ms(fn, *args, calls: int = 20) -> float:
 def device_split(fn, *args, calls: int = 10) -> tuple:
     """A torch.profiler trace of back-to-back calls: device busy ms a call,
     the device's idle share of the traced span, the number of kernels a
-    call, and the five largest kernels' ms a call by name."""
+    call, and the five largest kernels' ms a call by name. A kernel that
+    starts before the one ahead of it ends (a dependent launch, waiting on
+    it) is counted from that end, so that overlapping spans count once."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1504,17 +1562,22 @@ def device_split(fn, *args, calls: int = 10) -> tuple:
         for _ in range(calls):
             fn(*args)
         torch.cuda.synchronize()
-    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    busy = sum(e.time_range.end - e.time_range.start for e in kern)
+    kern = sorted((e for e in prof.events()
+                   if e.device_type == DeviceType.CUDA),
+                  key=lambda e: e.time_range.start)
     span = (max(e.time_range.end for e in kern)
             - min(e.time_range.start for e in kern))
-    by_name = {}
+    by_name, busy, done = {}, 0, kern[0].time_range.start
     for e in kern:
-        by_name[e.name] = (by_name.get(e.name, 0)
-                           + e.time_range.end - e.time_range.start)
+        own = max(0, e.time_range.end - max(e.time_range.start, done))
+        done = max(done, e.time_range.end)
+        busy += own
+        by_name[e.name] = by_name.get(e.name, 0) + own
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
     return (busy / calls / 1e3, 1 - busy / span, len(kern) / calls,
-            [(name[:48], t / calls / 1e3) for name, t in top])
+            [(name.removeprefix("void ").removeprefix(
+                "(anonymous namespace)::")[:48], t / calls / 1e3)
+             for name, t in top])
 
 
 def time_sharded(dev, card: str, batch: np.ndarray) -> dict:

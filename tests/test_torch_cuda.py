@@ -391,8 +391,8 @@ def test_wrappers_check_their_inputs(card):
         guided_filter_kernel(f, f.cpu(), 4, 1e-3)
     with pytest.raises(ParamError, match="radius <= 64"):
         guided_filter_kernel(f, f, 65, 1e-3)
-    with pytest.raises(ParamError, match="radius <= 16"):
-        guided_filter_kernel(f, f, 17, 1e-3, variant="twopass")
+    with pytest.raises(ParamError, match="radius <= 64"):
+        guided_filter_kernel(f, f, 65, 1e-3, variant="twopass")
     with pytest.raises(ParamError, match="variant"):
         guided_filter_kernel(f, f, 4, 1e-3, variant="threepass")
 
@@ -1128,3 +1128,165 @@ def test_numpy_input_lands_on_the_card(card):
     tables, th, tw, pt, pl = _clahe_front(torch.from_numpy(a), 2.0, 8, 8)
     st = carry_enhance_state(tables.numpy(), th, tw, pt, pl, h=64, w=96)
     assert st.tables.is_cuda
+
+
+# ---- the band scan (integral.cu) and the twopass walks (guided.cu) --------
+
+# frames that end one row short of the shortest band (8 rows), on one, one
+# row past one and five rows into a fourth, and the same around 16 rows;
+# one column, a partial 4-column run, one past a 2048-column chunk; 8K; a
+# batch of 1080p frames; bands held to 256 rows
+INTEGRAL_BANDS = [(7, 17), (8, 3), (9, 1), (29, 4099), (15, 17), (16, 3),
+                  (17, 1), (53, 4099), (1, 4099), (4099, 1), (4320, 7680),
+                  (16, 1080, 1920), (3, 53, 17), (40000, 100)]
+
+
+@pytest.mark.parametrize("shape", INTEGRAL_BANDS)
+def test_integral_band_scan_exact(card, shape):
+    frame = _frame(shape, 31)
+    before = integral_kernel.launches
+    got = integral_kernel(torch.from_numpy(frame).to(card))
+    assert integral_kernel.launches == before + 1
+    assert got.dtype == torch.int32 and got.shape == shape
+    assert torch.equal(got, integral_plain(torch.from_numpy(frame).to(card)))
+    assert np.array_equal(got.cpu().numpy(), _integral_numpy(frame))
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3, 4, 16])
+@pytest.mark.parametrize("shape", [(2160, 3840), (37, 1000)])
+def test_integral_storage_offsets(card, shape, offset):
+    """A contiguous slice that starts ``offset`` bytes into its storage:
+    4-byte loads only where the base and the rows are 4-byte aligned."""
+    img = _unaligned(shape, offset, 32, card)
+    want = _integral_numpy(img.cpu().numpy())
+    assert np.array_equal(integral_kernel(img).cpu().numpy(), want)
+
+
+def test_integral_calls_back_to_back_and_on_two_streams(card):
+    """Nothing of one call lingers in the next: calls on different frames
+    back to back, then interleaved on two streams."""
+    frames = [torch.from_numpy(_frame(s, 33 + i)).to(card)
+              for i, s in enumerate([(2160, 3840), (1080, 1920), (2160, 3840),
+                                     (53, 4099)])]
+    outs = [integral_kernel(x) for x in frames]
+    for x, out in zip(frames, outs):
+        assert torch.equal(out, integral_plain(x))
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    torch.cuda.synchronize()
+    outs = []
+    for _ in range(4):
+        for s, x in zip(streams, frames[:2]):
+            with torch.cuda.stream(s):
+                outs.append((x, integral_kernel(x)))
+    torch.cuda.synchronize()
+    for x, out in outs:
+        assert torch.equal(out, integral_plain(x))
+
+
+def test_integral_sharded_4k_over_four(card):
+    from tpuimg_torch import parallel as tpar
+
+    img = torch.from_numpy(_frame((2160, 3840), 34)).to(card)
+    got = tpar.integral_sharded(_mesh(card, 1, 4))(img).gather()
+    assert torch.equal(got, integral_plain(img))
+
+
+def test_integral_all_255_3000_wraps_once_per_call(card):
+    frame = torch.full((3000, 3000), 255, dtype=torch.uint8, device=card)
+    for _ in range(2):
+        got = integral_kernel(frame)
+        assert int(got[-1, -1]) == -1999967296
+        assert torch.equal(got, integral_plain(frame))
+
+
+@pytest.mark.parametrize("radius", [1, 8, 16, 17, 32, 64])
+def test_twopass_radii_match_plain(card, radius):
+    """twopass up to its ceiling of 64 (the tile kernel it replaced took 16),
+    on a batch and in the CN1 form (one guide for 2 channels)."""
+    g = np.random.default_rng(40 + radius)
+    I = torch.from_numpy(g.random((2, 150, 300), dtype=np.float32)).to(card)
+    p = torch.from_numpy(g.random((2, 2, 150, 300),
+                                  dtype=np.float32)).to(card)
+    before = guided_filter_kernel.twopass_launches
+    for q in (p[0], p):
+        got = guided_filter_kernel(I, q, radius, 1e-3, variant="twopass")
+        assert got.shape == q.shape and bool(torch.isfinite(got).all())
+        ref = guided_filter_plain(I, q, radius, 1e-3)
+        assert float((got - ref).abs().max()) <= 1e-4
+    assert guided_filter_kernel.twopass_launches == before + 2
+
+
+@pytest.mark.parametrize("shape,radius", [((1, 1), 1), ((1, 7), 2),
+                                          ((3, 9), 4), ((6, 40), 17),
+                                          ((5, 700), 64), ((700, 3), 32),
+                                          ((130, 129), 64)])
+def test_twopass_small_frames_match_plain(card, shape, radius):
+    """Frames narrower or shorter than the halo, through the iterated
+    reflect-101 map, and frames just past one 128-column strip."""
+    g = np.random.default_rng(50 + radius)
+    I = torch.from_numpy(g.random(shape, dtype=np.float32)).to(card)
+    p = torch.from_numpy(g.random(shape, dtype=np.float32)).to(card)
+    got = guided_filter_kernel(I, p, radius, 1e-3, variant="twopass")
+    assert bool(torch.isfinite(got).all())
+    ref = guided_filter_plain(I, p, radius, 1e-3)
+    assert float((got - ref).abs().max()) <= 1e-4
+
+
+def test_twopass_refuses_past_its_ceiling(card):
+    f = torch.from_numpy(_frame((64, 96))).to(card).float() / 255
+    before = guided_filter_kernel.twopass_launches
+    with pytest.raises(ParamError, match="radius <= 64"):
+        guided_filter_kernel(f, f, 65, 1e-3, variant="twopass")
+    assert guided_filter_kernel.twopass_launches == before
+
+
+def _walker_cases(card):
+    """The kernels built on the guided walker (walker.cuh), on seeded
+    inputs: (label, call)."""
+    g = np.random.default_rng(60)
+    I = torch.from_numpy(g.random((300, 517), dtype=np.float32)).to(card)
+    p = torch.from_numpy(g.random((300, 517), dtype=np.float32)).to(card)
+    img = torch.from_numpy(_frame((300, 517), 61)).to(card)
+    geo, tables = _geometry_and_tables(img, 4, 4)
+    return [
+        ("onepass general r8", lambda: guided_filter_kernel(I, p, 8, 1e-3)),
+        ("onepass self r5", lambda: guided_filter_kernel(
+            I, I, 5, 1e-3, self_guided=True)),
+        ("guided_ypadded general r8", lambda: guided_ypadded_kernel(
+            I, p, 8, 1e-3)),
+        ("guided_ypadded self r65 (scratch route)",
+         lambda: guided_ypadded_kernel(I[:, :200].contiguous(),
+                                       I[:, :200].contiguous(), 65, 1e-3,
+                                       self_guided=True)),
+        ("enhance_tail rg2 r8", lambda: enhance_tail(I, 2, 1.5, 8, 1e-3)),
+        ("enhance_tail_clahe rg2 r8", lambda: enhance_tail_clahe(
+            img, tables, 4, 4, *geo, 2, 1.5, 8, 1e-3)),
+    ]
+
+
+# SHA-256 of each output's bytes from the kernels before the twopass
+# redesign moved the walker's grid planning (NVIDIA H100 80GB HBM3)
+WALKER_DIGESTS = {
+    "onepass general r8":
+        "fdd455428c0b6cc2eb6560041b0995899e5a51ee1390663d36a1acf400a0f599",
+    "onepass self r5":
+        "3a4e1929de1a82da6eb572f3a89db4d94e59222b60b25fa6fa90a7b0b445103e",
+    "guided_ypadded general r8":
+        "2f5a5ac11c563defbb13f4d91581385a4373359b44bf24ad02407a28332be65f",
+    "guided_ypadded self r65 (scratch route)":
+        "0e456b5d0434c35ec7ecf7215b7ae6b9eff12793637ea89953c48e1032332a09",
+    "enhance_tail rg2 r8":
+        "4c027606cf8901d38c939564ddfa847910bed3ea1588b12ee142ce81433337d3",
+    "enhance_tail_clahe rg2 r8":
+        "7dd89a2ce6bfd5b6dbde958857ef12e3a4545d1a3b6929c5edcfc40b7c5a9359",
+}
+
+
+def test_walker_outputs_match_recorded_digests(card):
+    """The onepass entries and both tails give the same bits as before the
+    twopass walk came to share the walker's grid planning."""
+    import hashlib
+
+    for label, call in _walker_cases(card):
+        out = call().contiguous().cpu().numpy().tobytes()
+        assert hashlib.sha256(out).hexdigest() == WALKER_DIGESTS[label], label

@@ -264,3 +264,96 @@ def test_gaussian_kernel_model_matches_plain_and_pallas(rng, shape, radius,
     np.testing.assert_array_equal(got, want)
     ref = jax_gaussian_ypadded(p, radius, 1.5, impl=impl)
     assert _maxdiff(got, ref) <= 1e-5
+
+
+def _row_window_sums(src, r, length):
+    """walker::row_window_sums on (..., parts, length + 2r) float32 rows:
+    2r warm-up adds, then one add and one subtract a column."""
+    s = torch.zeros(src.shape[:-1], dtype=torch.float32)
+    for t in range(2 * r):
+        s = s + src[..., t]
+    out = []
+    for c in range(length):
+        s = s + src[..., c + 2 * r]
+        out.append(s)
+        s = s - src[..., c]
+    return torch.stack(out, -1)
+
+
+def _twopass_walk_sums(X, Y, r, seg_rows, products):
+    """The window sums one launch of csrc/guided.cu's twopass walk takes of
+    its planes (X, Y, and with ``products`` X*Y and X*X) of an (h, w)
+    frame: segments of ``seg_rows`` rows; down each input column of a
+    segment's extended rows (reflect-101) an f64 running sum, the entering
+    row added and the one 2r + 1 rows up subtracted, rounded to f32 once a
+    row; then along each row in f32, in parts of 128-column strips
+    (walker::row_window_sums): 16 columns a part for four planes, 8 for two
+    (a step's 8 rows by its planes by the parts make the block's 256
+    threads)."""
+    h, w = X.shape
+    k, strip, length = 2 * r + 1, 128, 16 if products else 8
+    width = -(-w // strip) * strip
+    xs = torch.from_numpy(reflect101_index(np.arange(-r, width + r), w))
+    X64, Y64 = X.double(), Y.double()
+    out = []
+    for y0 in range(0, h, seg_rows):
+        n = min(seg_rows, h - y0) + 2 * r
+        ys = torch.from_numpy(reflect101_index(np.arange(y0 - r, y0 - r + n),
+                                               h))
+        xe, ye = X64[ys][:, xs], Y64[ys][:, xs]
+        v = torch.zeros((4 if products else 2, width + 2 * r),
+                        dtype=torch.float64)
+        rows = []
+        for u in range(n):
+            lx = xe[u - k] if u >= k else torch.zeros_like(xe[u])
+            ly = ye[u - k] if u >= k else torch.zeros_like(ye[u])
+            v[0] += xe[u] - lx
+            v[1] += ye[u] - ly
+            if products:
+                v[2] += xe[u] * ye[u] - lx * ly
+                v[3] += xe[u] * xe[u] - lx * lx
+            if u >= 2 * r:
+                rows.append(v.float())
+        cols = torch.stack(rows, 1)  # (planes, rows, width + 2r)
+        parts = cols.unfold(-1, length + 2 * r, length)
+        out.append(_row_window_sums(parts, r, length).flatten(-2)[..., :w])
+    return torch.cat(out, 1)
+
+
+def _twopass_model(I, p, r, eps, seg_rows):
+    """csrc/guided.cu's two walks on the CPU: a and b from launch 1's window
+    sums (ab_of: each multiply and add rounded on its own, float32), then q
+    from launch 2's window sums of a and b (q_of)."""
+    k = 2 * r + 1
+    coef = float(np.float32(1.0 / (k * k)))
+    si, sp, sip, sii = _twopass_walk_sums(I, p, r, seg_rows, True)
+    imu, pmu, ipmu, iimu = si * coef, sp * coef, sip * coef, sii * coef
+    a = (ipmu - pmu * imu) / ((iimu - imu * imu) + eps)
+    b = pmu - a * imu
+    sa, sb = _twopass_walk_sums(a, b, r, seg_rows, False)
+    return (sa * coef) * I + sb * coef
+
+
+@pytest.mark.parametrize("shape,radius", [
+    ((70, 150), 1), ((70, 150), 2), ((70, 150), 8), ((70, 150), 20),
+    ((3, 9), 4), ((6, 40), 8), ((1, 7), 2), ((40, 200), 20)])
+def test_twopass_walk_model_matches_plain_and_pallas(rng, shape, radius):
+    """The redesigned twopass kernel's summation order (f64 running sums down
+    the columns of 32-row segments, f32 running sums along 16- and 8-column
+    parts of the rows, in each launch) stays within tpuimg's 1e-4 contract
+    of the plain version's direct sums and of tpuimg's twopass (its Pallas
+    kernels in interpret mode; its XLA path on frames smaller than the
+    halo), at radii past the tile kernel's old ceiling of 16 and on frames
+    smaller than the reflect-101 halo."""
+    I, p = _pair(rng, shape)
+    got = _twopass_model(torch.from_numpy(I), torch.from_numpy(p), radius,
+                         1e-3, 32).numpy()
+    assert got.dtype == np.float32 and np.isfinite(got).all()
+    plain = guided_filter_kernel(torch.from_numpy(I), torch.from_numpy(p),
+                                 radius, 1e-3, variant="twopass").numpy()
+    assert _maxdiff(got, plain) <= 1e-4
+    if min(shape) > 2 * radius:
+        ref = guided_filter_pallas(I, p, radius, 1e-3, variant="twopass")
+    else:
+        ref = tpuimg.guided_filter(I, p, radius, 1e-3, border="reflect101")
+    assert _maxdiff(got, ref) <= 1e-4

@@ -110,3 +110,93 @@ def test_cpu_dispatch_launches_nothing_and_meta_raises(rng, monkeypatch):
     # other dtypes are plain PyTorch on the tensor's device, as in XLA
     out = tpuimg_torch.integral(meta.to(torch.int16))
     assert out.device.type == "meta" and out.dtype == torch.int32
+
+
+def _band_threads(w):
+    """csrc/integral.cu's band-rows block: 4 columns a thread, a multiple of
+    32 threads, at most kMaxThreads = 512 (chunks of 2048 columns)."""
+    return min(512, (-(-w // 4) + 31) // 32 * 32)
+
+
+def _integral_band_model(frames, rows):
+    """csrc/integral.cu's band scan in NumPy, in uint32 (every sum wraps mod
+    2^32) for (F, H, W) u8 frames cut into bands of ``rows`` rows (the card
+    plans ``rows`` from its occupancy; this takes it as given):
+    1. the band sums S_j of each column over band j's rows, j < bands - 1,
+       and their inclusive sums down the bands, E_1 .. E_(bands - 1), in 32
+       segments of bands: each segment's sum, the segments' exclusive scan,
+       then a running sum through the segment;
+    2. each band's rows: running column sums from E_b (0 for band 0), then
+       each row's prefix from the parts the block sums: a thread's 4-column
+       prefix, the exclusive scan of the run totals over a warp's 32 lanes,
+       the exclusive scan of the warp totals, and the carry of the chunks of
+       4 * threads columns to the left."""
+    f, h, w = frames.shape
+    x = frames.astype(np.uint32)
+    bands = -(-h // rows)
+    threads = _band_threads(w)
+    chunk = 4 * threads
+    nchunks = -(-w // chunk)
+    # 1. band sums, and their scan down the bands in segments
+    sums = [x[:, j * rows:(j + 1) * rows].sum(1, dtype=np.uint32)
+            for j in range(bands - 1)]
+    n = bands - 1
+    carried = [np.zeros((f, w), np.uint32)]
+    if n:
+        seg = -(-n // 32)
+        carry = np.zeros((f, w), np.uint32)
+        for j0 in range(0, n, seg):
+            run = carry.copy()
+            for j in range(j0, min(n, j0 + seg)):
+                run = run + sums[j]
+                carried.append(run)
+            carry = carry + np.sum(sums[j0:j0 + seg], 0, dtype=np.uint32)
+    # 2. the band rows
+    out = np.empty((f, h, w), np.uint32)
+    for b in range(bands):
+        y0, y1 = b * rows, min(h, (b + 1) * rows)
+        cols = carried[b][:, None, :] + np.cumsum(x[:, y0:y1], 1,
+                                                  dtype=np.uint32)
+        padded = np.zeros((f, y1 - y0, nchunks * chunk), np.uint32)
+        padded[..., :w] = cols
+        runs = padded.reshape(f, y1 - y0, nchunks, threads // 32, 32, 4)
+        pre = np.cumsum(runs, -1, dtype=np.uint32)
+        tot = pre[..., -1]
+        lanes = np.cumsum(tot, -1, dtype=np.uint32) - tot
+        warps = np.cumsum(tot, -1, dtype=np.uint32)[..., -1]
+        warp_ex = np.cumsum(warps, -1, dtype=np.uint32) - warps
+        chunk_tot = warps.sum(-1, dtype=np.uint32)
+        chunk_ex = np.cumsum(chunk_tot, -1, dtype=np.uint32) - chunk_tot
+        row = (pre + lanes[..., None] + warp_ex[..., None, None]
+               + chunk_ex[..., None, None, None])
+        out[:, y0:y1] = row.reshape(f, y1 - y0, -1)[..., :w]
+    return out.view(np.int32)
+
+
+@pytest.mark.parametrize("shape,rows", [
+    ((15, 17), 16), ((16, 3), 16), ((17, 1), 16), ((53, 4099), 16),
+    ((3, 53, 17), 16), ((2, 40, 50), 7), ((300, 2100), 68)])
+def test_integral_band_model_matches_pallas(rng, shape, rows):
+    """The redesigned scan's decomposition (band sums and their scan down the
+    bands, the band rows with chunk, warp and lane carries) equals tpuimg's
+    Pallas scan (interpret mode) and its NumPy oracle bit for bit, on frames
+    that end one row short of a band, on one, one row past one and five rows
+    into a fourth, at widths of one column, of a partial 4-column run, and
+    past one chunk of 2048 columns."""
+    img = rng.integers(0, 256, shape, dtype=np.uint8)
+    frames = img.reshape((-1,) + shape[-2:])
+    got = _integral_band_model(frames, rows).reshape(shape)
+    np.testing.assert_array_equal(got, np.asarray(integral_pallas(img)))
+    want = np.stack([integral_ref(f) for f in frames]).reshape(shape)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(
+        got, integral_plain(torch.from_numpy(img)).numpy())
+
+
+def test_integral_band_model_wraps_like_the_oracle():
+    """All 255s over 3000x3000 in bands of 23 rows (131 bands, as one wave
+    of the card plans them): the sums wrap mod 2^32 as the oracle's do."""
+    frame = np.full((3000, 3000), 255, np.uint8)
+    got = _integral_band_model(frame[None], 23)[0]
+    assert got[-1, -1] == -1999967296
+    np.testing.assert_array_equal(got, integral_ref(frame))

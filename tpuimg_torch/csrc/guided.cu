@@ -82,9 +82,19 @@
 // of I and p; here GuidedRows reads them from device memory, and the enhance
 // tails (enhance_tail.cuh) produce them on chip from the frame.
 //
-// Twopass keeps the earlier tile design: one block per 32x32 output tile, the
-// tile's (32 + 2r)^2 extent staged through the reflect-101 index, direct
-// window sums in the plain version's order; r <= kTwopassMaxRadius = 16.
+// Twopass, two strip walks (guided_twopass_kernel). The variant keeps a and
+// b in device memory by design, so its own floor is 32 bytes a pixel (I and
+// p in, a and b out; a, b and I in, q out: 0.079 ms at 4K), not the
+// function's 12. What held the tile kernels it replaces at 5x that
+// floor: direct (2r + 1)-tap window sums out of shared memory (~136 loads
+// and adds a pixel at r = 8 in launch 1, ~68 in launch 2) and a 32x32 tile's
+// (32 + 2r)^2 halo staged again for every tile (r <= 16). Each launch is now
+// a walk down 128-column strips with running window sums (f64 down the
+// columns, f32 along the rows by walker::row_window_sums), a halo of r
+// columns and 2r rows a segment, segments sized to one wave
+// (walker::strip_grid): launch 1 writes a and b once per pixel, launch 2
+// reads them through the reflect-101 index and writes q. Shared memory
+// grows with r, not r^2: r <= kTwopassMaxRadius = 64.
 #include "walker.cuh"
 
 namespace {
@@ -95,8 +105,6 @@ using walker::kStrip;
 using walker::kWalkBlocks;
 using walker::kWalkThreads;
 using walker::q_of;
-
-constexpr int kThreads = 256;
 
 // ---- onepass: the strip walker ---------------------------------------------
 
@@ -232,147 +240,296 @@ guided_walk_kernel(const float* __restrict__ I, int n_i,
   }
 }
 
-// ---- twopass: the tile kernels --------------------------------------------
+// ---- twopass: two strip walks, a and b through device memory -----------
 
-constexpr int kTile = 32;
-constexpr int kTwopassMaxRadius = 16;
+constexpr int kTwopassMaxRadius = 64;
+constexpr int kTpThreads = 256;
+constexpr int kTpStrip = 128;  // output columns of a block
+constexpr int kTpRows = 8;     // rows a step takes in
+// the radii whose staged rows stay in a ring for their 2r + 1 rows
+constexpr int kTpRingMaxRadius = 16;
 
-// launch 1 keeps 4 planes of row sums, launch 2 two
-__host__ __device__ int twopass_smem_words(int r, int planes) {
-  const int ext = kTile + 2 * r;
-  return 2 * ext * ext + planes * ext * kTile + 2 * ext;
-}
+// Launch 1 (kAB): inputs X = I, Y = p; window sums of I, p, I*p and I*I;
+// writes a and b. Launch 2: inputs X = a, Y = b; window sums of a and b;
+// writes q. kRing: the rows stay in shared memory from the step that brings
+// them in until they leave the window (r <= kTpRingMaxRadius); otherwise a
+// step's leaving rows are brought in again.
+template <bool kAB, bool kRing>
+struct Twopass {
+  static constexpr int np = kAB ? 4 : 2;
+  static constexpr int pairs = kTpRows * np;  // (row, plane) pairs a step
+  static constexpr int parts = kTpThreads / pairs;  // of a pair's row
+  static constexpr int len = kTpStrip / parts;
+  static constexpr int guide = kAB ? 0 : kTpRows * kTpStrip;
+  // the staged columns of a row: r rounded up to 4 on each side, so that an
+  // interior row is copied 16 bytes at a time
+  __host__ __device__ static int staged(int r) {
+    return kTpStrip + 2 * ((r + 3) & ~3);
+  }
+  // the ring's rows: a window, the rows being summed and the next step's
+  __host__ __device__ static int ring(int r) {
+    return 2 * r + 1 + 2 * kTpRows;
+  }
+  // without the ring, a staging buffer: the kTpRows entering and the
+  // kTpRows leaving rows of X and Y, and launch 2's guide at the step's
+  // output rows
+  __host__ __device__ static int buffer(int r) {
+    return 4 * kTpRows * staged(r) + guide;
+  }
+  // the staged rows: the ring of X and Y and two of launch 2's guide rows,
+  // or two staging buffers
+  __host__ __device__ static int rows(int r) {
+    return kRing ? 2 * ring(r) * staged(r) + 2 * guide : 2 * buffer(r);
+  }
+  // shared memory, in floats: the staged rows, a step's column sums rounded
+  // to f32 (np x kTpRows rows of ti + 1, ti = kTpStrip + 2r) and their
+  // window sums along the rows (np x kTpRows rows of kTpStrip + 1)
+  __host__ __device__ static int floats(int r) {
+    const int ti = kTpStrip + 2 * r;
+    return rows(r) + np * kTpRows * (ti + 1) + np * kTpRows * (kTpStrip + 1);
+  }
+};
 
-// twopass launch 1 (gCalcAB): a and b of every pixel into device memory
-__global__ void __launch_bounds__(kThreads)
-guided_ab_kernel(const float* __restrict__ I, int n_i,
-                 const float* __restrict__ p, int n, int h, int w, int r,
-                 float eps, float* __restrict__ a_out,
-                 float* __restrict__ b_out) {
-  extern __shared__ float smem[];
-  const int ksz = 2 * r + 1;
-  const int ext = kTile + 2 * r;
-  float* EI = smem;             // ext x ext
-  float* EP = EI + ext * ext;   // ext x ext
-  float* X = EP + ext * ext;    // 4 planes of ext x kTile
-  int* YS = reinterpret_cast<int*>(X + 4 * ext * kTile);
-  int* XS = YS + ext;
-  const int y0 = blockIdx.y * kTile, x0 = blockIdx.x * kTile;
-  const int tid = threadIdx.x;
-  const float coef = static_cast<float>(1.0 / (ksz * ksz));
+// A block walks a strip of kTpStrip output columns down a segment of rows
+// of each frame (blockIdx.z on), kTpRows input rows a step. A step's rows
+// come into shared memory by cp.async during the step before: its entering
+// rows of X and Y over the strip and its r columns each side (16 bytes a
+// copy where the frame's rows are 16-byte aligned and the strip is inside
+// the frame, 4 bytes through the reflect-101 index elsewhere), into a ring
+// that keeps them until they leave the window 2r + 1 rows later (kRing) or
+// into one of two buffers with the rows that leave the window then (read
+// again from L2); and in launch 2 the guide at the step's output pixels.
+// Then a thread a column (ti = kTpStrip + 2r <= kTpThreads columns, so r <=
+// 64) keeps f64 running sums of its planes down the column in registers
+// (entering minus leaving), rounded to f32 once a row; a thread a part of a
+// (row, plane) pair takes the window sums along the row
+// (walker::row_window_sums); and a thread a pixel, lanes along a row, turns
+// the window sums into its output: three barriers a step (running the
+// three stages a step apart between single barriers measured slower: the
+// doubled column and window sums leave room for two blocks an SM, not
+// three). Both launches read through the reflect-101 index, so launch 2's
+// window sums of a and b are the plain version's box(a), box(b). aligned:
+// the rows of X, Y (and I) start 16-byte aligned.
+template <bool kAB, bool kRing>
+__global__ void __launch_bounds__(kTpThreads, 3)
+guided_twopass_kernel(const float* __restrict__ X, int n_x,
+                      const float* __restrict__ Y,
+                      const float* __restrict__ I, int n_i, int n, int h,
+                      int w, int r, float eps, int seg_rows, int aligned,
+                      float* __restrict__ out0, float* __restrict__ out1) {
+  using T = Twopass<kAB, kRing>;
+  constexpr int np = T::np, kK = kTpRows;
+  constexpr int kOut = kK * kTpStrip / kTpThreads;  // outputs a thread
+  extern __shared__ __align__(16) float smem[];
+  const int k = 2 * r + 1, ti = kTpStrip + 2 * r;
+  const int ra = (r + 3) & ~3, ts = T::staged(r), tb = T::buffer(r);
+  const int m = T::ring(r);
+  const int tip = ti + 1, tap = kTpStrip + 1;  // odd row strides
+  // the staged rows: the ring ([X, Y][m][ts]) and two guide buffers
+  // ([kK][kTpStrip]), or two buffers of [entering, leaving][X, Y][kK][ts]
+  // and the guide; then the column sums and their window sums
+  float* guide = smem + 2 * m * ts;
+  float* vsum = smem + T::rows(r);
+  float* hab = vsum + np * kK * tip;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const float coef = static_cast<float>(1.0 / (static_cast<double>(k) * k));
+  const int x0 = blockIdx.x * kTpStrip;
+  const int y0 = blockIdx.y * seg_rows;
+  const int y1 = min(y0 + seg_rows, h);
+  const int e0 = y0 - r;                // extended row of walk row 0
+  const int rows_in = y1 - y0 + 2 * r;  // input rows the walk takes in
+  const int steps = (rows_in + kK - 1) / kK;
   const size_t plane = static_cast<size_t>(h) * w;
-  const int xplane = ext * kTile;
-  reflect101_table(y0 - r, ext, h, YS);
-  reflect101_table(x0 - r, ext, w, XS);
-  __syncthreads();
+  const bool wide = aligned && x0 - ra >= 0 && x0 + kTpStrip + ra <= w;
+  const bool wide_i = aligned && x0 + kTpStrip <= w;
 
   for (int z = blockIdx.z; z < n; z += gridDim.z) {
-    stage_rows(I + (z % n_i) * plane, w, YS, ext, XS, ext, EI);
-    stage_rows(p + z * plane, w, YS, ext, XS, ext, EP);
-    __syncthreads();
-
-    for (int i = tid; i < xplane; i += kThreads) {
-      const int row = i / kTile, col = i - row * kTile;
-      const float* ip = EI + row * ext + col;
-      const float* pp = EP + row * ext + col;
-      float si = ip[0], sp = pp[0];
-      float sip = __fmul_rn(ip[0], pp[0]), sii = __fmul_rn(ip[0], ip[0]);
-      for (int k = 1; k < ksz; ++k) {
-        si = __fadd_rn(si, ip[k]);
-        sp = __fadd_rn(sp, pp[k]);
-        sip = __fadd_rn(sip, __fmul_rn(ip[k], pp[k]));
-        sii = __fadd_rn(sii, __fmul_rn(ip[k], ip[k]));
+    const float* Xz = X + static_cast<size_t>(z % n_x) * plane;
+    const float* Yz = Y + static_cast<size_t>(z) * plane;
+    const float* Iz = kAB ? nullptr : I + static_cast<size_t>(z % n_i) * plane;
+    // walk row u of X (or Y) to dst: a warp's lanes along it
+    auto row_in = [&](const float* src_plane, int u, float* dst) {
+      const float* src =
+          src_plane + static_cast<size_t>(reflect101_fast(e0 + u, h)) * w;
+      if (wide) {
+        for (int q = lane; q < ts / 4; q += 32) {
+          cp_async16(dst + 4 * q, src + x0 - ra + 4 * q);
+        }
+      } else {
+        for (int c = lane; c < ts; c += 32) {
+          cp_async4(dst + c, src + reflect101_fast(x0 - ra + c, w));
+        }
       }
-      X[i] = si;
-      X[xplane + i] = sp;
-      X[2 * xplane + i] = sip;
-      X[3 * xplane + i] = sii;
-    }
-    __syncthreads();
-
-    for (int i = tid; i < kTile * kTile; i += kThreads) {
-      const int row = i / kTile, col = i - row * kTile;
-      const int y = y0 + row, x = x0 + col;
-      if (y >= h || x >= w) continue;
-      float si = X[i], sp = X[xplane + i];
-      float sip = X[2 * xplane + i], sii = X[3 * xplane + i];
-      for (int k = 1; k < ksz; ++k) {
-        const int j = i + k * kTile;
-        si = __fadd_rn(si, X[j]);
-        sp = __fadd_rn(sp, X[xplane + j]);
-        sip = __fadd_rn(sip, X[2 * xplane + j]);
-        sii = __fadd_rn(sii, X[3 * xplane + j]);
+    };
+    // the rows of step t (ring slots from `base`, or buffer t & 1) and
+    // launch 2's guide (buffer t & 1): a warp a row
+    auto stage_in = [&](int t, int base) {
+      if constexpr (kRing) {
+        for (int j = warp; j < 2 * kK; j += kTpThreads / 32) {
+          const int i = j % kK;
+          int slot = base + i;
+          if (slot >= m) slot -= m;
+          row_in(j < kK ? Xz : Yz, t * kK + i,
+                 smem + ((j < kK ? 0 : m) + slot) * ts);
+        }
+      } else {
+        float* buf = smem + (t & 1) * tb;
+        for (int j = warp; j < 4 * kK; j += kTpThreads / 32) {
+          const int i = j % kK, leaving = j / (2 * kK);
+          const int u = t * kK + i - (leaving ? k : 0);
+          if (u < 0) continue;  // before the walk: stage 1 takes 0
+          row_in((j / kK) & 1 ? Yz : Xz, u, buf + j * ts);
+        }
       }
-      float a, b;
-      ab_of(si, sp, sip, sii, coef, eps, &a, &b);
-      const size_t o = z * plane + static_cast<size_t>(y) * w + x;
-      a_out[o] = a;
-      b_out[o] = b;
+      if constexpr (!kAB) {
+        float* gbuf = (kRing ? guide + (t & 1) * T::guide
+                             : smem + (t & 1) * tb + 4 * kK * ts);
+        for (int i = warp; i < kK; i += kTpThreads / 32) {
+          const int y = y0 + t * kK + i - 2 * r;
+          if (y < y0 || y >= y1) continue;
+          const float* src = Iz + static_cast<size_t>(y) * w + x0;
+          float* dst = gbuf + i * kTpStrip;
+          if (wide_i) {
+            cp_async16(dst + 4 * lane, src + 4 * lane);
+          } else {
+            for (int c = lane; c < kTpStrip && x0 + c < w; c += 32) {
+              cp_async4(dst + c, src + c);
+            }
+          }
+        }
+      }
+      cp_async_commit();
+    };
+    double v[np];  // column tid's running sums
+#pragma unroll
+    for (int pl = 0; pl < np; ++pl) v[pl] = 0.0;
+    int base = 0;  // the ring slot of this step's first row
+    stage_in(0, 0);
+    for (int s = 0; s < steps; ++s) {
+      cp_async_wait_all();
+      __syncthreads();
+      // the next step's rows, over what the step before read (stages 1 and
+      // 3) ahead of this barrier
+      int next = base + kK;
+      if (next >= m) next -= m;
+      if (s + 1 < steps) stage_in(s + 1, next);
+
+      // 1. running sums down each input column: after walk row u the sums
+      //    cover rows u - 2r .. u (centre u - r)
+      if (tid < ti) {
+        const float* in = smem + tid + ra - r;
+        const float* buf = in + (s & 1) * tb;
+#pragma unroll
+        for (int i = 0; i < kK; ++i) {
+          const float *ex, *ey, *lx, *ly;  // entering and leaving X and Y
+          if constexpr (kRing) {
+            int slot = base + i;
+            if (slot >= m) slot -= m;
+            int old = slot - k;
+            if (old < 0) old += m;
+            ex = in + slot * ts;
+            ey = in + (m + slot) * ts;
+            lx = in + old * ts;
+            ly = in + (m + old) * ts;
+          } else {
+            ex = buf + i * ts;
+            ey = buf + (kK + i) * ts;
+            lx = buf + (2 * kK + i) * ts;
+            ly = buf + (3 * kK + i) * ts;
+          }
+          // f32 values and their products are exact in f64
+          const bool full = s * kK + i >= k;  // a row leaves the window
+          const double dx = *ex, dy = *ey;
+          const double dlx = full ? *lx : 0.0, dly = full ? *ly : 0.0;
+          v[0] += dx - dlx;
+          v[1] += dy - dly;
+          if constexpr (kAB) {
+            v[2] += dx * dy - dlx * dly;
+            v[3] += dx * dx - dlx * dlx;
+          }
+#pragma unroll
+          for (int pl = 0; pl < np; ++pl) {
+            vsum[(pl * kK + i) * tip + tid] = static_cast<float>(v[pl]);
+          }
+        }
+      }
+      __syncthreads();
+
+      // 2. window sums along the rows whose column window is full
+      {
+        const int m2 = tid % T::pairs, part = tid / T::pairs;  // pl*kK + i
+        const int u = s * kK + m2 % kK;
+        if (u >= 2 * r && u < rows_in) {
+          walker::row_window_sums(vsum + m2 * tip, part * T::len,
+                                  (part + 1) * T::len, r, hab + m2 * tap);
+        }
+      }
+      __syncthreads();
+
+      // 3. the outputs: a warp along a row of the strip
+      const float* gbuf = kRing ? guide + (s & 1) * T::guide
+                                : smem + (s & 1) * tb + 4 * kK * ts;
+#pragma unroll
+      for (int e = 0; e < kOut; ++e) {
+        const int pix = tid + e * kTpThreads;
+        const int i = pix / kTpStrip, j = pix % kTpStrip;
+        const int u = s * kK + i, y = y0 + u - 2 * r, x = x0 + j;
+        if (u < 2 * r || y >= y1 || x >= w) continue;
+        const size_t o = static_cast<size_t>(z) * plane +
+                         static_cast<size_t>(y) * w + x;
+        const float* sums = hab + i * tap + j;  // plane pl at pl * kK * tap
+        if constexpr (kAB) {
+          float a, b;
+          ab_of(sums[0], sums[kK * tap], sums[2 * kK * tap],
+                sums[3 * kK * tap], coef, eps, &a, &b);
+          out0[o] = a;
+          out1[o] = b;
+        } else {
+          out0[o] = q_of(sums[0], sums[kK * tap], gbuf[pix], coef);
+        }
+      }
+      base = next;
     }
-    __syncthreads();
+    __syncthreads();  // the next frame stages over this one's rows
   }
 }
 
-// twopass launch 2 (gWeightByABm): q from the box sums of a and b
-__global__ void __launch_bounds__(kThreads)
-guided_q_kernel(const float* __restrict__ I, int n_i,
-                const float* __restrict__ a_in, const float* __restrict__ b_in,
-                int n, int h, int w, int r, float* __restrict__ q) {
-  extern __shared__ float smem[];
-  const int ksz = 2 * r + 1;
-  const int ext = kTile + 2 * r;
-  float* EA = smem;             // ext x ext
-  float* EB = EA + ext * ext;   // ext x ext
-  float* X = EB + ext * ext;    // 2 planes of ext x kTile
-  int* YS = reinterpret_cast<int*>(X + 2 * ext * kTile);
-  int* XS = YS + ext;
-  const int y0 = blockIdx.y * kTile, x0 = blockIdx.x * kTile;
-  const int tid = threadIdx.x;
-  const float coef = static_cast<float>(1.0 / (ksz * ksz));
-  const size_t plane = static_cast<size_t>(h) * w;
-  const int xplane = ext * kTile;
-  reflect101_table(y0 - r, ext, h, YS);
-  reflect101_table(x0 - r, ext, w, XS);
-  __syncthreads();
+template <bool kAB, bool kRing>
+int launch_twopass_as(const float* X, int n_x, const float* Y,
+                      const float* I, int n_i, int n, int h, int w, int r,
+                      float eps, float* out0, float* out1,
+                      cudaStream_t stream) {
+  auto kernel = guided_twopass_kernel<kAB, kRing>;
+  const size_t bytes =
+      static_cast<size_t>(Twopass<kAB, kRing>::floats(r)) * sizeof(float);
+  long long slots = 0;
+  const int err = walker::wave_slots(kernel, kTpThreads, bytes, &slots);
+  if (err != 0) return err;
+  const walker::WalkGrid g =
+      walker::strip_grid(n, h, w, kTpStrip, 2 * r, 65535, slots);
+  auto a16 = [](const float* ptr) {
+    return reinterpret_cast<uintptr_t>(ptr) % 16 == 0;
+  };
+  const int aligned =
+      w % 4 == 0 && a16(X) && a16(Y) && (I == nullptr || a16(I));
+  kernel<<<g.grid, kTpThreads, bytes, stream>>>(X, n_x, Y, I, n_i, n, h, w,
+                                                r, eps, g.seg_rows, aligned,
+                                                out0, out1);
+  return static_cast<int>(cudaGetLastError());
+}
 
-  for (int z = blockIdx.z; z < n; z += gridDim.z) {
-    stage_rows(a_in + z * plane, w, YS, ext, XS, ext, EA);
-    stage_rows(b_in + z * plane, w, YS, ext, XS, ext, EB);
-    __syncthreads();
-
-    for (int i = tid; i < xplane; i += kThreads) {
-      const int row = i / kTile, col = i - row * kTile;
-      const float* ap = EA + row * ext + col;
-      const float* bp = EB + row * ext + col;
-      float sa = ap[0], sb = bp[0];
-      for (int k = 1; k < ksz; ++k) {
-        sa = __fadd_rn(sa, ap[k]);
-        sb = __fadd_rn(sb, bp[k]);
-      }
-      X[i] = sa;
-      X[xplane + i] = sb;
-    }
-    __syncthreads();
-
-    for (int i = tid; i < kTile * kTile; i += kThreads) {
-      const int row = i / kTile, col = i - row * kTile;
-      const int y = y0 + row, x = x0 + col;
-      if (y >= h || x >= w) continue;
-      float sa = X[i], sb = X[xplane + i];
-      for (int k = 1; k < ksz; ++k) {
-        sa = __fadd_rn(sa, X[i + k * kTile]);
-        sb = __fadd_rn(sb, X[xplane + i + k * kTile]);
-      }
-      const size_t pix = static_cast<size_t>(y) * w + x;
-      q[z * plane + pix] = q_of(sa, sb, I[(z % n_i) * plane + pix], coef);
-    }
-    __syncthreads();
-  }
+template <bool kAB>
+int launch_twopass(const float* X, int n_x, const float* Y, const float* I,
+                   int n_i, int n, int h, int w, int r, float eps,
+                   float* out0, float* out1, cudaStream_t stream) {
+  return r <= kTpRingMaxRadius
+             ? launch_twopass_as<kAB, true>(X, n_x, Y, I, n_i, n, h, w, r,
+                                            eps, out0, out1, stream)
+             : launch_twopass_as<kAB, false>(X, n_x, Y, I, n_i, n, h, w, r,
+                                             eps, out0, out1, stream);
 }
 
 // ---- launches --------------------------------------------------------------
-
-using walker::allow_smem;
 
 bool bad_frames(int n_i, int n, int h, int w) {
   return n_i < 1 || n < 1 || n % n_i != 0 || h < 1 || w < 1;
@@ -460,8 +617,8 @@ extern "C" int tpuimg_guided_onepass_ypadded_scratch(
                               scratch, q, stream);
 }
 
-// As tpuimg_guided_onepass, general only, r <= 16; a, b: n frames of
-// scratch.
+// As tpuimg_guided_onepass, general only, r <= 64; a, b: n frames of
+// scratch, written by launch 1 and read by launch 2.
 extern "C" int tpuimg_guided_twopass(const float* I, int n_i, const float* p,
                                      int n, int h, int w, int r, float eps,
                                      float* a, float* b, float* q,
@@ -469,19 +626,9 @@ extern "C" int tpuimg_guided_twopass(const float* I, int n_i, const float* p,
   if (bad_frames(n_i, n, h, w) || r < 1 || r > kTwopassMaxRadius) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const size_t bytes_ab = static_cast<size_t>(twopass_smem_words(r, 4)) * 4;
-  const size_t bytes_q = static_cast<size_t>(twopass_smem_words(r, 2)) * 4;
-  cudaError_t err = allow_smem(guided_ab_kernel, bytes_ab);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = allow_smem(guided_q_kernel, bytes_q);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((w + kTile - 1) / kTile, (h + kTile - 1) / kTile,
-                  n < 65535 ? n : 65535);
-  guided_ab_kernel<<<grid, kThreads, bytes_ab, stream>>>(I, n_i, p, n, h, w,
-                                                         r, eps, a, b);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  guided_q_kernel<<<grid, kThreads, bytes_q, stream>>>(I, n_i, a, b, n, h, w,
-                                                       r, q);
-  return static_cast<int>(cudaGetLastError());
+  const int err = launch_twopass<true>(I, n_i, p, nullptr, 1, n, h, w, r, eps,
+                                       a, b, stream);
+  if (err != 0) return err;
+  return launch_twopass<false>(a, n, b, I, n_i, n, h, w, r, eps, q, nullptr,
+                               stream);
 }

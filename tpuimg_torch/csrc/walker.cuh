@@ -331,20 +331,21 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
   return err;
 }
 
-// The walker's grid: strips of kStrip columns, segments of seg_rows output
-// rows, and frames. Segments are as many as fit in one wave of `slots`
-// resident blocks (a second, partial wave would double the time), none
-// shorter than max(kMinSegRows, 4r), whose halo each pays.
+// A walk's grid: strips of `strip` columns, segments of seg_rows output
+// rows, and frames (at most `frames` blocks deep). Segments are as many as
+// fit in one wave of `slots` resident blocks (a second, partial wave would
+// double the time), none shorter than max(kMinSegRows, halo): each pays
+// `halo` rows of input beyond its own.
 struct WalkGrid {
   dim3 grid;
   int seg_rows;
 };
 
-inline WalkGrid walk_grid(int n, int h, int w, int r, bool shared,
-                          long long slots) {
-  const long long strips = (w + kStrip - 1) / kStrip;
-  const long long frames = std::min(n, shared ? 65535 : kScratchFrames);
-  const long long min_rows = std::max(kMinSegRows, 4 * r);
+inline WalkGrid strip_grid(int n, int h, int w, int strip, int halo,
+                           int frames_max, long long slots) {
+  const long long strips = (w + strip - 1) / strip;
+  const long long frames = std::min(n, frames_max);
+  const long long min_rows = std::max(kMinSegRows, halo);
   const long long segs = std::max(
       1LL, std::min(slots / (strips * frames), (h + min_rows - 1) / min_rows));
   const int rows = static_cast<int>((h + segs - 1) / segs);
@@ -354,31 +355,48 @@ inline WalkGrid walk_grid(int n, int h, int w, int r, bool shared,
           rows};
 }
 
+// The onepass walker's grid: kStrip columns, a halo of 4r rows.
+inline WalkGrid walk_grid(int n, int h, int w, int r, bool shared,
+                          long long slots) {
+  return strip_grid(n, h, w, kStrip, 4 * r, shared ? 65535 : kScratchFrames,
+                    slots);
+}
+
 // The scratch route sizes its scratch from the grid, so its wave is fixed:
 // kWalkBlocks on each of an H100's 132 SMs.
 constexpr long long kScratchSlots = kWalkBlocks * 132LL;
 
-// Raise `kernel`'s shared memory to `bytes` (the shared-memory route) and
-// find the grid: one wave of the blocks this card holds at once at that
-// footprint, or (bytes == 0, the scratch route) kScratchSlots. Returns the
-// CUDA error code; the grid in *g.
+// Raise `kernel`'s shared memory to `bytes` and count the blocks of
+// `threads` this card holds at once at that footprint. Returns the CUDA
+// error code; the count in *slots.
+template <typename Kernel>
+int wave_slots(Kernel kernel, int threads, size_t bytes, long long* slots) {
+  cudaError_t err = allow_smem(kernel, bytes);
+  int dev = 0, sms = 0, per_sm = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        threads, bytes);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *slots = std::max(1LL, static_cast<long long>(sms) * per_sm);
+  return 0;
+}
+
+// Find the onepass walker's grid: one wave of the blocks this card holds at
+// once at `bytes` of shared memory (the shared-memory route), or (bytes ==
+// 0, the scratch route) kScratchSlots. Returns the CUDA error code; the grid
+// in *g.
 template <typename Kernel>
 int plan_walk(Kernel kernel, size_t bytes, int n, int h, int w, int r,
               WalkGrid* g) {
   long long slots = kScratchSlots;
   if (bytes > 0) {
-    cudaError_t err = allow_smem(kernel, bytes);
-    int dev = 0, sms = 0, per_sm = 0;
-    if (err == cudaSuccess) err = cudaGetDevice(&dev);
-    if (err == cudaSuccess) {
-      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    }
-    if (err == cudaSuccess) {
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                          kWalkThreads, bytes);
-    }
-    if (err != cudaSuccess) return static_cast<int>(err);
-    slots = std::max(1LL, static_cast<long long>(sms) * per_sm);
+    const int err = wave_slots(kernel, kWalkThreads, bytes, &slots);
+    if (err != 0) return err;
   }
   *g = walk_grid(n, h, w, r, bytes > 0, slots);
   return 0;

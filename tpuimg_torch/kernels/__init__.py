@@ -44,7 +44,7 @@ SMEM_MAX_BYTES = 232_448
 # the frame entry's ceiling; the row-padded entry takes larger radii on its
 # scratch route
 GUIDED_SMEM_MAX_RADIUS = 64
-GUIDED_TWOPASS_MAX_RADIUS = 16  # csrc/guided.cu kTwopassMaxRadius
+GUIDED_TWOPASS_MAX_RADIUS = 64  # csrc/guided.cu kTwopassMaxRadius
 
 
 class Taps(ctypes.Structure):

@@ -132,8 +132,9 @@ def guided_filter_kernel(I, p, radius: int, eps: float,
     I: float32 (..., H, W). p: float32 of I's shape, or with one more leading
     dim of C channels that share the guide (CN1). ``self_guided``: p is I,
     the onepass kernel's two-sum form (twopass always takes the four sums).
-    Takes radius <= GUIDED_MAX_RADIUS[variant] on the card (64 onepass, 16
-    twopass)."""
+    Takes radius <= GUIDED_MAX_RADIUS[variant] on the card (64 for both).
+    Twopass writes a and b to device memory the wrapper allocates and
+    reads them back in its second launch."""
     if variant not in VARIANTS:
         raise ParamError(f"variant must be one of {VARIANTS}, got {variant!r}")
     if I.device.type == "cpu":

@@ -22,9 +22,11 @@ def integral_plain(img):
 
 
 def integral_kernel(img):
-    """``integral_plain`` on a CPU tensor; on a CUDA tensor the scan kernel,
-    one launch over all leading dims of a contiguous u8 (..., H, W)
-    tensor."""
+    """``integral_plain`` on a CPU tensor; on a CUDA tensor the band scan
+    over all leading dims of a contiguous u8 (..., H, W) tensor: one C call
+    of up to three launches (band sums, their scan down the bands, the band
+    rows), which keeps its column sums in the output it overwrites, so the
+    wrapper allocates nothing else. Each call counts one on ``launches``."""
     if img.device.type == "cpu":
         return integral_plain(img)
     require_cuda_tensor(img, "img", torch.uint8, batched=True)
