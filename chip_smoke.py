@@ -57,7 +57,19 @@ Phases, each printed on its own line:
    ceiling and one past it (the two-pass route) in u8, int32 and float32
    with NaNs, equal; clahe_band_map on 540-row
    4K bands at y0 0, 537 and 1620, tiles 8 and 16: f32 <= 1e-3, u8 <= 1
-   step, and equal to clahe_map's rows;
+   step, and equal to clahe_map's rows; the guided walkers with a NaN,
+   +-inf, 1e3, 1e8 or 1e20 planted at one pixel of I, then of p, of a
+   70x150 frame (an inner pixel, a segment boundary and strip edge, a
+   128-column strip edge): onepass self-guided and general and twopass at
+   r 2 and 8, the row-padded entry at r 8 and 80 (scratch route), each
+   with the plain version's non-finite outputs and within 1e-4 of it
+   outside the pixel's windows; clahe_map and clahe_band_map at tile grids
+   2-64 on 300-row frames 3840, 1917, 1000 (the unstaged tables) and 7
+   columns wide, bands either side of a tile-row centre equal to the
+   frame's rows; hist256 of one-value frames over many blocks and one,
+   64x8161 groups at unaligned offsets, 70000 groups, calls interleaved on
+   two streams, each call one kernel by the profiler, every workspace left
+   zeroed;
 4. the main paths, each run once with every launch counter reset just
    before and read just after, and each of its kernels launched:
    enhance at 4K (impl="fused": tile_hist, clahe_map, enhance_tail;
@@ -106,7 +118,9 @@ Phases, each printed on its own line:
    that computes the same function); the row-padded kernels at a 4K
    shard's blocks; enhance_sharded at 4K and 8K against enhance staged and
    fused, and the stencil and guided sharded ops against their unsharded
-   kernels.
+   kernels; the CLAHE mapping (f32 and u8) and histogram kernels at 4K and
+   1080p, the band at a 4K shard's block, each beside its bound and the
+   first CUDA design's time.
 
 Then one JSON line with the kernels (launches summed over phase 4's runs;
 times and the least time the card could take, at 4K or a 4K shard), and
@@ -240,6 +254,28 @@ YPAD_MORPH_R = [1, 15]
 # its scratch route (past kernels.GUIDED_SMEM_MAX_RADIUS)
 YPAD_GUIDED_R = [20, 32, 64, 80]
 GF_R_LARGE = 20  # the sharded paths at a gf_radius past 16
+# values planted at one pixel of I or p of the guided filter's inputs, at an
+# inner pixel, on a 32-row segment boundary and 64-column strip edge, and on
+# a 128-column strip edge (the walkers' running sums must drop each with
+# its windows)
+PLANTED = [float("nan"), float("inf"), float("-inf"), 1e3, 1e8, 1e20]
+PLANT_AT = [(5, 10), (32, 64), (50, 128)]
+PLANT_SHAPE = (70, 150)
+# the CLAHE mapping at tile grids from 2 to 64 and widths whose rows start
+# unaligned, or narrower than a tile (a 64-tile grid needs more reflect
+# padding than 7 columns give)
+CLAHE_GRIDS = [(t, w) for t in (2, 8, 16, 64) for w in (3840, 1917, 1000, 7)
+               if w > t or t < 64]
+# the first CUDA designs' times of the redesigned mapping and histogram
+# kernels, ms (tools/hist_clahe_ab.py against that checkout, NVIDIA H100
+# 80GB HBM3, 700.00 W), printed beside this run's
+FIRST_DESIGN_MS = {
+    "clahe_map f32 2160x3840": 0.0337, "clahe_map u8 2160x3840": 0.0302,
+    "clahe_map f32 1080x1920": 0.0113, "clahe_map u8 1080x1920": 0.0116,
+    "clahe_band_map u8 540x3840": 0.0116, "clahe_band_map f32 540x3840":
+    0.0113, "hist256 2160x3840": 0.0103, "hist256 1080x1920": 0.0090,
+    "hist256_frames 16x1080x1920": 0.0191, "hist256_groups 64x8161": 0.0078,
+    "hist256_packed 2160x3840": 0.0102}
 
 
 def nbytes(*tensors) -> int:
@@ -438,6 +474,182 @@ def check_filter_kernels(dev, card: str, errs: dict) -> None:
         check(err <= 1e-4, f"guided_twopass {label}: {err} <= 1e-4")
         errs["guided_twopass"] = max(errs["guided_twopass"], err)
         print(f"phase 3 guided_twopass vs plain {label}: {err:.3g} [{card}]")
+
+
+def classes(x):
+    """0 finite, 1 +inf, 2 -inf, 3 NaN."""
+    return torch.where(torch.isnan(x), 3, torch.where(
+        torch.isposinf(x), 1, torch.where(torch.isneginf(x), 2, 0)))
+
+
+def planted_err(got, ref, y: int, x: int, r: int) -> float:
+    """got has ref's non-finite outputs (NaN for NaN, the same infinities);
+    returns its largest difference from ref outside the (4r + 1)^2 block
+    around (y, x)."""
+    check(torch.equal(classes(got), classes(ref)),
+          "the same non-finite outputs as the plain version")
+    far = torch.ones_like(got, dtype=torch.bool)
+    far[max(0, y - 2 * r):y + 2 * r + 1, max(0, x - 2 * r):x + 2 * r + 1] = 0
+    keep = far & torch.isfinite(ref)
+    return max_err(got[keep], ref[keep]) if bool(keep.any()) else 0.0
+
+
+def check_walker_planted(dev, card: str, errs: dict) -> None:
+    """Phase 3, the guided walkers' repaired running sums: a NaN, an
+    infinity or a large value planted at one pixel of I, then of p, of a
+    70x150 frame reaches only the outputs whose windows hold it, as in the
+    plain version's direct sums, and leaves no residue elsewhere (1e-4):
+    onepass frame entry (self-guided and general) and twopass at r 2 and 8,
+    the row-padded entry at r 8 and at r 80 (its scratch route)."""
+    g = np.random.default_rng(SEED)
+    I0 = g.random(PLANT_SHAPE, dtype=np.float32)
+    p0 = np.clip(I0 + 0.1 * g.standard_normal(PLANT_SHAPE), 0, 1).astype(
+        np.float32)
+
+    def frame_entry(what, r):
+        def run(I, p):
+            if what == "guided self":
+                return (guided_filter_kernel(I, I, r, GF_EPS,
+                                             self_guided=True),
+                        guided_filter_plain(I, I, r, GF_EPS, True))
+            variant = "twopass" if what == "guided_twopass" else "onepass"
+            return (guided_filter_kernel(I, p, r, GF_EPS, variant=variant),
+                    guided_filter_plain(I, p, r, GF_EPS))
+        return run
+
+    def ypadded(self_g, r):
+        def run(I, p):
+            pp = I if self_g else p
+            return (guided_ypadded_kernel(I, pp, r, GF_EPS, self_g),
+                    guided_ypadded_plain(I, pp, r, GF_EPS, self_g))
+        return run
+
+    entries = [(f"{what} r{r}", what.split()[0], frame_entry(what, r), r, 0,
+                what != "guided self")
+               for what in ("guided self", "guided general", "guided_twopass")
+               for r in (2, 8)]
+    entries += [(f"guided_ypadded{' self' if sg else ''} r{r}",
+                 "guided_ypadded", ypadded(sg, r), r, 2 * r, not sg)
+                for r in (8, 80) for sg in (False, True)]
+    for label, name, run, r, pad, general in entries:
+        Ib = torch.from_numpy(np.pad(I0, ((pad, pad), (0, 0)),
+                                     mode="reflect")).to(dev)
+        pb = torch.from_numpy(np.pad(p0, ((pad, pad), (0, 0)),
+                                     mode="reflect")).to(dev)
+        worst = 0.0
+        for plane in ("I", "p") if general else ("I",):
+            for y, x in PLANT_AT:
+                for value in PLANTED:
+                    I, p = Ib.clone(), pb.clone()
+                    (I if plane == "I" else p)[y + pad, x] = value
+                    got, ref = run(I, p)
+                    err = planted_err(got, ref, y, x, r)
+                    check(err <= 1e-4, f"{label} {plane}[{y}, {x}] = {value}: "
+                          f"{err} <= 1e-4 outside its windows")
+                    worst = max(worst, err)
+        errs[name] = max(errs.get(name, 0.0), worst)
+        torch.cuda.synchronize()
+        print(f"phase 3 {label} planted NaN, +-inf, 1e3, 1e8, 1e20 at "
+              f"{len(PLANT_AT)} pixels of {'I and p' if general else 'I'}: "
+              f"the plain version's non-finite outputs, {worst:.3g} outside "
+              f"the planted pixel's windows [{card}]")
+
+
+def check_clahe_grids(dev, card: str, errs: dict) -> None:
+    """Phase 3, the CLAHE mapping at tile grids from 2 to 64 (tiles one
+    column wide at width 7), on widths whose rows start unaligned, and in
+    bands starting on either side of a tile-row centre: f32 within 1e-3 and
+    u8 within 1 step of the plain version, each band equal to the whole
+    frame's rows."""
+    h = 300
+    for tiles, w in CLAHE_GRIDS:
+        img = torch.from_numpy(make_frame(h, w, SEED + 90)).to(dev)
+        geo, tables = front_at(img, tiles)
+        th, pad_top = geo[0], geo[2]
+        centre = next(c for c in (int((t + 0.5) * th) - pad_top
+                                  for t in range(tiles)) if c >= 1)
+        for f32 in (True, False):
+            full = clahe_map(img, tables, tiles, tiles, *geo, f32)
+            ref = clahe_map_plain(img, tables, tiles, tiles, *geo, f32)
+            err = max_err(full, ref)
+            check(err <= (1e-3 if f32 else 1.0), f"clahe_map tiles {tiles} "
+                  f"{h}x{w} {'f32' if f32 else 'u8'}: {err}")
+            if f32:
+                errs["clahe_map"] = max(errs["clahe_map"], err)
+            for y0 in (centre - 1, centre, centre + 1):
+                band = clahe_band_map(img[y0:], tables, tiles, tiles, *geo,
+                                      y0, out_f32=f32)
+                check(torch.equal(band, full[y0:]), f"clahe_band_map tiles "
+                      f"{tiles} {h}x{w} y0 {y0} equals clahe_map's rows")
+    print(f"phase 3 clahe_map and clahe_band_map, {h} rows, tiles and "
+          f"widths {CLAHE_GRIDS}: f32 and u8 within the contract, bands at "
+          f"a tile-row centre and either side equal to the frame's rows "
+          f"[{card}]")
+
+
+def check_hist_cases(dev, card: str, errs: dict) -> None:
+    """Phase 3, the histogram kernel's grids and workspace: frames of one
+    value over many blocks and over one, frames whose groups fall at every
+    alignment, more groups than a grid dimension holds, calls interleaved
+    on two streams (a workspace each), each call one kernel (no memset) by
+    the profiler, and every workspace left zeroed. Counts exact."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpuimg_torch.kernels import hist as khist
+
+    for value in (0, 77, 255):
+        for shape, g in ((SHAPES[0], 1), ((16, 270, 480), 16),
+                         ((64, 8161), 64)):
+            x = torch.full(shape, value, dtype=torch.uint8, device=dev)
+            got = hist256_groups(x.reshape(g, -1))
+            check(bool((got[:, value] == x.numel() // g).all())
+                  and int(got.sum()) == x.numel(),
+                  f"hist256 of one value {value} {shape}")
+    rng = np.random.default_rng(SEED + 91)
+    for offset in (1, 5, 15):
+        buf = torch.from_numpy(rng.integers(0, 256, 64 * 8161 + offset,
+                                            dtype=np.uint8)).to(dev)
+        groups = buf[offset:].reshape(64, 8161)
+        exact(f"hist256_groups 64x8161 at offset {offset}",
+              hist256_groups(groups), hist256_groups_plain(groups), errs,
+              "hist256")
+    many = torch.from_numpy(rng.integers(0, 256, (70000, 3),
+                                         dtype=np.uint8)).to(dev)
+    exact("hist256_groups 70000x3", hist256_groups(many),
+          hist256_groups_plain(many), errs, "hist256")
+    frames = [torch.from_numpy(make_frame(*s, SEED + 92)).to(dev).reshape(
+        1, -1) for s in (SHAPES[0], SHAPES[2])]
+    frames.append(torch.from_numpy(batch_frames((4, 540, 960), SEED + 93))
+                  .to(dev).reshape(4, -1))
+    want = [hist256_groups_plain(x) for x in frames]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    torch.cuda.synchronize()
+    outs = []
+    for _ in range(4):
+        for st in streams:
+            with torch.cuda.stream(st):
+                outs += [(i, hist256_groups(x)) for i, x in enumerate(frames)]
+    torch.cuda.synchronize()
+    for i, out in outs:
+        exact("hist256 on two streams", out, want[i], errs, "hist256")
+    check(all(int(ws.abs().sum()) == 0 for ws in khist._WORKSPACES.values()),
+          "every histogram workspace left zeroed")
+    kernels_a_call = []
+    for x in frames + [many]:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            hist256_groups(x)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA]
+        check(len(names) == 1 and "hist256" in names[0],
+              f"one hist256 kernel a call, got {names}")
+        kernels_a_call.append(len(names))
+    print(f"phase 3 hist256: one-value frames over many blocks and one, "
+          f"64x8161 groups at offsets 1, 5, 15, 70000 groups, {len(outs)} "
+          f"calls on two streams exact; workspaces left zeroed; kernels a "
+          f"call by the profiler {kernels_a_call} [{card}]")
 
 
 def he_numpy(frame: np.ndarray) -> np.ndarray:
@@ -1466,6 +1678,54 @@ def integral_split(label: str, img, card: str) -> None:
           + "; ".join(f"{k} {v:.4f}" for k, v in top) + f" [{card}]")
 
 
+def time_redesigned(dev, card: str) -> None:
+    """Phase 5, the CLAHE mapping and histogram kernels at 4K and 1080p (the
+    band at a 4K shard's block), each beside its bound and the first CUDA
+    design's time."""
+    cases = []
+    for h, w in TIMED:
+        img = torch.from_numpy(make_frame(h, w, SEED)).to(dev)
+        geo, tables = front_at(img, TILES)
+        n = h * w
+        for f32 in (True, False):
+            kind = "f32" if f32 else "u8"
+            cases.append((f"clahe_map {kind} {h}x{w}", functools.partial(
+                clahe_map, img, tables, TILES, TILES, *geo, f32),
+                ((2 + 3 * f32) * n + nbytes(tables), CLAHE_BLEND_OPS * n)))
+        cases.append((f"hist256 {h}x{w}", functools.partial(hist256, img),
+                      (n + 1024, n)))
+        if (h, w) == SHAPES[0]:
+            words = img.view(torch.int32).reshape(1, -1)
+            cases.append((f"hist256_packed {h}x{w}", functools.partial(
+                hist256_groups_packed, words), (n + 1024, n)))
+            band = img[h // 4:h // 2]
+            for f32 in (False, True):
+                kind = "f32" if f32 else "u8"
+                cases.append((
+                    f"clahe_band_map {kind} {band.shape[0]}x{w}",
+                    functools.partial(clahe_band_map, band, tables, TILES,
+                                      TILES, *geo, h // 4, out_f32=f32),
+                    ((2 + 3 * f32) * band.numel() + nbytes(tables),
+                     CLAHE_BLEND_OPS * band.numel())))
+    stack = torch.from_numpy(batch_frames(BATCH, SEED + 5)).to(dev)
+    groups = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, 256, (64, 8161), dtype=np.uint8)).to(dev)
+    cases.append((f"hist256_frames {'x'.join(map(str, BATCH))}",
+                  functools.partial(hist256_frames, stack),
+                  (stack.numel() + BATCH[0] * 1024, stack.numel())))
+    cases.append(("hist256_groups 64x8161", functools.partial(
+        hist256_groups, groups), (groups.numel() + 64 * 1024,
+                                  groups.numel())))
+    for label, fn, work in cases:
+        t = time_cuda(fn, iters=ITERS, card=card)
+        least, by = bound(*work)
+        first = FIRST_DESIGN_MS.get(label)
+        print(f"phase 5 time redesigned {label}: kernel {t.ms:.4f} ms (min "
+              f"{t.ms_min:.4f}), bound {least:.4f} ms ({by}), first design "
+              f"{'not timed' if first is None else f'{first:.4f} ms'}, "
+              f"median of {ITERS} [{card}]")
+
+
 def time_morph_tail(dev, card: str) -> dict:
     """Phase 5 for the morphology, open/close and fused1 tail kernels;
     returns the JSON rows' numbers: u8 erode r15 (no one PyTorch call
@@ -1728,6 +1988,9 @@ def main() -> int:
     check_tail_clahe_kernel(dev, card, errs)
     check_tail_radii(dev, card, errs)
     check_ypadded_kernels(dev, card, errs)
+    check_walker_planted(dev, card, errs)
+    check_clahe_grids(dev, card, errs)
+    check_hist_cases(dev, card, errs)
     print(f"phase 3 took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     launches = run_main_paths(dev, card, batch)
@@ -1743,6 +2006,7 @@ def main() -> int:
     times.update(time_he_integral(dev, card, batch))
     times.update(time_morph_tail(dev, card))
     times.update(time_sharded(dev, card, batch))
+    time_redesigned(dev, card)
     print(f"phase 5 took {time.perf_counter() - t0:.1f} s")
 
     keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")

@@ -1264,15 +1264,19 @@ def _walker_cases(card):
     ]
 
 
-# SHA-256 of each output's bytes from the kernels before the twopass
-# redesign moved the walker's grid planning (NVIDIA H100 80GB HBM3)
+# SHA-256 of each output's bytes (NVIDIA H100 80GB HBM3): the tails' and the
+# self-guided entries' from the kernels before the twopass redesign moved the
+# walker's grid planning; the general entries' from the walker whose running
+# sums are rebuilt where a term much larger than the sum leaves it (p
+# independent of I makes signed window sums of a that nearly cancel, and a
+# few of them are now summed directly)
 WALKER_DIGESTS = {
     "onepass general r8":
-        "fdd455428c0b6cc2eb6560041b0995899e5a51ee1390663d36a1acf400a0f599",
+        "00ce25e51eceb6acc1838731aa182dbfb3c0965bb5471fa8618e3f30058ea2c8",
     "onepass self r5":
         "3a4e1929de1a82da6eb572f3a89db4d94e59222b60b25fa6fa90a7b0b445103e",
     "guided_ypadded general r8":
-        "2f5a5ac11c563defbb13f4d91581385a4373359b44bf24ad02407a28332be65f",
+        "21bf509cfd8f5214469b7724a565be347c882947a3e151f451abd812af3b2ccf",
     "guided_ypadded self r65 (scratch route)":
         "0e456b5d0434c35ec7ecf7215b7ae6b9eff12793637ea89953c48e1032332a09",
     "enhance_tail rg2 r8":
@@ -1283,10 +1287,249 @@ WALKER_DIGESTS = {
 
 
 def test_walker_outputs_match_recorded_digests(card):
-    """The onepass entries and both tails give the same bits as before the
-    twopass walk came to share the walker's grid planning."""
+    """The onepass entries and both tails give their recorded bits: the
+    tails and the self-guided entries as before the twopass walk came to
+    share the walker's grid planning and before the repair of its running
+    sums."""
     import hashlib
 
     for label, call in _walker_cases(card):
         out = call().contiguous().cpu().numpy().tobytes()
         assert hashlib.sha256(out).hexdigest() == WALKER_DIGESTS[label], label
+
+
+# ---- the walker's repaired running sums (walker.cuh, guided.cu) -----------
+
+PLANTED = [float("nan"), float("inf"), float("-inf"), 1e3, 1e8, 1e20]
+# an inner pixel, one on a 32-row segment boundary and a 64-column strip
+# edge, one on a 128-column (twopass) strip edge
+PLANT_AT = [(5, 10), (32, 64), (50, 128)]
+
+
+def _classes(x):
+    """0 finite, 1 +inf, 2 -inf, 3 NaN."""
+    return torch.where(torch.isnan(x), 3, torch.where(
+        torch.isposinf(x), 1, torch.where(torch.isneginf(x), 2, 0)))
+
+
+def _planted_close(got, ref, y, x, r):
+    """got has ref's non-finite outputs (NaN for NaN, the same infinities)
+    and is within 1e-4 of it outside the (4r + 1)^2 block around (y, x)."""
+    assert torch.equal(_classes(got), _classes(ref))
+    far = torch.ones_like(got, dtype=torch.bool)
+    far[max(0, y - 2 * r):y + 2 * r + 1, max(0, x - 2 * r):x + 2 * r + 1] = 0
+    keep = far & torch.isfinite(ref)
+    if bool(keep.any()):
+        assert float((got[keep] - ref[keep]).abs().max()) <= 1e-4
+
+
+def _planted_pair(card, rows=70):
+    g = np.random.default_rng(0)
+    I = g.random((rows, 150), dtype=np.float32)
+    p = np.clip(I + 0.1 * g.standard_normal(I.shape), 0, 1).astype(
+        np.float32)
+    return torch.from_numpy(I).to(card), torch.from_numpy(p).to(card)
+
+
+@pytest.mark.parametrize("value", PLANTED)
+@pytest.mark.parametrize("entry", ["onepass self", "onepass general",
+                                   "twopass"])
+@pytest.mark.parametrize("radius", [2, 8])
+def test_walker_planted_value_frame_entries(card, entry, radius, value):
+    """A NaN, an infinity or a large value at one pixel of I (and, for the
+    general forms, of p) reaches only the outputs whose windows hold it, as
+    in the plain version's direct sums, and leaves no residue elsewhere."""
+    I0, p0 = _planted_pair(card)
+    variant = "twopass" if entry == "twopass" else "onepass"
+    self_g = entry == "onepass self"
+    for plane in ("I",) if self_g else ("I", "p"):
+        for y, x in PLANT_AT:
+            I, p = I0.clone(), p0.clone()
+            (I if plane == "I" else p)[y, x] = value
+            if self_g:
+                got = guided_filter_kernel(I, I, radius, 1e-3,
+                                           self_guided=True)
+                ref = guided_filter_plain(I, I, radius, 1e-3, True)
+            else:
+                got = guided_filter_kernel(I, p, radius, 1e-3,
+                                           variant=variant)
+                ref = guided_filter_plain(I, p, radius, 1e-3)
+            _planted_close(got, ref, y, x, radius)
+
+
+@pytest.mark.parametrize("value", PLANTED)
+@pytest.mark.parametrize("self_guided", [False, True])
+@pytest.mark.parametrize("radius", [8, 80])
+def test_walker_planted_value_ypadded(card, radius, self_guided, value):
+    """The row-padded entry on its shared-memory route (r 8) and its
+    scratch route (r 80), planted values as above at output rows 5, 32 and
+    50."""
+    I0, p0 = _planted_pair(card, 70 + 4 * radius)
+    before = guided_ypadded_kernel.scratch_launches
+    for plane in ("I",) if self_guided else ("I", "p"):
+        for y, x in PLANT_AT:
+            I, p = I0.clone(), p0.clone()
+            (I if plane == "I" else p)[y + 2 * radius, x] = value
+            pp = I if self_guided else p
+            got = guided_ypadded_kernel(I, pp, radius, 1e-3, self_guided)
+            ref = guided_ypadded_plain(I, pp, radius, 1e-3, self_guided)
+            _planted_close(got, ref, y, x, radius)
+    assert (guided_ypadded_kernel.scratch_launches > before) == (
+        radius > GUIDED_SMEM_MAX_RADIUS)
+
+
+def test_walker_in_range_frames_keep_bits_across_segments(card):
+    """A frame without non-finite values or outliers, the same frame with a
+    NaN planted far from a window, and back: the outputs outside the NaN's
+    windows are the in-range frame's bit for bit (nothing of the NaN is
+    left in any running sum)."""
+    I, p = _planted_pair(card, 300)
+    want = guided_filter_kernel(I, p, 8, 1e-3)
+    I2 = I.clone()
+    I2[150, 75] = float("nan")
+    got = guided_filter_kernel(I2, p, 8, 1e-3)
+    far = torch.ones_like(got, dtype=torch.bool)
+    far[150 - 16:150 + 17, 75 - 16:75 + 17] = 0
+    assert bool(torch.isfinite(got[far]).all())
+    assert float((got[far] - want[far]).abs().max()) <= 1e-4
+    assert int((~torch.isfinite(got)).sum()) == int(
+        (~torch.isfinite(guided_filter_plain(I2, p, 8, 1e-3))).sum())
+
+
+# ---- the CLAHE mapping (clahe_map.cu) ---------------------------------------
+
+# a 64-tile grid needs more reflect padding than 7 columns give; at width
+# 1000 its 16-column tiles take the instance that reads the tables from
+# global memory (a span's tables past the shared memory it stages)
+@pytest.mark.parametrize("tiles,width", [
+    (t, w) for t in (2, 8, 16, 64) for w in (3840, 1917, 1000, 7)
+    if w > t or t < 64])
+def test_clahe_map_tile_grids_and_widths(card, tiles, width):
+    """Tile grids from 2 to 64 (tiles of 60 columns, and of one at width 7,
+    narrower than a block's span of columns), widths whose rows start
+    unaligned, and bands whose first row lies on either side of a tile-row
+    centre: bit-exact against the rows of the whole frame's map, and within
+    the usual tolerance of the plain version."""
+    h = 300
+    img = torch.from_numpy(_frame((h, width), 71)).to(card)
+    geo, tables = _geometry_and_tables(img, tiles, tiles)
+    th, pad_top = geo[0], geo[2]
+    # the first tile-row centre inside the frame, past its first row
+    centre = next(c for c in (int((t + 0.5) * th) - pad_top
+                              for t in range(tiles)) if c >= 1)
+    for out_f32 in (True, False):
+        full = clahe_map(img, tables, tiles, tiles, *geo, out_f32=out_f32)
+        ref = clahe_map_plain(img, tables, tiles, tiles, *geo,
+                              out_f32=out_f32)
+        assert full.dtype == ref.dtype
+        assert float((full.float() - ref.float()).abs().max()) <= (
+            1e-3 if out_f32 else 1.0)
+        for y0 in (centre - 1, centre, centre + 1):
+            band = img[y0:]
+            got = clahe_band_map(band, tables, tiles, tiles, *geo, y0,
+                                 out_f32=out_f32)
+            assert torch.equal(got, full[y0:])
+
+
+def _clahe_4k(card):
+    img = torch.from_numpy(_frame((2160, 3840), 72)).to(card)
+    geo, tables = _geometry_and_tables(img, 8, 8)
+    return img, tables, geo
+
+
+# SHA-256 of the mapping's outputs on _clahe_4k's frame, tiles 8, from the
+# first CUDA design (a thread a pixel), NVIDIA H100 80GB HBM3
+CLAHE_DIGESTS = {
+    "f32": "6f9a60440e183516b3ad2bd586d0c5e90992254017e44fd9a3fbacca8733bc6f",
+    "u8": "0a2ccf0265e63df4fb884bfa6c57e36e53b5ac110f511e57b9a87ae10dc0e552",
+    "band u8 at y0 540":
+        "b721925ead0faac491e7aafc8191d0c1ec7b662f872bb1d1ea1c37bb001b49ad",
+}
+
+
+@pytest.mark.parametrize("what", ["f32", "u8", "band u8 at y0 540"])
+def test_clahe_map_4k_matches_recorded_digests(card, what):
+    """The redesigned mapping gives the first design's bits at 4K."""
+    import hashlib
+
+    img, tables, geo = _clahe_4k(card)
+    if what.startswith("band"):
+        out = clahe_band_map(img[540:1080], tables, 8, 8, *geo, 540)
+    else:
+        out = clahe_map(img, tables, 8, 8, *geo, out_f32=what == "f32")
+    got = hashlib.sha256(out.contiguous().cpu().numpy().tobytes()).hexdigest()
+    assert got == CLAHE_DIGESTS[what]
+
+
+# ---- the 256-bin histograms (hist256.cu) -----------------------------------
+
+def test_hist256_one_launch_no_memset(card):
+    """Each call is one kernel on the card and nothing else, at every grid:
+    one block a group, and several with the workspace."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    frames = [torch.from_numpy(_frame(s, 73)).to(card).reshape(g, -1)
+              for s, g in (((2160, 3840), 1), ((64, 8161), 64),
+                           ((16, 108, 192), 16))]
+    for x in frames:
+        hist256_groups(x)
+    torch.cuda.synchronize()
+    for x in frames:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            hist256_groups(x)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA]
+        assert len(names) == 1 and "hist256" in names[0], names
+
+
+def test_hist256_two_streams_at_once(card):
+    """Calls interleaved on two streams keep their counts apart: each stream
+    has a workspace of its own, and every call leaves it zeroed."""
+    from tpuimg_torch.kernels import hist as khist
+
+    frames = [torch.from_numpy(_frame(s, 74 + i)).to(card)
+              for i, s in enumerate([(2160, 3840), (1080, 1920),
+                                     (4, 540, 960)])]
+    want = [hist256_groups_plain(x.reshape(x.shape[0] if x.ndim == 3 else 1,
+                                           -1)) for x in frames]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    torch.cuda.synchronize()
+    outs = []
+    for _ in range(6):
+        for s in streams:
+            with torch.cuda.stream(s):
+                for i, x in enumerate(frames):
+                    g = x.shape[0] if x.ndim == 3 else 1
+                    outs.append((i, hist256_groups(x.reshape(g, -1))))
+    torch.cuda.synchronize()
+    for i, out in outs:
+        assert torch.equal(out, want[i])
+    for ws in khist._WORKSPACES.values():
+        assert int(ws.abs().sum()) == 0
+
+
+@pytest.mark.parametrize("value", [0, 1, 128, 255])
+def test_hist256_single_bin_frames_every_grid(card, value):
+    """A frame of one value sends every count to one bin through the warp's
+    one-atomic path: one frame over many blocks, frames over a few, and
+    (64, 8161) groups of one block each."""
+    for shape, g in (((2160, 3840), 1), ((16, 270, 480), 16),
+                     ((64, 8161), 64)):
+        x = torch.full(shape, value, dtype=torch.uint8, device=card)
+        got = hist256_groups(x.reshape(g, -1))
+        assert bool((got[:, value] == x.numel() // g).all())
+        assert int(got.sum()) == x.numel()
+
+
+@pytest.mark.parametrize("offset", [0, 1, 5, 15])
+def test_hist256_groups_64x8161_and_8k(card, offset):
+    """Groups whose bases fall at every alignment, and an 8K frame across
+    the whole card, exact."""
+    groups = _unaligned((64, 8161), offset, 75, card)
+    assert torch.equal(hist256_groups(groups), hist256_groups_plain(groups))
+    img = _unaligned((4320, 7680), offset, 76, card)
+    assert torch.equal(hist256(img),
+                       hist256_groups_plain(img.reshape(1, -1))[0])

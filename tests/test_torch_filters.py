@@ -266,9 +266,25 @@ def test_gaussian_kernel_model_matches_plain_and_pallas(rng, shape, radius,
     assert _maxdiff(got, ref) <= 1e-5
 
 
+# csrc/walker.cuh's repair of a running sum: kept after its subtract while
+# finite and while the term that left is at most kRebuildF32 (f32 sums
+# along the rows) or kRebuildF64 (f64 sums down the columns, checked on
+# their f32 values) times its magnitude; otherwise rebuilt from its window
+REBUILD_F32, REBUILD_F64 = 64.0, 2.0 ** 20
+F32_MAX = float(np.finfo(np.float32).max)
+
+
+def _keeps(leaving, total, most):
+    """walker::keeps on float32 tensors."""
+    return (leaving.abs() <= most * total.abs()) & (total.abs() <= F32_MAX)
+
+
 def _row_window_sums(src, r, length):
     """walker::row_window_sums on (..., parts, length + 2r) float32 rows:
-    2r warm-up adds, then one add and one subtract a column."""
+    2r warm-up adds, then one add and one subtract a column, each sum
+    (but the last) kept or rebuilt as the next window's warm-up (the
+    careful pass, whose outputs the kernel's fast pass equals wherever it
+    keeps them)."""
     s = torch.zeros(src.shape[:-1], dtype=torch.float32)
     for t in range(2 * r):
         s = s + src[..., t]
@@ -276,44 +292,73 @@ def _row_window_sums(src, r, length):
     for c in range(length):
         s = s + src[..., c + 2 * r]
         out.append(s)
-        s = s - src[..., c]
+        leaving = src[..., c]
+        s = s - leaving
+        bad = ~_keeps(leaving, s, REBUILD_F32)
+        if c + 1 < length and bool(bad.any()):
+            d = torch.zeros_like(s)
+            for t in range(2 * r):
+                d = d + src[..., c + 1 + t]
+            s = torch.where(bad, d, s)
     return torch.stack(out, -1)
 
 
 def _twopass_walk_sums(X, Y, r, seg_rows, products):
     """The window sums one launch of csrc/guided.cu's twopass walk takes of
     its planes (X, Y, and with ``products`` X*Y and X*X) of an (h, w)
-    frame: segments of ``seg_rows`` rows; down each input column of a
-    segment's extended rows (reflect-101) an f64 running sum, the entering
-    row added and the one 2r + 1 rows up subtracted, rounded to f32 once a
-    row; then along each row in f32, in parts of 128-column strips
-    (walker::row_window_sums): 16 columns a part for four planes, 8 for two
-    (a step's 8 rows by its planes by the parts make the block's 256
-    threads)."""
+    frame: segments of ``seg_rows`` rows, walked 8 extended rows
+    (reflect-101) a step; down each input column an f64 running sum, the
+    entering row added and the one 2r + 1 rows up subtracted, rounded to f32
+    once a row and checked on the planes of Y and X*X (of X and Y without
+    ``products``); a column whose check fails at any row of a step has that
+    step's sums taken again directly from their windows. Then along each
+    row in f32, in parts of 128-column strips (walker::row_window_sums): 16
+    columns a part for four planes, 8 for two (a step's 8 rows by its
+    planes by the parts make the block's 256 threads)."""
     h, w = X.shape
-    k, strip, length = 2 * r + 1, 128, 16 if products else 8
+    k, strip, length, step = 2 * r + 1, 128, 16 if products else 8, 8
     width = -(-w // strip) * strip
     xs = torch.from_numpy(reflect101_index(np.arange(-r, width + r), w))
-    X64, Y64 = X.double(), Y.double()
     out = []
     for y0 in range(0, h, seg_rows):
         n = min(seg_rows, h - y0) + 2 * r
-        ys = torch.from_numpy(reflect101_index(np.arange(y0 - r, y0 - r + n),
-                                               h))
-        xe, ye = X64[ys][:, xs], Y64[ys][:, xs]
+        n_pad = -(-n // step) * step  # a step's rows past the walk are read
+        ys = torch.from_numpy(reflect101_index(
+            np.arange(y0 - r, y0 - r + n_pad), h))
+        xe, ye = X[ys][:, xs], Y[ys][:, xs]
+
+        def terms(u):
+            x, y = xe[u].double(), ye[u].double()
+            return torch.stack([x, y, x * y, x * x] if products else [x, y])
+
+        def window(u):
+            d = torch.zeros_like(v)
+            for t in range(max(0, u - 2 * r), u + 1):
+                d = d + terms(t)
+            return d
+
         v = torch.zeros((4 if products else 2, width + 2 * r),
                         dtype=torch.float64)
         rows = []
-        for u in range(n):
-            lx = xe[u - k] if u >= k else torch.zeros_like(xe[u])
-            ly = ye[u - k] if u >= k else torch.zeros_like(ye[u])
-            v[0] += xe[u] - lx
-            v[1] += ye[u] - ly
-            if products:
-                v[2] += xe[u] * ye[u] - lx * ly
-                v[3] += xe[u] * xe[u] - lx * lx
-            if u >= 2 * r:
-                rows.append(v.float())
+        for s0 in range(0, n_pad, step):
+            kept = torch.ones(width + 2 * r, dtype=torch.bool)
+            sums = []
+            for u in range(s0, s0 + step):
+                zero = torch.zeros_like(xe[u])
+                lx, ly = (xe[u - k], ye[u - k]) if u >= k else (zero, zero)
+                v = v + (terms(u) - (terms(u - k) if u >= k else 0.0))
+                f = v.float()
+                kept &= _keeps(ly, f[1], REBUILD_F64) & (
+                    _keeps(lx * lx, f[3], REBUILD_F64) if products
+                    else _keeps(lx, f[0], REBUILD_F64))
+                sums.append(f)
+            if not bool(kept.all()):
+                for i, u in enumerate(range(s0, s0 + step)):
+                    d = window(u)
+                    sums[i] = torch.where(kept, sums[i], d.float())
+                v = torch.where(kept, v, d)
+            rows += [f for u, f in zip(range(s0, s0 + step), sums)
+                     if 2 * r <= u < n]
         cols = torch.stack(rows, 1)  # (planes, rows, width + 2r)
         parts = cols.unfold(-1, length + 2 * r, length)
         out.append(_row_window_sums(parts, r, length).flatten(-2)[..., :w])
@@ -357,3 +402,47 @@ def test_twopass_walk_model_matches_plain_and_pallas(rng, shape, radius):
     else:
         ref = tpuimg.guided_filter(I, p, radius, 1e-3, border="reflect101")
     assert _maxdiff(got, ref) <= 1e-4
+
+
+PLANTED = [float("nan"), float("inf"), float("-inf"), 1e3, 1e8, 1e20]
+
+
+def _classes(x):
+    """0 finite, 1 +inf, 2 -inf, 3 NaN."""
+    x = np.asarray(x, np.float32)
+    return np.select([np.isnan(x), np.isposinf(x), np.isneginf(x)], [3, 1, 2],
+                     0)
+
+
+@pytest.mark.parametrize("plane", ["I", "p"])
+@pytest.mark.parametrize("value", PLANTED)
+@pytest.mark.parametrize("radius", [2, 8])
+def test_twopass_model_planted_value_matches_plain_and_pallas(radius, value,
+                                                              plane):
+    """The twopass walks' repaired running sums (walker::keeps: a sum that
+    is not finite, or from which a term much larger than itself has just
+    left, rebuilt from its window) with a NaN, an infinity or a large value
+    at one pixel of I or p: at an inner pixel, on a 32-row segment boundary
+    and 64-column strip edge, and on a 128-column strip edge. The model's
+    non-finite outputs are the plain version's and tpuimg's twopass (NaN
+    for NaN, the same infinities), and it is within 1e-4 of both outside
+    the (4r + 1)^2 block around the pixel. Without the repair the value
+    stays in the running sums of its strip: 1134 non-finite outputs at r 2
+    where these give 81."""
+    I0, p0 = _pair(np.random.default_rng(0), SHAPE)
+    for y, x in ((5, 10), (32, 64), (50, 128)):
+        I, p = I0.copy(), p0.copy()
+        (I if plane == "I" else p)[y, x] = value
+        got = _twopass_model(torch.from_numpy(I), torch.from_numpy(p), radius,
+                             1e-3, 32).numpy()
+        plain = guided_filter_kernel(torch.from_numpy(I), torch.from_numpy(p),
+                                     radius, 1e-3, variant="twopass").numpy()
+        ref = np.asarray(guided_filter_pallas(I, p, radius, 1e-3,
+                                              variant="twopass"))
+        far = np.ones(SHAPE, bool)
+        far[max(0, y - 2 * radius):y + 2 * radius + 1,
+            max(0, x - 2 * radius):x + 2 * radius + 1] = False
+        for want in (plain, ref):
+            np.testing.assert_array_equal(_classes(got), _classes(want))
+            keep = far & np.isfinite(want)
+            assert _maxdiff(got[keep], want[keep]) <= 1e-4

@@ -97,37 +97,63 @@ struct ClaheGeom {
   float th, pad_top, pad_left, inv_tw;
 };
 
-// The CLAHE bilinear 4-LUT blend of pixel value v at (y, x), in [0, 255].
-// Coordinate math is the reference's (gInterpolateMappingUnroll) and
-// tpuimg's, bit for bit: tyf = __fdiv_rn(y + pad_top, th) - 0.5 and
-// txf = (x + pad_left) * inv_tw - 0.5; ty1/tx1 truncate toward zero (ya may
-// be negative at the top border), ty2/tx2 clamp to the last tile. The blend
-// is (t11*xa1 + t12*xa)*ya1 + (t21*xa1 + t22*xa)*ya with every multiply and
-// add rounded on its own (__fmul_rn/__fadd_rn), so nvcc cannot contract it
-// into FMAs and every kernel that calls this computes the plain PyTorch
-// version's value exactly.
-__device__ __forceinline__ float clahe_blend(const ClaheGeom& g, int v, int y,
-                                             int x) {
-  const float tyf = __fsub_rn(__fdiv_rn(__fadd_rn(static_cast<float>(y),
-                                                  g.pad_top), g.th), 0.5f);
-  const float txf = __fsub_rn(__fmul_rn(__fadd_rn(static_cast<float>(x),
-                                                  g.pad_left), g.inv_tw),
-                              0.5f);
-  const int ty1 = __float2int_rz(tyf);
-  const int tx1 = __float2int_rz(txf);
-  const int ty2 = min(ty1 + 1, g.ytiles - 1);
-  const int tx2 = min(tx1 + 1, g.xtiles - 1);
-  const float ya = __fsub_rn(tyf, static_cast<float>(ty1));
-  const float xa = __fsub_rn(txf, static_cast<float>(tx1));
-  const float ya1 = __fsub_rn(1.0f, ya);
-  const float xa1 = __fsub_rn(1.0f, xa);
-  const float t11 = __ldg(&g.tables[(ty1 * g.xtiles + tx1) * 256 + v]);
-  const float t12 = __ldg(&g.tables[(ty1 * g.xtiles + tx2) * 256 + v]);
-  const float t21 = __ldg(&g.tables[(ty2 * g.xtiles + tx1) * 256 + v]);
-  const float t22 = __ldg(&g.tables[(ty2 * g.xtiles + tx2) * 256 + v]);
+// One coordinate of the CLAHE blend: the tile pair (t1, t2) around it and
+// its weights (a toward t2, a1 = 1 - a). Rows and columns take the same
+// steps but for the row's IEEE division by th where the column multiplies
+// by the host's f32 1/tw.
+struct ClaheAxis {
+  int t1, t2;
+  float a, a1;
+};
+
+// f = tile coordinate + 0.5, as the reference computes it; t1 truncates
+// toward zero (a may be negative at the first border), t2 clamps to the
+// last tile
+__device__ __forceinline__ ClaheAxis clahe_axis(float f, int tiles) {
+  const float tf = __fsub_rn(f, 0.5f);
+  ClaheAxis ax;
+  ax.t1 = __float2int_rz(tf);
+  ax.t2 = min(ax.t1 + 1, tiles - 1);
+  ax.a = __fsub_rn(tf, static_cast<float>(ax.t1));
+  ax.a1 = __fsub_rn(1.0f, ax.a);
+  return ax;
+}
+
+__device__ __forceinline__ ClaheAxis clahe_row(const ClaheGeom& g, int y) {
+  return clahe_axis(__fdiv_rn(__fadd_rn(static_cast<float>(y), g.pad_top),
+                              g.th), g.ytiles);
+}
+
+__device__ __forceinline__ ClaheAxis clahe_col(const ClaheGeom& g, int x) {
+  return clahe_axis(__fmul_rn(__fadd_rn(static_cast<float>(x), g.pad_left),
+                              g.inv_tw), g.xtiles);
+}
+
+// (t11*xa1 + t12*xa)*ya1 + (t21*xa1 + t22*xa)*ya, every multiply and add
+// rounded on its own (__fmul_rn/__fadd_rn), so that nvcc cannot contract it
+// into FMAs
+__device__ __forceinline__ float clahe_lerp(float t11, float t12, float t21,
+                                            float t22, float xa, float xa1,
+                                            float ya, float ya1) {
   const float top = __fadd_rn(__fmul_rn(t11, xa1), __fmul_rn(t12, xa));
   const float bot = __fadd_rn(__fmul_rn(t21, xa1), __fmul_rn(t22, xa));
   return __fadd_rn(__fmul_rn(top, ya1), __fmul_rn(bot, ya));
+}
+
+// The CLAHE bilinear 4-LUT blend of pixel value v at (y, x), in [0, 255].
+// Coordinate math is the reference's (gInterpolateMappingUnroll) and
+// tpuimg's, bit for bit: tyf = __fdiv_rn(y + pad_top, th) - 0.5 and
+// txf = (x + pad_left) * inv_tw - 0.5 (clahe_row, clahe_col), then
+// clahe_lerp of the four corner tables' entries, so every kernel that calls
+// this computes the plain PyTorch version's value exactly.
+__device__ __forceinline__ float clahe_blend(const ClaheGeom& g, int v, int y,
+                                             int x) {
+  const ClaheAxis ry = clahe_row(g, y), cx = clahe_col(g, x);
+  const float t11 = __ldg(&g.tables[(ry.t1 * g.xtiles + cx.t1) * 256 + v]);
+  const float t12 = __ldg(&g.tables[(ry.t1 * g.xtiles + cx.t2) * 256 + v]);
+  const float t21 = __ldg(&g.tables[(ry.t2 * g.xtiles + cx.t1) * 256 + v]);
+  const float t22 = __ldg(&g.tables[(ry.t2 * g.xtiles + cx.t2) * 256 + v]);
+  return clahe_lerp(t11, t12, t21, t22, cx.a, cx.a1, ry.a, ry.a1);
 }
 
 // dst (eh x ew) = the plane src (row stride w) at rows ys[0 .. eh) and

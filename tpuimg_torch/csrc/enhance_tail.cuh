@@ -135,6 +135,7 @@ template <class Src, bool kShared, int kRg>
 struct TailRows {
   static constexpr bool kSelf = false;
   static constexpr bool kCentre = true;
+  static constexpr bool kInRange = true;  // f and p in [0, 1]
   static constexpr bool kAsync = Src::kAsync && kShared;
   static constexpr int kHold = 4;  // loads a lane holds: rows of <= 128
   using Raw = typename Src::Raw;

@@ -74,9 +74,14 @@
 // - Against the plain version (direct f32 sums): the same function up to the
 //   order of the sums (a and b outside the frame come from the reflected
 //   windows, which the reflect-101 symmetry makes equal to the plain
-//   version's reflected a and b). A NaN or infinity in I or p stays in the
-//   running sums of its column strip to the end of the segment, where direct
-//   sums keep it to its windows.
+//   version's reflected a and b). Every running sum is repaired
+//   (walker::keeps): where one is not finite, or a term more than
+//   kRebuildF32 (f32) or kRebuildF64 (f64) times its magnitude has just
+//   left it, sums are taken again from their windows directly. So a NaN or
+//   an infinity in I or p reaches only the outputs whose windows hold it, as
+//   with direct sums, and a large value leaves no residue behind; a frame
+//   without them keeps the running sums' bits but where a signed sum of a
+//   or b nearly cancels.
 //
 // The walker's body (walker.cuh) is templated on the producer of its rows
 // of I and p; here GuidedRows reads them from device memory, and the enhance
@@ -100,6 +105,7 @@
 namespace {
 
 using walker::ab_of;
+using walker::kRebuildF64;
 using walker::kRows;
 using walker::kStrip;
 using walker::kWalkBlocks;
@@ -128,6 +134,7 @@ template <bool kSelf_, bool kYPadded, bool kShared>
 struct GuidedRows {
   static constexpr bool kSelf = kSelf_;
   static constexpr bool kCentre = false;
+  static constexpr bool kInRange = false;  // any float: the sums repaired
   static constexpr int ns = kSelf ? 1 : 2;  // planes staged: I, p
   const float* Iz;
   const float* pz;
@@ -173,12 +180,19 @@ struct GuidedRows {
     return reflect101_fast(x0 - 2 * r + c, w);
   }
 
-  __device__ __forceinline__ void leaving(int u, int, int x, int, int,
-                                          float& li, float& lp) const {
+  // I and p at walker row u, column x: the leaving rows, and the rows of a
+  // rebuilt column sum
+  __device__ __forceinline__ void row(int u, int x, float& iu,
+                                      float& pu) const {
     const size_t o =
         static_cast<size_t>(source_row<kYPadded>(e0 + u, h, r)) * w + x;
-    li = __ldg(Iz + o);
-    if constexpr (!kSelf) lp = __ldg(pz + o);
+    iu = __ldg(Iz + o);
+    if constexpr (!kSelf) pu = __ldg(pz + o);
+  }
+
+  __device__ __forceinline__ void leaving(int u, int, int x, int, int,
+                                          float& li, float& lp) const {
+    row(u, x, li, lp);
   }
 
   __device__ __forceinline__ void entering(int s, int i, int x, int c, int,
@@ -419,6 +433,7 @@ guided_twopass_kernel(const float* __restrict__ X, int n_x,
       if (tid < ti) {
         const float* in = smem + tid + ra - r;
         const float* buf = in + (s & 1) * tb;
+        bool kept = true;  // every row's sums kept (the repair)
 #pragma unroll
         for (int i = 0; i < kK; ++i) {
           const float *ex, *ey, *lx, *ly;  // entering and leaving X and Y
@@ -440,16 +455,52 @@ guided_twopass_kernel(const float* __restrict__ X, int n_x,
           // f32 values and their products are exact in f64
           const bool full = s * kK + i >= k;  // a row leaves the window
           const double dx = *ex, dy = *ey;
-          const double dlx = full ? *lx : 0.0, dly = full ? *ly : 0.0;
+          const float flx = full ? *lx : 0.0f, fly = full ? *ly : 0.0f;
+          const double dlx = flx, dly = fly;
           v[0] += dx - dlx;
           v[1] += dy - dly;
           if constexpr (kAB) {
             v[2] += dx * dy - dlx * dly;
             v[3] += dx * dx - dlx * dlx;
           }
+          float f[np];
 #pragma unroll
           for (int pl = 0; pl < np; ++pl) {
-            vsum[(pl * kK + i) * tip + tid] = static_cast<float>(v[pl]);
+            f[pl] = static_cast<float>(v[pl]);
+            vsum[(pl * kK + i) * tip + tid] = f[pl];
+          }
+          // the repair (walker::keeps), checked on the planes of Y and of
+          // X*X (launch 1) or of X and Y (launch 2)
+          kept &= walker::keeps(fly, f[1], kRebuildF64) &
+                  (kAB ? walker::keeps(flx * flx, f[3], kRebuildF64)
+                       : walker::keeps(flx, f[0], kRebuildF64));
+        }
+        // a step with a sum that failed: every row's sums of this column
+        // summed again directly, its window read again from device memory,
+        // oldest row first
+        if (!kept) {
+          const int x = reflect101_fast(x0 - r + tid, w);
+#pragma unroll 1
+          for (int i = 0; i < kK; ++i) {
+            const int u = s * kK + i;
+#pragma unroll
+            for (int pl = 0; pl < np; ++pl) v[pl] = 0.0;
+#pragma unroll 1
+            for (int t = max(0, u - 2 * r); t <= u; ++t) {
+              const size_t o =
+                  static_cast<size_t>(reflect101_fast(e0 + t, h)) * w + x;
+              const double tx = __ldg(Xz + o), ty = __ldg(Yz + o);
+              v[0] += tx;
+              v[1] += ty;
+              if constexpr (kAB) {
+                v[2] += tx * ty;
+                v[3] += tx * tx;
+              }
+            }
+#pragma unroll
+            for (int pl = 0; pl < np; ++pl) {
+              vsum[(pl * kK + i) * tip + tid] = static_cast<float>(v[pl]);
+            }
           }
         }
       }
@@ -460,8 +511,9 @@ guided_twopass_kernel(const float* __restrict__ X, int n_x,
         const int m2 = tid % T::pairs, part = tid / T::pairs;  // pl*kK + i
         const int u = s * kK + m2 % kK;
         if (u >= 2 * r && u < rows_in) {
-          walker::row_window_sums(vsum + m2 * tip, part * T::len,
-                                  (part + 1) * T::len, r, hab + m2 * tap);
+          walker::row_window_sums<true>(vsum + m2 * tip, part * T::len,
+                                        (part + 1) * T::len, r,
+                                        hab + m2 * tap);
         }
       }
       __syncthreads();

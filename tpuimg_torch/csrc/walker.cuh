@@ -8,6 +8,11 @@
 // block's segment), the values of I and p at strip column c, and does its
 // own staging around the walker's barriers:
 //   kSelf                    p is I (two of the four sums)
+//   kInRange                 its values lie in [0, 1] (the enhance tails,
+//                            whose f comes from a u8 frame), so the walker
+//                            leaves out the repair of its running sums;
+//                            otherwise it calls
+//   row(u, ctx, iu, pu)      I and p at walker row u, any row of the window
 //   kCentre                  the producer gives I at the output pixels
 //                            (centre(s, i, j): walker row s*kRows + i - 2r,
 //                            output column j), so the walker keeps no iring
@@ -25,6 +30,7 @@
 #pragma once
 
 #include <algorithm>
+#include <cfloat>
 
 #include "common.cuh"
 
@@ -70,19 +76,81 @@ __host__ __device__ inline Workspace workspace_of(int r, bool self_guided,
   return ws;
 }
 
+// The repair of a running window sum (add the entering term, subtract the
+// leaving one), which on its own keeps a NaN or an infinity that entered it
+// to the end of its walk, and the rounding residue of a large finite term
+// after that term has left. After each subtract a sum must be finite, and
+// the term that left at most `most` times its magnitude (keeps); where that
+// fails, sums are taken again directly from their windows: along the rows
+// (f32, most = kRebuildF32 = 64), the sums of a row part from the failing
+// one on, each the warm-up of its window (repaired_window_sums); down the
+// columns (f64, kRebuildF64 = 2^20, checked on the f32 values the walk
+// rounds them to, and on the I*I plane in place of I's, which no signed
+// cancellation fools), the column's sums of every row of the step. A
+// window's sum then holds a NaN or an infinity only while its window does
+// (IEEE's result for a direct sum: NaN for a NaN or both infinities, else
+// the infinity), and a large term's residue leaves with it. The residue a
+// kept sum carries is at most about `most` ulps of the sum for each add and
+// subtract of its window: for the f64 sums, 29 bits more than f32's, less
+// than an f32 ulp. A frame without non-finite values or outliers fails no
+// check unless a signed sum (of a or b) nearly cancels, so its bits stay
+// those of the plain running sums almost everywhere.
+constexpr float kRebuildF32 = 64.0f;
+constexpr float kRebuildF64 = 1048576.0f;
+
+__device__ __forceinline__ bool keeps(float leaving, float sum, float most) {
+  return fabsf(leaving) <= most * fabsf(sum) && fabsf(sum) <= FLT_MAX;
+}
+
+// row_window_sums with every sum checked after its subtract and rebuilt (the
+// warm-up of the next window) where keeps fails: the repair's careful pass
+static __device__ __noinline__ void repaired_window_sums(const float* src,
+                                                        int c0, int c1, int r,
+                                                        float* out) {
+  float sum = 0.0f;
+  for (int t = c0; t < c0 + 2 * r; ++t) sum += src[t];
+  for (int c = c0; c < c1; ++c) {
+    sum += src[c + 2 * r];
+    out[c] = sum;
+    const float leaving = src[c];
+    sum -= leaving;
+    if (!keeps(leaving, sum, kRebuildF32) && c + 1 < c1) {
+      sum = 0.0f;
+      for (int t = c + 1; t <= c + 2 * r; ++t) sum += src[t];
+    }
+  }
+}
+
 // out[c] = src[c] + ... + src[c + 2r] for c in [c0, c1): a running sum along
 // the row, 2r warm-up adds and then one add and one subtract a column, in
-// the plain version's order within each window's first sum
+// the plain version's order within each window's first sum. kRepair: the
+// largest term that left and the smallest sum it left are tracked, and
+// unless every sum kept (the last one finite, which a NaN or an infinity
+// would have made it for good, and the largest term at most kRebuildF32
+// times the smallest sum) the part is done again by repaired_window_sums,
+// whose outputs equal these up to its first rebuild
+template <bool kRepair>
 __device__ __forceinline__ void row_window_sums(const float* src, int c0,
                                                 int c1, int r, float* out) {
   if (c0 >= c1) return;
   float sum = 0.0f;
   for (int t = c0; t < c0 + 2 * r; ++t) sum += src[t];
+  float largest = 0.0f, smallest = FLT_MAX;
 #pragma unroll 4
   for (int c = c0; c < c1; ++c) {
     sum += src[c + 2 * r];
     out[c] = sum;
-    sum -= src[c];
+    const float leaving = src[c];
+    sum -= leaving;
+    if constexpr (kRepair) {
+      largest = fmaxf(largest, fabsf(leaving));
+      smallest = fminf(smallest, fabsf(sum));
+    }
+  }
+  if constexpr (kRepair) {
+    if (!(fabsf(sum) <= FLT_MAX && largest <= kRebuildF32 * smallest)) {
+      repaired_window_sums(src, c0, c1, r, out);
+    }
   }
 }
 
@@ -111,6 +179,31 @@ __device__ __forceinline__ float q_of(float sa, float sb, float i,
   return __fadd_rn(__fmul_rn(__fmul_rn(sa, coef), i), __fmul_rn(sb, coef));
 }
 
+// v = the np column sums of walker rows u - 2r .. u (rows from 0 on), summed
+// directly in row order
+template <bool kSelf, class Prod, class Ctx>
+__device__ __forceinline__ void column_window(const Prod& prod,
+                                              const Ctx& ctx, int u, int r,
+                                              double* v) {
+  constexpr int np = kSelf ? 2 : 4;
+#pragma unroll
+  for (int pl = 0; pl < np; ++pl) v[pl] = 0.0;
+#pragma unroll 1
+  for (int t = max(0, u - 2 * r); t <= u; ++t) {
+    float it, pt = 0.0f;
+    prod.row(t, ctx, it, pt);
+    const double di = it, dp = pt;
+    v[0] += di;
+    if constexpr (kSelf) {
+      v[1] += di * di;
+    } else {
+      v[1] += dp;
+      v[2] += di * dp;
+      v[3] += di * di;
+    }
+  }
+}
+
 // The block's workspace: shared memory, or (the scratch route) its slice of
 // a device-memory scratch of `total` floats a block.
 template <bool kShared>
@@ -131,6 +224,7 @@ __device__ __forceinline__ void walk_frame(Prod& prod, float* ws,
                                            int r, float eps, int seg_rows,
                                            float* __restrict__ qz) {
   constexpr bool kSelf = Prod::kSelf;
+  constexpr bool kRepair = !Prod::kInRange;
   constexpr int np = kSelf ? 2 : 4;  // planes summed: I, p, I*p, I*I
   double* vst = reinterpret_cast<double*>(ws + wl.vst);
   float* vsum = ws + wl.vsum;
@@ -194,6 +288,7 @@ __device__ __forceinline__ void walk_frame(Prod& prod, float* ws,
       double v[np];
 #pragma unroll
       for (int pl = 0; pl < np; ++pl) v[pl] = vst[pl * ti + c];
+      bool kept = true;  // every row's sums kept (the repair, keeps)
 #pragma unroll
       for (int i = 0; i < kRows; ++i) {
         float ie, pe;
@@ -215,9 +310,29 @@ __device__ __forceinline__ void walk_frame(Prod& prod, float* ws,
           v[2] += di * dp - dl * dq;
           v[3] += di * di - dl * dl;
         }
+        float f[np];
 #pragma unroll
         for (int pl = 0; pl < np; ++pl) {
-          vsum[pl * vplane + i * tip + c] = static_cast<float>(v[pl]);
+          f[pl] = static_cast<float>(v[pl]);
+          vsum[pl * vplane + i * tip + c] = f[pl];
+        }
+        if constexpr (kRepair) {  // checked on the planes of p and of I*I
+          kept &= keeps(li[i] * li[i], f[np - 1], kRebuildF64) &
+                  (kSelf || keeps(lp[i], f[1], kRebuildF64));
+        }
+      }
+      if constexpr (kRepair) {
+        // a step with a sum that failed: every row's sums of this column
+        // summed again directly
+        if (!kept) {
+#pragma unroll 1
+          for (int i = 0; i < kRows; ++i) {
+            column_window<kSelf>(prod, ctx, s * kRows + i, r, v);
+#pragma unroll
+            for (int pl = 0; pl < np; ++pl) {
+              vsum[pl * vplane + i * tip + c] = static_cast<float>(v[pl]);
+            }
+          }
         }
       }
 #pragma unroll
@@ -234,8 +349,8 @@ __device__ __forceinline__ void walk_frame(Prod& prod, float* ws,
       const int c0 = tid / pairs_v * len_v, c1 = min(c0 + len_v, ta);
       const int o = m / kRows * vplane + i * tip;  // plane m / kRows, row i
       if (u >= 2 * r && u < rows_in) {
-        row_window_sums(vsum + o, c0, c1, r,
-                        hab + m / kRows * hplane + i * tap);
+        row_window_sums<kRepair>(vsum + o, c0, c1, r,
+                                 hab + m / kRows * hplane + i * tap);
       }
     }
     __syncthreads();
@@ -267,8 +382,8 @@ __device__ __forceinline__ void walk_frame(Prod& prod, float* ws,
       const int c0 = tid / pairs_ab * len_ab, c1 = min(c0 + len_ab, kStrip);
       int slot = base + i;
       if (slot >= kr) slot -= kr;
-      row_window_sums(hab + pl * hplane + i * tap, c0, c1, r,
-                      ring + (pl * kr + slot) * kStripPad);
+      row_window_sums<kRepair>(hab + pl * hplane + i * tap, c0, c1, r,
+                               ring + (pl * kr + slot) * kStripPad);
     }
     prod.before4(s, steps);
     __syncthreads();
@@ -280,16 +395,8 @@ __device__ __forceinline__ void walk_frame(Prod& prod, float* ws,
     //    threads do the producer's spare work.
     if (tid < kStrip) {
       const int x = x0 + tid;
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        int slot = base + i;
-        if (slot >= kr) slot -= kr;
-        int old = slot + kRows;
-        if (old >= kr) old -= kr;
-        sa += static_cast<double>(ring[slot * kStripPad + tid]) -
-              static_cast<double>(ring[old * kStripPad + tid]);
-        sb += static_cast<double>(ring[(kr + slot) * kStripPad + tid]) -
-              static_cast<double>(ring[(kr + old) * kStripPad + tid]);
+      // q of row i of the step from the f32 window sums of a and b
+      auto emit = [&](int i, float fa, float fb) {
         const int yo = y0 + s * kRows + i - 4 * r;
         if (yo >= y0 && yo < y1 && x < w) {
           float ic;
@@ -304,8 +411,47 @@ __device__ __forceinline__ void walk_frame(Prod& prod, float* ws,
             }
             ic = iring[is * kStrip + tid];
           }
-          qz[static_cast<size_t>(yo) * w + x] =
-              q_of(static_cast<float>(sa), static_cast<float>(sb), ic, coef);
+          qz[static_cast<size_t>(yo) * w + x] = q_of(fa, fb, ic, coef);
+        }
+      };
+      bool kept = true;  // every row's sums kept (the repair, keeps)
+#pragma unroll
+      for (int i = 0; i < kRows; ++i) {
+        int slot = base + i;
+        if (slot >= kr) slot -= kr;
+        int old = slot + kRows;
+        if (old >= kr) old -= kr;
+        const float la = ring[old * kStripPad + tid];
+        const float lb = ring[(kr + old) * kStripPad + tid];
+        sa += static_cast<double>(ring[slot * kStripPad + tid]) -
+              static_cast<double>(la);
+        sb += static_cast<double>(ring[(kr + slot) * kStripPad + tid]) -
+              static_cast<double>(lb);
+        const float fa = static_cast<float>(sa), fb = static_cast<float>(sb);
+        if constexpr (kRepair) {
+          kept &= keeps(la, fa, kRebuildF64) & keeps(lb, fb, kRebuildF64);
+        }
+        emit(i, fa, fb);
+      }
+      if constexpr (kRepair) {
+        // a step with a sum that failed: every row's sums of this column
+        // summed again directly from the window's 2r + 1 ring rows, oldest
+        // first (the ring holds zeros for rows before the walk), and its q
+        // written again
+        if (!kept) {
+#pragma unroll 1
+          for (int i = 0; i < kRows; ++i) {
+            int t = (base + i - 2 * r) % kr;
+            if (t < 0) t += kr;
+            sa = 0.0;
+            sb = 0.0;
+            for (int j = 0; j <= 2 * r; ++j) {
+              sa += static_cast<double>(ring[t * kStripPad + tid]);
+              sb += static_cast<double>(ring[(kr + t) * kStripPad + tid]);
+              if (++t == kr) t = 0;
+            }
+            emit(i, static_cast<float>(sa), static_cast<float>(sb));
+          }
         }
       }
     } else {

@@ -45,6 +45,9 @@ SMEM_MAX_BYTES = 232_448
 # scratch route
 GUIDED_SMEM_MAX_RADIUS = 64
 GUIDED_TWOPASS_MAX_RADIUS = 64  # csrc/guided.cu kTwopassMaxRadius
+# csrc/hist256.cu kMaxSplitGroups: calls on at most this many groups may
+# count a group in several blocks, through a workspace of 257 int32 a group
+HIST_SPLIT_MAX_GROUPS = 1024
 
 
 class Taps(ctypes.Structure):
@@ -82,9 +85,9 @@ _SIGNATURES = {
                                               _I, _P, _P, _P),
     # I, n_i, p, n, h, w, r, eps, a, b, q, stream
     "tpuimg_guided_twopass": (_P, _I, _P, _I, _I, _I, _I, _F, _P, _P, _P, _P),
-    # x, groups, p, out, stream
-    "tpuimg_hist256": (_P, _I, _L, _P, _P),
-    "tpuimg_hist256_packed": (_P, _I, _L, _P, _P),
+    # x, groups, p, ws, ws_ints, out, stream
+    "tpuimg_hist256": (_P, _I, _L, _P, _L, _P, _P),
+    "tpuimg_hist256_packed": (_P, _I, _L, _P, _L, _P, _P),
     # img, n, frames, tables, tstride, elem_bytes, out, stream
     "tpuimg_lut_gather": (_P, _L, _I, _P, _I, _I, _P, _P),
     # img, frames, h, w, out, stream
@@ -192,6 +195,7 @@ _QUERIES = {
     "tpuimg_enhance_tail_scratch_floats": ([_I] * 4, _L),
     # rg, r -> 1 on the shared-memory route, 0 on the scratch route
     "tpuimg_enhance_tail_shared": ([_I] * 2, _I),
+
 }
 
 

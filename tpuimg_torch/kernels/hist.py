@@ -9,7 +9,10 @@ kernel, as they share one ``pallas_call`` in tpuimg. ``hist256_groups_plain``
 is the plain form of ``tpuimg/kernels/onehot.py::hist256_tiled`` (a bincount
 per group instead of a one-hot contraction). ``hist256_groups_packed``, the
 same kernel body reading int32 words of four packed pixels, replaces
-``hist256_groups_pallas_packed``.
+``hist256_groups_pallas_packed``. Each call of the group kernel is one
+launch: no memset, its output written whole, its cross-block sums through a
+workspace of this (device, stream) that every call leaves zeroed
+(``_hist_workspace``).
 """
 
 from __future__ import annotations
@@ -17,7 +20,29 @@ from __future__ import annotations
 import torch
 
 from tpuimg_torch.core.borders import reflect101_index
-from tpuimg_torch.kernels import launch, require_cuda_tensor
+from tpuimg_torch.kernels import (
+    HIST_SPLIT_MAX_GROUPS, launch, require_cuda_tensor)
+
+# (device index, stream) -> the group kernel's zeroed int32 workspace
+_WORKSPACES: dict = {}
+
+
+def _hist_workspace(device: torch.device, groups: int) -> tuple[int, int]:
+    """(pointer, ints) of the zeroed workspace csrc/hist256.cu takes for a
+    call on ``groups`` groups on ``device``'s current stream: the
+    accumulators and tickets of groups that several blocks count, 257 int32
+    a group, for HIST_SPLIT_MAX_GROUPS groups or fewer (more groups are a
+    block each). It is made, zeroed, the first time a stream needs one at
+    least this large; calls on one stream run in turn and leave it zeroed,
+    and a stream never shares one with another."""
+    if groups > HIST_SPLIT_MAX_GROUPS:
+        return 0, 0
+    key = (device.index, torch.cuda.current_stream(device).cuda_stream)
+    ws = _WORKSPACES.get(key)
+    if ws is None or ws.numel() < 257 * groups:
+        ws = torch.zeros(257 * groups, dtype=torch.int32, device=device)
+        _WORKSPACES[key] = ws
+    return ws.data_ptr(), ws.numel()
 
 
 def hist256_groups_plain(groups: torch.Tensor) -> torch.Tensor:
@@ -36,11 +61,12 @@ def hist256_groups(groups: torch.Tensor) -> torch.Tensor:
         return hist256_groups_plain(groups)
     require_cuda_tensor(groups, "groups", torch.uint8)
     g, p = groups.shape
-    out = torch.zeros((g, 256), dtype=torch.int32, device=groups.device)
     if groups.numel() == 0:
-        return out
-    launch("tpuimg_hist256", groups.device, groups.data_ptr(), g, p,
-           out.data_ptr())
+        return torch.zeros((g, 256), dtype=torch.int32, device=groups.device)
+    out = torch.empty((g, 256), dtype=torch.int32, device=groups.device)
+    ws, ints = _hist_workspace(groups.device, g)
+    launch("tpuimg_hist256", groups.device, groups.data_ptr(), g, p, ws,
+           ints, out.data_ptr())
     hist256_groups.launches += 1
     return out
 
@@ -68,11 +94,12 @@ def hist256_groups_packed(words: torch.Tensor) -> torch.Tensor:
         return hist256_groups_packed_plain(words)
     require_cuda_tensor(words, "words", torch.int32)
     g, p4 = words.shape
-    out = torch.zeros((g, 256), dtype=torch.int32, device=words.device)
     if words.numel() == 0:
-        return out
-    launch("tpuimg_hist256_packed", words.device, words.data_ptr(), g, p4,
-           out.data_ptr())
+        return torch.zeros((g, 256), dtype=torch.int32, device=words.device)
+    out = torch.empty((g, 256), dtype=torch.int32, device=words.device)
+    ws, ints = _hist_workspace(words.device, g)
+    launch("tpuimg_hist256_packed", words.device, words.data_ptr(), g, p4, ws,
+           ints, out.data_ptr())
     hist256_groups_packed.launches += 1
     return out
 
