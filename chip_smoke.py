@@ -69,7 +69,12 @@ Phases, each printed on its own line:
    frame's rows; hist256 of one-value frames over many blocks and one,
    64x8161 groups at unaligned offsets, 70000 groups, calls interleaved on
    two streams, each call one kernel by the profiler, every workspace left
-   zeroed;
+   zeroed; tile_hist on flat 4K frames (8 and 64 tiles), frames of one
+   value a tile, the 300-row frames of the mapping's grids, 64x64 tiles at
+   4K and grids whose pads reach past a tile, and lut_gather at input
+   offsets 0-15 and lengths 1, 15, 16, 17 and 4K + 1 with six table kinds
+   and on (70000, 1, 3) and (3, 1081, 1917) frames, all exact, calls of
+   both on two streams, each call one kernel (no memset) by the profiler;
 4. the main paths, each run once with every launch counter reset just
    before and read just after, and each of its kernels launched:
    enhance at 4K (impl="fused": tile_hist, clahe_map, enhance_tail;
@@ -118,9 +123,12 @@ Phases, each printed on its own line:
    that computes the same function); the row-padded kernels at a 4K
    shard's blocks; enhance_sharded at 4K and 8K against enhance staged and
    fused, and the stencil and guided sharded ops against their unsharded
-   kernels; the CLAHE mapping (f32 and u8) and histogram kernels at 4K and
-   1080p, the band at a 4K shard's block, each beside its bound and the
-   first CUDA design's time.
+   kernels; the CLAHE mapping (f32 and u8), histogram, tile-histogram (also
+   64x64 tiles and a flat frame at 4K) and gather (u8 table, float32 at 4K,
+   an input at offset 1, 16 frames of 1080p with torch.gather after a cast
+   as its library call) kernels at 4K and 1080p, the band at a 4K shard's
+   block, each beside its bound and the first CUDA design's time; and the
+   harness floor, the events' time of a one-element in-place add.
 
 Then one JSON line with the kernels (launches summed over phase 4's runs;
 times and the least time the card could take, at 4K or a 4K shard), and
@@ -266,10 +274,16 @@ PLANT_SHAPE = (70, 150)
 # padding than 7 columns give)
 CLAHE_GRIDS = [(t, w) for t in (2, 8, 16, 64) for w in (3840, 1917, 1000, 7)
                if w > t or t < 64]
-# the first CUDA designs' times of the redesigned mapping and histogram
-# kernels, ms (tools/hist_clahe_ab.py against that checkout, NVIDIA H100
-# 80GB HBM3, 700.00 W), printed beside this run's
+# the first CUDA designs' times of the redesigned mapping, histogram,
+# tile-histogram and gather kernels, ms (tools/hist_clahe_ab.py against that
+# checkout, NVIDIA H100 80GB HBM3, 700.00 W), printed beside this run's
 FIRST_DESIGN_MS = {
+    "tile_hist 2160x3840 tiles 8": 0.0244, "tile_hist 2160x3840 tiles 64":
+    0.0314, "tile_hist 1080x1920 tiles 8": 0.0121,
+    "tile_hist flat 2160x3840 tiles 8": 0.0244, "lut_gather u8 2160x3840":
+    0.0115, "lut_gather f32 2160x3840": 0.0194,
+    "lut_gather u8 2160x3840 at offset 1": 0.0114, "lut_gather u8 1080x1920":
+    0.0072, "lut_gather_frames 16x1080x1920": 0.0388,
     "clahe_map f32 2160x3840": 0.0337, "clahe_map u8 2160x3840": 0.0302,
     "clahe_map f32 1080x1920": 0.0113, "clahe_map u8 1080x1920": 0.0116,
     "clahe_band_map u8 540x3840": 0.0116, "clahe_band_map f32 540x3840":
@@ -587,15 +601,33 @@ def check_clahe_grids(dev, card: str, errs: dict) -> None:
           f"[{card}]")
 
 
+def kernels_a_call(fn, *args) -> list:
+    """The CUDA kernels one call runs, by the profiler (a memset shows as
+    one), after a warm-up call. A trace that caught no kernel at all (the
+    profiler drops one now and then) is taken again, up to three times."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(*args)
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn(*args)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA]
+        if names:
+            break
+    return names
+
+
 def check_hist_cases(dev, card: str, errs: dict) -> None:
     """Phase 3, the histogram kernel's grids and workspace: frames of one
     value over many blocks and over one, frames whose groups fall at every
     alignment, more groups than a grid dimension holds, calls interleaved
     on two streams (a workspace each), each call one kernel (no memset) by
     the profiler, and every workspace left zeroed. Counts exact."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from tpuimg_torch.kernels import hist as khist
 
     for value in (0, 77, 255):
@@ -635,21 +667,132 @@ def check_hist_cases(dev, card: str, errs: dict) -> None:
         exact("hist256 on two streams", out, want[i], errs, "hist256")
     check(all(int(ws.abs().sum()) == 0 for ws in khist._WORKSPACES.values()),
           "every histogram workspace left zeroed")
-    kernels_a_call = []
+    per_call = []
     for x in frames + [many]:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            hist256_groups(x)
-            torch.cuda.synchronize()
-        names = [e.name for e in prof.events()
-                 if e.device_type == DeviceType.CUDA]
+        names = kernels_a_call(hist256_groups, x)
         check(len(names) == 1 and "hist256" in names[0],
               f"one hist256 kernel a call, got {names}")
-        kernels_a_call.append(len(names))
+        per_call.append(len(names))
     print(f"phase 3 hist256: one-value frames over many blocks and one, "
           f"64x8161 groups at offsets 1, 5, 15, 70000 groups, {len(outs)} "
           f"calls on two streams exact; workspaces left zeroed; kernels a "
-          f"call by the profiler {kernels_a_call} [{card}]")
+          f"call by the profiler {per_call} [{card}]")
+
+
+def unaligned(n: int, offset: int, seed: int, dev):
+    """n random u8 pixels on the card whose base lies ``offset`` bytes past
+    a 16-byte boundary."""
+    rng = np.random.default_rng(seed)
+    buf = torch.from_numpy(rng.integers(0, 256, n + offset,
+                                        dtype=np.uint8)).to(dev)
+    return buf[offset:]
+
+
+def gather_tables(seed: int) -> list:
+    """256-entry tables of every kind lut_gather takes: u8; int32 and
+    float32 of random bits (-0.0, inf and a NaN with a payload planted);
+    int16, float16 and bool through the 4-byte round trip."""
+    rng = np.random.default_rng(seed)
+    bits = rng.integers(-2 ** 31, 2 ** 31, 256).astype(np.int32)
+    f32 = bits.view(np.float32).copy()
+    f32[:3] = (-0.0, np.inf, np.nan)
+    f32[3] = np.array([0x7FC00123], dtype=np.uint32).view(np.float32)[0]
+    with np.errstate(over="ignore"):
+        f16 = np.where(np.isnan(f32), 1.5, f32).astype(np.float16)
+    return [torch.from_numpy(t) for t in (
+        rng.integers(0, 256, 256, dtype=np.uint8), bits, f32,
+        bits.astype(np.int16), f16, rng.integers(0, 2, 256).astype(bool))]
+
+
+def check_tile_hist_lut_cases(dev, card: str, errs: dict) -> None:
+    """Phase 3, the tile-histogram and gather kernels: tile_hist on flat
+    frames, frames of one value a tile, widths 7, 1917 and 3839, 64x64
+    tiles at 4K and grids whose pads reach past a tile; lut_gather at input
+    offsets 0-15 and lengths 1, 15, 16, 17 and 4K + 1 with every table
+    kind, lut_gather_frames on (70000, 1, 3) and (3, 1081, 1917) frames;
+    calls of both on two streams at once, and each call one kernel (no
+    memset) by the profiler. Counts and bits exact."""
+    def hist_case(img, yt, xt):
+        h, w = img.shape
+        geo = _clahe_geometry(h, w, xt, yt)
+        args = (img, yt, xt, *geo)
+        exact(f"tile_hist {h}x{w} grid {yt}x{xt}", tile_hist(*args),
+              tile_hist_plain(*args), errs, "tile_hist")
+        return args
+
+    hist_args = []
+    for value in (0, 77, 255):
+        for tiles in (8, 64):
+            hist_case(torch.full(SHAPES[0], value, dtype=torch.uint8,
+                                 device=dev), tiles, tiles)
+    h, w = SHAPES[1]
+    for tiles in (2, 8, 64):
+        th, tw, pt, pl = _clahe_geometry(h, w, tiles, tiles)
+        ty = (torch.arange(h, device=dev) + pt) // th
+        tx = (torch.arange(w, device=dev) + pl) // tw
+        img = ((ty[:, None] * tiles + tx[None, :]) * 37 % 256).to(
+            torch.uint8).contiguous()
+        hist_case(img, tiles, tiles)
+    for tiles, width in CLAHE_GRIDS:
+        img = torch.from_numpy(make_frame(300, width, SEED + 94)).to(dev)
+        hist_args.append(hist_case(img, tiles, tiles))
+    for (fh, fw), grid in (((2160, 3840), (64, 64)), ((9, 9), (8, 8)),
+                           ((5, 7), (4, 6)), ((70, 1000), (64, 64))):
+        img = torch.from_numpy(make_frame(fh, fw, SEED + 95)).to(dev)
+        hist_args.append(hist_case(img, *grid))
+    for n in (1, 15, 16, 17, SHAPES[0][0] * SHAPES[0][1] + 1):
+        for offset in range(16):
+            img = unaligned(n, offset, SEED + 96, dev).reshape(1, n)
+            for table in gather_tables(SEED + 97):
+                table = table.to(dev)
+                exact(f"lut_gather {table.dtype} n {n} offset {offset}",
+                      lut_gather(table, img), lut_gather_plain(table, img),
+                      errs, "lut_gather")
+    rng = np.random.default_rng(SEED + 98)
+    frames_args = []
+    for shape in ((70000, 1, 3), (3, 1081, 1917)):
+        imgs = torch.from_numpy(rng.integers(0, 256, shape,
+                                             dtype=np.uint8)).to(dev)
+        tables = torch.from_numpy(rng.integers(0, 256, (shape[0], 256),
+                                               dtype=np.uint8)).to(dev)
+        exact(f"lut_gather_frames {shape}", lut_gather_frames(tables, imgs),
+              lut_gather_frames_plain(tables, imgs), errs, "lut_gather")
+        frames_args.append((tables, imgs))
+
+    img4k = unaligned(SHAPES[0][0] * SHAPES[0][1], 3, SEED + 99,
+                      dev).reshape(SHAPES[0])
+    f32 = gather_tables(SEED + 97)[2].to(dev)
+    calls = [(tile_hist, a, tile_hist_plain) for a in (
+        hist_args[0], hist_args[-4], (img4k, TILES, TILES, *_clahe_geometry(
+            *SHAPES[0], TILES, TILES)))]
+    calls += [(lut_gather, (frames_args[1][0][0], img4k), lut_gather_plain),
+              (lut_gather, (f32, img4k), lut_gather_plain),
+              (lut_gather_frames, frames_args[1], lut_gather_frames_plain)]
+    want = [plain(*a) for _, a, plain in calls]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    torch.cuda.synchronize()
+    outs = []
+    for _ in range(4):
+        for st in streams:
+            with torch.cuda.stream(st):
+                outs += [(i, fn(*a)) for i, (fn, a, _) in enumerate(calls)]
+    torch.cuda.synchronize()
+    for i, out in outs:
+        exact(f"{calls[i][0].__name__} on two streams", out, want[i], errs,
+              calls[i][0].__name__.replace("_frames", ""))
+    per_call = []
+    for fn, a, _ in calls:
+        names = kernels_a_call(fn, *a)
+        check(len(names) == 1 and fn.__name__.replace("_frames", "")
+              in names[0], f"one {fn.__name__} kernel a call, got {names}")
+        per_call.append(len(names))
+    print(f"phase 3 tile_hist: flat 4K at 8 and 64 tiles, one value a tile "
+          f"2161x3839 at 2, 8, 64 tiles, 300-row frames at {CLAHE_GRIDS}, "
+          f"64x64 tiles at 4K, pads past a tile (9x9 at 8x8, 5x7 at 4x6, "
+          f"70x1000 at 64x64) exact; lut_gather at offsets 0-15, n 1, 15, "
+          f"16, 17, 4K + 1, six table kinds, frames (70000, 1, 3) and "
+          f"(3, 1081, 1917) exact; {len(outs)} calls on two streams exact; "
+          f"kernels a call by the profiler {per_call} [{card}]")
 
 
 def he_numpy(frame: np.ndarray) -> np.ndarray:
@@ -685,10 +828,12 @@ def batch_frames(shape, seed: int) -> np.ndarray:
 
 
 def exact(what: str, got, ref, errs: dict, name: str) -> None:
-    """got equals ref bit for bit (float tensors compared as int32 bits, so
-    NaN payloads and -0.0 count); records the measured max_abs_err."""
+    """got equals ref bit for bit (float tensors compared as integers of
+    their width, so NaN payloads and -0.0 count); records the measured
+    max_abs_err."""
     if got.is_floating_point():
-        got, ref = got.view(torch.int32), ref.view(torch.int32)
+        bits = {2: torch.int16, 4: torch.int32}[got.element_size()]
+        got, ref = got.view(bits), ref.view(bits)
     check(got.shape == ref.shape and got.dtype == ref.dtype
           and torch.equal(got, ref), f"{what} bit-exact")
     errs[name] = max(errs.get(name, 0.0), max_err(got, ref))
@@ -1656,6 +1801,8 @@ def time_he_integral(dev, card: str, batch: np.ndarray) -> dict:
                                     stack.numel()))
     time_pair(f"lut_gather_frames {label}", lut_gather_frames,
               lut_gather_frames_plain, (tables, stack), card,
+              library=lambda t, x: torch.gather(
+                  t, 1, x.reshape(x.shape[0], -1).long()),
               work=(2 * stack.numel() + nbytes(tables), stack.numel()))
     time_pair(f"hist_equalize {label} end to end", hist_equalize, he_plain,
               (stack,), card)
@@ -1679,9 +1826,12 @@ def integral_split(label: str, img, card: str) -> None:
 
 
 def time_redesigned(dev, card: str) -> None:
-    """Phase 5, the CLAHE mapping and histogram kernels at 4K and 1080p (the
-    band at a 4K shard's block), each beside its bound and the first CUDA
-    design's time."""
+    """Phase 5, the CLAHE mapping, histogram, tile-histogram and gather
+    kernels at 4K and 1080p (the band at a 4K shard's block; tile_hist also
+    at 64x64 tiles and on a flat frame; lut_gather with a float32 table, at
+    an input offset of 1 and on 16 frames of 1080p), each beside its bound
+    and the first CUDA design's time; then the harness floor, the time the
+    events give a one-element in-place add under the same settings."""
     cases = []
     for h, w in TIMED:
         img = torch.from_numpy(make_frame(h, w, SEED)).to(dev)
@@ -1707,7 +1857,36 @@ def time_redesigned(dev, card: str) -> None:
                                       TILES, *geo, h // 4, out_f32=f32),
                     ((2 + 3 * f32) * band.numel() + nbytes(tables),
                      CLAHE_BLEND_OPS * band.numel())))
+        for tiles in ((TILES, 64) if (h, w) == SHAPES[0] else (TILES,)):
+            geo = _clahe_geometry(h, w, tiles, tiles)
+            cases.append((f"tile_hist {h}x{w} tiles {tiles}",
+                          functools.partial(tile_hist, img, tiles, tiles,
+                                            *geo),
+                          (n + tiles * tiles * 1024, n)))
+        u8 = _he_tables(hist256_groups_plain(img.reshape(1, -1))[0], n)
+        f32 = gather_tables(SEED + 97)[2].to(dev)
+        for kind, table in (("u8", u8), ("f32", f32)):
+            if kind == "f32" and (h, w) != SHAPES[0]:
+                continue
+            size = table.element_size()
+            cases.append((f"lut_gather {kind} {h}x{w}", functools.partial(
+                lut_gather, table, img), ((1 + size) * n + 256 * size, n)))
+        if (h, w) == SHAPES[0]:
+            off = unaligned(n, 1, SEED + 99, dev).reshape(h, w)
+            cases.append((f"lut_gather u8 {h}x{w} at offset 1",
+                          functools.partial(lut_gather, u8, off),
+                          (2 * n + 256, n)))
+            flat = torch.full((h, w), 77, dtype=torch.uint8, device=dev)
+            cases.append((f"tile_hist flat {h}x{w} tiles {TILES}",
+                          functools.partial(tile_hist, flat, TILES, TILES,
+                                            *_clahe_geometry(h, w, TILES,
+                                                             TILES)),
+                          (n + TILES * TILES * 1024, n)))
     stack = torch.from_numpy(batch_frames(BATCH, SEED + 5)).to(dev)
+    tables = _he_tables(hist256_groups_plain(stack), stack[0].numel())
+    cases.append((f"lut_gather_frames {'x'.join(map(str, BATCH))}",
+                  functools.partial(lut_gather_frames, tables, stack),
+                  (2 * stack.numel() + nbytes(tables), stack.numel())))
     groups = torch.from_numpy(np.random.default_rng(SEED).integers(
         0, 256, (64, 8161), dtype=np.uint8)).to(dev)
     cases.append((f"hist256_frames {'x'.join(map(str, BATCH))}",
@@ -1724,6 +1903,12 @@ def time_redesigned(dev, card: str) -> None:
               f"{t.ms_min:.4f}), bound {least:.4f} ms ({by}), first design "
               f"{'not timed' if first is None else f'{first:.4f} ms'}, "
               f"median of {ITERS} [{card}]")
+    one = torch.zeros(1, device=dev)
+    floor = time_cuda(one.add_, 1, iters=ITERS, card=card)
+    print(f"phase 5 harness floor: a one-element in-place add under "
+          f"time_cuda's settings {floor.ms:.4f} ms (min {floor.ms_min:.4f}), "
+          f"median of {ITERS}: the least time the events show for any call "
+          f"[{card}]")
 
 
 def time_morph_tail(dev, card: str) -> dict:
@@ -1991,6 +2176,7 @@ def main() -> int:
     check_walker_planted(dev, card, errs)
     check_clahe_grids(dev, card, errs)
     check_hist_cases(dev, card, errs)
+    check_tile_hist_lut_cases(dev, card, errs)
     print(f"phase 3 took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     launches = run_main_paths(dev, card, batch)

@@ -1533,3 +1533,204 @@ def test_hist256_groups_64x8161_and_8k(card, offset):
     img = _unaligned((4320, 7680), offset, 76, card)
     assert torch.equal(hist256(img),
                        hist256_groups_plain(img.reshape(1, -1))[0])
+
+
+# ---- the tile histograms (tile_hist.cu) and the gather (lut_gather.cu) -----
+
+def _kernels_of(fn, *args):
+    """(names, calls): the CUDA kernels one call of fn(*args) runs, by the
+    profiler (a memset shows as one), and how many calls were made: a
+    warm-up, then one a trace. A trace that caught no kernel at all (the
+    profiler drops one now and then) is taken again, up to three times."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(*args)
+    torch.cuda.synchronize()
+    for calls in range(2, 5):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn(*args)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA]
+        if names:
+            break
+    return names, calls
+
+
+def _tile_hist_both(img, yt, xt):
+    """tile_hist and its plain version of img at a (yt, xt) grid; both
+    exact and every tile's counts summing to its pixels."""
+    geo, _ = _geometry_and_tables(img, yt, xt)
+    got = tile_hist(img, yt, xt, *geo)
+    assert torch.equal(got, tile_hist_plain(img, yt, xt, *geo))
+    assert bool((got.sum(dim=1) == geo[0] * geo[1]).all())
+    return got
+
+
+@pytest.mark.parametrize("value", [0, 77, 255])
+def test_tile_hist_flat_frames(card, value):
+    """Every atomic of a tile goes to one bin, at 4K over 8x8 (clusters of
+    8) and 64x64 tiles (one block a tile), and at 1080p."""
+    for shape, tiles in (((2160, 3840), 8), ((2160, 3840), 64),
+                         ((1080, 1920), 8)):
+        img = torch.full(shape, value, dtype=torch.uint8, device=card)
+        got = _tile_hist_both(img, tiles, tiles)
+        assert bool((got[:, value] == got.sum(dim=1)).all())
+
+
+@pytest.mark.parametrize("tiles", [2, 8, 64])
+def test_tile_hist_one_value_per_tile(card, tiles):
+    """A frame whose every tile (of the frame, not the extension) holds one
+    value: each count lands where the reflected runs put it."""
+    h, w = 2161, 3839
+    th, tw, pt, pl = _clahe_geometry(h, w, tiles, tiles)
+    ty = (torch.arange(h, device=card) + pt) // th
+    tx = (torch.arange(w, device=card) + pl) // tw
+    img = ((ty[:, None] * tiles + tx[None, :]) * 37 % 256).to(torch.uint8)
+    _tile_hist_both(img.contiguous(), tiles, tiles)
+
+
+def _fits(h, w, grid):
+    """Whether a (ytiles, xtiles) grid is a reflect-101 extension of an
+    h x w frame (_clahe_geometry's bound)."""
+    try:
+        _clahe_geometry(h, w, grid[1], grid[0])
+    except ParamError:
+        return False
+    return True
+
+
+# 64 tiles need more padding than 7 columns give
+TILE_WIDTHS = [(w, g) for w in (7, 1917, 3839)
+               for g in ((2, 2), (8, 8), (16, 16), (64, 64), (3, 7))
+               if _fits(300, w, g)]
+
+
+@pytest.mark.parametrize("width,grid", TILE_WIDTHS)
+def test_tile_hist_widths(card, width, grid):
+    """Rows that start at every alignment (1917, 3839), tiles one column
+    wide (7 columns over 7 or 16 tiles), grids up to 64x64."""
+    yt, xt = grid
+    img = torch.from_numpy(_frame((300, width), 80)).to(card)
+    _tile_hist_both(img, yt, xt)
+
+
+@pytest.mark.parametrize("shape,grid", [((2160, 3840), (64, 64)),
+                                        ((9, 9), (8, 8)), ((5, 7), (4, 6)),
+                                        ((70, 1000), (64, 64)),
+                                        ((2, 300), (2, 64)),
+                                        ((1, 1), (1, 1))])
+def test_tile_hist_dense_grids_and_deep_pads(card, shape, grid):
+    """64x64 tiles at 4K, and grids whose pads reach past a tile (9x9 at
+    8x8: pads 3 and 4 rows of 2-row tiles), exact."""
+    img = torch.from_numpy(_frame(shape, 81)).to(card)
+    _tile_hist_both(img, *grid)
+
+
+def test_tile_hist_one_launch_no_memset(card):
+    """One kernel a call at every cluster size the plan picks (8 at 4K, 4
+    at 1080p, 1 at 64x64 tiles), and no memset."""
+    from tpuimg_torch.kernels import sm_count
+    from tpuimg_torch.kernels.hist import tile_hist_plan
+
+    clusters = set()
+    for shape, tiles in (((2160, 3840), 8), ((1080, 1920), 8),
+                         ((2160, 3840), 64)):
+        img = torch.from_numpy(_frame(shape, 82)).to(card)
+        geo, _ = _geometry_and_tables(img, tiles, tiles)
+        clusters.add(tile_hist_plan(tiles, tiles, geo[0], geo[1],
+                                    sm_count(img.device))[0])
+        before = tile_hist.launches
+        names, calls = _kernels_of(tile_hist, img, tiles, tiles, *geo)
+        assert tile_hist.launches == before + calls
+        assert len(names) == 1 and "tile_hist" in names[0], names
+    assert {1, 8} <= clusters
+
+
+def test_tile_hist_two_streams_at_once(card):
+    """Calls interleaved on two streams keep their counts apart."""
+    cases = []
+    for shape, tiles in (((2160, 3840), 8), ((1080, 1920), 16),
+                         ((300, 1917), 64)):
+        img = torch.from_numpy(_frame(shape, 83)).to(card)
+        geo, _ = _geometry_and_tables(img, tiles, tiles)
+        args = (img, tiles, tiles, *geo)
+        cases.append((args, tile_hist_plain(*args)))
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    torch.cuda.synchronize()
+    outs = []
+    for _ in range(4):
+        for s in streams:
+            with torch.cuda.stream(s):
+                outs += [(i, tile_hist(*args))
+                         for i, (args, _) in enumerate(cases)]
+    torch.cuda.synchronize()
+    for i, out in outs:
+        assert torch.equal(out, cases[i][1])
+
+
+@pytest.mark.parametrize("n", [1, 15, 16, 17, 2160 * 3840 + 1])
+@pytest.mark.parametrize("offset", range(16))
+def test_lut_gather_offsets_and_lengths(card, offset, n):
+    """Inputs at every offset from a 16-byte boundary, lengths around a
+    chunk of 16 and a 4K frame plus one pixel, every table kind: bits
+    exact."""
+    img = _unaligned((1, n), offset, 26, card)
+    for table in _tables(27):
+        t = torch.from_numpy(table).to(card)
+        got = lut_gather(t, img)
+        assert got.dtype == t.dtype and got.shape == (1, n)
+        assert torch.equal(_bits(got), _bits(lut_gather_plain(t, img)))
+
+
+@pytest.mark.parametrize("offset", [0, 1, 7])
+@pytest.mark.parametrize("shape", [(70000, 1, 3), (3, 1081, 1917),
+                                   (3, 256, 256), (3, 65535, 1),
+                                   (5, 4099, 17)])
+def test_lut_gather_frames_offsets(card, shape, offset):
+    """Frames below the staging threshold of 65536 pixels (every table
+    through the read-only cache), at it, and above it (staged, with chunks
+    that straddle two frames), at input offsets: exact."""
+    imgs = _unaligned(shape, offset, 28, card)
+    tables = torch.from_numpy(_frame((shape[0], 256), 29)).to(card)
+    got = lut_gather_frames(tables, imgs)
+    assert torch.equal(got, lut_gather_frames_plain(tables, imgs))
+
+
+def test_lut_gather_one_launch_no_memset(card):
+    """One kernel a call: one table (u8 and 4-byte entries) and frames."""
+    img = torch.from_numpy(_frame((2160, 3840), 84)).to(card)
+    stack = torch.from_numpy(_frame((16, 108, 192), 85)).to(card)
+    tables = torch.from_numpy(_frame((16, 256), 86)).to(card)
+    for fn, args in ((lut_gather, (tables[0], img)),
+                     (lut_gather, (tables.view(torch.int32).reshape(-1)[:256],
+                                   img)),
+                     (lut_gather_frames, (tables, stack))):
+        before = lut_gather.launches
+        names, calls = _kernels_of(fn, *args)
+        assert lut_gather.launches == before + calls
+        assert len(names) == 1 and "lut_gather" in names[0], names
+
+
+def test_lut_gather_two_streams_at_once(card):
+    """Calls interleaved on two streams give each call its own bits."""
+    img = _unaligned((1080, 1920), 3, 87, card)
+    stack = torch.from_numpy(_frame((4, 540, 960), 88)).to(card)
+    tables = torch.from_numpy(_frame((4, 256), 89)).to(card)
+    f32 = torch.from_numpy(_tables(90)[2]).to(card)
+    cases = [(lut_gather, (tables[1], img)), (lut_gather, (f32, img)),
+             (lut_gather_frames, (tables, stack))]
+    want = [_bits(lut_gather_plain(*a) if fn is lut_gather
+                  else lut_gather_frames_plain(*a)) for fn, a in cases]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    torch.cuda.synchronize()
+    outs = []
+    for _ in range(4):
+        for s in streams:
+            with torch.cuda.stream(s):
+                outs += [(i, fn(*a)) for i, (fn, a) in enumerate(cases)]
+    torch.cuda.synchronize()
+    for i, out in outs:
+        assert torch.equal(_bits(out), want[i])

@@ -12,6 +12,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 import tpuimg
 import tpuimg_torch
@@ -27,7 +29,9 @@ from tpuimg_torch.kernels.hist import (
     hist256, hist256_frames, hist256_groups, hist256_groups_packed,
     hist256_groups_plain)
 from tpuimg_torch.kernels.lut import (
-    lut_gather, lut_gather_frames, lut_gather_frames_plain, lut_gather_plain)
+    LUT_BLOCKS_PER_SM, LUT_CHUNK, LUT_ITER_CHUNKS, lut_gather,
+    lut_gather_frames, lut_gather_frames_plain, lut_gather_plain,
+    lut_gather_plan)
 from tpuimg_torch.ops.histogram import _he_tables, apply_lut, bincount256
 
 
@@ -258,3 +262,64 @@ def test_wrappers_refuse_non_cuda_devices(monkeypatch):
                  lambda: tpuimg_torch.hist_equalize(img[None])):
         with pytest.raises(ValueError, match="must be a CUDA tensor"):
             call()
+
+
+def _chunk_words(k: int, total: int, offset: int) -> list[int]:
+    """The aligned 16-byte input words that csrc/lut_gather.cu's load16
+    reads for chunk k of an input at ``offset`` past a 16-byte boundary
+    (the word at and the word after its first byte; only the first when
+    the input is aligned); a short last chunk reads byte by byte: none."""
+    if (k + 1) * LUT_CHUNK > total:
+        return []
+    first = (offset + k * LUT_CHUNK) // 16
+    return [first] if offset % 16 == 0 else [first, first + 1]
+
+
+def _chunk_frames(i0: int, count: int, n: int) -> list[int]:
+    """The frame of each pixel of a chunk as the kernel tracks it: the
+    chunk's first pixel's, then one more each time a pixel reaches the next
+    frame's start."""
+    f, nxt, out = i0 // n, (i0 // n + 1) * n, []
+    for i in range(i0, i0 + count):
+        if i >= nxt:
+            f, nxt = f + 1, nxt + n
+        out.append(f)
+    return out
+
+
+@settings(max_examples=300, deadline=None)
+@given(n=st.integers(1, 2 ** 25), frames=st.integers(1, 70000),
+       offset=st.integers(0, 15), sms=st.sampled_from([1, 66, 132, 144]),
+       pick=st.integers(0, 2 ** 62))
+def test_lut_gather_plan_covers_each_pixel_once(n, frames, offset, sms,
+                                                pick):
+    """The blocks' chunk ranges cover the chunks of (frames x n) pixels
+    once, in at most LUT_BLOCKS_PER_SM blocks an SM and none empty; every
+    pixel falls in the one chunk k = i // 16; a full chunk's loads, at any
+    input offset, are aligned words that each hold a byte of it and
+    together hold all 16; and the frame tracked pixel by pixel is i // n."""
+    total = n * frames
+    chunks = -(-total // LUT_CHUNK)
+    blocks, per_block = lut_gather_plan(total, sms)
+    assert 1 <= blocks <= sms * LUT_BLOCKS_PER_SM
+    assert per_block % LUT_ITER_CHUNKS == 0
+    assert (blocks - 1) * per_block < chunks <= blocks * per_block
+    for k in {0, chunks - 1, max(chunks - 2, 0), pick % chunks}:
+        b = k // per_block  # the one block whose range holds chunk k
+        assert b * per_block <= k < min(chunks, (b + 1) * per_block) and (
+            b < blocks)
+        lo, hi = k * LUT_CHUNK, min(total, (k + 1) * LUT_CHUNK)
+        assert hi > lo and (k == chunks - 1) == (hi == total)
+        words = _chunk_words(k, total, offset)
+        if words:
+            span = set()
+            for word in words:
+                got = set(range(16 * word, 16 * word + 16)) & set(
+                    range(offset + lo, offset + hi))
+                assert got, "a load that holds no byte of the chunk"
+                span |= got
+            assert span == set(range(offset + lo, offset + hi))
+        else:
+            assert hi - lo < LUT_CHUNK
+        assert _chunk_frames(lo, hi - lo, n) == [i // n
+                                                 for i in range(lo, hi)]

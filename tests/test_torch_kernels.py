@@ -11,6 +11,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from tpuimg.core.borders import reflect101_index as jax_reflect101_index
 from tpuimg.kernels.boxsum import enhance_tail_pallas
@@ -22,7 +24,10 @@ from tpuimg.ops.histogram import _clahe_front, _map_bank, _tile_coord_runs
 from tpuimg_torch import clahe
 from tpuimg_torch.core.borders import pad_reflect101, reflect101_index
 from tpuimg_torch.kernels.boxsum import enhance_tail, enhance_tail_plain
-from tpuimg_torch.kernels.hist import tile_hist, tile_hist_plain
+from tpuimg_torch.kernels.hist import (
+    TILE_HIST_MAX_CLUSTER, tile_hist, tile_hist_plain, tile_hist_plan,
+    tile_row, tile_runs)
+from tpuimg_torch.ops.histogram import _clahe_geometry
 from tpuimg_torch.kernels.lut import clahe_map, clahe_map_plain
 
 # the bound of clahe_ref's tile geometry (tpuimg/ops/histogram.py:272): every
@@ -166,3 +171,75 @@ def test_wrappers_refuse_non_cuda_devices():
                   0, 0)
     with pytest.raises(ValueError, match="CUDA tensor"):
         enhance_tail(torch.empty((64, 64), device="meta"), 2, 1.5, 8, 1e-3)
+
+
+# the tile geometries of tests/test_torch_cuda.py::CLAHE_CASES, 4K and 1080p
+# at 1, 2, 8, 16 and 64 tiles, and short or narrow frames whose pads reach
+# the tile's side (9x9 at 8x8: pads 3 and 4 of 2-pixel tiles) or whose
+# tiles are one column wide
+RUN_CASES = ([((90, 110), (8, 8)), ((257, 511), (3, 5)), ((64, 64), (16, 16)),
+              ((33, 1000), (1, 1)), ((2161, 3839), (8, 8))]
+             + [(shape, (t, t)) for shape in ((2160, 3840), (1080, 1920))
+                for t in (1, 2, 8, 16, 64)]
+             + [((9, 9), (8, 8)), ((5, 7), (4, 6)), ((2, 300), (2, 64)),
+                ((33, 7), (3, 7))])
+
+
+@pytest.mark.parametrize("shape,grid", RUN_CASES)
+def test_tile_runs_model_counts_the_extension(rng, shape, grid):
+    """csrc/tile_hist.cu's row map and column runs (tile_row, tile_runs):
+    each tile's frame rows, and the multiset of its run columns, are
+    reflect-101 of the extension's indices; a NumPy count through them
+    equals tile_hist_plain and tpuimg's hist_tiles_fused (interpret mode)
+    over the materialised extension."""
+    h, w = shape
+    yt, xt = grid
+    th, tw, pad_top, pad_left = _clahe_geometry(h, w, xt, yt)
+    rows = [[tile_row(h, th, pad_top, ty, r) for r in range(th)]
+            for ty in range(yt)]
+    cols = []
+    for tx in range(xt):
+        runs = tile_runs(w, tw, pad_left, tx)
+        assert len(runs) == 3 and all(n >= 0 for _, n in runs)
+        got = np.concatenate([np.arange(x0, x0 + n) for x0, n in runs])
+        want = jax_reflect101_index(np.arange(tw) + tx * tw - pad_left, w)
+        np.testing.assert_array_equal(np.sort(got), np.sort(want))
+        assert got.min() >= 0 and got.max() < w
+        cols.append(got)
+    for ty in range(yt):
+        np.testing.assert_array_equal(
+            rows[ty],
+            jax_reflect101_index(np.arange(th) + ty * th - pad_top, h))
+    img = rng.integers(0, 256, shape, dtype=np.uint8)
+    counts = np.stack([
+        np.bincount(img[np.ix_(rows[ty], cols[tx])].ravel(), minlength=256)
+        for ty in range(yt) for tx in range(xt)]).astype(np.int32)
+    plain = tile_hist_plain(torch.from_numpy(img), yt, xt, th, tw, pad_top,
+                            pad_left).numpy()
+    np.testing.assert_array_equal(counts, plain)
+    ys = jax_reflect101_index(np.arange(th * yt) - pad_top, h)
+    xs = jax_reflect101_index(np.arange(tw * xt) - pad_left, w)
+    pallas = hist_tiles_fused(jnp.asarray(img[np.ix_(ys, xs)]), yt, xt, th,
+                              tw)
+    np.testing.assert_array_equal(counts, np.asarray(pallas))
+
+
+@settings(max_examples=300, deadline=None)
+@given(ytiles=st.integers(1, 64), xtiles=st.integers(1, 64),
+       th=st.integers(1, 5000), tw=st.integers(1, 5000),
+       sms=st.sampled_from([1, 66, 132, 144]))
+def test_tile_hist_plan_counts_each_row_once(ytiles, xtiles, th, tw, sms):
+    """A tile's cluster holds 1 to 8 blocks, a power of two that divides the
+    grid (tiles x cluster blocks), and its blocks' row ranges take every
+    row of the tile exactly once."""
+    cluster, rows = tile_hist_plan(ytiles, xtiles, th, tw, sms)
+    assert 1 <= cluster <= TILE_HIST_MAX_CLUSTER
+    assert cluster & (cluster - 1) == 0
+    assert (ytiles * xtiles * cluster) % cluster == 0
+    assert rows >= 1 and cluster * rows >= th
+    seen = np.zeros(th, np.int64)
+    for k in range(cluster):
+        seen[k * rows:min(th, (k + 1) * rows)] += 1
+    assert (seen == 1).all()
+    if ytiles * xtiles >= sms * 4 or th * tw < 2 * 4096:
+        assert cluster == 1  # the tiles fill the card, or are small

@@ -1,13 +1,17 @@
-"""The CLAHE mapping, 256-bin histogram and guided-filter kernels of this
-checkout against another checkout's, in one process on one card.
+"""The CLAHE mapping, 256-bin histogram, tile-histogram, gather and
+guided-filter kernels of this checkout against another checkout's, in one
+process on one card.
 
 Each checkout's kernels are built from its own ``tpuimg_torch/csrc`` into a
 library of their own (``tools/stencil_ab.py``'s build); every call goes
 through this checkout's wrappers with one library or the other swapped in,
-so the two differ only in their CUDA code. The one exception is the
-histogram of a checkout whose ``tpuimg_hist256`` still adds into a zeroed
-output (no workspace argument): that entry is called as its own wrapper
-called it, the same checks, then a ``torch.zeros`` and the launch.
+so the two differ only in their CUDA code. The exceptions are entries whose
+C signature this checkout changed, which are called as the other
+checkout's wrappers called them: a ``tpuimg_hist256`` without a workspace
+argument and a ``tpuimg_tile_hist`` without a grid plan add into an output
+that a ``torch.zeros`` made first; a ``tpuimg_lut_gather`` without a grid
+plan takes the same arguments less the plan. The ops that reach them
+(clahe, enhance, hist_equalize, apply_lut) then run those calls too.
 
 Checks first, each output's SHA-256 printed for both checkouts:
 - ``clahe_map`` (f32 and u8) and ``clahe_band_map`` give the same bits in
@@ -15,6 +19,12 @@ Checks first, each output's SHA-256 printed for both checkouts:
   tiles, the band of a 4K shard at y0 540);
 - the histograms give the same counts in both checkouts and equal their
   plain version (one frame, frames, groups, packed words, a flat frame);
+- the tile histograms (4K at 2, 8, 16 and 64 tiles, 1080p, 2161x3840, a
+  flat 4K frame) and the gather (u8 and float32 tables at 4K and 1080p, a
+  4K input at offset 1, 16 frames of 1080p) equal their plain version in
+  both checkouts;
+- clahe, enhance (fused, staged, fused1), hist_equalize (4K and 16
+  frames of 1080p) and apply_lut at 4K give the same bits in both;
 - the guided kernels (onepass frame and row-padded entries, twopass, both
   enhance tails) stay within 1e-4 of their plain version in both
   checkouts; whether their bits agree is printed, and for the tails it is
@@ -22,7 +32,8 @@ Checks first, each output's SHA-256 printed for both checkouts:
 Then each call is timed with CUDA events in turns (other, this, this,
 other), the histogram calls also by the host clock (back to back, what a
 host-bound caller such as hist_equalize waits for), and the profiler splits
-the histogram calls into their kernels in each checkout.
+the histogram, tile-histogram and gather calls into their kernels in each
+checkout.
 
 Run from the repository root on a CUDA card, with the other checkout
 unpacked into a directory that .gitignore lists, e.g. the parent commit:
@@ -50,7 +61,10 @@ sys.path.insert(0, str(ROOT / "tools"))
 from chip_smoke import make_frame  # noqa: E402
 from scan_guided_ab import split  # noqa: E402
 from stencil_ab import build  # noqa: E402
-from tpuimg_torch import kernels  # noqa: E402
+from tpuimg_torch import (  # noqa: E402
+    clahe, hist_equalize, kernels)
+from tpuimg_torch.kernels import lut as klut  # noqa: E402
+from tpuimg_torch.ops import histogram as ops_histogram  # noqa: E402
 from tpuimg_torch.kernels import require_cuda_tensor  # noqa: E402
 from tpuimg_torch.core.timing import card_label, time_cuda  # noqa: E402
 from tpuimg_torch.kernels.boxsum import (  # noqa: E402
@@ -58,10 +72,13 @@ from tpuimg_torch.kernels.boxsum import (  # noqa: E402
     guided_filter_plain, guided_ypadded_kernel, guided_ypadded_plain)
 from tpuimg_torch.kernels.hist import (  # noqa: E402
     hist256_groups, hist256_groups_packed, hist256_groups_packed_plain,
-    hist256_groups_plain, tile_hist_plain)
-from tpuimg_torch.kernels.lut import clahe_band_map, clahe_map  # noqa: E402
+    hist256_groups_plain, tile_hist, tile_hist_plain)
+from tpuimg_torch.kernels.lut import (  # noqa: E402
+    clahe_band_map, clahe_map, lut_gather, lut_gather_frames,
+    lut_gather_frames_plain, lut_gather_plain)
 from tpuimg_torch.ops.histogram import (  # noqa: E402
-    _clahe_geometry, _clahe_tables)
+    _clahe_geometry, _clahe_tables, _he_tables, apply_lut)
+from tpuimg_torch.pipeline import enhance  # noqa: E402
 
 ITERS = 30
 R, EPS, RG, SIGMA = 8, 1e-3, 2, 1.5  # enhance's defaults
@@ -70,6 +87,19 @@ LIBS: dict = {}
 
 def digest(t) -> str:
     return hashlib.sha256(t.contiguous().cpu().numpy().tobytes()).hexdigest()
+
+
+def params(source: Path, entry: str) -> str:
+    """The parameter list of C entry ``entry`` in ``source``."""
+    text = source.read_text()
+    start = text.index(f"int {entry}(") + len(entry) + 5
+    return text[start:text.index(")", start)]
+
+
+def bits(t):
+    """A tensor's bits as integers of its width (NaN payloads, -0.0)."""
+    return t.view({1: torch.uint8, 2: torch.int16, 4: torch.int32}[
+        t.element_size()])
 
 
 def host_ms(fn, calls: int = 200) -> float:
@@ -84,8 +114,42 @@ def host_ms(fn, calls: int = 200) -> float:
     return (time.perf_counter() - t0) / calls * 1e3
 
 
+def legacy_tile_hist(img, ytiles, xtiles, th, tw, pad_top, pad_left):
+    """A tile-histogram call as a wrapper without a grid plan made it: a
+    zeroed output, then the launch that adds into it."""
+    h, w = img.shape
+    out = torch.zeros((ytiles * xtiles, 256), dtype=torch.int32,
+                      device=img.device)
+    kernels.launch("tpuimg_tile_hist", img.device, img.data_ptr(), h, w,
+                   ytiles, xtiles, th, tw, pad_top, pad_left, out.data_ptr())
+    return out
+
+
+def legacy_gather(img, tables, tstride):
+    """A gather call as a wrapper without a grid plan made it."""
+    words = tables.view(torch.uint8 if tables.element_size() == 1
+                        else torch.int32)
+    out = torch.empty(img.shape, dtype=words.dtype, device=img.device)
+    frames = img.shape[0] if tstride else 1
+    kernels.launch("tpuimg_lut_gather", img.device, img.data_ptr(),
+                   img.numel() // frames, frames, words.data_ptr(), tstride,
+                   words.element_size(), out.data_ptr())
+    return out.view(tables.dtype)
+
+
+WRAPPERS = {"tile_hist": tile_hist, "gather": klut._gather}
+
+
 def use(name: str) -> None:
+    """Swap library ``name`` in, with the other checkout's calling
+    conventions for the entries whose signature changed."""
     kernels._lib = LIBS[name]
+    other = name == "other"
+    ops_histogram.tile_hist = (legacy_tile_hist if other and
+                               LIBS["other_legacy_tile"]
+                               else WRAPPERS["tile_hist"])
+    klut._gather = (legacy_gather if other and LIBS["other_legacy_lut"]
+                    else WRAPPERS["gather"])
 
 
 def hist(entry: str, name: str, x, units: int):
@@ -162,6 +226,64 @@ def cases(dev):
         "tpuimg_hist256_packed", name, words, words.shape[1]),
         lambda: hist256_groups_packed_plain(words)))
 
+    def called(fn, *args):
+        def run(name):
+            use(name)
+            return fn(*args)
+        return run
+
+    def tiles_of(img, tiles):
+        h, w = img.shape
+        return (img, tiles, tiles, *_clahe_geometry(h, w, tiles, tiles))
+
+    def tile_call(*args):
+        # through the op module's name, which use() points at either call
+        return ops_histogram.tile_hist(*args)
+
+    tile_cases = [((2160, 3840), t) for t in (2, 8, 16, 64)]
+    tile_cases += [((1080, 1920), 8), ((2161, 3840), 8)]
+    for shape, tiles in tile_cases:
+        args = tiles_of(frames[shape], tiles)
+        out.append((f"tile_hist {shape[0]}x{shape[1]} tiles {tiles}",
+                    called(tile_call, *args),
+                    lambda args=args: tile_hist_plain(*args)))
+    args = tiles_of(flat, 8)
+    out.append(("tile_hist flat 2160x3840 tiles 8", called(tile_call, *args),
+                lambda args=args: tile_hist_plain(*args)))
+    f32 = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, 256).astype(
+        np.int32).view(np.float32)).to(dev)
+    f32[:2] = torch.tensor([-0.0, float("nan")], device=dev)
+    for shape in ((2160, 3840), (1080, 1920)):
+        img = frames[shape]
+        u8 = _he_tables(hist256_groups_plain(img.reshape(1, -1))[0],
+                        img.numel())
+        for kind, table in (("u8", u8), ("f32", f32)):
+            out.append((f"lut_gather {kind} {shape[0]}x{shape[1]}",
+                        called(lut_gather, table, img),
+                        lambda t=table, x=img: lut_gather_plain(t, x)))
+    buf = torch.from_numpy(make_frame(2160, 3841, 7).reshape(-1)).to(dev)
+    off = buf[1:1 + 2160 * 3840].view(2160, 3840)
+    u8 = _he_tables(hist256_groups_plain(off.reshape(1, -1))[0], off.numel())
+    out.append(("lut_gather u8 2160x3840 at offset 1",
+                called(lut_gather, u8, off),
+                lambda: lut_gather_plain(u8, off)))
+    tabs = _he_tables(hist256_groups_plain(stack), stack[0].numel())
+    out.append(("lut_gather_frames 16x1080x1920",
+                called(lut_gather_frames, tabs, stack),
+                lambda: lut_gather_frames_plain(tabs, stack)))
+    img4k = frames[(2160, 3840)]
+    for label, fn, args in (
+            ("clahe u8 2160x3840", clahe, (img4k, 2.0, 8, 8)),
+            ("enhance fused 2160x3840", enhance, (img4k,)),
+            ("enhance staged 2160x3840", enhance,
+             (img4k, 2.0, 8, RG, SIGMA, R, EPS, "staged")),
+            ("enhance fused1 2160x3840", enhance,
+             (img4k, 2.0, 8, RG, SIGMA, R, EPS, "fused1")),
+            ("hist_equalize 2160x3840", hist_equalize, (img4k,)),
+            ("hist_equalize 16x1080x1920", hist_equalize, (stack,)),
+            ("apply_lut u8 2160x3840", apply_lut, (u8, img4k))):
+        out.append((label, called(fn, *args), "same"))
+
     g = np.random.default_rng(0)
     I4k = torch.from_numpy(g.random((2160, 3840), dtype=np.float32)).to(dev)
     p4k = torch.clamp(I4k + 0.1 * torch.from_numpy(g.standard_normal(
@@ -208,8 +330,23 @@ def main() -> int:
     LIBS["this"] = kernels.bind(build(kernels.CSRC, "this"))
     LIBS["other"] = kernels.bind(build(other, "other"), missing_ok=True)
     # an entry without the workspace argument adds into a zeroed output
-    legacy = "ws_ints" not in (other / "hist256.cu").read_text()
+    legacy = "ws_ints" not in params(other / "hist256.cu", "tpuimg_hist256")
     LIBS["other_legacy_hist"] = legacy
+    # entries without the grid plan arguments
+    tile_legacy = "cluster" not in params(other / "tile_hist.cu",
+                                          "tpuimg_tile_hist")
+    lut_legacy = "per_block" not in params(other / "lut_gather.cu",
+                                           "tpuimg_lut_gather")
+    LIBS["other_legacy_tile"] = tile_legacy
+    LIBS["other_legacy_lut"] = lut_legacy
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    for entry, args, old_form in (
+            ("tpuimg_tile_hist", [P] + [I] * 8 + [P, P], tile_legacy),
+            ("tpuimg_lut_gather", [P, L, I, P, I, I, P, P], lut_legacy)):
+        if old_form:
+            fn = getattr(LIBS["other"], entry)
+            fn.argtypes = args
+            fn.restype = ctypes.c_int
     if legacy:  # x, groups, p, out, stream: out zeroed by the caller
         for entry in ("tpuimg_hist256", "tpuimg_hist256_packed"):
             fn = getattr(LIBS["other"], entry)
@@ -220,7 +357,7 @@ def main() -> int:
     for label, call, kind in runs:
         outs = {name: call(name) for name in ("this", "other")}
         torch.cuda.synchronize()
-        same = torch.equal(outs["this"], outs["other"])
+        same = torch.equal(bits(outs["this"]), bits(outs["other"]))
         line = f"CHECK {label}: this and other {'equal' if same else 'differ'}"
         if kind == "same" and not same:
             raise SystemExit(f"hist_clahe_ab: {label} differs between the "
@@ -228,8 +365,9 @@ def main() -> int:
         if callable(kind):
             ref = kind()
             for name, got in outs.items():
-                if got.dtype == torch.int32:
-                    ok, err = torch.equal(got, ref), 0.0
+                if got.dtype != torch.float32 or label.startswith(
+                        "lut_gather"):  # counts, or bits copied
+                    ok, err = torch.equal(bits(got), bits(ref)), 0.0
                 else:
                     err = float((got - ref).abs().max())
                     ok = err <= 1e-4 and bool(torch.isfinite(got).all())
@@ -247,6 +385,11 @@ def main() -> int:
               f"ms, other {t['other'][0]:.4f} / {t['other'][1]:.4f} ms, "
               f"median of {ITERS} [{card}]", flush=True)
     for label, call, _ in runs:
+        if label.startswith(("tile_hist", "lut_gather")):
+            for name in ("this", "other"):
+                print(f"SPLIT {label} ({name}), device ms a call: "
+                      f"{split(lambda n=name, c=call: c(n))} [{card}]",
+                      flush=True)
         if label.startswith("hist256"):
             t = {name: host_ms(lambda n=name, c=call: c(n))
                  for name in ("other", "this")}

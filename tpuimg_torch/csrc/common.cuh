@@ -37,6 +37,20 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
+// one shared-memory atomic into hist for each of the four bytes of word
+__device__ __forceinline__ void count_word(unsigned word, int* hist) {
+  atomicAdd(&hist[word & 0xFFu], 1);
+  atomicAdd(&hist[(word >> 8) & 0xFFu], 1);
+  atomicAdd(&hist[(word >> 16) & 0xFFu], 1);
+  atomicAdd(&hist[word >> 24], 1);
+}
+
+// byte j (0-15, known at compile time once unrolled) of the 16 in v
+__device__ __forceinline__ unsigned byte_of(const uint4& v, int j) {
+  const unsigned w = j < 4 ? v.x : j < 8 ? v.y : j < 12 ? v.z : v.w;
+  return (w >> (8 * (j & 3))) & 0xFFu;
+}
+
 // reflect-101 (mirror without repeating the edge): valid for -n < x < 2n - 1,
 // the map of the reference's reflectBorder / dLimitSize. Kernels whose
 // frames are gated far above their halo use it (tile_hist, enhance_tail).

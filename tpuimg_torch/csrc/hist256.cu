@@ -76,13 +76,6 @@ int plan_hist(int groups, long long bytes, HistPlan* plan) {
   return 0;
 }
 
-__device__ __forceinline__ void count_word(unsigned word, int* hist) {
-  atomicAdd(&hist[word & 0xFFu], 1);
-  atomicAdd(&hist[(word >> 8) & 0xFFu], 1);
-  atomicAdd(&hist[(word >> 16) & 0xFFu], 1);
-  atomicAdd(&hist[word >> 24], 1);
-}
-
 // unit i of a group: a pixel (kUnit 1) or a word of four (kUnit 4)
 template <int kUnit>
 __device__ __forceinline__ void count_unit(const uint8_t* base, long long i,

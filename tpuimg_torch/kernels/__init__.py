@@ -19,6 +19,7 @@ raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -64,8 +65,10 @@ class GaussTaps(ctypes.Structure):
 
 # C entry points and their argument types; each returns cudaGetLastError()
 _SIGNATURES = {
-    # img, h, w, ytiles, xtiles, th, tw, pad_top, pad_left, out, stream
-    "tpuimg_tile_hist": (_P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P),
+    # img, h, w, ytiles, xtiles, th, tw, pad_top, pad_left, cluster, rows,
+    # out, stream
+    "tpuimg_tile_hist": (_P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
+                         _P),
     # img, h, w, y0, tables, ytiles, xtiles, th, pad_top, pad_left, inv_tw,
     # out_f32, out, stream
     "tpuimg_clahe_map": (_P, _I, _I, _I, _P, _I, _I, _I, _I, _I, _F, _I, _P,
@@ -88,8 +91,9 @@ _SIGNATURES = {
     # x, groups, p, ws, ws_ints, out, stream
     "tpuimg_hist256": (_P, _I, _L, _P, _L, _P, _P),
     "tpuimg_hist256_packed": (_P, _I, _L, _P, _L, _P, _P),
-    # img, n, frames, tables, tstride, elem_bytes, out, stream
-    "tpuimg_lut_gather": (_P, _L, _I, _P, _I, _I, _P, _P),
+    # img, n, frames, tables, tstride, elem_bytes, blocks, per_block, out,
+    # stream
+    "tpuimg_lut_gather": (_P, _L, _I, _P, _I, _I, _I, _L, _P, _P),
     # img, frames, h, w, out, stream
     "tpuimg_integral": (_P, _I, _I, _I, _P, _P),
     # src, n, h, w, dtype, r, mode, scratch, dst, stream (ypadded: src rows
@@ -233,6 +237,13 @@ def launch(name: str, device: torch.device, *args) -> None:
     if err != 0:
         msg = lib.tpuimg_cuda_error_string(err).decode()
         raise KernelLaunchError(f"{name}: CUDA error {err} ({msg})")
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """The streaming multiprocessors of ``device``'s card, which the grid
+    plans fill."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def require_cuda_tensor(x: torch.Tensor, name: str, dtype,

@@ -2,7 +2,9 @@
 group-histogram kernel (csrc/hist256.cu) and their plain PyTorch versions.
 
 ``tile_hist`` replaces ``tpuimg/kernels/hist.py::hist_tiles_fused`` (CLAHE's
-per-tile histograms). ``hist256_groups`` replaces ``hist256_groups_pallas``,
+per-tile histograms), one launch a call: ``tile_hist_plan`` sizes its grid
+and ``tile_row``/``tile_runs`` mirror the frame rows and column runs it
+counts. ``hist256_groups`` replaces ``hist256_groups_pallas``,
 and its thin forms ``hist256`` (one frame) and ``hist256_frames`` (a stack)
 replace ``hist256_pallas`` and ``hist256_frames_pallas``: the three share one
 kernel, as they share one ``pallas_call`` in tpuimg. ``hist256_groups_plain``
@@ -20,8 +22,16 @@ from __future__ import annotations
 import torch
 
 from tpuimg_torch.core.borders import reflect101_index
+from tpuimg_torch.core.layout import cdiv
 from tpuimg_torch.kernels import (
-    HIST_SPLIT_MAX_GROUPS, launch, require_cuda_tensor)
+    HIST_SPLIT_MAX_GROUPS, launch, require_cuda_tensor, sm_count)
+
+# csrc/tile_hist.cu kMaxCluster: the portable thread-block cluster size
+TILE_HIST_MAX_CLUSTER = 8
+# the tile kernel's grid: blocks an SM it aims at, and the fewest pixels a
+# block counts, so that a block's zeroing and sums stay small beside them
+TILE_HIST_BLOCKS_PER_SM = 4
+TILE_HIST_MIN_BLOCK_PIXELS = 4096
 
 # (device index, stream) -> the group kernel's zeroed int32 workspace
 _WORKSPACES: dict = {}
@@ -133,9 +143,53 @@ def tile_hist_plain(img, ytiles: int, xtiles: int, th: int, tw: int,
     return hist256_groups_plain(tiles.reshape(ytiles * xtiles, th * tw))
 
 
+def tile_hist_plan(ytiles: int, xtiles: int, th: int, tw: int,
+                   sms: int) -> tuple[int, int]:
+    """(cluster, rows) of csrc/tile_hist.cu's grid on a card of ``sms``
+    SMs: the blocks that count one tile, a power of two from 1 to 8 (so
+    that the tiles' clusters fill about TILE_HIST_BLOCKS_PER_SM blocks an
+    SM, each over at least TILE_HIST_MIN_BLOCK_PIXELS pixels), and the tile
+    rows a block counts: block k of a tile takes rows [k * rows,
+    min(th, (k + 1) * rows))."""
+    want = min(TILE_HIST_MAX_CLUSTER, th,
+               cdiv(sms * TILE_HIST_BLOCKS_PER_SM, ytiles * xtiles),
+               th * tw // TILE_HIST_MIN_BLOCK_PIXELS)
+    cluster = 1 << (max(want, 1).bit_length() - 1)
+    return cluster, cdiv(th, cluster)
+
+
+def _reflect101(x: int, n: int) -> int:
+    """csrc/common.cuh reflect101: one mirror, for -n < x < 2n - 1."""
+    x = abs(x)
+    return x - 2 * max(x - (n - 1), 0)
+
+
+def tile_row(h: int, th: int, pad_top: int, ty: int, r: int) -> int:
+    """The frame row that row r of tile row ty counts (csrc/tile_hist.cu:
+    reflect101 once a row)."""
+    return _reflect101(ty * th + r - pad_top, h)
+
+
+def tile_runs(w: int, tw: int, pad_left: int,
+              tx: int) -> list[tuple[int, int]]:
+    """The frame columns that tile column tx counts, as csrc/tile_hist.cu's
+    three (start, length) runs of a frame row: the mirror of the
+    extension's columns before 0, those inside the frame, the mirror of
+    those past w - 1 (length 0 where absent). A mirrored run is counted
+    forwards."""
+    a = tx * tw - pad_left
+    b = a + tw
+    e = min(b, 0)
+    i0, i1 = max(a, 0), min(b, w)
+    s = max(a, w)
+    return [(1 - e, max(e - a, 0)), (i0, max(i1 - i0, 0)),
+            (2 * w - 1 - b, max(b - s, 0))]
+
+
 def tile_hist(img, ytiles: int, xtiles: int, th: int, tw: int, pad_top: int,
               pad_left: int) -> torch.Tensor:
-    """``tile_hist_plain`` on a CPU tensor; the CUDA kernel otherwise."""
+    """``tile_hist_plain`` on a CPU tensor; the CUDA kernel otherwise, one
+    launch a call."""
     if img.device.type == "cpu":
         return tile_hist_plain(img, ytiles, xtiles, th, tw, pad_top, pad_left)
     require_cuda_tensor(img, "img", torch.uint8)
@@ -148,10 +202,12 @@ def tile_hist(img, ytiles: int, xtiles: int, th: int, tw: int, pad_top: int,
             f"tile grid {ytiles}x{xtiles} of {th}x{tw} with pads "
             f"({pad_top}, {pad_left}) is not a reflect-101 extension of a "
             f"{h}x{w} frame")
-    out = torch.zeros((ytiles * xtiles, 256), dtype=torch.int32,
+    out = torch.empty((ytiles * xtiles, 256), dtype=torch.int32,
                       device=img.device)
+    cluster, rows = tile_hist_plan(ytiles, xtiles, th, tw,
+                                   sm_count(img.device))
     launch("tpuimg_tile_hist", img.device, img.data_ptr(), h, w, ytiles,
-           xtiles, th, tw, pad_top, pad_left, out.data_ptr())
+           xtiles, th, tw, pad_top, pad_left, cluster, rows, out.data_ptr())
     tile_hist.launches += 1
     return out
 

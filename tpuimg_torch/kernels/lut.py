@@ -18,7 +18,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tpuimg_torch.kernels import launch, require_cuda_tensor
+from tpuimg_torch.core.layout import cdiv, round_up
+from tpuimg_torch.kernels import launch, require_cuda_tensor, sm_count
 from tpuimg_torch.ops.histogram import (
     _bilinear_blend, _blend_to_u8, _tile_coords)
 
@@ -146,6 +147,26 @@ def lut_gather_frames_plain(tables, imgs):
     return torch.gather(tables, 1, idx).reshape(imgs.shape)
 
 
+# csrc/lut_gather.cu's u8 kernel: pixels a chunk (a lane's 16-byte load),
+# chunks a block takes at a time, blocks an SM (all resident: one wave, so
+# that a block stages its table once a frame)
+LUT_CHUNK = 16
+LUT_ITER_CHUNKS = 512
+LUT_BLOCKS_PER_SM = 4
+
+
+def lut_gather_plan(total: int, sms: int) -> tuple[int, int]:
+    """(blocks, per_block) of csrc/lut_gather.cu's u8 kernel over ``total``
+    pixels on a card of ``sms`` SMs: block b takes chunks [b * per_block,
+    min(chunks, (b + 1) * per_block)) of the cdiv(total, LUT_CHUNK) chunks,
+    per_block a multiple of LUT_ITER_CHUNKS, in at most LUT_BLOCKS_PER_SM
+    blocks an SM. (The kernel for 4-byte entries sizes its own grid.)"""
+    chunks = cdiv(total, LUT_CHUNK)
+    blocks = min(cdiv(chunks, LUT_ITER_CHUNKS), sms * LUT_BLOCKS_PER_SM)
+    per_block = round_up(cdiv(chunks, blocks), LUT_ITER_CHUNKS)
+    return cdiv(chunks, per_block), per_block
+
+
 def _gather(img, tables, tstride: int):
     """One launch of the gather kernel over the (frames, n) u8 pixels of
     ``img``: frame f looks up ``tables`` from entry f * tstride on. Tables
@@ -156,9 +177,10 @@ def _gather(img, tables, tstride: int):
     if img.numel() == 0:
         return out.view(tables.dtype)
     frames = img.shape[0] if tstride else 1
+    blocks, per_block = lut_gather_plan(img.numel(), sm_count(img.device))
     launch("tpuimg_lut_gather", img.device, img.data_ptr(),
            img.numel() // frames, frames, words.data_ptr(), tstride,
-           words.element_size(), out.data_ptr())
+           words.element_size(), blocks, per_block, out.data_ptr())
     lut_gather.launches += 1
     return out.view(tables.dtype)
 
