@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive tpuimg_torch's enhance pipeline, filters, histogram equalization,
-integral image, morphology and row-sharded path once on one CUDA card and
-check them.
+integral image, morphology, row-sharded path, CLI, colour, metrics,
+profiling and frame stream once on one CUDA card and check them.
 
 Run from the repository root on a machine with an NVIDIA Hopper card and
 nvcc:
@@ -128,7 +128,29 @@ Phases, each printed on its own line:
    an input at offset 1, 16 frames of 1080p with torch.gather after a cast
    as its library call) kernels at 4K and 1080p, the band at a 4K shard's
    block, each beside its bound and the first CUDA design's time; and the
-   harness floor, the events' time of a one-element in-place add.
+   harness floor, the events' time of a one-element in-place add;
+6. the modules around the ops, in a temporary working directory, each CLI
+   call with every launch counter reset just before it and read just
+   after, every kernel it reaches launched: first a probe of what the
+   IO-dependent commands need (cv2, PIL, g++ and the native loader, whose
+   build failure is named); the CLI in-process
+   (``tpuimg_torch.cli.main``) at 4K, its defaults, --nreps 5: enhance
+   (its three rows beside events on the same frame), gaussian r1, integral,
+   guided (twopass and onepass), morphology erode r5 and open r15, sweep
+   morphology at r 1 and 15, every row [OK]; the seven autotest families at
+   their default --max-size, two runs of seed 0, each res.log line within
+   its family's tolerance; rgb_to_lab, lab_to_rgb and rgb_to_gray on a 4K
+   RGB frame on the card within 1 step of the CPU (differing values
+   counted); max_abs_diff and max_abs_diff_loc on the card equal to NumPy
+   (int32 above 2^24 with a tie, uint8 0 against 255); profiling.trace
+   around one 4K enhance call, its Chrome trace naming the enhance_tail
+   kernel, and stage_times over staged enhance's stages at 4K (the chain
+   equal to enhance staged); then, where cv2 or PIL can write PNGs, he and
+   clahe on a 4K gray PNG, clahe on a 1080p colour PNG and morphology
+   --color rgb|lab (rgb equal to erode of its channels), and, where the
+   native loader builds, stream --op enhance over 16 1080p PNGs (its first
+   frame equal to enhance on the card), frames/s printed; what the machine
+   lacks is named on one line.
 
 Then one JSON line with the kernels (launches summed over phase 4's runs;
 times and the least time the card could take, at 4K or a 4K shard), and
@@ -138,9 +160,16 @@ non-zero without printing the device line.
 
 from __future__ import annotations
 
+import contextlib
 import functools
+import glob
+import importlib
+import io
 import json
+import os
+import shutil
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -171,12 +200,15 @@ from tpuimg_torch.kernels.sep_stencil import (
 from tpuimg_torch.ops.gaussian import gaussian_ypadded
 from tpuimg_torch.ops.histogram import (
     _clahe_geometry, _clahe_tables, _he_tables)
+from tpuimg_torch.ops.color import lab_to_rgb, rgb_to_gray, rgb_to_lab
+from tpuimg_torch.ops.metrics import max_abs_diff, max_abs_diff_loc
 from tpuimg_torch.ops.morphology import morph_ypadded
 from tpuimg_torch.parallel import (
     clahe_sharded, enhance_sharded, guided_filter_sharded,
     hist_equalize_sharded, integral_sharded, make_mesh, shard_batch,
     shard_rows, stencil_sharded)
 from tpuimg_torch.pipeline import _to_u8, enhance
+from tpuimg_torch.profiling import stage_times, trace
 
 SEED = 0
 SHAPES = [(2160, 3840), (2161, 3839), (1080, 1920)]
@@ -2140,6 +2172,285 @@ def time_sharded(dev, card: str, batch: np.ndarray) -> dict:
     return at
 
 
+# phase 6: the CLI (python -m tpuimg_torch), colour, metrics, profiling and
+# the native frame stream. Each CLI call at 4K, the CLI's defaults: its
+# argv and the kernels it must launch.
+CLI_RUNS = [
+    (["enhance", "--nreps", "5"],
+     ("tile_hist", "clahe_map", "enhance_tail", "enhance_tail_clahe",
+      "gaussian", "guided")),
+    (["gaussian", "3840", "2160", "1", "1.0", "5"], ("gaussian",)),
+    (["integral", "--nreps", "5"], ("integral",)),
+    (["guided", "--nreps", "5"], ("guided", "guided_twopass")),
+    (["morphology", "--radius", "5", "--nreps", "5"], ("morphology",)),
+    (["morphology", "--op", "open", "--radius", "15", "--nreps", "5"],
+     ("open_close",)),
+    (["sweep", "morphology", "--radii", "1,15", "--nreps", "5"],
+     ("morphology",)),
+]
+# the seven autotest families at their default --max-size, two runs of
+# seed 0: the kernels they launch, and a res.log line's tolerance (guided:
+# 1e-4 on the reflect-101 path, 1e-3 on the shrink and CN1 class paths)
+AUTOTESTS = [
+    ("integral-autotest", ("integral",), 0.0),
+    ("he-autotest", ("hist256", "lut_gather"), 0.0),
+    ("morph-autotest", ("morphology",), 0.0),
+    ("clahe-autotest", ("tile_hist", "clahe_map"), 1.0),
+    ("gaussian-autotest", ("gaussian",), 1e-5),
+    ("guided-autotest", ("guided",), 1e-4),
+    ("enhance-autotest", ("tile_hist", "clahe_map", "enhance_tail"), 2.0),
+]
+AUTOTEST_RUNS = 2
+STREAM_FRAMES = 16  # 1920x1080, stream's defaults
+FUSED = ("tile_hist", "clahe_map", "enhance_tail")
+# csrc/enhance_tail.cu's kernel in a trace: tail::tail_kernel<FrameSrc, ...>
+TAIL_KERNEL = ("tail_kernel", "FrameSrc")
+
+
+def run_cli(argv) -> list:
+    """``tpuimg_torch.cli.main(argv)`` in-process on the card; its stdout
+    lines. The CLI must return 0 and print no [FAIL] row."""
+    from tpuimg_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    lines = buf.getvalue().splitlines()
+    check(rc == 0, f"python -m tpuimg_torch {' '.join(argv)} returned {rc}")
+    check(not any("[FAIL]" in line for line in lines),
+          f"{' '.join(argv)}: a row failed: {lines}")
+    return lines
+
+
+def drive_cli(card: str, argv, expected, label=None) -> list:
+    """One CLI call as a main path: counters reset before, read after,
+    every expected kernel launched; each line printed beside the card."""
+    label = label or " ".join(argv)
+    lines, got = drive(f"cli {label}", expected, run_cli, argv)
+    for line in lines:
+        print(f"phase 6 cli {label}: {line} [{card}]")
+    print(f"phase 6 cli {label}: launches {pick(got, expected)} [{card}]")
+    return lines
+
+
+def cli_ms(lines, name: str) -> float:
+    """The ms a CLI report row gives for ``name``."""
+    row = next(line for line in lines if line.startswith(name))
+    return float(row[len(name):].split("ms")[0])
+
+
+def probe_io() -> dict:
+    """What the IO-dependent commands need: cv2 or PIL (image files),
+    and the native loader (g++, -lpng16, -ljpeg)."""
+    from tpuimg_torch import native
+
+    have = {}
+    for mod in ("cv2", "PIL"):
+        try:
+            have[mod] = importlib.import_module(mod).__version__
+        except ImportError:
+            have[mod] = None
+    have["g++"] = shutil.which("g++")
+    t0 = time.perf_counter()
+    try:
+        native.load()
+        have["loader"] = f"built in {time.perf_counter() - t0:.1f} s"
+    except (OSError, native.NativeBuildError) as e:
+        lines = str(e).strip().splitlines()
+        have["loader"] = None  # the compiler's first error names the cause
+        have["loader_error"] = next(
+            (line.split(": ", 1)[-1] for line in lines if "error" in line),
+            lines[-1])[:200]
+    return have
+
+
+def check_cli_commands(dev, card: str) -> None:
+    """Phase 6, the CLI's demos at 4K and its seven autotest families."""
+    for argv, expected in CLI_RUNS:
+        lines = drive_cli(card, argv, expected)
+        if argv[0] == "enhance":
+            # the CLI's frame: uniform noise from seed 0 (cli._load_or_random)
+            img = torch.from_numpy(np.random.default_rng(0).integers(
+                0, 256, (2160, 3840), dtype=np.uint8)).to(dev)
+            for impl in ("fused", "fused1", "staged"):
+                t = time_cuda(enhance, img, CLIP, TILES, RG, SIGMA, GF_R,
+                              GF_EPS, impl, iters=ITERS, card=card)
+                print(f"phase 6 enhance[{impl}] 2160x3840: the CLI's row "
+                      f"{cli_ms(lines, f'enhance[{impl}]'):.4f} ms (median "
+                      f"of 8), events on its frame {t.ms:.4f} ms (min "
+                      f"{t.ms_min:.4f}, median of {ITERS}) [{card}]")
+    for family, expected, tol in AUTOTESTS:
+        if os.path.exists("res.log"):
+            os.remove("res.log")
+        drive_cli(card, [family, "--runs", str(AUTOTEST_RUNS)], expected)
+        with open("res.log") as f:
+            logged = f.read().strip().splitlines()
+        check(len(logged) == AUTOTEST_RUNS, f"{family}: {logged}")
+        for line in logged:
+            diff = float(line.rsplit(": ", 1)[1])
+            loose = family == "guided-autotest" and (
+                "-cn1" in line or "shrink" in line)
+            check(diff <= (1e-3 if loose else tol), f"{family}: {line}")
+
+
+def check_colour_metrics(dev, card: str) -> None:
+    """Phase 6, colour on a 4K RGB frame and the metrics, card vs CPU."""
+    rgb = torch.from_numpy(np.stack(
+        [make_frame(2160, 3840, SEED + 20 + c) for c in range(3)], axis=-1))
+    for name, fn, x in (("rgb_to_lab", rgb_to_lab, rgb),
+                        ("lab_to_rgb", lab_to_rgb, rgb_to_lab(rgb)),
+                        ("rgb_to_gray", rgb_to_gray, rgb)):
+        got = fn(x.to(dev)).cpu()
+        ref = fn(x)
+        check(got.shape == ref.shape and got.dtype == torch.uint8,
+              f"{name} {tuple(got.shape)} {got.dtype}")
+        steps = int((got.int() - ref.int()).abs().max())
+        check(steps <= 1, f"{name} card vs CPU: {steps} <= 1 step")
+        print(f"phase 6 colour {name} 2160x3840: card vs CPU {steps} step, "
+              f"{int((got != ref).sum())} of {ref.numel()} values differ "
+              f"[{card}]")
+    rng = np.random.default_rng(SEED + 23)
+    a = rng.integers(2**24, 2**30, (2160, 3840)).astype(np.int32)
+    b = a + rng.integers(-3, 4, a.shape).astype(np.int32)
+    b[1234, 2345] = a[1234, 2345] + 1000
+    b[2000, 10] = a[2000, 10] - 1000  # a tie, later in row-major order
+    cases = {"int32 above 2^24": (a, b),
+             "uint8 0 vs 255": (np.zeros((2160, 3840), np.uint8),
+                                np.full((2160, 3840), 255, np.uint8))}
+    for label, (x, y) in cases.items():
+        d = np.abs(x.astype(np.int64) - y.astype(np.int64))
+        i = int(d.argmax())
+        want = (int(d.max()), i // x.shape[1], i % x.shape[1])
+        tx, ty = torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
+        m = max_abs_diff(tx, ty)
+        loc = max_abs_diff_loc(tx, ty)
+        check(m.device == tx.device and m.ndim == 0,
+              f"max_abs_diff {label}: 0-d on the inputs' device")
+        got = tuple(int(t) for t in loc)
+        check(int(m) == want[0] and got == want,
+              f"max_abs_diff(_loc) {label}: {int(m)}, {got} == {want}")
+        print(f"phase 6 metrics {label} 2160x3840: max_abs_diff {int(m)}, "
+              f"loc {got[1:]}, equal to NumPy [{card}]")
+
+
+def check_profiling(dev, card: str, tmp: str) -> None:
+    """Phase 6, ``profiling.trace`` around one 4K enhance call and
+    ``stage_times`` over staged enhance's stages."""
+    img = torch.from_numpy(make_frame(*SHAPES[0], SEED)).to(dev)
+    enhance(img)
+    torch.cuda.synchronize()
+    for attempt in range(3):  # the profiler drops a trace now and then
+        logdir = os.path.join(tmp, f"trace{attempt}")
+        with trace(logdir):
+            enhance(img)
+        (path,) = glob.glob(os.path.join(logdir, "*.pt.trace.json"))
+        with open(path) as f:
+            names = [e.get("name", "") for e in json.load(f)["traceEvents"]
+                     if e.get("cat") == "kernel"]
+        if names:
+            break
+    tails = [n for n in names if all(k in n for k in TAIL_KERNEL)]
+    check(len(tails) == 1, f"the trace names the enhance_tail kernel once: "
+          f"{names}")
+    print(f"phase 6 trace enhance 2160x3840: {os.path.basename(path)}, "
+          f"{len(names)} kernels, the tail as {tails[0][:60]} [{card}]")
+    stages = [
+        ("clahe", lambda x: clahe(x, CLIP, TILES, TILES)),
+        ("to_f32", lambda e: e.to(torch.float32) * (1.0 / 255.0)),
+        ("gaussian", lambda f: torch.stack([f, gaussian(f, RG, SIGMA)])),
+        ("guided", lambda fs: guided_filter(fs[0], fs[1], GF_R, GF_EPS,
+                                            border="reflect101")),
+        ("to_u8", _to_u8)]
+    res = stage_times(stages, img, iters=ITERS)
+    staged = enhance(img, CLIP, TILES, RG, SIGMA, GF_R, GF_EPS, "staged")
+    chained = img
+    for _, fn in stages:
+        chained = fn(chained)
+    check(torch.equal(chained, staged), "stage_times' chain is staged enhance")
+    check(all(t.clock == "cuda events" for t in res.values()),
+          "stage_times on the card times by CUDA events")
+    print("phase 6 stage_times staged enhance 2160x3840 (gaussian's stage "
+          "also stacks f with its output): "
+          + ", ".join(f"{k} {t.ms:.4f}" for k, t in res.items())
+          + f" ms, median of {ITERS} [{card}]")
+
+
+def check_io_commands(dev, card: str, have: dict, tmp: str) -> None:
+    """Phase 6, the commands that read and write image files: he, clahe
+    (gray and colour) and morphology --color rgb|lab on PNGs written by
+    cv2 or PIL, and stream --op enhance over 16 1080p PNGs through the
+    native loader. What the machine lacks is named on one line."""
+    from tpuimg_torch import native
+
+    skipped = []
+    if have["cv2"] or have["PIL"]:
+        from tpuimg_torch.utils import imread_rgb, imwrite
+
+        gray = os.path.join(tmp, "gray.png")
+        color = os.path.join(tmp, "color.png")
+        imwrite(gray, make_frame(*SHAPES[0], SEED + 24))
+        imwrite(color, np.stack([make_frame(1080, 1920, SEED + 25 + c)
+                                 for c in range(3)], axis=-1))
+        drive_cli(card, ["he", gray, "--nreps", "5"],
+                  ("hist256", "lut_gather"), "he gray 2160x3840")
+        drive_cli(card, ["clahe", gray, "--nreps", "5"], ("tile_hist",
+                                                         "clahe_map"),
+                  "clahe gray 2160x3840")
+        drive_cli(card, ["clahe", color, "--nreps", "5"], ("tile_hist",
+                                                          "clahe_map"),
+                  "clahe colour 1080x1920")
+        for form in ("rgb", "lab"):
+            drive_cli(card, ["morphology", "--color", form, "--radius", "5",
+                             "--src", color], ("morphology",),
+                      f"morphology --color {form} 1080x1920")
+        rgb = torch.from_numpy(imread_rgb(color)).to(dev)
+        want = erode(rgb.permute(2, 0, 1), 5).permute(1, 2, 0).cpu().numpy()
+        got = imread_rgb(color.replace(".png", "_morph_erode_rgb.png"))
+        check(np.array_equal(got, want), "morphology --color rgb's file "
+              "equals erode of the three channels")
+    else:
+        skipped.append("he, clahe and morphology --color (neither cv2 nor "
+                       "PIL is installed to read and write image files)")
+    if have["loader"]:
+        frames = os.path.join(tmp, "frames")
+        out = os.path.join(tmp, "stream_out")
+        os.makedirs(frames)
+        for i in range(STREAM_FRAMES):
+            native.write_png(os.path.join(frames, f"f{i:02d}.png"),
+                             make_frame(1080, 1920, SEED + 30 + i))
+        lines = drive_cli(card, ["stream", os.path.join(frames, "*.png"),
+                                 "--op", "enhance", "--out", out], FUSED,
+                          f"stream --op enhance {STREAM_FRAMES}x1920x1080")
+        check(any(f"processed {STREAM_FRAMES} frames" in line
+                  for line in lines), f"stream: {lines}")
+        written = sorted(glob.glob(os.path.join(out, "*.png")))
+        check(len(written) == STREAM_FRAMES, f"stream wrote {len(written)}")
+        first = torch.from_numpy(make_frame(1080, 1920, SEED + 30)).to(dev)
+        check(np.array_equal(native.read_image(written[0]),
+                             enhance(first).cpu().numpy()),
+              "stream's first frame equals enhance on the card")
+    else:
+        skipped.append(f"stream (the native loader does not build: "
+                       f"{have['loader_error']})")
+    if skipped:
+        print(f"phase 6 not run: {'; '.join(skipped)}")
+
+
+def run_phase6(dev, card: str) -> None:
+    """Phase 6 in a temporary working directory (the CLI writes res.log,
+    sweep JSON and PNGs where it runs)."""
+    have = probe_io()
+    print("phase 6 probe: " + ", ".join(
+        f"{k} {v if v else 'missing'}" for k, v in have.items()
+        if k != "loader_error")
+        + (f" ({have['loader_error']})" if not have["loader"] else ""))
+    with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(tmp):
+        check_cli_commands(dev, card)
+        check_colour_metrics(dev, card)
+        check_profiling(dev, card, tmp)
+        check_io_commands(dev, card, have, tmp)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this check "
@@ -2194,6 +2505,9 @@ def main() -> int:
     times.update(time_sharded(dev, card, batch))
     time_redesigned(dev, card)
     print(f"phase 5 took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    run_phase6(dev, card)
+    print(f"phase 6 took {time.perf_counter() - t0:.1f} s")
 
     keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
     rows = [{"name": name, "route": "cuda", "source": src, "replaces": tpu,

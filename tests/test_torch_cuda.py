@@ -1734,3 +1734,109 @@ def test_lut_gather_two_streams_at_once(card):
     torch.cuda.synchronize()
     for i, out in outs:
         assert torch.equal(_bits(out), want[i])
+
+
+# -- colour, metrics, the CLI, the frame stream and the profiler on the card
+
+
+def _steps(a, b) -> int:
+    return int((a.cpu().int() - b.cpu().int()).abs().max())
+
+
+@pytest.mark.parametrize("shape", [(2160, 3840, 3), (3, 17, 23, 3)])
+def test_color_on_card_matches_cpu(card, shape):
+    from tpuimg_torch.ops import color
+
+    rgb = torch.from_numpy(_frame(shape, 91))
+    for name in ("rgb_to_lab", "lab_to_rgb", "bgr_to_lab", "lab_to_bgr",
+                 "rgb_to_gray"):
+        fn = getattr(color, name)
+        got = fn(rgb.to(card))
+        assert got.is_cuda and got.dtype == torch.uint8
+        assert _steps(got, fn(rgb)) <= 1, name
+
+
+def test_metrics_on_card_match_cpu(card):
+    from tpuimg_torch.ops.metrics import max_abs_diff, max_abs_diff_loc
+
+    rng = np.random.default_rng(92)
+    big = torch.from_numpy(rng.integers(2**24, 2**30, (64, 80)).astype(
+        np.int32))
+    cases = [
+        (big, big + 1),
+        (torch.zeros((9, 9), dtype=torch.uint8),
+         torch.full((9, 9), 255, dtype=torch.uint8)),
+        (torch.from_numpy(rng.random((33, 47), dtype=np.float32)),
+         torch.from_numpy(rng.random((33, 47), dtype=np.float32))),
+    ]
+    tie = torch.zeros((5, 7), dtype=torch.int32)
+    tie2 = tie.clone()
+    tie2[1, 2] = tie2[3, 4] = 9
+    cases.append((tie, tie2))
+    for a, b in cases:
+        got = max_abs_diff(a.to(card), b.to(card))
+        assert got.is_cuda and got.ndim == 0
+        assert got.item() == max_abs_diff(a, b).item()
+        loc = max_abs_diff_loc(a.to(card), b.to(card))
+        assert [t.item() for t in loc] == [
+            t.item() for t in max_abs_diff_loc(a, b)]
+    assert max_abs_diff(cases[1][0].to(card), cases[1][1].to(card)) == 255
+
+
+@pytest.mark.parametrize("argv,rows", [
+    (["integral", "--width", "300", "--height", "200", "--nreps", "2"], 2),
+    (["enhance", "--width", "320", "--height", "180", "--nreps", "2"], 3),
+])
+def test_cli_on_card(card, capsys, argv, rows):
+    from tpuimg_torch.cli import main
+
+    assert main(argv) == 0
+    out, err = capsys.readouterr()
+    assert out.count("[OK]") == rows
+    assert "times by CUDA events" in err
+
+
+def test_cli_he_autotest_on_card(card, tmp_path, monkeypatch, capsys):
+    from tpuimg_torch.cli import main
+
+    monkeypatch.chdir(tmp_path)
+    assert main(["he-autotest", "--runs", "3", "--max-size", "400"]) == 0
+    lines = (tmp_path / "res.log").read_text().strip().splitlines()
+    assert len(lines) == 3 and all(l.endswith(": 0") for l in lines)
+
+
+def test_frame_stream_into_enhance_on_card(card, tmp_path):
+    from tpuimg_torch import native
+
+    if not native.available():
+        pytest.skip("native loader does not build here")
+    frames = [_frame((180, 320), 93 + i) for i in range(5)]
+    paths = []
+    for i, f in enumerate(frames):
+        paths.append(str(tmp_path / f"f{i}.png"))
+        native.write_png(paths[-1], f)
+    seen = 0
+    with native.FrameStream(paths, (180, 320), gray=True, threads=2) as fs:
+        for idx, frame in fs:
+            out = enhance(torch.from_numpy(frame).to(card))
+            assert out.is_cuda
+            assert _steps(out, enhance(torch.from_numpy(frames[idx]))) <= 1
+            seen += 1
+    assert seen == 5
+
+
+def test_trace_on_card_names_the_enhance_tail_kernel(card, tmp_path):
+    import glob
+    import json
+
+    from tpuimg_torch.profiling import trace
+
+    img = torch.from_numpy(_frame((540, 960), 98)).to(card)
+    with trace(str(tmp_path)):
+        enhance(img)
+    (path,) = glob.glob(str(tmp_path / "*.pt.trace.json"))
+    with open(path) as f:
+        names = [e.get("name", "") for e in json.load(f)["traceEvents"]
+                 if e.get("cat") == "kernel"]
+    # csrc/enhance_tail.cu instantiates tail::tail_kernel with its FrameSrc
+    assert any("tail_kernel" in n and "FrameSrc" in n for n in names), names

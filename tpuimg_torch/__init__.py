@@ -5,7 +5,8 @@ its layout and public functions, and holds each op to tpuimg's contracts.
 Every TPU kernel on a ported path becomes a hand-written CUDA kernel
 (``tpuimg_torch/csrc``), built at first use; a CPU tensor runs each kernel's
 plain PyTorch version instead. Importing this package imports neither JAX nor
-``tpuimg``.
+``tpuimg``. ``python -m tpuimg_torch`` is the demo and autotest CLI
+(``cli.py``), on the card by default.
 """
 
 from tpuimg_torch.ops import (

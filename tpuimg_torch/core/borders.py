@@ -12,9 +12,13 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from tpuimg_torch.core.validate import ParamError
+
 REFLECT101 = "reflect101"
 REPLICATE = "replicate"
 SHRINK = "shrink"
+
+_NUMPY_PAD_MODE = {REFLECT101: "reflect", REPLICATE: "edge"}
 
 
 def reflect101_index(x, size: int):
@@ -27,6 +31,16 @@ def reflect101_index(x, size: int):
     period = 2 * (size - 1)
     m = abs(x) % period
     return m - (2 * m - period) * (m >= size)
+
+
+def pad_mode(border: str) -> str:
+    """``np.pad`` mode string for a border policy."""
+    try:
+        return _NUMPY_PAD_MODE[border]
+    except KeyError:
+        raise ParamError(
+            f"border must be one of {sorted(_NUMPY_PAD_MODE)}, got {border!r}"
+        ) from None
 
 
 def pad_reflect101(x: torch.Tensor, pad_h: int, pad_w: int) -> torch.Tensor:

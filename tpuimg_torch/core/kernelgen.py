@@ -1,5 +1,5 @@
 """Gaussian kernel weights with OpenCV semantics (port of
-``tpuimg.core.kernelgen``).
+``tpuimg.core.kernelgen``: ``gaussian_kernel_1d`` and ``gaussian_kernel_2d``).
 
 The same NumPy arithmetic as the JAX package, so the taps are the same bits:
 ``cv::getGaussianKernel(ksize, sigma)`` computed in float64, then cast.
@@ -32,3 +32,9 @@ def gaussian_kernel_1d(ksize: int, sigma: float, dtype=np.float32) -> np.ndarray
         k = np.exp(-(x * x) / (2.0 * s * s))
         k = k / k.sum()
     return k.astype(dtype)
+
+
+def gaussian_kernel_2d(radius: int, sigma: float, dtype=np.float32) -> np.ndarray:
+    """(2r+1, 2r+1) kernel = outer product of the 1D kernel (reference `gaussian.cu:445`)."""
+    k1 = gaussian_kernel_1d(2 * radius + 1, sigma, dtype=np.float64)
+    return np.outer(k1, k1).astype(dtype)

@@ -56,6 +56,18 @@ class GuidedConfig:
         check_positive(self.eps, "eps")
 
 
+@dataclass(frozen=True)
+class MorphConfig:
+    radius: int = 5
+    mode: int = 0  # 0 = erode/min, 1 = dilate/max (fn table image_process.cu:11-26)
+
+    def __post_init__(self):
+        check_radius(self.radius)
+        if self.mode not in (0, 1):
+            raise ParamError(
+                f"mode must be 0 (erode) or 1 (dilate), got {self.mode}")
+
+
 class EnhanceState(NamedTuple):
     """Everything ``enhance`` needs after CLAHE's histogram front end."""
 
