@@ -144,8 +144,8 @@ Phases, each printed on its own line:
    counted); max_abs_diff and max_abs_diff_loc on the card equal to NumPy
    (int32 above 2^24 with a tie, uint8 0 against 255); profiling.trace
    around one 4K enhance call, its Chrome trace naming the enhance_tail
-   kernel, and stage_times over staged enhance's stages at 4K (the chain
-   equal to enhance staged); then, where cv2 or PIL can write PNGs, he and
+   kernel once and holding the call's spans, its three kernel launches
+   among them; then, where cv2 or PIL can write PNGs, he and
    clahe on a 4K gray PNG, clahe on a 1080p colour PNG and morphology
    --color rgb|lab (rgb equal to erode of its channels), and, where the
    native loader builds, stream --op enhance over 16 1080p PNGs (its first
@@ -208,7 +208,7 @@ from tpuimg_torch.parallel import (
     hist_equalize_sharded, integral_sharded, make_mesh, shard_batch,
     shard_rows, stencil_sharded)
 from tpuimg_torch.pipeline import _to_u8, enhance
-from tpuimg_torch.profiling import stage_times, trace
+from tpuimg_torch.profiling import trace
 
 SEED = 0
 SHAPES = [(2160, 3840), (2161, 3839), (1080, 1920)]
@@ -2334,8 +2334,8 @@ def check_colour_metrics(dev, card: str) -> None:
 
 
 def check_profiling(dev, card: str, tmp: str) -> None:
-    """Phase 6, ``profiling.trace`` around one 4K enhance call and
-    ``stage_times`` over staged enhance's stages."""
+    """Phase 6, ``profiling.trace`` around one 4K enhance call: the kernels
+    and the program's spans in one Chrome trace."""
     img = torch.from_numpy(make_frame(*SHAPES[0], SEED)).to(dev)
     enhance(img)
     torch.cuda.synchronize()
@@ -2345,34 +2345,21 @@ def check_profiling(dev, card: str, tmp: str) -> None:
             enhance(img)
         (path,) = glob.glob(os.path.join(logdir, "*.pt.trace.json"))
         with open(path) as f:
-            names = [e.get("name", "") for e in json.load(f)["traceEvents"]
-                     if e.get("cat") == "kernel"]
+            events = json.load(f)["traceEvents"]
+        names = [e.get("name", "") for e in events
+                 if e.get("cat") == "kernel"]
         if names:
             break
     tails = [n for n in names if all(k in n for k in TAIL_KERNEL)]
     check(len(tails) == 1, f"the trace names the enhance_tail kernel once: "
           f"{names}")
+    spans = [e["name"] for e in events if e.get("cat") == "tpuimg_span"]
+    check(spans.count("pipeline.enhance") == 1
+          and spans.count("kernels.launch") == 3,
+          f"the trace holds one enhance call's spans: {spans}")
     print(f"phase 6 trace enhance 2160x3840: {os.path.basename(path)}, "
-          f"{len(names)} kernels, the tail as {tails[0][:60]} [{card}]")
-    stages = [
-        ("clahe", lambda x: clahe(x, CLIP, TILES, TILES)),
-        ("to_f32", lambda e: e.to(torch.float32) * (1.0 / 255.0)),
-        ("gaussian", lambda f: torch.stack([f, gaussian(f, RG, SIGMA)])),
-        ("guided", lambda fs: guided_filter(fs[0], fs[1], GF_R, GF_EPS,
-                                            border="reflect101")),
-        ("to_u8", _to_u8)]
-    res = stage_times(stages, img, iters=ITERS)
-    staged = enhance(img, CLIP, TILES, RG, SIGMA, GF_R, GF_EPS, "staged")
-    chained = img
-    for _, fn in stages:
-        chained = fn(chained)
-    check(torch.equal(chained, staged), "stage_times' chain is staged enhance")
-    check(all(t.clock == "cuda events" for t in res.values()),
-          "stage_times on the card times by CUDA events")
-    print("phase 6 stage_times staged enhance 2160x3840 (gaussian's stage "
-          "also stacks f with its output): "
-          + ", ".join(f"{k} {t.ms:.4f}" for k, t in res.items())
-          + f" ms, median of {ITERS} [{card}]")
+          f"{len(names)} kernels, the tail as {tails[0][:60]}, {len(spans)} "
+          f"spans [{card}]")
 
 
 def check_io_commands(dev, card: str, have: dict, tmp: str) -> None:

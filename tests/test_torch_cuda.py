@@ -1840,3 +1840,30 @@ def test_trace_on_card_names_the_enhance_tail_kernel(card, tmp_path):
                  if e.get("cat") == "kernel"]
     # csrc/enhance_tail.cu instantiates tail::tail_kernel with its FrameSrc
     assert any("tail_kernel" in n and "FrameSrc" in n for n in names), names
+
+
+def test_trace_on_card_puts_each_launch_call_inside_its_span(card, tmp_path):
+    import glob
+    import json
+
+    from tpuimg_torch.profiling import trace
+
+    img = torch.from_numpy(_frame((540, 960), 99)).to(card)
+    enhance(img)
+    torch.cuda.synchronize()
+    with trace(str(tmp_path)):
+        enhance(img)
+    (path,) = glob.glob(str(tmp_path / "*.pt.trace.json"))
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    launches = [e for e in events if e.get("cat") == "tpuimg_span"
+                and e["name"] == "kernels.launch"]
+    calls = [e for e in events if e.get("cat") == "cuda_runtime"
+             and e["name"].startswith("cudaLaunchKernel")]
+    assert len(launches) == 3, launches
+    # the spans are on the profiler's clock: each launch span holds the
+    # runtime call that launches its kernel
+    for span in launches:
+        inside = [c for c in calls if span["ts"] <= c["ts"]
+                  and c["ts"] + c["dur"] <= span["ts"] + span["dur"]]
+        assert len(inside) == 1, (span, calls)

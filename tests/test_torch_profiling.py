@@ -8,36 +8,9 @@ import numpy as np
 import pytest
 import torch
 
-from tpuimg_torch import gaussian
 from tpuimg_torch.core.timing import Timing, time_fn, time_host
 from tpuimg_torch.pipeline import enhance
-from tpuimg_torch.profiling import stage_times, trace
-
-
-def test_stage_times_returns_each_stage_and_chained(rng):
-    x = torch.from_numpy(rng.random((64, 64), dtype=np.float32))
-    res = stage_times(
-        [("blur", lambda v: gaussian(v, 1, 1.0)),
-         ("blur2", lambda v: gaussian(v, 2, 1.5))], x, iters=3)
-    assert list(res) == ["blur", "blur2", "chained"]
-    for t in res.values():
-        assert isinstance(t, Timing) and t.ms >= 0 and t.iters == 3
-        assert (t.clock, t.device, t.card) == ("host", "cpu", "cpu")
-
-
-def test_stage_times_feeds_each_stage_its_real_input(rng):
-    seen = []
-
-    def first(v):
-        return v.to(torch.float32) * 2
-
-    def second(v):
-        seen.append(v.dtype)
-        return v + 1
-
-    x = torch.from_numpy(rng.integers(0, 256, (8, 8), dtype=np.uint8))
-    stage_times([("first", first), ("second", second)], x, iters=2)
-    assert seen and set(seen) == {torch.float32}
+from tpuimg_torch.profiling import trace
 
 
 def test_host_timer_reports_pixels_and_refuses_cuda_tensors():

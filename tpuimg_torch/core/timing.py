@@ -9,8 +9,8 @@ one call. The TPU streaming protocol and its v5e bandwidth constant have no
 counterpart here. Every card result carries the card's name and power
 limit, because a card set below its maximum power runs slower under load.
 
-``time_host`` times calls on CPU tensors by the host clock, so the CLI and
-``profiling.stage_times`` run without a card; its results say
+``time_host`` times calls on CPU tensors by the host clock, so the CLI runs
+without a card; its results say
 ``clock="host"`` and ``device="cpu"``, so no CPU figure passes for a card
 figure. ``time_fn`` picks by the input's device: a CUDA tensor is always
 timed by ``time_cuda``.

@@ -28,6 +28,8 @@ from pathlib import Path
 
 import torch
 
+from tpuimg_torch.profiling import span
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -111,6 +113,7 @@ _SIGNATURES = {
 }
 
 _lib = None
+_launched: set[str] = set()  # the C entries this process has launched
 
 
 class KernelBuildError(RuntimeError):
@@ -223,17 +226,26 @@ def load() -> ctypes.CDLL:
     """Build if needed, then load the library once per process."""
     global _lib
     if _lib is None:
-        _lib = bind(build())
+        with span("kernels.load", "load"):
+            with span("kernels.build", "load"):
+                path = build()
+            _lib = bind(path)
     return _lib
 
 
 def launch(name: str, device: torch.device, *args) -> None:
     """Call C entry ``name`` with ``args`` plus ``device``'s current stream;
-    raise ``KernelLaunchError`` unless it returns cudaSuccess."""
-    lib = load()
-    with torch.cuda.device(device):  # the tensor's card is the current one
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = getattr(lib, name)(*args, stream)
+    raise ``KernelLaunchError`` unless it returns cudaSuccess. The span
+    marks the process's first launch of ``name``, which loads its kernels
+    onto the card."""
+    first = name not in _launched
+    with span("kernels.launch", "launch", name, first):
+        lib = load()
+        with torch.cuda.device(device):  # the tensor's card is the current one
+            stream = torch.cuda.current_stream(device).cuda_stream
+            err = getattr(lib, name)(*args, stream)
+    if first:
+        _launched.add(name)
     if err != 0:
         msg = lib.tpuimg_cuda_error_string(err).decode()
         raise KernelLaunchError(f"{name}: CUDA error {err} ({msg})")

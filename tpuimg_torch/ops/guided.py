@@ -30,6 +30,7 @@ from tpuimg_torch.core.validate import (
     check_ypadded_rows)
 from tpuimg_torch.kernels.boxsum import (
     guided_chain, guided_filter_kernel, guided_ypadded_kernel, window_sum)
+from tpuimg_torch.profiling import span
 
 _FLOAT_IN = [torch.float32, torch.float64, torch.uint8]
 
@@ -146,27 +147,36 @@ def guided_filter(I, p, radius: int, eps: float, border: str = SHRINK):
     variance. Passing the same tensor as I and p collapses the four window
     means to two (detected by object identity). p may add one leading
     channel dim to I: each channel is filtered with the shared guide."""
-    self_guided = p is I
-    check_radius(radius)
-    check_positive(eps, "eps")  # eps=0 gives 0/0=NaN on constant windows
-    I = as_image(I)
-    p = I if self_guided else as_image(p, like=I)
-    check_image(I, "I", dtypes=_FLOAT_IN)
-    check_image(p, "p", dtypes=_FLOAT_IN)
-    if p.ndim not in (I.ndim, I.ndim + 1) or p.shape[-2:] != I.shape[-2:]:
-        raise ShapeError(
-            f"guide I {tuple(I.shape)} and source p {tuple(p.shape)} must "
-            f"share spatial dims (p may add one leading channel dim)"
-        )
-    box = _box(border, radius)
-    I = I.to(torch.float32)
-    p = I if self_guided else p.to(torch.float32)
-    if border == SHRINK or radius > _PALLAS_MAX_RADIUS:
-        return guided_chain(I, p, eps, box, self_guided)
-    if self_guided:
-        I = p = I.contiguous()
-    else:  # the kernel takes I's frames, C times over in p
-        lead = p.shape[:p.ndim - I.ndim]
-        shape = torch.broadcast_shapes(I.shape, p.shape[len(lead):])
-        I, p = I.expand(shape).contiguous(), p.expand(lead + shape).contiguous()
-    return guided_filter_kernel(I, p, radius, eps, self_guided=self_guided)
+    with span("ops.guided_filter", "entry"):
+        with span("guided.prepare", "entry"):
+            self_guided = p is I
+            check_radius(radius)
+            # eps=0 gives 0/0=NaN on constant windows
+            check_positive(eps, "eps")
+            I = as_image(I)
+            p = I if self_guided else as_image(p, like=I)
+            check_image(I, "I", dtypes=_FLOAT_IN)
+            check_image(p, "p", dtypes=_FLOAT_IN)
+            if p.ndim not in (I.ndim, I.ndim + 1) or (
+                    p.shape[-2:] != I.shape[-2:]):
+                raise ShapeError(
+                    f"guide I {tuple(I.shape)} and source p "
+                    f"{tuple(p.shape)} must share spatial dims (p may add "
+                    f"one leading channel dim)")
+            box = _box(border, radius)
+            I = I.to(torch.float32)
+            p = I if self_guided else p.to(torch.float32)
+            kernel = border != SHRINK and radius <= _PALLAS_MAX_RADIUS
+            if kernel and self_guided:
+                I = p = I.contiguous()
+            elif kernel:  # the kernel takes I's frames, C times over in p
+                lead = p.shape[:p.ndim - I.ndim]
+                shape = torch.broadcast_shapes(I.shape, p.shape[len(lead):])
+                I = I.expand(shape).contiguous()
+                p = p.expand(lead + shape).contiguous()
+        if not kernel:
+            with span("guided.chain", "glue"):
+                return guided_chain(I, p, eps, box, self_guided)
+        with span("guided.kernel", "entry"):
+            return guided_filter_kernel(I, p, radius, eps,
+                                        self_guided=self_guided)

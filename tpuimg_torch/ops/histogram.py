@@ -27,6 +27,7 @@ from tpuimg_torch.core.validate import (
     ParamError, ShapeError, check_image, check_positive, check_radius)
 from tpuimg_torch.kernels.hist import (
     hist256, hist256_frames, hist256_groups, tile_hist)
+from tpuimg_torch.profiling import span
 
 
 def bincount256(x, per_leading: bool = False):
@@ -178,8 +179,11 @@ def _clahe_front(img, clip_limit: float, xtiles: int, ytiles: int):
             f"{tuple(img.shape)}; call it once per frame for a batch"
         )
     th, tw, pad_top, pad_left = _clahe_geometry(*img.shape, xtiles, ytiles)
-    hists = tile_hist(img, ytiles, xtiles, th, tw, pad_top, pad_left)
-    return _clahe_tables(hists, clip_limit, th, tw), th, tw, pad_top, pad_left
+    with span("clahe.hist", "entry"):
+        hists = tile_hist(img, ytiles, xtiles, th, tw, pad_top, pad_left)
+    with span("clahe.tables", "glue"):
+        tables = _clahe_tables(hists, clip_limit, th, tw)
+    return tables, th, tw, pad_top, pad_left
 
 
 def clahe(img, clip_limit: float = 1.0, xtiles: int = 8, ytiles: int = 8,
@@ -193,5 +197,6 @@ def clahe(img, clip_limit: float = 1.0, xtiles: int = 8, ytiles: int = 8,
     img = as_image(img).contiguous()
     tables, th, tw, pad_top, pad_left = _clahe_front(
         img, clip_limit, xtiles, ytiles)
-    return clahe_map(img, tables, ytiles, xtiles, th, tw,
-                     pad_top, pad_left, out_f32=_out_f32)
+    with span("clahe.map", "entry"):
+        return clahe_map(img, tables, ytiles, xtiles, th, tw,
+                         pad_top, pad_left, out_f32=_out_f32)

@@ -37,11 +37,14 @@ from tpuimg_torch.kernels.lut import clahe_map
 from tpuimg_torch.ops.gaussian import gaussian
 from tpuimg_torch.ops.guided import guided_filter
 from tpuimg_torch.ops.histogram import _clahe_front, clahe
+from tpuimg_torch.profiling import span
 
 
 def _to_u8(q):
     """clip(rint(q * 255)); torch.round rounds half to even like rint."""
-    return torch.clamp(torch.round(q * 255.0), 0.0, 255.0).to(torch.uint8)
+    with span("enhance.to_u8", "glue"):
+        return torch.clamp(torch.round(q * 255.0), 0.0, 255.0).to(
+            torch.uint8)
 
 
 def enhance(
@@ -56,31 +59,41 @@ def enhance(
 ):
     """Contrast-enhance + denoise a uint8 (H, W) frame, edges preserved.
     The device is the input tensor's."""
-    check_impl(impl, allowed=("fused", "staged", "fused1"))
-    img = as_image(img)
-    if impl == "staged":
-        eq = clahe(img, clip_limit, tiles, tiles)
-        f = eq.to(torch.float32) * (1.0 / 255.0)
-        smooth = gaussian(f, radius, sigma)
-        out = guided_filter(f, smooth, gf_radius, gf_eps,
-                            border="reflect101")
+    with span("pipeline.enhance", "entry"):
+        check_impl(impl, allowed=("fused", "staged", "fused1"))
+        img = as_image(img)
+        if impl == "staged":
+            eq = clahe(img, clip_limit, tiles, tiles)
+            with span("enhance.scale", "glue"):
+                f = eq.to(torch.float32) * (1.0 / 255.0)
+            with span("enhance.gaussian", "entry"):
+                smooth = gaussian(f, radius, sigma)
+            out = guided_filter(f, smooth, gf_radius, gf_eps,
+                                border="reflect101")
+            return _to_u8(out)
+        img = img.contiguous()
+        tables, *geo = _clahe_front(img, clip_limit, tiles, tiles)
+        # the checks gaussian and guided_filter make on the composed path
+        check_radius(radius)
+        check_radius(gf_radius)
+        check_positive(gf_eps, "eps")
+        tail_fits = min(img.shape) > 2 * (2 * gf_radius + radius)
+        if impl == "fused1" and tail_fits:
+            with span("enhance.tail", "entry"):
+                out = enhance_tail_clahe(img, tables, tiles, tiles, *geo,
+                                         radius, sigma, gf_radius, gf_eps)
+            return _to_u8(out)
+        with span("clahe.map", "entry"):
+            blend = clahe_map(img, tables, tiles, tiles, *geo, out_f32=True)
+        with span("enhance.scale", "glue"):
+            # the factor enhance_tail_clahe applies in-kernel
+            f = blend * INV_255
+        if tail_fits:
+            with span("enhance.tail", "entry"):
+                out = enhance_tail(f, radius, sigma, gf_radius, gf_eps)
+        else:
+            with span("enhance.gaussian", "entry"):
+                smooth = gaussian(f, radius, sigma)
+            out = guided_filter(f, smooth, gf_radius, gf_eps,
+                                border="reflect101")
         return _to_u8(out)
-    img = img.contiguous()
-    tables, *geo = _clahe_front(img, clip_limit, tiles, tiles)
-    # the checks gaussian and guided_filter make on the composed path
-    check_radius(radius)
-    check_radius(gf_radius)
-    check_positive(gf_eps, "eps")
-    tail_fits = min(img.shape) > 2 * (2 * gf_radius + radius)
-    if impl == "fused1" and tail_fits:
-        return _to_u8(enhance_tail_clahe(img, tables, tiles, tiles, *geo,
-                                         radius, sigma, gf_radius, gf_eps))
-    blend = clahe_map(img, tables, tiles, tiles, *geo, out_f32=True)
-    f = blend * INV_255  # the factor enhance_tail_clahe applies in-kernel
-    if tail_fits:
-        out = enhance_tail(f, radius, sigma, gf_radius, gf_eps)
-    else:
-        smooth = gaussian(f, radius, sigma)
-        out = guided_filter(f, smooth, gf_radius, gf_eps,
-                            border="reflect101")
-    return _to_u8(out)
