@@ -27,7 +27,7 @@ from tpuimg_torch.kernels.boxsum import (
 from tpuimg_torch.kernels.hist import (
     hist256, hist256_frames, hist256_groups, hist256_groups_packed,
     hist256_groups_packed_plain, hist256_groups_plain, tile_hist,
-    tile_hist_plain)
+    tile_hist_plain, tile_tables)
 from tpuimg_torch.kernels.lut import (
     clahe_band_map, clahe_band_map_plain, clahe_map, clahe_map_plain,
     lut_gather, lut_gather_frames, lut_gather_frames_plain, lut_gather_plain)
@@ -38,7 +38,8 @@ from tpuimg_torch.kernels.sep_stencil import (
     morph_ypadded_plain, morphology_kernel, morphology_plain,
     open_close_kernel, open_close_max_radius, open_close_plain,
     open_close_tile)
-from tpuimg_torch.ops.histogram import _clahe_geometry, _clahe_tables
+from tpuimg_torch.ops.histogram import (
+    _clahe_geometry, _clahe_scale, _clahe_tables)
 from tpuimg_torch.pipeline import enhance
 
 pytestmark = pytest.mark.cuda
@@ -147,11 +148,14 @@ def test_enhance_tails_radius_range_unaligned(card, rg, r):
     ((270, 480), 8, 2, 8), ((301, 203), 4, 1, 2), ((512, 512), 16, 2, 4)])
 def test_enhance_on_card_matches_cpu(card, shape, tiles, radius, gf_radius):
     frame = _frame(shape, 3)
-    before = (tile_hist.launches, clahe_map.launches, enhance_tail.launches)
+    hist_before = tile_hist.launches
+    before = (tile_tables.launches, clahe_map.launches,
+              enhance_tail.launches)
     got = enhance(torch.from_numpy(frame).to(card), 2.0, tiles, radius, 1.5,
                   gf_radius, 1e-3)
-    after = (tile_hist.launches, clahe_map.launches, enhance_tail.launches)
+    after = (tile_tables.launches, clahe_map.launches, enhance_tail.launches)
     assert all(a == b + 1 for a, b in zip(after, before))
+    assert tile_hist.launches == hist_before
     ref = enhance(torch.from_numpy(frame), 2.0, tiles, radius, 1.5,
                   gf_radius, 1e-3)
     assert got.dtype == torch.uint8 and got.shape == shape
@@ -370,6 +374,14 @@ def test_wrappers_check_their_inputs(card):
         tile_hist(img.t(), 4, 4, 24, 16, 0, 0)
     with pytest.raises(ValueError, match="uint8"):
         tile_hist(img.float(), 4, 4, 16, 24, 0, 0)
+    with pytest.raises(ValueError, match="contiguous"):
+        tile_tables(img.t(), 4, 4, 24, 16, 0, 0, 10, 0.5)
+    with pytest.raises(ValueError, match="uint8"):
+        tile_tables(img.float(), 4, 4, 16, 24, 0, 0, 10, 0.5)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        tile_tables(img.cpu(), 4, 4, 16, 24, 0, 0, 10, 0.5)
+    with pytest.raises(ValueError, match="reflect-101"):
+        tile_tables(img, 4, 4, 16, 20, 0, 0, 10, 0.5)  # 80 of 96 columns
     with pytest.raises(ValueError, match="float32"):
         enhance_tail(img.double(), 2, 1.5, 8, 1e-3)
     with pytest.raises(ValueError, match="tables"):
@@ -910,14 +922,14 @@ def test_enhance_tail_clahe_checks_its_inputs(card):
                                          ((512, 512), 16), ((301, 203), 4),
                                          ((36, 60), 2)])
 def test_enhance_fused1_on_card(card, shape, tiles):
-    """Above the gate: tile_hist and enhance_tail_clahe, no clahe_map, the
-    values of impl="fused"; at or under it (36 <= 2*(2*8 + 2)) the fused
-    composition. Within 1 step of the CPU run."""
+    """Above the gate: tile_tables and enhance_tail_clahe, no clahe_map,
+    the values of impl="fused"; at or under it (36 <= 2*(2*8 + 2)) the
+    fused composition. Within 1 step of the CPU run."""
     frame = _frame(shape, 47)
     img = torch.from_numpy(frame).to(card)
 
     def counts():
-        return (tile_hist.launches, clahe_map.launches,
+        return (tile_tables.launches, clahe_map.launches,
                 enhance_tail_clahe.launches)
 
     before = counts()
@@ -1669,6 +1681,136 @@ def test_tile_hist_two_streams_at_once(card):
     torch.cuda.synchronize()
     for i, out in outs:
         assert torch.equal(out, cases[i][1])
+
+
+# ---- CLAHE's tables out of the tile-histogram launch (tile_tables) ---------
+
+# 0.01 clips at 0 counts on the small frames (everything redistributed), 40
+# is bench.py's CLAHE config, 1e9 clips nothing (the limit capped at th*tw)
+TABLE_CLIPS = [0.01, 1.0, 2.0, 40.0, 1e9]
+
+
+def _tables_both(img, yt, xt, clip):
+    """tile_tables of img and _clahe_tables of its plain histograms at a
+    (yt, xt) grid and a clip limit: the two equal bit for bit, and every
+    tile's cdf ends at its pixels, whatever was redistributed."""
+    geo = _clahe_geometry(*img.shape, xt, yt)
+    limit, fr = _clahe_scale(clip, *geo[:2])
+    got = tile_tables(img, yt, xt, *geo, limit, fr)
+    want = _clahe_tables(tile_hist_plain(img, yt, xt, *geo), clip, *geo[:2])
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert torch.equal(got, want)
+    last = float(np.float32(geo[0] * geo[1]) * np.float32(fr))
+    assert bool((got[:, -1] == last).all())
+
+
+@pytest.mark.parametrize("clip", TABLE_CLIPS)
+@pytest.mark.parametrize("shape,grid", CLAHE_CASES)
+def test_tile_tables_equal_plain_tables(card, shape, grid, clip):
+    img = torch.from_numpy(_frame(shape, 84)).to(card)
+    _tables_both(img, *grid, clip)
+
+
+@pytest.mark.parametrize("clip", [0.01, 2.0, 40.0])
+@pytest.mark.parametrize("value", [0, 77, 255])
+def test_tile_tables_flat_frames(card, value, clip):
+    """All of a tile's excess in one bin: at 4K over 8x8 (clusters of 8)
+    and 64x64 tiles (one block a tile), and at 1080p (clusters of 4)."""
+    for shape, tiles in (((2160, 3840), 8), ((2160, 3840), 64),
+                         ((1080, 1920), 8)):
+        img = torch.full(shape, value, dtype=torch.uint8, device=card)
+        _tables_both(img, tiles, tiles, clip)
+
+
+@pytest.mark.parametrize("tiles", [2, 8, 64])
+def test_tile_tables_one_value_per_tile(card, tiles):
+    """One value a tile of the frame, so each tile's counts sit in a few
+    bins: a residual of 0 and of other sizes across the tiles and the clip
+    limits, at clusters of 8 (2 and 8 tiles) and 1 (64). The last clip
+    limit leaves an inner tile's steal, its pixels less the limit, at
+    256."""
+    h, w = 2161, 3839
+    th, tw, pt, pl = _clahe_geometry(h, w, tiles, tiles)
+    ty = (torch.arange(h, device=card) + pt) // th
+    tx = (torch.arange(w, device=card) + pl) // tw
+    img = ((ty[:, None] * tiles + tx[None, :]) * 37 % 256).to(
+        torch.uint8).contiguous()
+    hists = tile_hist_plain(img, tiles, tiles, th, tw, pt, pl)
+    steals = set()
+    for clip in (0.01, 1.0, 2.0, 40.0, 256.0 * (th * tw - 256) / (th * tw)):
+        _tables_both(img, tiles, tiles, clip)
+        limit, _ = _clahe_scale(clip, th, tw)
+        steals |= set((hists - limit).clamp(min=0).sum(dim=1).remainder(
+            256).tolist())
+    assert 0 in steals and len(steals) > 1
+
+
+def test_tile_tables_one_launch_no_torch_op(card):
+    """One kernel a call and no PyTorch op on the card, at clusters of 8
+    (4K, 8 tiles), 4 (1080p) and 1 (4K, 64 tiles); the counter rises by
+    one a call."""
+    from tpuimg_torch.kernels import sm_count
+    from tpuimg_torch.kernels.hist import tile_hist_plan
+
+    clusters = set()
+    for shape, tiles in (((2160, 3840), 8), ((1080, 1920), 8),
+                         ((2160, 3840), 64)):
+        img = torch.from_numpy(_frame(shape, 85)).to(card)
+        geo = _clahe_geometry(*shape, tiles, tiles)
+        clusters.add(tile_hist_plan(tiles, tiles, geo[0], geo[1],
+                                    sm_count(img.device))[0])
+        before = tile_tables.launches
+        names, calls = _kernels_of(tile_tables, img, tiles, tiles, *geo,
+                                   *_clahe_scale(2.0, *geo[:2]))
+        assert tile_tables.launches == before + calls
+        assert len(names) == 1 and "tile_hist" in names[0], names
+    assert {1, 8} <= clusters
+
+
+@pytest.mark.parametrize("impl", ["fused", "fused1", "staged"])
+def test_enhance_4k_equals_tables_built_on_the_host(card, monkeypatch, impl):
+    """enhance at 4K with the tables from the tile kernel equals the same
+    call with the tables built the old way, tile_hist then _clahe_tables,
+    bit for bit."""
+    from tpuimg_torch.ops import histogram
+
+    img = torch.from_numpy(_frame((2160, 3840), 86)).to(card)
+    got = enhance(img, impl=impl)
+
+    def host_tables(img, yt, xt, th, tw, pt, pl, limit, fr):
+        assert (limit, fr) == _clahe_scale(2.0, th, tw)
+        return _clahe_tables(tile_hist(img, yt, xt, th, tw, pt, pl), 2.0,
+                             th, tw)
+
+    monkeypatch.setattr(histogram, "tile_tables", host_tables)
+    before = tile_hist.launches
+    want = enhance(img, impl=impl)
+    assert tile_hist.launches == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("impl", ["fused", "fused1", "staged"])
+def test_enhance_spans_on_card_leave_out_the_host_tables(card, impl):
+    """On the card enhance's steps are the CPU run's without clahe.tables,
+    and clahe.hist holds the one launch of tpuimg_tile_tables."""
+    from tpuimg_torch import profiling
+
+    frame = _frame((270, 480), 87)
+    spans = {}
+    for dev in ("cpu", card):
+        with profiling.recording() as rec:
+            enhance(torch.from_numpy(frame).to(dev), impl=impl)
+        spans[dev] = rec.spans
+    cpu, gpu = ([s for s in sp if s.parent == sp[0].id]
+                for sp in spans.values())
+    assert spans["cpu"][0].name == spans[card][0].name == "pipeline.enhance"
+    assert "clahe.tables" in [s.name for s in cpu]
+    assert [s.name for s in gpu] == [
+        s.name for s in cpu if s.name != "clahe.tables"]
+    (hist,) = [s for s in gpu if s.name == "clahe.hist"]
+    inside = [s for s in spans[card] if s.parent == hist.id]
+    assert [(s.name, s.detail) for s in inside] == [
+        ("kernels.launch", "tpuimg_tile_tables")]
 
 
 @pytest.mark.parametrize("n", [1, 15, 16, 17, 2160 * 3840 + 1])

@@ -21,13 +21,14 @@ from tpuimg.kernels.lut import clahe_map_full
 from tpuimg.oracle import clahe_ref
 from tpuimg.oracle.numpy_ref import clahe_tile_geometry, clahe_tile_hists_ref
 from tpuimg.ops.histogram import _clahe_front, _map_bank, _tile_coord_runs
-from tpuimg_torch import clahe
+from tpuimg_torch import clahe, profiling
 from tpuimg_torch.core.borders import pad_reflect101, reflect101_index
 from tpuimg_torch.kernels.boxsum import enhance_tail, enhance_tail_plain
 from tpuimg_torch.kernels.hist import (
     TILE_HIST_MAX_CLUSTER, tile_hist, tile_hist_plain, tile_hist_plan,
     tile_row, tile_runs)
-from tpuimg_torch.ops.histogram import _clahe_geometry
+from tpuimg_torch.ops.histogram import (
+    _clahe_geometry, _clahe_scale, _clahe_tables, _clip_redistribute)
 from tpuimg_torch.kernels.lut import clahe_map, clahe_map_plain
 
 # the bound of clahe_ref's tile geometry (tpuimg/ops/histogram.py:272): every
@@ -171,6 +172,104 @@ def test_wrappers_refuse_non_cuda_devices():
                   0, 0)
     with pytest.raises(ValueError, match="CUDA tensor"):
         enhance_tail(torch.empty((64, 64), device="meta"), 2, 1.5, 8, 1e-3)
+
+
+def _clip_serial(hists, limit: int) -> list:
+    """gClipLimit as the reference writes it, a tile at a time: the excess
+    over limit stolen, every bin clipped and given steal >> 8, then the
+    residual r = steal & 255 one count each to bins (i << 8) // r, i < r."""
+    out = []
+    for hv in hists.tolist():
+        steal = sum(max(v - limit, 0) for v in hv)
+        hv = [min(v, limit) + (steal >> 8) for v in hv]
+        r = steal & 255
+        for i in range(r):
+            hv[(i << 8) // r] += 1
+        out.append(hv)
+    return out
+
+
+@pytest.mark.parametrize("limit", [0, 1, 5, 37, 100, 299, 300])
+def test_clip_redistribute_matches_serial_loop(rng, limit):
+    """The closed form that csrc/tile_hist.cu's tables and the plain tables
+    share, against the serial loop on random histograms (limit 0: every
+    count redistributed; 300: nothing clipped)."""
+    hists = rng.integers(0, 300, (6, 256))
+    got = _clip_redistribute(torch.from_numpy(hists).to(torch.int32), limit)
+    assert got.tolist() == _clip_serial(hists, limit)
+
+
+@pytest.mark.parametrize("limit", [0, 10])
+@pytest.mark.parametrize("steal", [256, 3 * 256, 1, 128, 255, 3 * 256 + 77])
+def test_clip_redistribute_steal_multiple_of_256(rng, limit, steal):
+    """Histograms built to steal exactly ``steal`` counts a tile: a
+    multiple of 256 leaves no residual, the others every kind of one."""
+    hists = rng.integers(0, limit + 1, (4, 256))
+    for hv in hists:
+        bins = rng.choice(256, 5, replace=False)
+        cuts = np.sort(rng.integers(0, steal + 1, 4))
+        hv[bins] = limit + np.diff(np.concatenate([[0], cuts, [steal]]))
+    assert ((hists - limit).clip(min=0).sum(axis=1) == steal).all()
+    got = _clip_redistribute(torch.from_numpy(hists).to(torch.int32), limit)
+    assert got.tolist() == _clip_serial(hists, limit)
+    assert (got.sum(dim=1) == torch.from_numpy(hists.sum(axis=1))).all()
+
+
+def test_clahe_scale_caps_the_limit_at_the_tile(rng):
+    """A clip limit whose count passes a tile's pixels clips nothing: the
+    limit is capped at th*tw (clip 1e9 over 271x480 tiles would not fit an
+    int32) and the tables are the unclipped cdf times fr."""
+    th, tw = 271, 480
+    fr = float(np.float32(255.0 / (th * tw)))
+    assert _clahe_scale(1e9, th, tw) == (th * tw, fr)
+    assert _clahe_scale(2.0, th, tw) == (int(th * tw * 2.0 / 256 + 0.5), fr)
+    hists = torch.from_numpy(rng.integers(0, 2000, (4, 256))).to(torch.int32)
+    got = _clahe_tables(hists, 1e9, th, tw)
+    assert torch.equal(got, torch.cumsum(hists, -1).to(torch.float32) * fr)
+    assert torch.equal(got, _clahe_tables(hists, 256.0, th, tw))
+
+
+def test_clahe_front_builds_tables_by_device(monkeypatch, rng):
+    """A CPU tensor builds the tables on the host (tile_hist, then
+    _clahe_tables inside clahe.tables); a tensor on any other device asks
+    the tile kernel's tile_tables for them, with _clahe_scale's limit and
+    scale, inside clahe.hist. (A meta tensor stands in for a CUDA one.)"""
+    from tpuimg_torch.ops import histogram
+
+    calls = []
+
+    def fake_tables(img, *args):
+        calls.append(args)
+        return torch.empty((64, 256), dtype=torch.float32, device=img.device)
+
+    monkeypatch.setattr(histogram, "tile_tables", fake_tables)
+    img = torch.from_numpy(rng.integers(0, 256, (90, 110), dtype=np.uint8))
+    geo = _clahe_geometry(90, 110, 8, 8)
+    with profiling.recording() as rec:
+        tables, *got_geo = histogram._clahe_front(img, 2.0, 8, 8)
+    assert calls == [] and tuple(got_geo) == geo
+    assert [s.name for s in rec.spans] == ["clahe.hist", "clahe.tables"]
+    assert torch.equal(tables, _clahe_tables(
+        tile_hist_plain(img, 8, 8, *geo), 2.0, *geo[:2]))
+    meta = torch.empty((90, 110), dtype=torch.uint8, device="meta")
+    with profiling.recording() as rec:
+        tables, *got_geo = histogram._clahe_front(meta, 2.0, 8, 8)
+    assert tables.device.type == "meta" and tuple(got_geo) == geo
+    assert calls == [(8, 8, *geo, *_clahe_scale(2.0, *geo[:2]))]
+    assert [s.name for s in rec.spans] == ["clahe.hist"]
+
+
+def test_tile_tables_refuses_other_devices():
+    """tile_tables is the kernel alone: its plain version is _clahe_tables
+    of tile_hist, so a CPU or meta tensor raises before any launch."""
+    from tpuimg_torch.kernels.hist import tile_tables
+
+    before = tile_tables.launches
+    for dev in ("cpu", "meta"):
+        img = torch.empty((64, 64), dtype=torch.uint8, device=dev)
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            tile_tables(img, 4, 4, 16, 16, 0, 0, 10, 0.5)
+    assert tile_tables.launches == before
 
 
 # the tile geometries of tests/test_torch_cuda.py::CLAHE_CASES, 4K and 1080p

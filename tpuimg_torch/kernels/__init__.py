@@ -71,6 +71,10 @@ _SIGNATURES = {
     # out, stream
     "tpuimg_tile_hist": (_P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
                          _P),
+    # img, h, w, ytiles, xtiles, th, tw, pad_top, pad_left, cluster, rows,
+    # limit, fr, out, stream
+    "tpuimg_tile_tables": (_P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                           _F, _P, _P),
     # img, h, w, y0, tables, ytiles, xtiles, th, pad_top, pad_left, inv_tw,
     # out_f32, out, stream
     "tpuimg_clahe_map": (_P, _I, _I, _I, _P, _I, _I, _I, _I, _I, _F, _I, _P,

@@ -4,12 +4,14 @@ group-histogram kernel (csrc/hist256.cu) and their plain PyTorch versions.
 ``tile_hist`` replaces ``tpuimg/kernels/hist.py::hist_tiles_fused`` (CLAHE's
 per-tile histograms), one launch a call: ``tile_hist_plan`` sizes its grid
 and ``tile_row``/``tile_runs`` mirror the frame rows and column runs it
-counts. ``hist256_groups`` replaces ``hist256_groups_pallas``,
-and its thin forms ``hist256`` (one frame) and ``hist256_frames`` (a stack)
-replace ``hist256_pallas`` and ``hist256_frames_pallas``: the three share one
-kernel, as they share one ``pallas_call`` in tpuimg. ``hist256_groups_plain``
-is the plain form of ``tpuimg/kernels/onehot.py::hist256_tiled`` (a bincount
-per group instead of a one-hot contraction). ``hist256_groups_packed``, the
+counts. ``tile_tables`` is the same launch ending in CLAHE's clipped f32
+tables instead of the histograms. ``hist256_groups`` replaces
+``hist256_groups_pallas``, and its thin forms ``hist256`` (one frame) and
+``hist256_frames`` (a stack) replace ``hist256_pallas`` and
+``hist256_frames_pallas``: the three share one kernel, as they share one
+``pallas_call`` in tpuimg. ``hist256_groups_plain`` is the plain form of
+``tpuimg/kernels/onehot.py::hist256_tiled`` (a bincount per group instead
+of a one-hot contraction). ``hist256_groups_packed``, the
 same kernel body reading int32 words of four packed pixels, replaces
 ``hist256_groups_pallas_packed``. Each call of the group kernel is one
 launch: no memset, its output written whole, its cross-block sums through a
@@ -186,12 +188,11 @@ def tile_runs(w: int, tw: int, pad_left: int,
             (2 * w - 1 - b, max(b - s, 0))]
 
 
-def tile_hist(img, ytiles: int, xtiles: int, th: int, tw: int, pad_top: int,
-              pad_left: int) -> torch.Tensor:
-    """``tile_hist_plain`` on a CPU tensor; the CUDA kernel otherwise, one
-    launch a call."""
-    if img.device.type == "cpu":
-        return tile_hist_plain(img, ytiles, xtiles, th, tw, pad_top, pad_left)
+def _tile_launch_args(img, ytiles: int, xtiles: int, th: int, tw: int,
+                      pad_top: int, pad_left: int) -> tuple:
+    """The checks csrc/tile_hist.cu's entries need, then their arguments up
+    to ``rows``: img, h, w, the grid and its pads, and tile_hist_plan's
+    (cluster, rows)."""
     require_cuda_tensor(img, "img", torch.uint8)
     h, w = img.shape
     pad_bot = ytiles * th - h - pad_top
@@ -202,14 +203,45 @@ def tile_hist(img, ytiles: int, xtiles: int, th: int, tw: int, pad_top: int,
             f"tile grid {ytiles}x{xtiles} of {th}x{tw} with pads "
             f"({pad_top}, {pad_left}) is not a reflect-101 extension of a "
             f"{h}x{w} frame")
-    out = torch.empty((ytiles * xtiles, 256), dtype=torch.int32,
-                      device=img.device)
     cluster, rows = tile_hist_plan(ytiles, xtiles, th, tw,
                                    sm_count(img.device))
-    launch("tpuimg_tile_hist", img.device, img.data_ptr(), h, w, ytiles,
-           xtiles, th, tw, pad_top, pad_left, cluster, rows, out.data_ptr())
+    return (img.data_ptr(), h, w, ytiles, xtiles, th, tw, pad_top, pad_left,
+            cluster, rows)
+
+
+def tile_hist(img, ytiles: int, xtiles: int, th: int, tw: int, pad_top: int,
+              pad_left: int) -> torch.Tensor:
+    """``tile_hist_plain`` on a CPU tensor; the CUDA kernel otherwise, one
+    launch a call."""
+    if img.device.type == "cpu":
+        return tile_hist_plain(img, ytiles, xtiles, th, tw, pad_top, pad_left)
+    args = _tile_launch_args(img, ytiles, xtiles, th, tw, pad_top, pad_left)
+    out = torch.empty((ytiles * xtiles, 256), dtype=torch.int32,
+                      device=img.device)
+    launch("tpuimg_tile_hist", img.device, *args, out.data_ptr())
     tile_hist.launches += 1
     return out
 
 
 tile_hist.launches = 0
+
+
+def tile_tables(img, ytiles: int, xtiles: int, th: int, tw: int,
+                pad_top: int, pad_left: int, limit: int,
+                fr: float) -> torch.Tensor:
+    """CLAHE's f32 tables of a u8 CUDA frame in one launch of the tile
+    kernel: each tile's histogram clipped at ``limit`` counts, the excess
+    redistributed, its cdf times ``fr`` (ytiles*xtiles, 256), bit for bit
+    ``ops/histogram.py::_clahe_tables`` of ``tile_hist``, which is the
+    plain version (this wrapper takes no CPU tensor). A limit at or above
+    a tile's th*tw pixels clips nothing, so the kernel gets at most th*tw."""
+    args = _tile_launch_args(img, ytiles, xtiles, th, tw, pad_top, pad_left)
+    out = torch.empty((ytiles * xtiles, 256), dtype=torch.float32,
+                      device=img.device)
+    launch("tpuimg_tile_tables", img.device, *args, min(limit, th * tw), fr,
+           out.data_ptr())
+    tile_tables.launches += 1
+    return out
+
+
+tile_tables.launches = 0

@@ -8,9 +8,11 @@ frame or a whole batch; the 256-entry table build stays plain PyTorch on the
 tensor's device, as it stays XLA glue in the JAX package.
 
 CLAHE is the chain gCalcTileHistsUnroll -> gClipLimit -> gCreateTable ->
-gInterpolateMappingUnroll (Claher::run). The per-tile histograms and the
-bilinear mapping are CUDA kernels on a CUDA tensor; clip/redistribute and the
-float tables stay plain PyTorch on the tensor's device.
+gInterpolateMappingUnroll (Claher::run). On a CUDA tensor the per-tile
+histograms, clip/redistribute and the float tables are one kernel launch
+(kernels/hist.py::tile_tables) and the bilinear mapping another; on a CPU
+tensor, and for the sharded path's summed partial histograms
+(parallel/sharding.py), the tables are plain PyTorch (``_clahe_tables``).
 
 Rounding follows the CUDA ops: ``__float2int_rn`` -> round half to even,
 ``__float2int_rz`` -> trunc, float -> u8 assignment -> truncation.
@@ -26,7 +28,7 @@ from tpuimg_torch.core.layout import cdiv
 from tpuimg_torch.core.validate import (
     ParamError, ShapeError, check_image, check_positive, check_radius)
 from tpuimg_torch.kernels.hist import (
-    hist256, hist256_frames, hist256_groups, tile_hist)
+    hist256, hist256_frames, hist256_groups, tile_hist, tile_tables)
 from tpuimg_torch.profiling import span
 
 
@@ -155,12 +157,19 @@ def _clahe_geometry(h: int, w: int, xtiles: int, ytiles: int):
     return th, tw, pad_top, pad_left
 
 
+def _clahe_scale(clip_limit: float, th: int, tw: int) -> tuple[int, float]:
+    """(limit, fr): the clip limit in counts (clahe.cpp:87), at most the
+    tile's th*tw pixels (a limit at or above them clips nothing), and the
+    tables' scale, the f32 of 255/tile_pixels (gCreateTable)."""
+    limit = int(tw * th * clip_limit / 256 + 0.5)
+    return min(limit, th * tw), float(np.float32(255.0 / (tw * th)))
+
+
 def _clahe_tables(hists, clip_limit: float, th: int, tw: int):
     """Clip + redistribute (clahe.cpp:87), then the float tables
     cdf * 255/tile_pixels (gCreateTable): (T, 256) float32."""
-    limit = int(tw * th * clip_limit / 256 + 0.5)
+    limit, fr = _clahe_scale(clip_limit, th, tw)
     hists = _clip_redistribute(hists, limit)
-    fr = float(np.float32(255.0 / (tw * th)))
     return torch.cumsum(hists, dim=-1).to(torch.float32) * fr
 
 
@@ -179,10 +188,16 @@ def _clahe_front(img, clip_limit: float, xtiles: int, ytiles: int):
             f"{tuple(img.shape)}; call it once per frame for a batch"
         )
     th, tw, pad_top, pad_left = _clahe_geometry(*img.shape, xtiles, ytiles)
-    with span("clahe.hist", "entry"):
-        hists = tile_hist(img, ytiles, xtiles, th, tw, pad_top, pad_left)
-    with span("clahe.tables", "glue"):
-        tables = _clahe_tables(hists, clip_limit, th, tw)
+    if img.device.type != "cpu":
+        # the kernel sees whole tiles: the tables leave its launch
+        with span("clahe.hist", "entry"):
+            tables = tile_tables(img, ytiles, xtiles, th, tw, pad_top,
+                                 pad_left, *_clahe_scale(clip_limit, th, tw))
+    else:
+        with span("clahe.hist", "entry"):
+            hists = tile_hist(img, ytiles, xtiles, th, tw, pad_top, pad_left)
+        with span("clahe.tables", "glue"):
+            tables = _clahe_tables(hists, clip_limit, th, tw)
     return tables, th, tw, pad_top, pad_left
 
 

@@ -3,15 +3,15 @@
 
 impl="fused" (default): the CLAHE mapping emits its raw f32 blend, which
 feeds the gaussian + guided tail directly. On a CUDA tensor that is three
-kernels: tile histograms, the CLAHE mapping, and the tail
-(kernels/hist.py, lut.py, boxsum.py), with the clip/table glue and the final
-rounding as plain PyTorch on the card. The tail kernel needs
-min(H, W) > 2*(2*gf_radius + radius), the JAX package's gate; smaller frames
-compose ``gaussian`` and ``guided_filter``, whose kernels
+kernels: the tile histograms, which end in CLAHE's clipped tables, the CLAHE
+mapping, and the tail (kernels/hist.py, lut.py, boxsum.py), with the blend's
+scaling and the final rounding as plain PyTorch on the card. The tail kernel
+needs min(H, W) > 2*(2*gf_radius + radius), the JAX package's gate; smaller
+frames compose ``gaussian`` and ``guided_filter``, whose kernels
 (csrc/gaussian.cu, csrc/guided.cu) take any frame size.
 
 impl="fused1" folds the CLAHE mapping into the tail: above the same gate, a
-CUDA tensor runs the tile histograms, the clip/table glue, then one kernel
+CUDA tensor runs the tile kernel (histograms and tables), then one kernel
 (csrc/enhance_tail_clahe.cu) that recomputes the blend on each tile's halo,
 so the f32 blend never reaches device memory; two kernel launches and no
 ``clahe_map``. It computes "fused"'s values. tpuimg also requires tiles of
