@@ -35,6 +35,10 @@ from bench_torch import devtrace
 HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
 TRAFFIC_KEYS = {"loop", "in_flight", "why"}
+# packages the run may not hold: the JAX package the port was made from,
+# and JAX itself, compared by whole top-level names (``tpuimg_torch`` is
+# the port)
+FOREIGN = ("jax", "jaxlib", "flax", "tpuimg")
 WARM_FRAMES = 32  # through the loop, after every output size is allocated
 TRACE_FRAMES = 100  # the traced stretch of a --trace 1 run
 REFERENCE_DTYPE = torch.float64
@@ -288,6 +292,11 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
           f"{lat[int(0.99 * len(lat))] * 1e3:.4f}, max {lat[-1] * 1e3:.4f}",
           file=sys.stderr)
     return result
+
+
+def foreign_modules() -> list[str]:
+    """The top-level names of ``FOREIGN`` that this process has loaded."""
+    return sorted({m.split(".")[0] for m in sys.modules} & set(FOREIGN))
 
 
 def report(result: dict) -> None:

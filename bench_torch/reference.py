@@ -148,12 +148,14 @@ def enhance(img: torch.Tensor, clip_limit: float, tiles: int, radius: int,
 
 def u8_gaps(out: torch.Tensor, ref: torch.Tensor) -> dict:
     """How far a u8 frame lies from the reference's: the widest gap in
-    steps, and the share of pixels that differ at all."""
+    steps, the share of pixels that differ at all, and the share that
+    differ by more than one step (a rounding flip gives one)."""
     if out.shape != ref.shape or out.dtype != torch.uint8:
-        return {"max_step": math.inf, "off_share": 1.0}
+        return {"max_step": math.inf, "off_share": 1.0, "wide_share": 1.0}
     gap = (out.int() - ref.int().to(out.device)).abs()
     return {"max_step": float(gap.max()),
-            "off_share": float((gap > 0).sum()) / gap.numel()}
+            "off_share": float((gap > 0).sum()) / gap.numel(),
+            "wide_share": float((gap > 1).sum()) / gap.numel()}
 
 
 def float_gap(out: torch.Tensor, ref: torch.Tensor) -> float:

@@ -9,7 +9,8 @@ with ``--trace 1`` its per-layer metrics), ``device``, with ``--trace 1``
 ``breakdown``, and last ``checks``, each number compared with the reference
 beside its limit (also the last lines on standard error). Without a CUDA
 card, or with fewer than the cell asks for, it exits with code 2 and prints
-no result.
+no result. It also exits with code 3 and prints no result if the process
+has loaded JAX or the JAX package by the time the window has closed.
 """
 
 import time
@@ -53,6 +54,11 @@ def main(argv=None) -> int:
     cell = harness.load_cell(a.workload, bench)
     result = harness.run_cell(cell, a.seed, a.seconds, bool(a.trace),
                               torch.device("cuda", 0), T_START)
+    loaded = harness.foreign_modules()
+    if loaded:
+        print(f"the run loaded {', '.join(loaded)}: the benchmark measures "
+              f"the port alone", file=sys.stderr)
+        return 3
     harness.report(result)
     return 0
 

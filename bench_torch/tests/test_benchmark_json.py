@@ -5,8 +5,9 @@ import json
 import re
 
 import pytest
+import torch
 
-from bench_torch import harness
+from bench_torch import harness, reference
 
 BENCH_PATH = harness.ROOT / "BENCHMARK.json"
 BENCH = json.loads(BENCH_PATH.read_text())
@@ -112,3 +113,20 @@ def test_every_cell_reports_what_it_must():
         assert cell.per_layer
         for m in cell.per_layer:
             assert m["moves"] in e2e
+
+
+def test_listed_cells_report_what_the_metric_moves():
+    e2e = {m["name"]: m for m in BENCH["end_to_end"]}
+    for m in BENCH["end_to_end"] + BENCH["per_layer"]:
+        moves = e2e[m.get("moves", m["name"])]
+        for name in m.get("workloads", []):
+            assert name in moves.get("workloads", [name]), (m["name"], name)
+
+
+@pytest.mark.parametrize("name", ["enhance-4k", "enhance-8k"])
+def test_enhance_limits_are_the_numbers_compared(name):
+    cfg = json.loads((harness.HERE / "configs" / f"{name}.json").read_text())
+    frame = torch.zeros((2, 3), dtype=torch.uint8)
+    assert set(reference.u8_gaps(frame, frame)) == set(cfg["limits"])
+    # a single wrong row of a 4K frame fails wide_share tenfold
+    assert cfg["limits"]["wide_share"] <= 0.1 / 2160

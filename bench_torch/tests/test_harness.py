@@ -16,7 +16,7 @@ import torch
 
 from bench_torch import control, harness
 
-CELLS = ["enhance-4k.live", "guided-4k.stream"]
+CELLS = ["enhance-4k.live", "guided-4k.stream", "enhance-8k.stream"]
 TINY = {"height": 72, "width": 96, "ring": 4}
 SEED = 2**31 + 77
 SECONDS = 0.3
@@ -85,6 +85,27 @@ def test_planted_faults_are_not_correct(name, fault):
     assert res["correct"] is False, res["checks"]
 
 
+@pytest.mark.parametrize("name", ["enhance-4k.live", "enhance-8k.stream"])
+def test_a_few_pixels_three_steps_off_are_not_correct(name):
+    # a fault too small for max_step and off_share: four pixels of every
+    # frame three steps off, as a seam of the blend or a tile edge would be
+    cell = _cell(name)
+    real = cell.module.entry(cell.config)
+
+    def fn(*args):
+        out = real(*args)
+        patch = out[10:12, 20:22].int()
+        out[10:12, 20:22] = torch.where(patch > 127, patch - 3,
+                                        patch + 3).to(torch.uint8)
+        return out
+    res = _run(cell, fn)
+    checks = res["checks"]
+    assert checks["max_step"]["value"] <= checks["max_step"]["limit"]
+    assert checks["off_share"]["value"] <= checks["off_share"]["limit"]
+    assert checks["wide_share"]["value"] > checks["wide_share"]["limit"]
+    assert res["correct"] is False
+
+
 def test_control_script_readings():
     cell = _cell("guided-4k.stream")
     got = control.readings(cell, 3, SECONDS, torch.device("cpu"))
@@ -131,6 +152,14 @@ def test_refuses_in_a_checkout_without_the_program(tmp_path):
     proc = _command(tmp_path, "-c", FAKE_CARD)
     assert proc.returncode != 0 and proc.stdout == ""
     assert "tpuimg_torch" in proc.stderr
+
+
+def test_foreign_modules_by_whole_top_level_name(monkeypatch):
+    monkeypatch.setitem(sys.modules, "tpuimg_torch_probe", sys)
+    assert harness.foreign_modules() == []
+    monkeypatch.setitem(sys.modules, "flax.core", sys)
+    monkeypatch.setitem(sys.modules, "tpuimg.kernels", sys)
+    assert harness.foreign_modules() == ["flax", "tpuimg"]
 
 
 def test_no_jax_or_tpuimg_import():

@@ -38,6 +38,15 @@ def test_least_time_at_4k(metric, config, ms):
     assert least == pytest.approx(bytes_ms)  # bound by bytes
 
 
+def test_least_time_at_8k_is_four_times_4k():
+    cfg = _config("enhance-8k")
+    assert (cfg["height"], cfg["width"]) == (4320, 7680)
+    least = _metric("tail_roofline").least_ms(cfg)
+    assert round(least, 4) == 0.0792
+    assert least == pytest.approx(4 * _metric("tail_roofline").least_ms(
+        _config("enhance-4k")))
+
+
 def test_share_is_none_without_device_time():
     assert roofline.share(0.02, 0.0) is None
     assert roofline.share(0.02, 0.2) == pytest.approx(10.0)
