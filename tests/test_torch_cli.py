@@ -261,7 +261,12 @@ def test_cli_stream_enhance(loader, frame_dir, tmp_path, capsys):
                "--out", out_dir, "--width", "64", "--height", "48") == 0
     written = sorted(glob.glob(os.path.join(out_dir, "*.png")))
     assert len(written) == 3
-    assert "3 frames" in capsys.readouterr().out
+    out = capsys.readouterr().out
+    assert "3 frames" in out
+    # through enhance_host: three 48x64 frames up and back, none staged on
+    # the CPU
+    assert ("moved 9216 B to the device and 9216 B back; 0 B staged"
+            in out)
     for path in written:
         src = imread_gray(str(frame_dir / os.path.basename(path)))
         np.testing.assert_array_equal(

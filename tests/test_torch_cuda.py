@@ -2009,3 +2009,116 @@ def test_trace_on_card_puts_each_launch_call_inside_its_span(card, tmp_path):
         inside = [c for c in calls if span["ts"] <= c["ts"]
                   and c["ts"] + c["dur"] <= span["ts"] + span["dur"]]
         assert len(inside) == 1, (span, calls)
+
+
+# -- enhance_host: host frames through the stream pool
+
+
+def _retire(pending):
+    i, out, ev = pending.pop(0)
+    ev.synchronize()
+    return i, out
+
+
+def test_enhance_host_64_frames_4_in_flight_equal_enhance(card):
+    """64 pinned frames through the pool's 4 streams, 4 in flight and each
+    waited on by its event on the caller's stream, as the benchmark's loop
+    does; each equals enhance of the frame on the card, bit for bit, and
+    outputs still held are unchanged after 64 further calls."""
+    from tpuimg_torch.host import POOL_STREAMS, enhance_host
+
+    ring = torch.from_numpy(_frame((8, 1080, 1920), 120)).pin_memory()
+    want = [enhance(ring[i].to(card)).cpu() for i in range(len(ring))]
+    torch.cuda.synchronize()
+    pending, seen = [], {}
+    for i in range(128):
+        if len(pending) == POOL_STREAMS:
+            k, out = _retire(pending)
+            seen.setdefault(k, []).append(out)
+        ev = torch.cuda.Event()
+        out = enhance_host(ring[i % len(ring)])
+        ev.record()
+        assert out.is_pinned() and out.dtype == torch.uint8
+        pending.append((i, out, ev))
+        if i == 63:  # held from here on: the first 64 frames' outputs
+            held = {k: v[0].clone() for k, v in seen.items()}
+    while pending:
+        k, out = _retire(pending)
+        seen.setdefault(k, []).append(out)
+    for k, (out,) in seen.items():
+        assert torch.equal(out, want[k % len(ring)]), k
+    for k, copy in held.items():
+        assert torch.equal(seen[k][0], copy), k
+
+
+def test_enhance_host_pageable_numpy_and_pinned_agree(card):
+    """A pageable CPU tensor and a NumPy array are staged into pinned
+    memory and give the pinned input's frame; the counters count each
+    copy."""
+    from tpuimg_torch.host import enhance_host
+
+    frame = _frame((2160, 3840), 121)
+    n = frame.size
+    before = (enhance_host.uploaded_bytes, enhance_host.downloaded_bytes,
+              enhance_host.staged_bytes)
+    outs = [enhance_host(x) for x in (torch.from_numpy(frame).pin_memory(),
+                                      torch.from_numpy(frame), frame)]
+    torch.cuda.synchronize()
+    assert (enhance_host.uploaded_bytes - before[0],
+            enhance_host.downloaded_bytes - before[1],
+            enhance_host.staged_bytes - before[2]) == (3 * n, 3 * n, 2 * n)
+    want = enhance(torch.from_numpy(frame).to(card)).cpu()
+    for out in outs:
+        assert torch.equal(out, want)
+
+
+def test_enhance_host_completes_on_the_callers_stream(card):
+    """The call does not wait for its frame; the caller's stream does. A
+    pool stream held up keeps the caller's event pending until the frame
+    is down; a caller's stream held up does not hold up the pool stream."""
+    from tpuimg_torch import host
+
+    frame = torch.from_numpy(_frame((1080, 1920), 122)).pin_memory()
+    want = enhance(frame.to(card)).cpu()
+    host.enhance_host(frame)
+    torch.cuda.synchronize()
+    pool = host._POOLS[card.index if card.index is not None
+                       else torch.cuda.current_device()]
+    caller = torch.cuda.Stream()
+    cycles = 200_000_000  # ~0.1 s at the card's clock
+    with torch.cuda.stream(caller):
+        stream = pool.streams[pool.turn]
+        with torch.cuda.stream(stream):
+            torch.cuda._sleep(cycles)  # the next frame's stream is busy
+        out = host.enhance_host(frame)
+        done = torch.cuda.Event()
+        done.record()
+    assert not done.query()  # returned before its frame was done
+    done.synchronize()
+    assert torch.equal(out, want)
+    # the other way round: the caller's stream busy, the pool's not held
+    with torch.cuda.stream(caller):
+        torch.cuda._sleep(cycles)
+        stream = pool.streams[pool.turn]
+        out = host.enhance_host(frame)
+        done = torch.cuda.Event()
+        done.record()
+    stream.synchronize()
+    assert not done.query()  # the caller's stream is still asleep
+    assert torch.equal(out, want)
+    done.synchronize()
+
+
+def test_enhance_host_spans_stage_on_the_card(card):
+    from tpuimg_torch import profiling
+    from tpuimg_torch.host import enhance_host
+
+    frame = _frame((270, 480), 123)
+    with profiling.recording() as rec:
+        enhance_host(frame)
+    torch.cuda.synchronize()
+    root = rec.spans[0]
+    assert root.name == "host.enhance"
+    assert [(s.name, s.layer) for s in rec.spans if s.parent == root.id] == [
+        ("host.stage", "transfer"), ("host.upload", "transfer"),
+        ("pipeline.enhance", "entry"), ("host.download", "transfer")]

@@ -13,9 +13,10 @@ from tpuimg_torch.ops import (
     box_filter, clahe, dilate, erode, gaussian, guided_filter, hist_equalize,
     integral, morph_close, morph_open)
 from tpuimg_torch.pipeline import enhance
+from tpuimg_torch.host import enhance_host
 
 __version__ = "0.1.0"
 
-__all__ = ["box_filter", "clahe", "dilate", "enhance", "erode", "gaussian",
-           "guided_filter", "hist_equalize", "integral", "morph_close",
-           "morph_open"]
+__all__ = ["box_filter", "clahe", "dilate", "enhance", "enhance_host", "erode",
+           "gaussian", "guided_filter", "hist_equalize", "integral",
+           "morph_close", "morph_open"]

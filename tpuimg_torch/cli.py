@@ -641,14 +641,21 @@ def cmd_stream(args):
 
     The production-serving shape: the C++ prefetcher (tpuimg_torch.native)
     decodes ahead on worker threads while the card runs the op, so decode,
-    transfer and compute overlap: a 1-deep pipeline in which the card
+    transfer and compute overlap. ``--op enhance`` goes through
+    ``enhance_host``: each frame is staged into pinned memory, uploaded,
+    enhanced and downloaded on a stream of its own, with up to
+    ``POOL_STREAMS`` frames in flight, one a stream, while the host encodes
+    the oldest. The other ops keep a 1-deep pipeline in which the card
     computes frame i while the host encodes frame i-1 (launches are
-    asynchronous; ``.cpu()`` of the previous result is where the host waits).
+    asynchronous; ``.cpu()`` of the previous result is where the host
+    waits).
     """
+    import collections
     import glob as globmod
 
     from tpuimg_torch import clahe, erode, gaussian, hist_equalize, native
-    from tpuimg_torch.pipeline import _to_u8, enhance
+    from tpuimg_torch.host import POOL_STREAMS, enhance_host
+    from tpuimg_torch.pipeline import _to_u8
 
     paths = sorted(globmod.glob(args.pattern))
     if not paths:
@@ -657,7 +664,6 @@ def cmd_stream(args):
     os.makedirs(args.out, exist_ok=True)
 
     ops = {
-        "enhance": enhance,
         "clahe": lambda x: clahe(x, args.clip, 8, 8),
         "he": hist_equalize,
         "erode": lambda x: erode(x, args.radius),
@@ -665,31 +671,56 @@ def cmd_stream(args):
         "gaussian": lambda x: _to_u8(gaussian(
             x.to(torch.float32) / 255.0, args.radius, 1.5)),
     }
-    fn = ops[args.op]
+    if args.op == "enhance":
+        depth = POOL_STREAMS
 
-    def write(pending):
-        pidx, pres = pending
+        def submit(frame):
+            return enhance_host(frame, args.device)
+    else:
+        depth, fn = 1, ops[args.op]
+
+        def submit(frame):
+            return fn(torch.from_numpy(frame).to(args.device))
+
+    def write():
+        pidx, pres, done = pending.popleft()
+        if done is not None:
+            done.synchronize()
         base = os.path.splitext(os.path.basename(paths[pidx]))[0]
         native.write_png(  # output is PNG regardless of input ext
             os.path.join(args.out, base + ".png"), _host(pres))
 
+    def moved():
+        return (enhance_host.uploaded_bytes, enhance_host.downloaded_bytes,
+                enhance_host.staged_bytes)
+
+    before = moved()
+    cuda = args.device.type == "cuda"
     t0 = time.perf_counter()
     n = 0
-    pending = None
+    pending = collections.deque()
     with native.FrameStream(paths, (args.height, args.width), gray=True,
                             threads=args.threads) as fs:
         for idx, frame in fs:
-            result = fn(torch.from_numpy(frame).to(args.device))
-            if pending is not None:
-                write(pending)
+            result = submit(frame)
+            done = None
+            if cuda:
+                done = torch.cuda.Event()
+                done.record()
+            pending.append((idx, result, done))
+            while len(pending) > depth:
+                write()
                 n += 1
-            pending = (idx, result)
-        if pending is not None:
-            write(pending)
+        while pending:
+            write()
             n += 1
     dt = time.perf_counter() - t0
     print(f"processed {n} frames ({args.width}x{args.height}, op={args.op}) "
           f"in {dt:.2f}s = {n / dt:.2f} fps end-to-end [{args.card}]")
+    if args.op == "enhance":
+        up, down, staged = (a - b for a, b in zip(moved(), before))
+        print(f"moved {up} B to the device and {down} B back; {staged} B "
+              f"staged into pinned memory on the host")
     return True
 
 

@@ -25,10 +25,12 @@ nsight/nvprof" (Histogram/main.cpp:151; SURVEY.md §5). Here:
 A span's ``layer`` is one of ``LAYERS``: ``entry`` (a public entry or a
 kernel wrapper: checks, allocations, taps, the wrapper's Python), ``glue``
 (PyTorch ops between the kernels), ``launch`` (``kernels.launch``: the
-stream lookup and the C call) and ``load`` (building and loading the
-kernel library). A span opened while no other is open in its thread is a
-root: a call into the program (``pipeline.enhance``, ``ops.guided_filter``;
-the steps of other entries show as roots of their own). The spans inside it
+stream lookup and the C call), ``load`` (building and loading the kernel
+library) and ``transfer`` (``enhance_host``'s copies between the host and
+the device: staging into pinned memory, the copy up, the copy down). A span
+opened while no other is open in its thread is a root: a call into the
+program (``host.enhance``, ``pipeline.enhance``, ``ops.guided_filter``; the
+steps of other entries show as roots of their own). The spans inside it
 share its id as ``root``.
 """
 
@@ -46,7 +48,7 @@ from typing import NamedTuple
 
 import torch
 
-LAYERS = ("entry", "glue", "launch", "load")
+LAYERS = ("entry", "glue", "launch", "load", "transfer")
 # the span track of a written trace: a thread id no process gets
 _TRACK_TID = 2**31 - 1
 
