@@ -39,8 +39,8 @@ from tpuimg_torch.kernels.sep_stencil import (
     open_close_kernel, open_close_max_radius, open_close_plain,
     open_close_tile)
 from tpuimg_torch.ops.histogram import (
-    _clahe_geometry, _clahe_scale, _clahe_tables)
-from tpuimg_torch.pipeline import enhance
+    _blend_to_u8, _clahe_geometry, _clahe_scale, _clahe_tables)
+from tpuimg_torch.pipeline import _to_u8, enhance
 
 pytestmark = pytest.mark.cuda
 
@@ -2122,3 +2122,97 @@ def test_enhance_host_spans_stage_on_the_card(card):
     assert [(s.name, s.layer) for s in rec.spans if s.parent == root.id] == [
         ("host.stage", "transfer"), ("host.upload", "transfer"),
         ("pipeline.enhance", "entry"), ("host.download", "transfer")]
+
+
+# ---- enhance's scaling and rounding in the kernels' stores -----------------
+
+# (shape, rg, r): the shared-memory route at the fixed gaussian radius and at
+# a run-time one, the scratch route (r 54 past the shared-memory ceiling at
+# rg 2), a width that is not a multiple of the 64-column strip, 4K, 8K and a
+# frame just above enhance's gate (min(H, W) > 2*(2r + rg) = 36)
+U8_CASES = [((300, 517), 2, 8), ((300, 517), 3, 4), ((300, 517), 2, 54),
+            ((2160, 3840), 2, 8), ((4320, 7680), 2, 8), ((37, 70), 2, 8)]
+
+
+@pytest.mark.parametrize("shape,rg,r", U8_CASES)
+def test_enhance_tail_u8_store_equals_to_u8(card, shape, rg, r):
+    """The tail's u8 store is _to_u8 of its f32 q, bit for bit, on the f of
+    the card's own CLAHE blend (its q runs through [0, 1])."""
+    img = torch.from_numpy(_frame(shape, 130)).to(card)
+    geo, tables = _geometry_and_tables(img, 8, 8)
+    f = clahe_map(img, tables, 8, 8, *geo, out_f32=True, scale=INV_255)
+    before = (enhance_tail.launches, enhance_tail.u8_launches)
+    got = enhance_tail(f, rg, 1.5, r, 1e-3, out_u8=True)
+    assert (enhance_tail.launches, enhance_tail.u8_launches) == (
+        before[0] + 1, before[1] + 1)
+    assert got.dtype == torch.uint8 and got.shape == shape
+    assert torch.equal(got, _to_u8(enhance_tail(f, rg, 1.5, r, 1e-3)))
+
+
+@pytest.mark.parametrize("shape,rg,r", U8_CASES)
+def test_enhance_tail_clahe_u8_store_equals_to_u8(card, shape, rg, r):
+    img = torch.from_numpy(_frame(shape, 131)).to(card)
+    geo, tables = _geometry_and_tables(img, 8, 8)
+    before = (enhance_tail_clahe.launches, enhance_tail.u8_launches)
+    got = enhance_tail_clahe(img, tables, 8, 8, *geo, rg, 1.5, r, 1e-3,
+                             out_u8=True)
+    assert (enhance_tail_clahe.launches, enhance_tail.u8_launches) == (
+        before[0] + 1, before[1] + 1)
+    assert got.dtype == torch.uint8 and got.shape == shape
+    assert torch.equal(got, _to_u8(enhance_tail_clahe(
+        img, tables, 8, 8, *geo, rg, 1.5, r, 1e-3)))
+
+
+@pytest.mark.parametrize("shape,grid", [
+    ((2160, 3840), (8, 8)), ((2161, 3839), (8, 8)), ((64, 1000), (4, 128))])
+def test_clahe_map_scale_is_the_blend_times_scale(card, shape, grid):
+    """scale=INV_255 stores the f32 blend times INV_255 exactly; scale=1.0
+    keeps the raw blend, whose truncation, clamped (tiles 8 columns wide
+    blend up to 256.9 here), is the u8 output. The shapes take the staged
+    tables with 16-byte stores, an unaligned width's scalar stores, and
+    tables gathered from device memory (tiles 8 columns wide)."""
+    yt, xt = grid
+    img = torch.from_numpy(_frame(shape, 132)).to(card)
+    geo, tables = _geometry_and_tables(img, yt, xt)
+    raw = clahe_map(img, tables, yt, xt, *geo, out_f32=True)
+    assert torch.equal(_bits(clahe_map(img, tables, yt, xt, *geo,
+                                       out_f32=True, scale=1.0)), _bits(raw))
+    assert torch.equal(_blend_to_u8(raw),
+                       clahe_map(img, tables, yt, xt, *geo))
+    scaled = clahe_map(img, tables, yt, xt, *geo, out_f32=True, scale=INV_255)
+    assert torch.equal(_bits(scaled), _bits(raw * INV_255))
+    with pytest.raises(ValueError, match="scale"):
+        clahe_map(img, tables, yt, xt, *geo, scale=INV_255)
+
+
+@pytest.mark.parametrize("seed", [133, 134])
+def test_enhance_equals_the_composition_with_glue(card, seed):
+    """enhance at 4K equals the composition that ran PyTorch glue between
+    the kernels (the raw f32 blend, times INV_255, the f32 tail, _to_u8),
+    bit for bit; fused1 equals it too. One tail launch a call stores u8."""
+    from tpuimg_torch.ops.histogram import _clahe_front
+
+    img = torch.from_numpy(_frame((2160, 3840), seed)).to(card)
+    tables, *geo = _clahe_front(img, 2.0, 8, 8)
+    blend = clahe_map(img, tables, 8, 8, *geo, out_f32=True)
+    want = _to_u8(enhance_tail(blend * INV_255, 2, 1.5, 8, 1e-3))
+    for impl in ("fused", "fused1"):
+        before = enhance_tail.u8_launches
+        assert torch.equal(enhance(img, impl=impl), want), impl
+        assert enhance_tail.u8_launches == before + 1
+
+
+def test_u8_launches_count_the_fused_calls_only(card):
+    """The fused paths above the gate store u8 in the tail; staged and
+    frames under the gate round q in _to_u8 and count nothing."""
+    big = torch.from_numpy(_frame((270, 480), 135)).to(card)
+    small = torch.from_numpy(_frame((30, 40), 136)).to(card)
+    for call, adds in ((lambda: enhance(big), 1),
+                       (lambda: enhance(big, impl="fused1"), 1),
+                       (lambda: enhance(big, impl="staged"), 0),
+                       (lambda: enhance(small), 0),
+                       (lambda: enhance(small, impl="fused1"), 0)):
+        before = enhance_tail.u8_launches
+        out = call()
+        assert out.dtype == torch.uint8
+        assert enhance_tail.u8_launches == before + adds

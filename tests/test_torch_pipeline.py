@@ -25,10 +25,12 @@ from tpuimg_torch.core.kernelgen import gaussian_kernel_1d
 from tpuimg_torch.core.params import carry_enhance_state
 from tpuimg_torch.kernels import MAX_TAPS, TAIL_MAX_RADIUS
 from tpuimg_torch.kernels.boxsum import (
-    _tail_taps, enhance_tail, enhance_tail_clahe, enhance_tail_clahe_plain)
+    INV_255, _tail_taps, enhance_tail, enhance_tail_clahe,
+    enhance_tail_clahe_plain)
 from tpuimg_torch.kernels.hist import tile_hist
 from tpuimg_torch.kernels.lut import clahe_map
 from tpuimg_torch.ops.histogram import _clahe_front as torch_clahe_front
+from tpuimg_torch.pipeline import _to_u8 as torch_to_u8
 from tpuimg_torch.pipeline import enhance
 
 SHAPE = (72, 96)
@@ -311,6 +313,146 @@ def test_cpu_dispatch_launches_no_kernel(rng):
     blend = clahe_map(img, front[0], 8, 8, *front[1:], out_f32=True)
     assert torch.equal(q, enhance_tail(blend * (1.0 / 255.0), 2, 1.5, 8,
                                        1e-3))
+
+
+def _store_model(q):
+    """The kernels' u8 store (csrc/walker.cuh store_q) in NumPy: the f32
+    product q * 255 rounded half to even, clamped to [0, 255]."""
+    with np.errstate(over="ignore"):  # +-3.4e38 * 255 is +-inf, clamped
+        p = q.astype(np.float32) * np.float32(255.0)
+    return np.clip(np.rint(p), 0, 255).astype(np.uint8)
+
+
+def _ties():
+    """f32 q within 3 ulps of (k + 0.5) / 255 whose f32 product with 255 is
+    exactly k + 0.5, for every k that has one."""
+    out = []
+    for k in range(255):
+        q = np.float32((k + 0.5) / 255)
+        for _ in range(3):
+            q = np.nextafter(q, np.float32(0))
+        for _ in range(7):
+            if q * np.float32(255.0) == np.float32(k + 0.5):
+                out.append(q)
+            q = np.nextafter(q, np.float32(1))
+    return np.array(out, np.float32)
+
+
+def _beside(q):
+    """Each q's f32 neighbours on both sides."""
+    return np.concatenate([np.nextafter(q, np.float32(-1)),
+                           np.nextafter(q, np.float32(2))])
+
+
+STORE_CASES = {
+    "half-way": _ties(),
+    "beside half-way": _beside(_ties()),
+    "negatives": np.float32([-0.0, -1e-30, -0.4 / 255, -0.5 / 255,
+                             -0.6 / 255, -1.0, -3.4e38]),
+    "above one": np.float32([254.5 / 255, 255.4 / 255, 255.5 / 255,
+                             256 / 255, 1.5, 3.4e38]),
+    "ends": np.float32([0.0, 1.0]),
+}
+
+
+@pytest.mark.parametrize("case", list(STORE_CASES))
+def test_u8_store_model_matches_to_u8(case):
+    """The tails' u8 store is pipeline._to_u8 of the f32 q: half-way
+    products round to even, values outside [0, 1] clamp."""
+    q = STORE_CASES[case]
+    got = torch_to_u8(torch.from_numpy(q)).numpy()
+    assert np.array_equal(got, _store_model(q))
+    if case == "half-way":
+        # both ways of a tie: k even keeps k, k odd goes up to k + 1
+        ks = np.floor(q * np.float32(255.0)).astype(int)
+        assert {0, 1} <= set(ks % 2)
+        assert not (got % 2).any()
+
+
+def test_cpu_u8_and_scaled_outputs_are_the_glue_they_replace(rng):
+    """On the CPU the tails' u8 output is _to_u8 of their f32 q, and
+    clahe_map's scaled blend the raw blend times the scale, bit for bit;
+    a u8 map takes no scale."""
+    img = torch.from_numpy(rng.integers(0, 256, (80, 100), dtype=np.uint8))
+    tables, *geo = torch_clahe_front(img, 2.0, 8, 8)
+    raw = clahe_map(img, tables, 8, 8, *geo, out_f32=True)
+    f = clahe_map(img, tables, 8, 8, *geo, out_f32=True, scale=INV_255)
+    assert torch.equal(f, raw * INV_255)
+    assert torch.equal(clahe_map(img, tables, 8, 8, *geo, out_f32=True,
+                                 scale=1.0), raw)
+    with pytest.raises(ValueError, match="scale"):
+        clahe_map(img, tables, 8, 8, *geo, scale=INV_255)
+    q = enhance_tail(f, 2, 1.5, 8, 1e-3, out_u8=True)
+    assert q.dtype == torch.uint8
+    assert torch.equal(q, torch_to_u8(enhance_tail(f, 2, 1.5, 8, 1e-3)))
+    args = (img, tables, 8, 8, *geo, 2, 1.5, 8, 1e-3)
+    assert torch.equal(enhance_tail_clahe(*args, out_u8=True),
+                       torch_to_u8(enhance_tail_clahe(*args)))
+
+
+def test_fused_paths_store_in_the_kernels_and_others_round_in_glue(
+        rng, monkeypatch):
+    """Above the tail's gate the fused paths launch clahe_map with the
+    scale INV_255 and the tail with its u8 store, and record no
+    enhance.scale or enhance.to_u8 span; staged and frames under the gate
+    still round q in _to_u8. (Meta tensors stand in for CUDA ones, with
+    the launches recorded; the CPU runs the same dispatch with the plain
+    versions.)"""
+    from tpuimg_torch import pipeline, profiling
+    from tpuimg_torch.kernels import boxsum, lut
+    from tpuimg_torch.ops.histogram import _clahe_geometry
+
+    launched = []
+    rounded = []
+
+    def record(name, device, *args):
+        launched.append((name, args))
+
+    def to_u8(q):
+        rounded.append(q.shape)
+        return torch_to_u8(q)
+
+    def front(img, clip, xt, yt):
+        geo = _clahe_geometry(*img.shape, xt, yt)
+        return (torch.empty((yt * xt, 256), device="meta"), *geo)
+
+    for mod in (lut, boxsum):
+        monkeypatch.setattr(mod, "launch", record)
+        monkeypatch.setattr(mod, "check_clahe_args", lambda *a: None)
+    monkeypatch.setattr(boxsum, "require_cuda_tensor", lambda *a: None)
+    monkeypatch.setattr(boxsum, "_tail_scratch",
+                        lambda *a: torch.empty(0, device="meta"))
+    monkeypatch.setattr(pipeline, "_clahe_front", front)
+    monkeypatch.setattr(pipeline, "_to_u8", to_u8)
+    meta = torch.empty((2160, 3840), dtype=torch.uint8, device="meta")
+    for impl, entries in (("fused", ["tpuimg_clahe_map",
+                                     "tpuimg_enhance_tail"]),
+                          ("fused1", ["tpuimg_enhance_tail_clahe"])):
+        launched.clear()
+        with profiling.recording() as rec:
+            out = enhance(meta, impl=impl)
+        assert out.dtype == torch.uint8 and out.shape == meta.shape
+        assert [name for name, _ in launched] == entries
+        for name, args in launched:
+            if name == "tpuimg_clahe_map":  # ..., out_f32, scale, out
+                assert args[-3:-1] == (1, INV_255)
+            else:  # ..., scratch, out_u8, out
+                assert args[-2] == 1
+        names = {s.name for s in rec.spans}
+        assert not names & {"enhance.scale", "enhance.to_u8"}, names
+    assert rounded == []
+    # on the CPU: the fused paths above the gate round nothing in glue,
+    # staged and a frame under the gate do
+    img = torch.from_numpy(rng.integers(0, 256, (72, 96), dtype=np.uint8))
+    small = torch.from_numpy(rng.integers(0, 256, (30, 40), dtype=np.uint8))
+    monkeypatch.undo()
+    monkeypatch.setattr(pipeline, "_to_u8", to_u8)
+    for frame, impl, rounds in ((img, "fused", 0), (img, "fused1", 0),
+                                (img, "staged", 1), (small, "fused", 1),
+                                (small, "fused1", 1)):
+        rounded.clear()
+        enhance(frame, impl=impl)
+        assert len(rounded) == rounds, (frame.shape, impl)
 
 
 def test_unported_paths_raise_off_the_cpu(monkeypatch):

@@ -18,11 +18,11 @@ import torch
 from bench_torch import spans as bench_spans
 from tpuimg_torch import enhance, guided_filter, kernels, profiling
 
+# the fused paths above the tail's gate scale the blend in clahe_map's store
+# and round q in the tail's: no enhance.scale or enhance.to_u8 glue
 ENHANCE_STEPS = {
-    "fused": ["clahe.hist", "clahe.tables", "clahe.map", "enhance.scale",
-              "enhance.tail", "enhance.to_u8"],
-    "fused1": ["clahe.hist", "clahe.tables", "enhance.tail",
-               "enhance.to_u8"],
+    "fused": ["clahe.hist", "clahe.tables", "clahe.map", "enhance.tail"],
+    "fused1": ["clahe.hist", "clahe.tables", "enhance.tail"],
     "staged": ["clahe.hist", "clahe.tables", "clahe.map", "enhance.scale",
                "enhance.gaussian", "ops.guided_filter", "enhance.to_u8"],
 }

@@ -10,8 +10,11 @@ C signature this checkout changed, which are called as the other
 checkout's wrappers called them: a ``tpuimg_hist256`` without a workspace
 argument and a ``tpuimg_tile_hist`` without a grid plan add into an output
 that a ``torch.zeros`` made first; a ``tpuimg_lut_gather`` without a grid
-plan takes the same arguments less the plan. The ops that reach them
-(clahe, enhance, hist_equalize, apply_lut) then run those calls too.
+plan takes the same arguments less the plan; entries without the scale
+of ``tpuimg_clahe_map`` or the u8 store of the tails
+(``stencil_ab.OlderEntries``) take enhance's scaling and rounding in
+PyTorch. The ops that reach them (clahe, enhance, hist_equalize, apply_lut)
+then run those calls too.
 
 Checks first, each output's SHA-256 printed for both checkouts:
 - ``clahe_map`` (f32 and u8) and ``clahe_band_map`` give the same bits in
@@ -60,7 +63,8 @@ sys.path.insert(0, str(ROOT / "tools"))
 
 from chip_smoke import make_frame  # noqa: E402
 from scan_guided_ab import split  # noqa: E402
-from stencil_ab import build  # noqa: E402
+from stencil_ab import bind_other, build, entry_params  # noqa: E402
+from tpuimg_torch import pipeline  # noqa: E402
 from tpuimg_torch import (  # noqa: E402
     clahe, hist_equalize, kernels)
 from tpuimg_torch.kernels import lut as klut  # noqa: E402
@@ -69,7 +73,8 @@ from tpuimg_torch.kernels import require_cuda_tensor  # noqa: E402
 from tpuimg_torch.core.timing import card_label, time_cuda  # noqa: E402
 from tpuimg_torch.kernels.boxsum import (  # noqa: E402
     enhance_tail, enhance_tail_clahe, guided_filter_kernel,
-    guided_filter_plain, guided_ypadded_kernel, guided_ypadded_plain)
+    guided_filter_plain, guided_ypadded_kernel, guided_ypadded_plain,
+    q_to_u8)
 from tpuimg_torch.kernels.hist import (  # noqa: E402
     hist256_groups, hist256_groups_packed, hist256_groups_packed_plain,
     hist256_groups_plain, tile_hist, tile_hist_plain)
@@ -87,13 +92,6 @@ LIBS: dict = {}
 
 def digest(t) -> str:
     return hashlib.sha256(t.contiguous().cpu().numpy().tobytes()).hexdigest()
-
-
-def params(source: Path, entry: str) -> str:
-    """The parameter list of C entry ``entry`` in ``source``."""
-    text = source.read_text()
-    start = text.index(f"int {entry}(") + len(entry) + 5
-    return text[start:text.index(")", start)]
 
 
 def bits(t):
@@ -137,7 +135,26 @@ def legacy_gather(img, tables, tstride):
     return out.view(tables.dtype)
 
 
+def older_map(*args, out_f32=False, scale=1.0):
+    """enhance's clahe_map as a checkout without the scaled store ran it: the
+    raw blend, times scale in PyTorch."""
+    return clahe_map(*args, out_f32=out_f32) * scale
+
+
+def older_tail(tail):
+    """enhance's tail as a checkout without the u8 store ran it: f32 q,
+    rounded in PyTorch."""
+    def call(*args, out_u8=False):
+        q = tail(*args)
+        return q_to_u8(q) if out_u8 else q
+    return call
+
+
 WRAPPERS = {"tile_hist": tile_hist, "gather": klut._gather}
+FUSED = {"clahe_map": (clahe_map, older_map),
+         "enhance_tail": (enhance_tail, older_tail(enhance_tail)),
+         "enhance_tail_clahe": (enhance_tail_clahe,
+                                older_tail(enhance_tail_clahe))}
 
 
 def use(name: str) -> None:
@@ -145,6 +162,9 @@ def use(name: str) -> None:
     conventions for the entries whose signature changed."""
     kernels._lib = LIBS[name]
     other = name == "other"
+    for fn, (this_form, older_form) in FUSED.items():
+        setattr(pipeline, fn, older_form if other and LIBS["other"].lacks(
+            "out_u8") else this_form)
     ops_histogram.tile_hist = (legacy_tile_hist if other and
                                LIBS["other_legacy_tile"]
                                else WRAPPERS["tile_hist"])
@@ -328,15 +348,14 @@ def main() -> int:
     card = card_label()
     print(card)
     LIBS["this"] = kernels.bind(build(kernels.CSRC, "this"))
-    LIBS["other"] = kernels.bind(build(other, "other"), missing_ok=True)
+    LIBS["other"] = bind_other(other)
     # an entry without the workspace argument adds into a zeroed output
-    legacy = "ws_ints" not in params(other / "hist256.cu", "tpuimg_hist256")
+    legacy = "ws_ints" not in entry_params(other, "tpuimg_hist256")
     LIBS["other_legacy_hist"] = legacy
     # entries without the grid plan arguments
-    tile_legacy = "cluster" not in params(other / "tile_hist.cu",
-                                          "tpuimg_tile_hist")
-    lut_legacy = "per_block" not in params(other / "lut_gather.cu",
-                                           "tpuimg_lut_gather")
+    tile_legacy = "cluster" not in entry_params(other, "tpuimg_tile_hist")
+    lut_legacy = "per_block" not in entry_params(other,
+                                                 "tpuimg_lut_gather")
     LIBS["other_legacy_tile"] = tile_legacy
     LIBS["other_legacy_lut"] = lut_legacy
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong

@@ -36,7 +36,7 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(ROOT / "tools"))
 
-from stencil_ab import build  # noqa: E402
+from stencil_ab import bind_other, build  # noqa: E402
 from tpuimg_torch import kernels  # noqa: E402
 from tpuimg_torch.core.timing import card_label, time_cuda  # noqa: E402
 from tpuimg_torch.kernels.boxsum import (  # noqa: E402
@@ -146,7 +146,7 @@ def main() -> int:
     card = card_label()
     print(card)
     libs = {"this": kernels.bind(build(kernels.CSRC, "this")),
-            "other": kernels.bind(build(other, "other"), missing_ok=True)}
+            "other": bind_other(other)}
     runs = cases(torch.device("cuda"))
     for label, call, check in runs:
         outs = {}

@@ -104,6 +104,63 @@ def build(csrc: Path, name: str, edit=None, only=None) -> Path:
     return lib
 
 
+# C arguments that this checkout's wrappers pass and an older checkout's
+# entries lack: entry -> (argument, its index in the argument list, the value
+# the older entry had fixed)
+ADDED_ARGS = {"tpuimg_clahe_map": ("scale", 12, 1.0),
+              "tpuimg_enhance_tail": ("out_u8", 8, 0),
+              "tpuimg_enhance_tail_clahe": ("out_u8", 16, 0)}
+
+
+def entry_params(csrc: Path, entry: str) -> str:
+    """The parameter list of C entry ``entry`` in the sources of ``csrc``."""
+    for src in csrc.glob("*.cu"):
+        text = src.read_text()
+        if f"int {entry}(" in text:
+            start = text.index(f"int {entry}(") + len(entry) + 5
+            return text[start:text.index(")", start)]
+    return ""
+
+
+class OlderEntries:
+    """Another checkout's library, called through this checkout's wrappers:
+    where one of its entries lacks an argument of ADDED_ARGS, a call drops
+    that argument if it holds the value the entry had fixed, and refuses any
+    other."""
+
+    def __init__(self, lib, csrc: Path):
+        self._lib = lib
+        self._drop = {}
+        for entry, (arg, pos, fixed) in ADDED_ARGS.items():
+            if arg not in entry_params(csrc, entry):
+                args = list(kernels._SIGNATURES[entry])
+                getattr(lib, entry).argtypes = args[:pos] + args[pos + 1:]
+                self._drop[entry] = (arg, pos, fixed)
+
+    def lacks(self, arg: str) -> bool:
+        return any(a == arg for a, _, _ in self._drop.values())
+
+    def __getattr__(self, name):
+        fn = getattr(self._lib, name)
+        if name not in self._drop:
+            return fn
+        arg, pos, fixed = self._drop[name]
+
+        def call(*args):
+            if args[pos] != fixed:
+                raise ValueError(f"the other checkout's {name} has no {arg}: "
+                                 f"it takes {fixed} only")
+            return fn(*args[:pos], *args[pos + 1:])
+
+        return call
+
+
+def bind_other(csrc: Path) -> OlderEntries:
+    """Build and load another checkout's kernels (``csrc``)."""
+    return OlderEntries(kernels.bind(build(csrc, "other"), missing_ok=True),
+                        csrc)
+
+
 def host_ms(fn, *args, calls: int = 20) -> float:
     fn(*args)
     torch.cuda.synchronize()
@@ -209,7 +266,7 @@ def main() -> int:
     print(card)
     OUT.mkdir(parents=True, exist_ok=True)
     libs = {"this": kernels.bind(build(kernels.CSRC, "this")),
-            "other": kernels.bind(build(other, "other"), missing_ok=True)}
+            "other": bind_other(other)}
     copies = {name: kernels.bind(build(kernels.CSRC, name, edit,
                                        "morphology.cu"), missing_ok=True)
               for name, edit in {**ROUTES, **PARTS}.items()}

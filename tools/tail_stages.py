@@ -3,7 +3,8 @@
 Builds copies of ``tpuimg_torch/csrc/enhance_tail.cu`` and the headers it
 includes in which one part of the kernel is skipped (the walker's stages in
 ``walker.cuh``, the producer's in ``enhance_tail.cuh``), times each copy at
-4K (r8, rg2, the enhance defaults) with CUDA events, and prints the time each
+4K (r8, rg2, the enhance defaults, q stored as u8 as enhance stores it) with
+CUDA events, and prints the time each
 part adds: the full kernel's time less the time without it. The skipped
 copies compute garbage; only their times are read. The walker's stages run
 one after another between barriers, but the producer's parts share their
@@ -96,7 +97,8 @@ def build(out: Path) -> dict:
         if proc.returncode:
             raise SystemExit(f"nvcc failed for {name}:\n{log}")
         lib = ctypes.CDLL(str(so))
-        lib.tpuimg_enhance_tail.argtypes = [P, I, I, Taps, I, I, F, P, P, P]
+        lib.tpuimg_enhance_tail.argtypes = [P, I, I, Taps, I, I, F, P, I, P,
+                                            P]
         lib.tpuimg_enhance_tail.restype = I
         lib.tpuimg_enhance_tail_scratch_floats.argtypes = [I] * 4
         lib.tpuimg_enhance_tail_scratch_floats.restype = ctypes.c_longlong
@@ -114,7 +116,7 @@ def main() -> int:
     h, w = SHAPE
     f = torch.from_numpy(np.random.default_rng(0).random(
         SHAPE, dtype=np.float32)).cuda()
-    q = torch.empty_like(f)
+    q = torch.empty(SHAPE, dtype=torch.uint8, device="cuda")  # enhance's
     tp = Taps()
     wts = taps(RG, SIGMA)
     tp.w[:len(wts)] = wts
@@ -125,7 +127,7 @@ def main() -> int:
 
     def call(lib):
         err = lib.tpuimg_enhance_tail(
-            f.data_ptr(), h, w, tp, RG, R, EPS, scratch.data_ptr(),
+            f.data_ptr(), h, w, tp, RG, R, EPS, scratch.data_ptr(), 1,
             q.data_ptr(), torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f"CUDA error {err}")

@@ -12,7 +12,10 @@
 // calls, so every value is the plain version's bit for bit.
 //
 // Bound on this card: memory traffic, 1 byte in and 4 bytes (f32) or 1 byte
-// (u8) out per pixel, and the (T, 256) float tables once. What held the
+// (u8) out per pixel, and the (T, 256) float tables once. The f32 output is
+// the blend times a factor from the host (1, or 1/255 for the enhance
+// pipeline, whose tail takes f = blend / 255), so that no elementwise pass
+// over the frame follows the kernel. What held the
 // first design (a thread a pixel) at 2.7-9x that bound: 1-byte loads and
 // stores, the row's IEEE division repeated at every pixel, and four 4-byte
 // gathers a pixel from the tables in L1/L2. This design:
@@ -71,10 +74,12 @@ __device__ __forceinline__ unsigned to_u8(float o) {
 
 // kStaged: the tables of the span in shared memory; otherwise gathered
 // from global memory (common.cuh::clahe_blend's reads)
+// kOutF32: out is the float32 blend times scale (__fmul_rn: the factor 1
+// keeps the blend's bits), else the u8 blend
 template <bool kOutF32, bool kStaged>
 __global__ void __launch_bounds__(kThreads)
 clahe_map_kernel(const uint8_t* __restrict__ img, int h, int w, int y0,
-                 const ClaheGeom g, int rows_per_block,
+                 const ClaheGeom g, float scale, int rows_per_block,
                  void* __restrict__ out) {
   extern __shared__ __align__(16) float4 tab[];  // [tile column][256]
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -176,7 +181,8 @@ clahe_map_kernel(const uint8_t* __restrict__ img, int h, int w, int y0,
           }
           if constexpr (kOutF32) {
             *reinterpret_cast<float4*>(static_cast<float*>(out) + row + x) =
-                make_float4(o[0], o[1], o[2], o[3]);
+                make_float4(__fmul_rn(o[0], scale), __fmul_rn(o[1], scale),
+                            __fmul_rn(o[2], scale), __fmul_rn(o[3], scale));
           } else {
             *reinterpret_cast<unsigned*>(static_cast<uint8_t*>(out) + row +
                                          x) =
@@ -189,7 +195,7 @@ clahe_map_kernel(const uint8_t* __restrict__ img, int h, int w, int y0,
             if (x + jj < w) {
               const float o = blend(4 * k + jj, __ldg(img + row + x + jj));
               if constexpr (kOutF32) {
-                static_cast<float*>(out)[row + x + jj] = o;
+                static_cast<float*>(out)[row + x + jj] = __fmul_rn(o, scale);
               } else {
                 static_cast<uint8_t*>(out)[row + x + jj] =
                     static_cast<uint8_t>(to_u8(o));
@@ -205,7 +211,7 @@ clahe_map_kernel(const uint8_t* __restrict__ img, int h, int w, int y0,
 
 template <bool kOutF32, bool kStaged>
 int launch_map(const uint8_t* img, int h, int w, int y0, const ClaheGeom& g,
-               size_t bytes, void* out, cudaStream_t stream) {
+               float scale, size_t bytes, void* out, cudaStream_t stream) {
   auto kernel = clahe_map_kernel<kOutF32, kStaged>;
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaFuncSetAttribute(
@@ -229,19 +235,22 @@ int launch_map(const uint8_t* img, int h, int w, int y0, const ClaheGeom& g,
       std::max<long long>((h + runs - 1) / runs, kMinWarpRows * kWarps));
   const dim3 grid(static_cast<unsigned>(spans),
                   static_cast<unsigned>((h + rows - 1) / rows));
-  kernel<<<grid, kThreads, bytes, stream>>>(img, h, w, y0, g, rows, out);
+  kernel<<<grid, kThreads, bytes, stream>>>(img, h, w, y0, g, scale, rows,
+                                            out);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // img: the (h, w) rows [y0, y0 + h) of a frame whose tile grid the other
-// arguments describe; out is (h, w) float32 when out_f32, else uint8.
+// arguments describe; out is (h, w) float32 when out_f32, the blend times
+// scale (1 for the raw blend, the f32 value of 1/255 for the enhance
+// pipeline's f), else uint8 (scale unused).
 extern "C" int tpuimg_clahe_map(const uint8_t* img, int h, int w, int y0,
                                 const float* tables, int ytiles, int xtiles,
                                 int th, int pad_top, int pad_left,
-                                float inv_tw, int out_f32, void* out,
-                                cudaStream_t stream) {
+                                float inv_tw, int out_f32, float scale,
+                                void* out, cudaStream_t stream) {
   if (h < 1 || w < 1 || y0 < 0 || ytiles < 1 || xtiles < 1 ||
       !(inv_tw > 0.0f)) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -253,12 +262,13 @@ extern "C" int tpuimg_clahe_map(const uint8_t* img, int h, int w, int y0,
       static_cast<size_t>(tile_cols(std::min(kSpan, w), xtiles, inv_tw)) *
       256 * sizeof(float4);
   if (bytes <= kMaxStagedBytes) {
-    return out_f32 ? launch_map<true, true>(img, h, w, y0, g, bytes, out,
-                                            stream)
-                   : launch_map<false, true>(img, h, w, y0, g, bytes, out,
-                                             stream);
+    return out_f32 ? launch_map<true, true>(img, h, w, y0, g, scale, bytes,
+                                            out, stream)
+                   : launch_map<false, true>(img, h, w, y0, g, scale, bytes,
+                                             out, stream);
   }
-  return out_f32
-             ? launch_map<true, false>(img, h, w, y0, g, 0, out, stream)
-             : launch_map<false, false>(img, h, w, y0, g, 0, out, stream);
+  return out_f32 ? launch_map<true, false>(img, h, w, y0, g, scale, 0, out,
+                                           stream)
+                 : launch_map<false, false>(img, h, w, y0, g, scale, 0, out,
+                                            stream);
 }

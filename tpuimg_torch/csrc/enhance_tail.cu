@@ -6,10 +6,11 @@
 // on-chip producer of I = f and p = gaussian(f)), its design and its bounds
 // are in enhance_tail.cuh, shared with the CLAHE-fused tail
 // (enhance_tail_clahe.cu); here its producer reads f from device memory,
-// once per pixel of a strip and its halo, rows copied by cp.async. Bound
-// 0.0198 ms at 4K (bytes); 0.2918 ms on an NVIDIA H100 80GB HBM3 at
-// 700.00 W (chip_smoke.py), where the gaussian kernel then the guided
-// walker take 0.3160.
+// once per pixel of a strip and its halo, rows copied by cp.async, and
+// writes q as float32 or, for enhance, as the u8 frame it returns. Bound
+// 0.0198 ms at 4K (bytes; 0.0124 with u8 q); 0.2918 ms on an NVIDIA H100
+// 80GB HBM3 at 700.00 W (chip_smoke.py), where the gaussian kernel then the
+// guided walker take 0.3160.
 #include "enhance_tail.cuh"
 
 namespace {
@@ -32,14 +33,19 @@ struct FrameSrc {
 
 }  // namespace
 
-// f, out: (h, w) float32; taps.w[0 .. 2*rg]: the gaussian weights;
-// scratch: tpuimg_enhance_tail_scratch_floats(...) floats (null when 0).
+// f: (h, w) float32; taps.w[0 .. 2*rg]: the gaussian weights; scratch:
+// tpuimg_enhance_tail_scratch_floats(...) floats (null when 0); out: (h, w)
+// uint8 when out_u8 (q stored as pipeline.py's _to_u8 rounds it), else
+// float32.
 extern "C" int tpuimg_enhance_tail(const float* f, int h, int w,
                                    Taps taps, int rg, int r,
-                                   float eps, float* scratch, float* out,
-                                   cudaStream_t stream) {
-  return tail::launch(FrameSrc{f, w}, h, w, taps, rg, r, eps, scratch, out,
-                      stream);
+                                   float eps, float* scratch, int out_u8,
+                                   void* out, cudaStream_t stream) {
+  const FrameSrc src{f, w};
+  return out_u8 ? tail::launch(src, h, w, taps, rg, r, eps, scratch,
+                               static_cast<uint8_t*>(out), stream)
+                : tail::launch(src, h, w, taps, rg, r, eps, scratch,
+                               static_cast<float*>(out), stream);
 }
 
 // The floats of device scratch either tail needs at these arguments (its p

@@ -42,9 +42,11 @@
 //   memory and the producer adds no barrier to the walker's five.
 // - the walker does the rest: f64 running column sums, f32 running row
 //   sums, a and b once a pixel, one wave of blocks.
-// Bound: the tail needs 8 bytes of device memory a pixel for f32 f (5 for
-// the u8 frame of fused1) and a constant number of operations, so it is
-// bound by bytes (0.0198 ms at 4K, 0.0124 for fused1). Shared memory at
+// Bound: the tail reads f (4 bytes a pixel as float32, 1 as fused1's u8
+// frame) and writes q (4 bytes as float32, 1 as the u8 frame that enhance
+// returns) and does a constant number of operations, so it is bound by
+// bytes: at 4K 0.0198 ms for 8 bytes a pixel, 0.0124 for 5 (f32 f and u8 q,
+// or fused1 with f32 q), 0.0050 for fused1's 2. Shared memory at
 // r = 8, rg = 2: 37,392 bytes; the launch bound (5 blocks an SM, 96
 // registers) holds 5, which times faster than 6 at 80 registers. The
 // shared-memory route takes a footprint up to 227 KB (r <= 53 at rg <= 2,
@@ -391,11 +393,13 @@ struct TailRows {
 // timed 3% slower on an NVIDIA H100 80GB HBM3 at 700.00 W.
 constexpr int kTailBlocks = 5;
 
-template <class Src, bool kShared, int kRg>
+// Out: the output's element type, float (q) or uint8_t (q as pipeline.py's
+// _to_u8 rounds it, walker.cuh's store_q)
+template <class Src, bool kShared, int kRg, class Out>
 __global__ void __launch_bounds__(kWalkThreads, kTailBlocks)
 tail_kernel(const Src src, int h, int w, const Taps taps, int rg, int r,
             float eps, int seg_rows, float* __restrict__ scratch,
-            float* __restrict__ q) {
+            Out* __restrict__ q) {
   extern __shared__ __align__(16) float smem[];
   __shared__ float W[kMaxTaps];
   const walker::Workspace wl = workspace(rg, r);
@@ -470,35 +474,37 @@ inline long long scratch_floats(int h, int w, int rg, int r) {
                                          : block_floats<false>(rg, r));
 }
 
-// One launch of tail_kernel<Src, kShared, kRg> with the grid planned for it.
-template <class Src, bool kShared, int kRg>
+// One launch of tail_kernel<Src, kShared, kRg, Out> with the grid planned
+// for it.
+template <class Src, bool kShared, int kRg, class Out>
 int launch_as(const Src& src, size_t bytes, int h, int w, const Taps& taps,
-              int rg, int r, float eps, float* scratch, float* out,
+              int rg, int r, float eps, float* scratch, Out* out,
               cudaStream_t stream) {
   walker::WalkGrid g;
-  const int err = walker::plan_walk(tail_kernel<Src, kShared, kRg>, bytes, 1,
-                                    h, w, r, &g);
+  const int err = walker::plan_walk(tail_kernel<Src, kShared, kRg, Out>,
+                                    bytes, 1, h, w, r, &g);
   if (err != 0) return err;
-  tail_kernel<Src, kShared, kRg><<<g.grid, kWalkThreads, bytes, stream>>>(
-      src, h, w, taps, rg, r, eps, g.seg_rows, scratch, out);
+  tail_kernel<Src, kShared, kRg, Out>
+      <<<g.grid, kWalkThreads, bytes, stream>>>(src, h, w, taps, rg, r, eps,
+                                                g.seg_rows, scratch, out);
   return static_cast<int>(cudaGetLastError());
 }
 
 // One launch of the tail on an (h, w) frame; taps.w[0 .. 2*rg] are the
-// gaussian weights; scratch: scratch_floats(...) floats. Needs h, w > 2r +
-// rg (the callers gate on min(h, w) > 2*(2r + rg)). The shared-memory route
-// at the enhance pipeline's default gaussian radius runs the instance with
-// that radius fixed at compile time.
-template <class Src>
+// gaussian weights; scratch: scratch_floats(...) floats; out: (h, w) float32
+// q, or u8 (store_q). Needs h, w > 2r + rg (the callers gate on min(h, w) >
+// 2*(2r + rg)). The shared-memory route at the enhance pipeline's default
+// gaussian radius runs the instance with that radius fixed at compile time.
+template <class Src, class Out>
 int launch(const Src& src, int h, int w, const Taps& taps, int rg, int r,
-           float eps, float* scratch, float* out, cudaStream_t stream) {
+           float eps, float* scratch, Out* out, cudaStream_t stream) {
   if (bad_args(h, w, rg, r) || scratch == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const size_t bytes = smem_bytes(rg, r);
   if (bytes == 0) {
     return launch_as<Src, false, -1>(src, 0, h, w, taps, rg, r, eps,
-                                      scratch, out, stream);
+                                     scratch, out, stream);
   }
   if (rg == kFixedRg) {
     return launch_as<Src, true, kFixedRg>(src, bytes, h, w, taps, rg, r, eps,

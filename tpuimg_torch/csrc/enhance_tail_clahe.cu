@@ -47,18 +47,22 @@ struct ClaheSrc {
 
 }  // namespace
 
-// img: (h, w) u8; tables: (ytiles*xtiles, 256) float32; out: (h, w) float32;
-// scratch as tpuimg_enhance_tail's.
+// img: (h, w) u8; tables: (ytiles*xtiles, 256) float32; scratch, out_u8
+// and out as tpuimg_enhance_tail's.
 extern "C" int tpuimg_enhance_tail_clahe(const uint8_t* img, int h, int w,
                                          const float* tables, int ytiles,
                                          int xtiles, int th, int pad_top,
                                          int pad_left, float inv_tw,
                                          float scale, Taps taps, int rg,
                                          int r, float eps, float* scratch,
-                                         float* out, cudaStream_t stream) {
+                                         int out_u8, void* out,
+                                         cudaStream_t stream) {
   const ClaheGeom g{tables, ytiles, xtiles, static_cast<float>(th),
                     static_cast<float>(pad_top), static_cast<float>(pad_left),
                     inv_tw};
-  return tail::launch(ClaheSrc{img, w, g, scale}, h, w, taps, rg, r, eps,
-                      scratch, out, stream);
+  const ClaheSrc src{img, w, g, scale};
+  return out_u8 ? tail::launch(src, h, w, taps, rg, r, eps, scratch,
+                               static_cast<uint8_t*>(out), stream)
+                : tail::launch(src, h, w, taps, rg, r, eps, scratch,
+                               static_cast<float*>(out), stream);
 }

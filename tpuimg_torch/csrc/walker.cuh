@@ -179,6 +179,16 @@ __device__ __forceinline__ float q_of(float sa, float sb, float i,
   return __fadd_rn(__fmul_rn(__fmul_rn(sa, coef), i), __fmul_rn(sb, coef));
 }
 
+// q as the output stores it: a float32 output as it is; a u8 output as
+// clamp(rint(q * 255), 0, 255), bit for bit pipeline.py's _to_u8 of the
+// float32 q: __fmul_rn keeps the product uncontracted, and __float2uint_rn
+// rounds half to even, as torch.round does, and saturates (a negative
+// product or NaN gives 0, as the clamp does)
+__device__ __forceinline__ void store_q(float& out, float q) { out = q; }
+__device__ __forceinline__ void store_q(uint8_t& out, float q) {
+  out = static_cast<uint8_t>(min(__float2uint_rn(__fmul_rn(q, 255.0f)), 255u));
+}
+
 // v = the np column sums of walker rows u - 2r .. u (rows from 0 on), summed
 // directly in row order
 template <bool kSelf, class Prod, class Ctx>
@@ -217,12 +227,13 @@ __device__ __forceinline__ float* block_workspace(float* smem, float* scratch,
 }
 
 // Walk the block's strip (blockIdx.x) over its segment (blockIdx.y) of one
-// (h, w) frame, writing q at its output pixels. ws and wl: the workspace.
-template <class Prod>
+// (h, w) frame, writing q at its output pixels (store_q: float32, or u8).
+// ws and wl: the workspace.
+template <class Prod, class Out>
 __device__ __forceinline__ void walk_frame(Prod& prod, float* ws,
                                            const Workspace& wl, int h, int w,
                                            int r, float eps, int seg_rows,
-                                           float* __restrict__ qz) {
+                                           Out* __restrict__ qz) {
   constexpr bool kSelf = Prod::kSelf;
   constexpr bool kRepair = !Prod::kInRange;
   constexpr int np = kSelf ? 2 : 4;  // planes summed: I, p, I*p, I*I
@@ -411,7 +422,8 @@ __device__ __forceinline__ void walk_frame(Prod& prod, float* ws,
             }
             ic = iring[is * kStrip + tid];
           }
-          qz[static_cast<size_t>(yo) * w + x] = q_of(fa, fb, ic, coef);
+          store_q(qz[static_cast<size_t>(yo) * w + x],
+                  q_of(fa, fb, ic, coef));
         }
       };
       bool kept = true;  // every row's sums kept (the repair, keeps)

@@ -76,11 +76,11 @@ _SIGNATURES = {
     "tpuimg_tile_tables": (_P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                            _F, _P, _P),
     # img, h, w, y0, tables, ytiles, xtiles, th, pad_top, pad_left, inv_tw,
-    # out_f32, out, stream
-    "tpuimg_clahe_map": (_P, _I, _I, _I, _P, _I, _I, _I, _I, _I, _F, _I, _P,
-                         _P),
-    # f, h, w, taps, rg, r, eps, scratch, out, stream
-    "tpuimg_enhance_tail": (_P, _I, _I, Taps, _I, _I, _F, _P, _P, _P),
+    # out_f32, scale, out, stream
+    "tpuimg_clahe_map": (_P, _I, _I, _I, _P, _I, _I, _I, _I, _I, _F, _I, _F,
+                         _P, _P),
+    # f, h, w, taps, rg, r, eps, scratch, out_u8, out, stream
+    "tpuimg_enhance_tail": (_P, _I, _I, Taps, _I, _I, _F, _P, _I, _P, _P),
     # src, n, h, w, taps, r, out, stream (ypadded: src rows h + 2r)
     "tpuimg_gaussian": (_P, _I, _I, _I, GaussTaps, _I, _P, _P),
     "tpuimg_gaussian_ypadded": (_P, _I, _I, _I, GaussTaps, _I, _P, _P),
@@ -111,9 +111,9 @@ _SIGNATURES = {
     # src, n, h, w, dtype, r, tile, mode, dst, stream
     "tpuimg_open_close": (_P, _I, _I, _I, _I, _I, _I, _I, _P, _P),
     # img, h, w, tables, ytiles, xtiles, th, pad_top, pad_left, inv_tw,
-    # scale, taps, rg, r, eps, scratch, out, stream
+    # scale, taps, rg, r, eps, scratch, out_u8, out, stream
     "tpuimg_enhance_tail_clahe": (_P, _I, _I, _P, _I, _I, _I, _I, _I, _F, _F,
-                                  Taps, _I, _I, _F, _P, _P, _P),
+                                  Taps, _I, _I, _F, _P, _I, _P, _P),
 }
 
 _lib = None

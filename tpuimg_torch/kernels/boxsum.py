@@ -26,11 +26,13 @@ allocates, and the whole workspace there past a block's shared memory (the
 scratch route, counted on ``scratch_launches``). At 4K, r8, rg2: 0.2918 ms
 on an NVIDIA H100 80GB HBM3 at 700.00 W (chip_smoke.py; bound 0.0198 ms, by
 bytes; the gaussian then guided kernels 0.3160; the tile kernel it replaced
-took 0.9078). Its plain
-version is ``_tail_chain``'s algebra on the
-whole frame: pad once by the total halo 2r + rg (reflect-101), smooth (down
-the columns, then along the rows), then the guided chain in valid mode, so it
-never pads again.
+took 0.9078). Its plain version is ``_tail_chain``'s algebra on the whole
+frame: pad once by the total halo 2r + rg (reflect-101), smooth (down the
+columns, then along the rows), then the guided chain in valid mode, so it
+never pads again. With ``out_u8`` either tail returns the u8 frame that the
+enhance pipeline returns, ``q_to_u8(q)``, which the kernel computes in its
+store (1 byte a pixel written instead of 4, and no elementwise pass after
+it; counted on ``enhance_tail.u8_launches``).
 
 ``enhance_tail_clahe`` (csrc/enhance_tail_clahe.cu), the same tail with f =
 clahe_blend(img) / 255 computed inside the kernel (once per staged pixel),
@@ -54,8 +56,9 @@ from tpuimg_torch.kernels import (
 from tpuimg_torch.kernels.lut import check_clahe_args, clahe_map_plain
 from tpuimg_torch.kernels.sep_stencil import _sep_pass, taps
 
-# the f32 factor the fused enhance path multiplies the blend by in PyTorch
-# (``blend * (1.0 / 255.0)``): np.float32(1 / 255), bits 998277249
+# the f32 factor that takes the CLAHE blend to the tail's f, applied in the
+# stores of clahe_map (its ``scale``) and enhance_tail_clahe.cu on the card:
+# np.float32(1 / 255), bits 998277249
 INV_255 = float(np.float32(1.0 / 255.0))
 
 VARIANTS = ("onepass", "twopass")
@@ -228,6 +231,12 @@ guided_ypadded_kernel.launches = 0
 guided_ypadded_kernel.scratch_launches = 0  # launches on the scratch route
 
 
+def q_to_u8(q):
+    """The u8 frame of a float32 q: clamp(round(q * 255), 0, 255), the f32
+    product rounded half to even (torch.round; the kernels' store_q)."""
+    return torch.clamp(torch.round(q * 255.0), 0.0, 255.0).to(torch.uint8)
+
+
 def enhance_tail_plain(f, radius_g: int, sigma: float, radius: int,
                        eps: float):
     """q = guided_filter(I=f, p=gaussian(f, radius_g, sigma), radius, eps)
@@ -291,26 +300,33 @@ def _tail_scratch(h: int, w: int, radius_g: int, radius: int, device):
     return torch.empty(floats, dtype=torch.float32, device=device)
 
 
-def enhance_tail(f, radius_g: int, sigma: float, radius: int, eps: float):
+def enhance_tail(f, radius_g: int, sigma: float, radius: int, eps: float,
+                 out_u8: bool = False):
     """``enhance_tail_plain`` on a CPU tensor; the CUDA kernel otherwise.
     Needs min(H, W) > 2*radius + radius_g, radius <= TAIL_MAX_RADIUS and
-    radius_g <= MAX_TAPS // 2 (``ParamError`` before any launch)."""
+    radius_g <= MAX_TAPS // 2 (``ParamError`` before any launch). Returns
+    float32 q, or ``q_to_u8(q)`` when ``out_u8``."""
     if f.device.type == "cpu":
-        return enhance_tail_plain(f, radius_g, sigma, radius, eps)
+        q = enhance_tail_plain(f, radius_g, sigma, radius, eps)
+        return q_to_u8(q) if out_u8 else q
     require_cuda_tensor(f, "f", torch.float32)
     h, w = f.shape
     tp = _tail_taps(h, w, radius_g, sigma, radius)
     scratch = _tail_scratch(h, w, radius_g, radius, f.device)
-    out = torch.empty_like(f)
+    out = torch.empty((h, w), dtype=torch.uint8 if out_u8 else torch.float32,
+                      device=f.device)
     launch("tpuimg_enhance_tail", f.device, f.data_ptr(), h, w, tp, radius_g,
-           radius, eps, scratch.data_ptr(), out.data_ptr())
+           radius, eps, scratch.data_ptr(), int(out_u8), out.data_ptr())
     enhance_tail.launches += 1
+    enhance_tail.u8_launches += int(out_u8)
     return out
 
 
 enhance_tail.launches = 0
 # launches of either tail on the scratch route
 enhance_tail.scratch_launches = 0
+# launches of either tail that store u8
+enhance_tail.u8_launches = 0
 
 
 def enhance_tail_clahe_plain(img, tables, ytiles: int, xtiles: int, th: int,
@@ -327,25 +343,30 @@ def enhance_tail_clahe_plain(img, tables, ytiles: int, xtiles: int, th: int,
 
 def enhance_tail_clahe(img, tables, ytiles: int, xtiles: int, th: int,
                        tw: int, pad_top: int, pad_left: int, radius_g: int,
-                       sigma: float, radius: int, eps: float):
+                       sigma: float, radius: int, eps: float,
+                       out_u8: bool = False):
     """``enhance_tail_clahe_plain`` on a CPU tensor; on a CUDA tensor one
     launch, the blend computed once per pixel of each strip and its halo and
-    never stored. Takes any tile grid; the limits of ``enhance_tail``."""
+    never stored. Takes any tile grid; the limits and the output of
+    ``enhance_tail``."""
     if img.device.type == "cpu":
-        return enhance_tail_clahe_plain(img, tables, ytiles, xtiles, th, tw,
-                                        pad_top, pad_left, radius_g, sigma,
-                                        radius, eps)
+        q = enhance_tail_clahe_plain(img, tables, ytiles, xtiles, th, tw,
+                                     pad_top, pad_left, radius_g, sigma,
+                                     radius, eps)
+        return q_to_u8(q) if out_u8 else q
     check_clahe_args(img, tables, ytiles, xtiles, th, tw, pad_top, pad_left)
     h, w = img.shape
     tp = _tail_taps(h, w, radius_g, sigma, radius)
     scratch = _tail_scratch(h, w, radius_g, radius, img.device)
-    out = torch.empty((h, w), dtype=torch.float32, device=img.device)
+    out = torch.empty((h, w), dtype=torch.uint8 if out_u8 else torch.float32,
+                      device=img.device)
     inv_tw = float(np.float32(1.0) / np.float32(tw))
     launch("tpuimg_enhance_tail_clahe", img.device, img.data_ptr(), h, w,
            tables.data_ptr(), ytiles, xtiles, th, pad_top, pad_left, inv_tw,
            INV_255, tp, radius_g, radius, eps, scratch.data_ptr(),
-           out.data_ptr())
+           int(out_u8), out.data_ptr())
     enhance_tail_clahe.launches += 1
+    enhance_tail.u8_launches += int(out_u8)
     return out
 
 

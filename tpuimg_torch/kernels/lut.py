@@ -8,9 +8,11 @@ by the pixel value. ``clahe_band_map`` (the same source) replaces
 ``clahe_band_map``: the blend of a band of rows starting at global row y0
 of a frame, with the frame's tables and geometry (a row shard of
 ``parallel/sharding.py::clahe_sharded``); ``clahe_map`` is its band at
-y0 = 0. ``lut_gather`` and ``lut_gather_frames`` replace the
-TPU kernels of the same names (one table; one table per frame); both launch
-the one gather kernel and count on ``lut_gather.launches``.
+y0 = 0, and may scale its float32 output in the kernel's store
+(``scale``): the enhance pipeline takes the blend times 1/255 from it.
+``lut_gather`` and ``lut_gather_frames`` replace the TPU kernels of the
+same names (one table; one table per frame); both launch the one gather
+kernel and count on ``lut_gather.launches``.
 """
 
 from __future__ import annotations
@@ -26,11 +28,11 @@ from tpuimg_torch.ops.histogram import (
 
 def clahe_band_map_plain(img, tables, ytiles: int, xtiles: int, th: int,
                          tw: int, pad_top: int, pad_left: int, y0: int,
-                         out_f32: bool = False):
+                         out_f32: bool = False, scale: float = 1.0):
     """Blend the four corner tables of every pixel of the u8 (h, w) rows
     [y0, y0 + h) of a frame. ``tables`` is the frame's (ytiles*xtiles, 256)
-    float32. Returns u8 (h, w), or the raw float32 blend in [0, 255] when
-    ``out_f32``."""
+    float32. Returns u8 (h, w), or when ``out_f32`` the float32 blend times
+    ``scale``, an f32 product (1.0 keeps the raw blend's bits)."""
     h, w = img.shape
     ty1, ty2, ya = _tile_coords(h, ytiles, th, pad_top, False, img.device,
                                 start=y0)
@@ -43,14 +45,15 @@ def clahe_band_map_plain(img, tables, ytiles: int, xtiles: int, th: int,
 
     out = _bilinear_blend(lut(ty1, tx1), lut(ty1, tx2), lut(ty2, tx1),
                           lut(ty2, tx2), xa[None, :], ya[:, None])
-    return out if out_f32 else _blend_to_u8(out)
+    return out * scale if out_f32 else _blend_to_u8(out)
 
 
 def clahe_map_plain(img, tables, ytiles: int, xtiles: int, th: int, tw: int,
-                    pad_top: int, pad_left: int, out_f32: bool = False):
+                    pad_top: int, pad_left: int, out_f32: bool = False,
+                    scale: float = 1.0):
     """The blend of the whole u8 (h, w) frame: its band at y0 = 0."""
     return clahe_band_map_plain(img, tables, ytiles, xtiles, th, tw, pad_top,
-                                pad_left, 0, out_f32)
+                                pad_left, 0, out_f32, scale)
 
 
 def check_clahe_args(img, tables, ytiles: int, xtiles: int, th: int,
@@ -75,7 +78,8 @@ def check_clahe_args(img, tables, ytiles: int, xtiles: int, th: int,
 
 
 def _map(img, tables, ytiles: int, xtiles: int, th: int, tw: int,
-         pad_top: int, pad_left: int, y0: int, out_f32: bool):
+         pad_top: int, pad_left: int, y0: int, out_f32: bool,
+         scale: float = 1.0):
     """The checks and one launch of the mapping kernel over the rows
     [y0, y0 + h) of a frame."""
     check_clahe_args(img, tables, ytiles, xtiles, th, tw, pad_top, pad_left,
@@ -86,18 +90,25 @@ def _map(img, tables, ytiles: int, xtiles: int, th: int, tw: int,
     inv_tw = float(np.float32(1.0) / np.float32(tw))
     launch("tpuimg_clahe_map", img.device, img.data_ptr(), h, w, y0,
            tables.data_ptr(), ytiles, xtiles, th, pad_top, pad_left, inv_tw,
-           int(out_f32), out.data_ptr())
+           int(out_f32), scale, out.data_ptr())
     return out
 
 
 def clahe_map(img, tables, ytiles: int, xtiles: int, th: int, tw: int,
-              pad_top: int, pad_left: int, out_f32: bool = False):
-    """``clahe_map_plain`` on a CPU tensor; the CUDA kernel otherwise."""
+              pad_top: int, pad_left: int, out_f32: bool = False,
+              scale: float = 1.0):
+    """``clahe_map_plain`` on a CPU tensor; the CUDA kernel otherwise.
+    ``scale`` multiplies the float32 blend in the kernel's store (1.0, the
+    raw blend, or the f32 value of 1/255 for the enhance pipeline); the u8
+    output takes none."""
+    if not out_f32 and scale != 1.0:
+        raise ValueError(f"scale applies to the float32 blend (out_f32=True), "
+                         f"got {scale} with a u8 output")
     if img.device.type == "cpu":
         return clahe_map_plain(img, tables, ytiles, xtiles, th, tw, pad_top,
-                               pad_left, out_f32)
+                               pad_left, out_f32, scale)
     out = _map(img, tables, ytiles, xtiles, th, tw, pad_top, pad_left, 0,
-               out_f32)
+               out_f32, scale)
     clahe_map.launches += 1
     return out
 

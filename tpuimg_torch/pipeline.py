@@ -1,23 +1,25 @@
 """The enhance pipeline: u8 frame -> CLAHE -> Gaussian -> guided -> u8
 (port of ``tpuimg.pipeline``).
 
-impl="fused" (default): the CLAHE mapping emits its raw f32 blend, which
-feeds the gaussian + guided tail directly. On a CUDA tensor that is three
-kernels: the tile histograms, which end in CLAHE's clipped tables, the CLAHE
-mapping, and the tail (kernels/hist.py, lut.py, boxsum.py), with the blend's
-scaling and the final rounding as plain PyTorch on the card. The tail kernel
-needs min(H, W) > 2*(2*gf_radius + radius), the JAX package's gate; smaller
-frames compose ``gaussian`` and ``guided_filter``, whose kernels
-(csrc/gaussian.cu, csrc/guided.cu) take any frame size.
+impl="fused" (default): the CLAHE mapping emits its f32 blend times 1/255,
+which feeds the gaussian + guided tail directly. On a CUDA tensor that is
+three kernels and nothing between them: the tile histograms, which end in
+CLAHE's clipped tables, the CLAHE mapping, which scales the blend in its
+store, and the tail, which rounds q to the u8 frame in its store
+(kernels/hist.py, lut.py, boxsum.py). The tail kernel needs min(H, W) >
+2*(2*gf_radius + radius), the JAX package's gate; smaller frames compose
+``gaussian`` and ``guided_filter``, whose kernels (csrc/gaussian.cu,
+csrc/guided.cu) take any frame size and return f32, rounded by ``_to_u8``.
 
 impl="fused1" folds the CLAHE mapping into the tail: above the same gate, a
 CUDA tensor runs the tile kernel (histograms and tables), then one kernel
 (csrc/enhance_tail_clahe.cu) that recomputes the blend on each tile's halo,
-so the f32 blend never reaches device memory; two kernel launches and no
-``clahe_map``. It computes "fused"'s values. tpuimg also requires tiles of
-at least 32 rows and a table bank of at most 4 MB, limits of the TPU's
-VMEM; the per-pixel table reads here take any tile grid. Under the gate it
-composes as "fused" does.
+so the f32 blend never reaches device memory; two kernel launches, no
+``clahe_map``, and q stored as u8 as the fused tail stores it. It computes
+"fused"'s values. tpuimg also requires tiles of at least 32 rows and a
+table bank of at most 4 MB, limits of the TPU's VMEM; the per-pixel table
+reads here take any tile grid. Under the gate it composes as "fused"
+does.
 
 impl="staged" composes the public ops with a u8 round trip between CLAHE and
 the tail: on a CUDA tensor the two CLAHE kernels, then the gaussian and
@@ -32,7 +34,7 @@ from tpuimg_torch.core.device import as_image
 from tpuimg_torch.core.validate import (
     check_impl, check_positive, check_radius)
 from tpuimg_torch.kernels.boxsum import (
-    INV_255, enhance_tail, enhance_tail_clahe)
+    INV_255, enhance_tail, enhance_tail_clahe, q_to_u8)
 from tpuimg_torch.kernels.lut import clahe_map
 from tpuimg_torch.ops.gaussian import gaussian
 from tpuimg_torch.ops.guided import guided_filter
@@ -41,10 +43,11 @@ from tpuimg_torch.profiling import span
 
 
 def _to_u8(q):
-    """clip(rint(q * 255)); torch.round rounds half to even like rint."""
+    """clip(rint(q * 255)) as PyTorch glue, where no kernel's store rounds
+    q: the staged path, frames under the tail's gate, the CLI's gaussian and
+    the sharded path."""
     with span("enhance.to_u8", "glue"):
-        return torch.clamp(torch.round(q * 255.0), 0.0, 255.0).to(
-            torch.uint8)
+        return q_to_u8(q)
 
 
 def enhance(
@@ -80,20 +83,17 @@ def enhance(
         tail_fits = min(img.shape) > 2 * (2 * gf_radius + radius)
         if impl == "fused1" and tail_fits:
             with span("enhance.tail", "entry"):
-                out = enhance_tail_clahe(img, tables, tiles, tiles, *geo,
-                                         radius, sigma, gf_radius, gf_eps)
-            return _to_u8(out)
+                return enhance_tail_clahe(img, tables, tiles, tiles, *geo,
+                                          radius, sigma, gf_radius, gf_eps,
+                                          out_u8=True)
         with span("clahe.map", "entry"):
-            blend = clahe_map(img, tables, tiles, tiles, *geo, out_f32=True)
-        with span("enhance.scale", "glue"):
-            # the factor enhance_tail_clahe applies in-kernel
-            f = blend * INV_255
+            f = clahe_map(img, tables, tiles, tiles, *geo, out_f32=True,
+                          scale=INV_255)
         if tail_fits:
             with span("enhance.tail", "entry"):
-                out = enhance_tail(f, radius, sigma, gf_radius, gf_eps)
-        else:
-            with span("enhance.gaussian", "entry"):
-                smooth = gaussian(f, radius, sigma)
-            out = guided_filter(f, smooth, gf_radius, gf_eps,
-                                border="reflect101")
-        return _to_u8(out)
+                return enhance_tail(f, radius, sigma, gf_radius, gf_eps,
+                                    out_u8=True)
+        with span("enhance.gaussian", "entry"):
+            smooth = gaussian(f, radius, sigma)
+        return _to_u8(guided_filter(f, smooth, gf_radius, gf_eps,
+                                    border="reflect101"))
