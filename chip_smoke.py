@@ -75,8 +75,9 @@ Phases, each printed on its own line:
    offsets 0-15 and lengths 1, 15, 16, 17 and 4K + 1 with six table kinds
    and on (70000, 1, 3) and (3, 1081, 1917) frames, all exact, calls of
    both on two streams, each call one kernel (no memset) by the profiler;
-4. the main paths, each run once with every launch counter reset just
-   before and read just after, and each of its kernels launched:
+4. the main paths, each run once with the launches of each kernel's C entry
+   (``kernels.launches``) counted across it, and each of its kernels
+   launched:
    enhance at 4K (impl="fused": tile_tables, clahe_map, enhance_tail;
    impl="fused1": tile_tables, enhance_tail_clahe and no clahe_map; never
    tile_hist: the tables leave the tile kernel's one launch), enhance at 4K
@@ -107,32 +108,11 @@ Phases, each printed on its own line:
    enhance_sharded (1 step of staged); integral_sharded, hist_equalize_sharded
    at 4K and on 16x1080p over (4, 2) (equal), clahe_sharded at 4K and
    2161x3840 (1 step);
-5. CUDA-event timing (median of 30 after 3 warm-up runs) of every kernel and
-   its plain version, of enhance on the three impls, and of hist_equalize
-   (one frame, and 16 frames of 1080p), integral (also on 16 frames of
-   1080p, with the profiler's split into its launches and the time of
-   x.int().cumsum(-1).cumsum(-2) beside it), erode (r1, r15) and
-   morph_open (r15 on two 4K frames, also against two erode/dilate
-   launches, and f32 open) end to end against their plain compositions, at
-   4K and 1080p (twopass with its own floor of 32 bytes a pixel beside the
-   function's bound, and the profiler's split into its two launches); the
-   enhance tail against gaussian then guided onepass on
-   the same frame, and a torch.profiler split of enhance in each impl at 4K;
-   f32 dilate r15 against max_pool2d, gaussian against a conv2d, hist256
-   and hist256_packed against bincount and lut_gather against indexing (the
-   one PyTorch call
-   that computes the same function); the row-padded kernels at a 4K
-   shard's blocks; enhance_sharded at 4K and 8K against enhance staged and
-   fused, and the stencil and guided sharded ops against their unsharded
-   kernels; the CLAHE mapping (f32 and u8), histogram, tile-histogram (also
-   64x64 tiles and a flat frame at 4K) and gather (u8 table, float32 at 4K,
-   an input at offset 1, 16 frames of 1080p with torch.gather after a cast
-   as its library call) kernels at 4K and 1080p, the band at a 4K shard's
-   block, each beside its bound and the first CUDA design's time; and the
-   harness floor, the events' time of a one-element in-place add;
+5. none: the benchmark (bench_torch/) times the port, a change beside its
+   parent; the other phases keep their numbers;
 6. the modules around the ops, in a temporary working directory, each CLI
-   call with every launch counter reset just before it and read just
-   after, every kernel it reaches launched: first a probe of what the
+   call with its launches counted as in phase 4, every kernel it reaches
+   launched: first a probe of what the
    IO-dependent commands need (cv2, PIL, g++ and the native loader, whose
    build failure is named); the CLI in-process
    (``tpuimg_torch.cli.main``) at 4K, its defaults, --nreps 5: enhance
@@ -154,8 +134,8 @@ Phases, each printed on its own line:
    frame equal to enhance on the card), frames/s printed; what the machine
    lacks is named on one line.
 
-Then one JSON line with the kernels (launches summed over phase 4's runs;
-times and the least time the card could take, at 4K or a 4K shard), and
+Then one JSON line with the kernels (launches of each one's C entry summed
+over phase 4's runs, and the largest error against its plain version), and
 last the device line. Any failed check raises, so the script exits
 non-zero without printing the device line.
 """
@@ -163,7 +143,6 @@ non-zero without printing the device line.
 from __future__ import annotations
 
 import contextlib
-import functools
 import glob
 import importlib
 import io
@@ -199,7 +178,7 @@ from tpuimg_torch.kernels.sep_stencil import (
     gaussian_ypadded_plain, morph_max_radius, morph_tile,
     morph_ypadded_kernel, morph_ypadded_plain, morphology_kernel,
     morphology_plain, open_close_kernel, open_close_max_radius,
-    open_close_plain, taps)
+    open_close_plain)
 from tpuimg_torch.ops.gaussian import gaussian_ypadded
 from tpuimg_torch.ops.histogram import (
     _clahe_geometry, _clahe_scale, _clahe_tables, _he_tables)
@@ -215,7 +194,6 @@ from tpuimg_torch.profiling import trace
 
 SEED = 0
 SHAPES = [(2160, 3840), (2161, 3839), (1080, 1920)]
-TIMED = [(2160, 3840), (1080, 1920)]
 # enhance's defaults (tpuimg/pipeline.py, the enhance_pipeline_4k bench row)
 CLIP, TILES, RG, SIGMA, GF_R, GF_EPS = 2.0, 8, 2, 1.5, 8, 1e-3
 GAUSS = [(1, 0.8), (2, 1.5), (7, 3.0)]  # radius, sigma
@@ -244,51 +222,47 @@ MORPH_PATH_R = 15
 TAIL_GRIDS = [(4, 4), (8, 8), (16, 16), (3, 5)]  # (ytiles, xtiles)
 ITERS = 30
 
-KERNELS = [  # name, wrapper, its launch counter, source, TPU kernel replaced
-    ("tile_hist", tile_hist, "launches", "tpuimg_torch/csrc/tile_hist.cu",
+KERNELS = [  # name, its C entry, source, TPU kernel replaced
+    ("tile_hist", "tpuimg_tile_hist", "tpuimg_torch/csrc/tile_hist.cu",
      "tpuimg/kernels/hist.py:213"),
-    ("tile_tables", tile_tables, "launches", "tpuimg_torch/csrc/tile_hist.cu",
+    ("tile_tables", "tpuimg_tile_tables", "tpuimg_torch/csrc/tile_hist.cu",
      "tpuimg/kernels/hist.py:213 and the table glue after it"),
-    ("clahe_map", clahe_map, "launches", "tpuimg_torch/csrc/clahe_map.cu",
+    ("clahe_map", "tpuimg_clahe_map", "tpuimg_torch/csrc/clahe_map.cu",
      "tpuimg/kernels/lut.py:341"),
-    ("enhance_tail", enhance_tail, "launches",
+    ("enhance_tail", "tpuimg_enhance_tail",
      "tpuimg_torch/csrc/enhance_tail.cu", "tpuimg/kernels/boxsum.py:396"),
-    ("gaussian", gaussian_kernel, "launches", "tpuimg_torch/csrc/gaussian.cu",
+    ("gaussian", "tpuimg_gaussian", "tpuimg_torch/csrc/gaussian.cu",
      "tpuimg/kernels/sep_stencil.py:542"),
-    ("guided", guided_filter_kernel, "launches",
-     "tpuimg_torch/csrc/guided.cu", "tpuimg/kernels/boxsum.py:632"),
-    ("guided_twopass", guided_filter_kernel, "twopass_launches",
-     "tpuimg_torch/csrc/guided.cu", "tpuimg/kernels/boxsum.py:108"),
-    ("hist256", hist256_groups, "launches", "tpuimg_torch/csrc/hist256.cu",
+    ("guided", "tpuimg_guided_onepass", "tpuimg_torch/csrc/guided.cu",
+     "tpuimg/kernels/boxsum.py:632"),
+    ("guided_twopass", "tpuimg_guided_twopass", "tpuimg_torch/csrc/guided.cu",
+     "tpuimg/kernels/boxsum.py:108"),
+    ("hist256", "tpuimg_hist256", "tpuimg_torch/csrc/hist256.cu",
      "tpuimg/kernels/hist.py:115 (also :126, :145)"),
-    ("lut_gather", lut_gather, "launches", "tpuimg_torch/csrc/lut_gather.cu",
+    ("lut_gather", "tpuimg_lut_gather", "tpuimg_torch/csrc/lut_gather.cu",
      "tpuimg/kernels/lut.py:77 (also :193)"),
-    ("integral", integral_kernel, "launches", "tpuimg_torch/csrc/integral.cu",
+    ("integral", "tpuimg_integral", "tpuimg_torch/csrc/integral.cu",
      "tpuimg/kernels/scan2d.py:216"),
-    ("morphology", morphology_kernel, "launches",
-     "tpuimg_torch/csrc/morphology.cu", "tpuimg/kernels/sep_stencil.py:575"),
-    ("open_close", open_close_kernel, "launches",
-     "tpuimg_torch/csrc/open_close.cu", "tpuimg/kernels/sep_stencil.py:509"),
-    ("enhance_tail_clahe", enhance_tail_clahe, "launches",
+    ("morphology", "tpuimg_morphology", "tpuimg_torch/csrc/morphology.cu",
+     "tpuimg/kernels/sep_stencil.py:575"),
+    ("open_close", "tpuimg_open_close", "tpuimg_torch/csrc/open_close.cu",
+     "tpuimg/kernels/sep_stencil.py:509"),
+    ("enhance_tail_clahe", "tpuimg_enhance_tail_clahe",
      "tpuimg_torch/csrc/enhance_tail_clahe.cu",
      "tpuimg/kernels/boxsum.py:495"),
-    ("gaussian_ypadded", gaussian_ypadded_kernel, "launches",
+    ("gaussian_ypadded", "tpuimg_gaussian_ypadded",
      "tpuimg_torch/csrc/gaussian.cu", "tpuimg/kernels/sep_stencil.py:551"),
-    ("morph_ypadded", morph_ypadded_kernel, "launches",
+    ("morph_ypadded", "tpuimg_morphology_ypadded",
      "tpuimg_torch/csrc/morphology.cu", "tpuimg/kernels/sep_stencil.py:594"),
-    ("guided_ypadded", guided_ypadded_kernel, "launches",
+    ("guided_ypadded", "tpuimg_guided_onepass_ypadded",
      "tpuimg_torch/csrc/guided.cu", "tpuimg/kernels/boxsum.py:602"),
-    ("clahe_band_map", clahe_band_map, "launches",
-     "tpuimg_torch/csrc/clahe_map.cu", "tpuimg/kernels/lut.py:502"),
-    ("hist256_packed", hist256_groups_packed, "launches",
-     "tpuimg_torch/csrc/hist256.cu", "tpuimg/kernels/hist.py:167"),
+    # clahe_map's entry: its row counts clahe_map's launches too
+    ("clahe_band_map", "tpuimg_clahe_map", "tpuimg_torch/csrc/clahe_map.cu",
+     "tpuimg/kernels/lut.py:502"),
+    ("hist256_packed", "tpuimg_hist256_packed", "tpuimg_torch/csrc/hist256.cu",
+     "tpuimg/kernels/hist.py:167"),
 ]
 
-# the least time of a call, from the card's datasheet: H100 SXM at 700 W,
-# HBM 3.35 TB/s, 67 TFLOP/s f32 outside the tensor cores; integer compares
-# and adds count at the f32 rate, packed u8 compares four to an operation
-HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12
 # the enhance tail's halo: 2*gf_radius + radius rows (enhance_sharded)
 REACH = 2 * GF_R + RG
 SHARD_ROWS = [540, 541, 1]  # a 4K shard over sp = 4, unaligned, one row
@@ -311,68 +285,6 @@ PLANT_SHAPE = (70, 150)
 # padding than 7 columns give)
 CLAHE_GRIDS = [(t, w) for t in (2, 8, 16, 64) for w in (3840, 1917, 1000, 7)
                if w > t or t < 64]
-# the first CUDA designs' times of the redesigned mapping, histogram,
-# tile-histogram and gather kernels, ms (tools/hist_clahe_ab.py against that
-# checkout, NVIDIA H100 80GB HBM3, 700.00 W), printed beside this run's
-FIRST_DESIGN_MS = {
-    "tile_hist 2160x3840 tiles 8": 0.0244, "tile_hist 2160x3840 tiles 64":
-    0.0314, "tile_hist 1080x1920 tiles 8": 0.0121,
-    "tile_hist flat 2160x3840 tiles 8": 0.0244, "lut_gather u8 2160x3840":
-    0.0115, "lut_gather f32 2160x3840": 0.0194,
-    "lut_gather u8 2160x3840 at offset 1": 0.0114, "lut_gather u8 1080x1920":
-    0.0072, "lut_gather_frames 16x1080x1920": 0.0388,
-    "clahe_map f32 2160x3840": 0.0337, "clahe_map u8 2160x3840": 0.0302,
-    "clahe_map f32 1080x1920": 0.0113, "clahe_map u8 1080x1920": 0.0116,
-    "clahe_band_map u8 540x3840": 0.0116, "clahe_band_map f32 540x3840":
-    0.0113, "hist256 2160x3840": 0.0103, "hist256 1080x1920": 0.0090,
-    "hist256_frames 16x1080x1920": 0.0191, "hist256_groups 64x8161": 0.0078,
-    "hist256_packed 2160x3840": 0.0102}
-
-
-def nbytes(*tensors) -> int:
-    return sum(t.numel() * t.element_size() for t in tensors)
-
-
-def bound(moved: int, ops: float) -> tuple[float, str]:
-    """The least ms for a call that moves ``moved`` bytes (each input read
-    once, each output written once) and does ``ops`` operations, and which
-    of the two bounds it."""
-    by_bytes = moved / HBM_BYTES_PER_S * 1e3
-    by_ops = ops / F32_OPS_PER_S * 1e3
-    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
-                                                           "operations")
-
-
-def gauss_ops(r: int) -> int:
-    """Operations a gaussian output pixel takes: a row and a column pass,
-    r + 1 multiplies and 2r adds each (the symmetric form)."""
-    return 2 * (3 * r + 1)
-
-
-# the operations the function needs, whatever a kernel does: a window sum
-# is a running sum (an add and a subtract a pixel, in the row and the
-# column pass) and a window min or max is van Herk/Gil-Werman's (three
-# compares a pixel, in each pass), so neither grows with the radius
-BOX_SUM_OPS = 2 * 2
-MIN_MAX_OPS = 2 * 3
-
-
-def guided_ops(planes: int = 4) -> int:
-    """Operations a guided output pixel takes: window sums of ``planes``
-    planes (4 general, 2 self-guided) and of a and b, two products, a and
-    b, and q."""
-    return BOX_SUM_OPS * (planes + 2) + 12
-
-
-def morph_ops(dtype: torch.dtype, passes: int = 1) -> float:
-    """Operations an output pixel of ``passes`` erodes or dilates takes; u8
-    compares go four to an operation (__vminu4, __vmaxu4)."""
-    return MIN_MAX_OPS * passes / (4 if dtype == torch.uint8 else 1)
-
-
-CLAHE_BLEND_OPS = 16  # coordinates, four table reads, the bilinear lerp
-
-
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise RuntimeError(f"check failed: {what}")
@@ -1023,6 +935,18 @@ def same_values(what: str, got, ref, errs: dict, name: str) -> None:
     errs[name] = max(errs.get(name, 0.0), err)
 
 
+def two_pass_since(before: int, x, r: int,
+                   entry: str = "tpuimg_morphology") -> int:
+    """The launches of ``entry`` since its count was ``before``, each at
+    radius ``r`` on ``x``, that took the two-pass route: those for which
+    kernels/sep_stencil.py::morph_tile plans no tile. A frame's radius
+    clamps to its longer side; a row-padded block's is its halo."""
+    if entry == "tpuimg_morphology":
+        r = min(r, max(x.shape[-2:]) - 1)
+    split = morph_tile(r, x.element_size()) is None
+    return (kernels.launches[entry] - before) * split
+
+
 def check_morph_kernels(dev, card: str, errs: dict) -> None:
     """Phase 3, the morphology and open/close kernels, in every dtype."""
     cases = [(shape, MORPH_R, OPEN_CLOSE_R) for shape in SHAPES]
@@ -1031,23 +955,26 @@ def check_morph_kernels(dev, card: str, errs: dict) -> None:
               (SHAPES[0], [200], [200])]
     for shape, radii, oc_radii in cases:
         label = "x".join(map(str, shape))
-        split = morphology_kernel.split_launches
+        split = 0
         for dtype in ("uint8", "int32", "float32"):
             x = torch.from_numpy(morph_frame(shape, dtype, SEED + 30)).to(dev)
             for r in radii:
+                before = kernels.launches["tpuimg_morphology"]
                 for mode in (0, 1):
                     same_values(f"morphology {label} {dtype} r{r} mode {mode}",
                                 morphology_kernel(x, r, mode),
                                 morphology_plain(x, r, mode), errs,
                                 "morphology")
+                split += two_pass_since(before, x, r)
             for r in oc_radii:
+                before = kernels.launches["tpuimg_morphology"]
                 for mode in (0, 1):
                     same_values(f"open_close {label} {dtype} r{r} mode {mode}",
                                 open_close_kernel(x, r, mode),
                                 open_close_plain(x, r, mode), errs,
                                 "open_close")
+                split += two_pass_since(before, x, r)
         torch.cuda.synchronize()
-        split = morphology_kernel.split_launches - split
         print(f"phase 3 morphology vs plain {label}: erode and dilate r "
               f"{radii}, open and close r {oc_radii}, u8, int32 and float32 "
               f"equal, NaNs in place; two-pass route {split} times [{card}]")
@@ -1070,8 +997,8 @@ def check_morph_limits(dev, card: str, errs: dict) -> None:
         for r in (top, top + 1):
             blk = torch.from_numpy(morph_frame((7 + 2 * r, w), dtype,
                                                SEED + 34)).to(dev)
-            before = (morphology_kernel.split_launches,
-                      morph_ypadded_kernel.split_launches)
+            before = (kernels.launches["tpuimg_morphology"],
+                      kernels.launches["tpuimg_morphology_ypadded"])
             for mode in (0, 1):
                 same_values(f"morphology {h}x{w} {dtype} r{r} mode {mode}",
                             morphology_kernel(x, r, mode),
@@ -1080,8 +1007,9 @@ def check_morph_limits(dev, card: str, errs: dict) -> None:
                             f"mode {mode}", morph_ypadded_kernel(blk, r, mode),
                             morph_ypadded_plain(blk, r, mode), errs,
                             "morph_ypadded")
-            got = (morphology_kernel.split_launches - before[0],
-                   morph_ypadded_kernel.split_launches - before[1])
+            got = (two_pass_since(before[0], x, r),
+                   two_pass_since(before[1], blk, r,
+                                  "tpuimg_morphology_ypadded"))
             want = (0, 0) if r <= top else (2, 2)
             check(got == want, f"morphology {dtype} r{r}: two-pass routes "
                   f"{got}, not {want}")
@@ -1101,13 +1029,14 @@ def check_open_close_limits(dev, card: str, errs: dict) -> None:
         top = open_close_max_radius(x.dtype)
         line = []
         for r in (top, top + 1):
-            before = (open_close_kernel.launches, morphology_kernel.launches)
+            before = (kernels.launches["tpuimg_open_close"],
+                      kernels.launches["tpuimg_morphology"])
             for mode in (0, 1):
                 same_values(f"open_close {h}x{w} {dtype} r{r} mode {mode}",
                             open_close_kernel(x, r, mode),
                             open_close_plain(x, r, mode), errs, "open_close")
-            got = (open_close_kernel.launches - before[0],
-                   morphology_kernel.launches - before[1])
+            got = (kernels.launches["tpuimg_open_close"] - before[0],
+                   kernels.launches["tpuimg_morphology"] - before[1])
             want = (2, 0) if r <= top else (0, 4)
             check(got == want, f"open_close {dtype} r{r}: (fused, morphology) "
                   f"launches {got}, not {want}")
@@ -1152,7 +1081,6 @@ def check_tail_radii(dev, card: str, errs: dict) -> None:
             frames[shape] = (args, clahe_map(*args, True) * INV_255)
         args, f = frames[shape]
         sigma = tail_sigma(rg)
-        scratch = enhance_tail.scratch_launches
         got = enhance_tail(f, rg, sigma, r, GF_EPS)
         err = max_err(got, enhance_tail_plain(f, rg, sigma, r, GF_EPS))
         fused1 = enhance_tail_clahe(*args, rg, sigma, r, GF_EPS)
@@ -1169,8 +1097,8 @@ def check_tail_radii(dev, card: str, errs: dict) -> None:
         errs["enhance_tail_clahe"] = max(errs.get("enhance_tail_clahe", 0.0),
                                          err1)
         torch.cuda.synchronize()
-        route = ("scratch" if enhance_tail.scratch_launches - scratch
-                 else "shared")
+        route = ("shared" if kernels.load().tpuimg_enhance_tail_shared(rg, r)
+                 else "scratch")
         print(f"phase 3 tails {label} ({route} route): enhance_tail vs plain "
               f"{err:.3g}, enhance_tail_clahe vs enhance_tail {diff:.3g} vs "
               f"plain {err1:.3g} [{card}]")
@@ -1253,10 +1181,11 @@ def check_ypadded_kernels(dev, card: str, errs: dict) -> None:
         *lead, rows = lead_rows
         for r in radii:
             shape = (*lead, rows + 2 * r, w)
-            split = morph_ypadded_kernel.split_launches
+            split = 0
             for dtype in ("uint8", "int32", "float32"):
                 x = torch.from_numpy(morph_frame(shape, dtype, SEED + 50)).to(
                     dev)
+                before = kernels.launches["tpuimg_morphology_ypadded"]
                 for mode in (0, 1):
                     got = morph_ypadded_kernel(x, r, mode)
                     check(got.shape == (*lead, rows, w),
@@ -1265,8 +1194,9 @@ def check_ypadded_kernels(dev, card: str, errs: dict) -> None:
                                 f"{mode}", got,
                                 morph_ypadded_plain(x, r, mode), errs,
                                 "morph_ypadded")
+                split += two_pass_since(before, x, r,
+                                        "tpuimg_morphology_ypadded")
             torch.cuda.synchronize()
-            split = morph_ypadded_kernel.split_launches - split
             want = sum(2 * (r > morph_max_radius(getattr(torch, d)))
                        for d in ("uint8", "int32", "float32"))
             check(split == want, f"morph_ypadded r{r} took the two-pass "
@@ -1306,7 +1236,8 @@ def check_guided_ypadded_large(dev, card: str, errs: dict) -> None:
     for r in YPAD_GUIDED_R:
         for rows in (SHARD_ROWS[0], 1):
             I, p = guide_pair((rows + 4 * r, w), SEED + 80 + r + rows, dev)
-            scratch = guided_ypadded_kernel.scratch_launches
+            entry = "tpuimg_guided_onepass_ypadded_scratch"
+            scratch = kernels.launches[entry]
             line = []
             for what, pp, self_g in (("general", p, False), ("self", I, True)):
                 got = guided_ypadded_kernel(I, pp, r, GF_EPS, self_g)
@@ -1320,7 +1251,7 @@ def check_guided_ypadded_large(dev, card: str, errs: dict) -> None:
                 errs["guided_ypadded"] = max(errs["guided_ypadded"], err)
                 line.append(f"{what} {err:.3g}")
             torch.cuda.synchronize()
-            scratch = guided_ypadded_kernel.scratch_launches - scratch
+            scratch = kernels.launches[entry] - scratch
             want = 2 if r > kernels.GUIDED_SMEM_MAX_RADIUS else 0
             check(scratch == want, f"guided_ypadded r{r} took the scratch "
                   f"route {scratch} times, not {want}")
@@ -1338,17 +1269,17 @@ def front_at(img, tiles: int, clip: float = CLIP):
 
 
 def counts() -> dict:
-    return {name: getattr(fn, attr) for name, fn, attr, _, _ in KERNELS}
+    return {name: kernels.launches[entry] for name, entry, _, _ in KERNELS}
 
 
 def drive(label: str, expected, fn, *args):
-    """One run of a main path: counters reset before, read after, every
-    expected kernel launched. Returns the output and the counts."""
-    for _, wrapper, attr, _, _ in KERNELS:
-        setattr(wrapper, attr, 0)
+    """One run of a main path: the launches of each kernel's C entry
+    during it, every expected kernel launched. Returns the output and the
+    counts."""
+    before = counts()
     out = fn(*args)
     torch.cuda.synchronize()
-    got = counts()
+    got = {k: n - before[k] for k, n in counts().items()}
     for name in expected:
         check(got[name] > 0, f"{name} launched during {label} ({got[name]})")
     return out, got
@@ -1678,524 +1609,6 @@ def pick(got: dict, names) -> dict:
     return {k: got[k] for k in names}
 
 
-def time_pair(label: str, fn, plain, args, card: str, library=None,
-              work=None):
-    """Kernel, plain version and (when given) the one PyTorch call that
-    computes the same function, each timed on ``args``: (ms, plain_ms,
-    library_ms), medians. ``work``: the call's (bytes moved, operations),
-    whose bound the line prints."""
-    k = time_cuda(fn, *args, iters=ITERS, card=card)
-    p = time_cuda(plain, *args, iters=ITERS, card=card)
-    lib = None if library is None else time_cuda(library, *args, iters=ITERS,
-                                                 card=card)
-    extra = "" if lib is None else (f", library call {lib.ms:.4f} ms (min "
-                                    f"{lib.ms_min:.4f})")
-    if work is not None:
-        least, by = bound(*work)
-        extra += f", bound {least:.4f} ms ({by})"
-    print(f"phase 5 time {label}: kernel {k.ms:.4f} ms (min {k.ms_min:.4f}), "
-          f"plain {p.ms:.4f} ms (min {p.ms_min:.4f}){extra}, median of "
-          f"{ITERS} [{card}]")
-    return k.ms, p.ms, None if lib is None else lib.ms
-
-
-def row(times, moved: int, ops: float) -> tuple:
-    """(ms, plain_ms, library_ms, bound_ms, bound_by) of a JSON row."""
-    return (*times, *bound(moved, ops))
-
-
-def gauss_conv(r: int, sigma: float, dev, pad_rows: bool = True):
-    """The gaussian as one PyTorch call: a (2r+1)^2 convolution with the
-    outer product of the taps, reflect padding (of the columns only when
-    not ``pad_rows``: a row-padded block), for a float32 (H, W) frame."""
-    k = torch.tensor(taps(r, sigma), dtype=torch.float32)
-    conv = torch.nn.Conv2d(1, 1, 2 * r + 1, padding=(r if pad_rows else 0, r),
-                           padding_mode="reflect", bias=False).to(dev)
-    conv.requires_grad_(False)
-    conv.weight.copy_(torch.outer(k, k)[None, None])
-    return lambda x, *_: conv(x[None, None])[0, 0]
-
-
-def max_pool(r: int, pad_rows: bool = True):
-    """f32 dilate as one PyTorch call: max_pool2d's -inf padding is the
-    replicate border for a max."""
-    pad = (r if pad_rows else 0, r)
-    return lambda x: torch.nn.functional.max_pool2d(x[None], 2 * r + 1, 1,
-                                                    pad)[0]
-
-
-def time_all(dev, card: str) -> dict:
-    """Phase 5; returns the JSON rows' numbers {kernel: row(...)} at 4K."""
-    plain = {"tile_hist": tile_hist_plain,
-             "tile_tables": lambda img, yt, xt, th, tw, pt, pl, *_:
-             _clahe_tables(tile_hist_plain(img, yt, xt, th, tw, pt, pl),
-                           CLIP, th, tw),
-             "clahe_map": clahe_map_plain,
-             "enhance_tail": enhance_tail_plain, "gaussian": gaussian_plain,
-             "guided": guided_filter_plain,
-             "guided_twopass": lambda I, p, r, eps, _: guided_filter_plain(
-                 I, p, r, eps)}
-    wrappers = {name: fn for name, fn, _, _, _ in KERNELS}
-    at_4k = {}
-    for h, w in TIMED:
-        img = torch.from_numpy(make_frame(h, w, SEED)).to(dev)
-        args = kernel_args(img)
-        n = h * w
-        tables = args["clahe_map"][1]
-        work = {  # bytes moved, operations
-            "tile_hist": (n + TILES * TILES * 256 * 4, n),
-            "tile_tables": (n + TILES * TILES * 256 * 4, n),
-            "clahe_map": (5 * n + nbytes(tables), CLAHE_BLEND_OPS * n),
-            "enhance_tail": (8 * n, (gauss_ops(RG) + guided_ops()) * n),
-            "gaussian": (8 * n, gauss_ops(RG) * n),
-            "guided": (12 * n, guided_ops() * n),
-            "guided_twopass": (12 * n, guided_ops() * n)}
-        library = {"gaussian": gauss_conv(RG, SIGMA, dev)}
-        for name in plain:
-            t = time_pair(f"{name} {h}x{w}", wrappers[name], plain[name],
-                          args[name], card, library.get(name), work[name])
-            if (h, w) == SHAPES[0]:
-                at_4k[name] = row(t, *work[name])
-        # twopass keeps a and b in device memory by design: its own floor
-        busy, _, nk, top = device_split(wrappers["guided_twopass"],
-                                        *args["guided_twopass"])
-        print(f"phase 5 guided_twopass {h}x{w}: its own floor (32 bytes a "
-              f"pixel: I, p in, a, b out; a, b, I in, q out) "
-              f"{bound(32 * n, 0)[0]:.4f} ms beside the function's bound "
-              f"{bound(*work['guided_twopass'])[0]:.4f} ms; profile, 10 "
-              f"calls: {busy:.4f} ms a call over {nk:.0f} kernels: "
-              + "; ".join(f"{k} {v:.4f}" for k, v in top) + f" [{card}]")
-        f = args["gaussian"][0]
-        time_pair(f"guided self-guided {h}x{w}",
-                  lambda x: guided_filter_kernel(x, x, GF_R, GF_EPS,
-                                                 self_guided=True),
-                  lambda x: guided_filter_plain(x, x, GF_R, GF_EPS, True),
-                  (f,), card)
-        tail = time_cuda(enhance_tail, f, RG, SIGMA, GF_R, GF_EPS,
-                         iters=ITERS, card=card)
-        comp = time_cuda(lambda x: guided_filter_kernel(
-            x, gaussian_kernel(x, RG, SIGMA), GF_R, GF_EPS), f, iters=ITERS,
-            card=card)
-        print(f"phase 5 time enhance_tail {h}x{w} against its composition: "
-              f"tail {tail.ms:.4f} ms (min {tail.ms_min:.4f}), gaussian then "
-              f"guided onepass {comp.ms:.4f} ms (min {comp.ms_min:.4f}); the "
-              f"tail {'is' if tail.ms < comp.ms else 'is not'} faster, median "
-              f"of {ITERS} [{card}]")
-        for impl in ("fused", "staged", "fused1"):
-            e = time_cuda(enhance, img, CLIP, TILES, RG, SIGMA, GF_R, GF_EPS,
-                          impl, iters=ITERS, card=card)
-            ep = time_cuda(enhance_plain, img, impl, iters=ITERS, card=card)
-            print(f"phase 5 time enhance {impl} {h}x{w}: kernels "
-                  f"{e.ms:.4f} ms (min {e.ms_min:.4f}), plain composition "
-                  f"{ep.ms:.4f} ms (min {ep.ms_min:.4f}), median of {ITERS} "
-                  f"[{card}]")
-            if (h, w) == SHAPES[0]:
-                busy, idle, nk, top = device_split(
-                    enhance, img, CLIP, TILES, RG, SIGMA, GF_R, GF_EPS, impl)
-                print(f"phase 5 profile enhance {impl} {h}x{w}, 10 calls: "
-                      f"device busy {busy:.4f} ms a call over {nk:.0f} "
-                      f"kernels, idle share {idle:.2%}; largest: "
-                      + "; ".join(f"{k} {v:.4f}" for k, v in top)
-                      + f" [{card}]")
-    return at_4k
-
-
-def time_he_integral(dev, card: str, batch: np.ndarray) -> dict:
-    """Phase 5 for hist_equalize and integral; returns the JSON rows'
-    numbers at 4K."""
-    at_4k = {}
-    for h, w in TIMED:
-        img = torch.from_numpy(make_frame(h, w, SEED)).to(dev)
-        table = _he_tables(hist256_groups_plain(img.reshape(1, -1))[0], h * w)
-        n = h * w
-        words = img.view(torch.int32).reshape(1, -1)  # the frame, packed
-        cases = {
-            "hist256": (hist256, lambda x: hist256_groups_plain(
-                x.reshape(1, -1))[0], (img,),
-                lambda x: torch.bincount(x.reshape(-1), minlength=256),
-                (n + 256 * 4, n)),
-            # bincount of the words' bytes: a view, then one call
-            "hist256_packed": (
-                hist256_groups_packed, hist256_groups_packed_plain, (words,),
-                lambda x: torch.bincount(x.view(torch.uint8).reshape(-1),
-                                         minlength=256),
-                (4 * words.numel() + 256 * 4, n)),
-            # indexing takes int64 indices: the cast is part of the call
-            "lut_gather": (lut_gather, lut_gather_plain, (table, img),
-                           lambda t, x: t[x.long()], (2 * n + 256, n)),
-            "integral": (integral_kernel, integral_plain, (img,), None,
-                         (5 * n, 2 * n)),
-        }
-        for name, (fn, plain, args, lib, work) in cases.items():
-            t = time_pair(f"{name} {h}x{w}", fn, plain, args, card, lib, work)
-            if (h, w) == SHAPES[0]:
-                at_4k[name] = row(t, *work)
-        time_pair(f"hist_equalize {h}x{w} end to end", hist_equalize,
-                  he_plain, (img,), card)
-        time_pair(f"integral {h}x{w} end to end", integral, integral_plain,
-                  (img,), card)
-        integral_split(f"{h}x{w}", img, card)
-    flat = torch.full(SHAPES[0], 77, dtype=torch.uint8, device=dev)
-    time_pair(f"hist256 flat {SHAPES[0][0]}x{SHAPES[0][1]}", hist256,
-              lambda x: hist256_groups_plain(x.reshape(1, -1))[0], (flat,),
-              card)
-    groups = torch.from_numpy(np.random.default_rng(SEED).integers(
-        0, 256, (64, 8161), dtype=np.uint8)).to(dev)
-    time_pair("hist256_groups 64x8161", hist256_groups, hist256_groups_plain,
-              (groups,), card, work=(groups.numel() + 64 * 256 * 4,
-                                     groups.numel()))
-    stack = torch.from_numpy(batch).to(dev)
-    tables = _he_tables(hist256_groups_plain(stack), stack[0].numel())
-    label = "x".join(map(str, BATCH))
-    time_pair(f"hist256_frames {label}", hist256_frames, hist256_groups_plain,
-              (stack,), card, work=(stack.numel() + BATCH[0] * 256 * 4,
-                                    stack.numel()))
-    time_pair(f"lut_gather_frames {label}", lut_gather_frames,
-              lut_gather_frames_plain, (tables, stack), card,
-              library=lambda t, x: torch.gather(
-                  t, 1, x.reshape(x.shape[0], -1).long()),
-              work=(2 * stack.numel() + nbytes(tables), stack.numel()))
-    time_pair(f"hist_equalize {label} end to end", hist_equalize, he_plain,
-              (stack,), card)
-    time_pair(f"integral {label}", integral_kernel, integral_plain, (stack,),
-              card, work=(5 * stack.numel(), 2 * stack.numel()))
-    integral_split(label, stack, card)
-    return at_4k
-
-
-def integral_split(label: str, img, card: str) -> None:
-    """Phase 5: the integral kernel's launches by the profiler, and its
-    yardstick of PyTorch calls (a cast and two cumsums: no one call computes
-    the integral)."""
-    yard = time_cuda(lambda x: x.int().cumsum(-1).cumsum(-2), img,
-                     iters=ITERS, card=card)
-    busy, _, nk, top = device_split(integral_kernel, img)
-    print(f"phase 5 integral {label}: x.int().cumsum(-1).cumsum(-2) "
-          f"{yard.ms:.4f} ms (min {yard.ms_min:.4f}), median of {ITERS}; "
-          f"profile, 10 calls: {busy:.4f} ms a call over {nk:.0f} kernels: "
-          + "; ".join(f"{k} {v:.4f}" for k, v in top) + f" [{card}]")
-
-
-def time_redesigned(dev, card: str) -> None:
-    """Phase 5, the CLAHE mapping, histogram, tile-histogram and gather
-    kernels at 4K and 1080p (the band at a 4K shard's block; tile_hist also
-    at 64x64 tiles and on a flat frame; lut_gather with a float32 table, at
-    an input offset of 1 and on 16 frames of 1080p), each beside its bound
-    and the first CUDA design's time; then the harness floor, the time the
-    events give a one-element in-place add under the same settings."""
-    cases = []
-    for h, w in TIMED:
-        img = torch.from_numpy(make_frame(h, w, SEED)).to(dev)
-        geo, tables = front_at(img, TILES)
-        n = h * w
-        for f32 in (True, False):
-            kind = "f32" if f32 else "u8"
-            cases.append((f"clahe_map {kind} {h}x{w}", functools.partial(
-                clahe_map, img, tables, TILES, TILES, *geo, f32),
-                ((2 + 3 * f32) * n + nbytes(tables), CLAHE_BLEND_OPS * n)))
-        cases.append((f"hist256 {h}x{w}", functools.partial(hist256, img),
-                      (n + 1024, n)))
-        if (h, w) == SHAPES[0]:
-            words = img.view(torch.int32).reshape(1, -1)
-            cases.append((f"hist256_packed {h}x{w}", functools.partial(
-                hist256_groups_packed, words), (n + 1024, n)))
-            band = img[h // 4:h // 2]
-            for f32 in (False, True):
-                kind = "f32" if f32 else "u8"
-                cases.append((
-                    f"clahe_band_map {kind} {band.shape[0]}x{w}",
-                    functools.partial(clahe_band_map, band, tables, TILES,
-                                      TILES, *geo, h // 4, out_f32=f32),
-                    ((2 + 3 * f32) * band.numel() + nbytes(tables),
-                     CLAHE_BLEND_OPS * band.numel())))
-        for tiles in ((TILES, 64) if (h, w) == SHAPES[0] else (TILES,)):
-            geo = _clahe_geometry(h, w, tiles, tiles)
-            cases.append((f"tile_hist {h}x{w} tiles {tiles}",
-                          functools.partial(tile_hist, img, tiles, tiles,
-                                            *geo),
-                          (n + tiles * tiles * 1024, n)))
-            cases.append((f"tile_tables {h}x{w} tiles {tiles}",
-                          functools.partial(tile_tables, img, tiles, tiles,
-                                            *geo,
-                                            *_clahe_scale(CLIP, *geo[:2])),
-                          (n + tiles * tiles * 1024, n)))
-        u8 = _he_tables(hist256_groups_plain(img.reshape(1, -1))[0], n)
-        f32 = gather_tables(SEED + 97)[2].to(dev)
-        for kind, table in (("u8", u8), ("f32", f32)):
-            if kind == "f32" and (h, w) != SHAPES[0]:
-                continue
-            size = table.element_size()
-            cases.append((f"lut_gather {kind} {h}x{w}", functools.partial(
-                lut_gather, table, img), ((1 + size) * n + 256 * size, n)))
-        if (h, w) == SHAPES[0]:
-            off = unaligned(n, 1, SEED + 99, dev).reshape(h, w)
-            cases.append((f"lut_gather u8 {h}x{w} at offset 1",
-                          functools.partial(lut_gather, u8, off),
-                          (2 * n + 256, n)))
-            flat = torch.full((h, w), 77, dtype=torch.uint8, device=dev)
-            cases.append((f"tile_hist flat {h}x{w} tiles {TILES}",
-                          functools.partial(tile_hist, flat, TILES, TILES,
-                                            *_clahe_geometry(h, w, TILES,
-                                                             TILES)),
-                          (n + TILES * TILES * 1024, n)))
-    stack = torch.from_numpy(batch_frames(BATCH, SEED + 5)).to(dev)
-    tables = _he_tables(hist256_groups_plain(stack), stack[0].numel())
-    cases.append((f"lut_gather_frames {'x'.join(map(str, BATCH))}",
-                  functools.partial(lut_gather_frames, tables, stack),
-                  (2 * stack.numel() + nbytes(tables), stack.numel())))
-    groups = torch.from_numpy(np.random.default_rng(SEED).integers(
-        0, 256, (64, 8161), dtype=np.uint8)).to(dev)
-    cases.append((f"hist256_frames {'x'.join(map(str, BATCH))}",
-                  functools.partial(hist256_frames, stack),
-                  (stack.numel() + BATCH[0] * 1024, stack.numel())))
-    cases.append(("hist256_groups 64x8161", functools.partial(
-        hist256_groups, groups), (groups.numel() + 64 * 1024,
-                                  groups.numel())))
-    for label, fn, work in cases:
-        t = time_cuda(fn, iters=ITERS, card=card)
-        least, by = bound(*work)
-        first = FIRST_DESIGN_MS.get(label)
-        print(f"phase 5 time redesigned {label}: kernel {t.ms:.4f} ms (min "
-              f"{t.ms_min:.4f}), bound {least:.4f} ms ({by}), first design "
-              f"{'not timed' if first is None else f'{first:.4f} ms'}, "
-              f"median of {ITERS} [{card}]")
-    one = torch.zeros(1, device=dev)
-    floor = time_cuda(one.add_, 1, iters=ITERS, card=card)
-    print(f"phase 5 harness floor: a one-element in-place add under "
-          f"time_cuda's settings {floor.ms:.4f} ms (min {floor.ms_min:.4f}), "
-          f"median of {ITERS}: the least time the events show for any call "
-          f"[{card}]")
-
-
-def time_morph_tail(dev, card: str) -> dict:
-    """Phase 5 for the morphology, open/close and fused1 tail kernels;
-    returns the JSON rows' numbers: u8 erode r15 (no one PyTorch call
-    computes it: f32 dilate r15 against max_pool2d is a line of its own)
-    and the tail at 4K, morph_open r15 on two 4K frames."""
-    at_4k = {}
-    r = MORPH_PATH_R
-    for h, w in TIMED:
-        img = torch.from_numpy(make_frame(h, w, SEED)).to(dev)
-        work = (2 * img.numel(), morph_ops(img.dtype) * img.numel())
-        for rr in (1, r):
-            t = time_pair(f"erode u8 r{rr} {h}x{w}",
-                          lambda x: morphology_kernel(x, rr, 0),
-                          lambda x: morphology_plain(x, rr, 0), (img,), card,
-                          work=work)
-        if (h, w) == SHAPES[0]:
-            at_4k["morphology"] = row(t, *work)
-        f = img.to(torch.float32)
-        check(torch.equal(morphology_kernel(f, r, 1), max_pool(r)(f)),
-              f"dilate f32 r{r} {h}x{w} equals max_pool2d")
-        time_pair(f"dilate f32 r{r} {h}x{w}",
-                  lambda x: morphology_kernel(x, r, 1),
-                  lambda x: morphology_plain(x, r, 1), (f,), card,
-                  max_pool(r), (2 * nbytes(f), morph_ops(f.dtype) * f.numel()))
-        th, tw, pt, pl = _clahe_geometry(h, w, TILES, TILES)
-        tables = _clahe_tables(tile_hist_plain(img, TILES, TILES, th, tw, pt,
-                                               pl), CLIP, th, tw)
-        args = (img, tables, TILES, TILES, th, tw, pt, pl, RG, SIGMA, GF_R,
-                GF_EPS)
-        n = h * w
-        work = (5 * n + nbytes(tables),
-                (gauss_ops(RG) + guided_ops() + CLAHE_BLEND_OPS) * n)
-        t = time_pair(f"enhance_tail_clahe {h}x{w}", enhance_tail_clahe,
-                      enhance_tail_clahe_plain, args, card, work=work)
-        if (h, w) == SHAPES[0]:
-            at_4k["enhance_tail_clahe"] = row(t, *work)
-    img = torch.from_numpy(make_frame(*SHAPES[0], SEED)).to(dev)
-    for rr in (200, morph_max_radius(img.dtype) + 1):
-        route = "tile" if morph_tile(rr, 1) else "two-pass"
-        t = time_cuda(morphology_kernel, img, rr, 0, iters=ITERS, card=card)
-        print(f"phase 5 time erode u8 r{rr} {SHAPES[0][0]}x{SHAPES[0][1]} "
-              f"({route} route): kernel {t.ms:.4f} ms (min {t.ms_min:.4f}), "
-              f"median of {ITERS} [{card}]")
-    x = torch.from_numpy(morph_frame(MORPH_BATCH, "uint8", SEED + 6)).to(dev)
-    label = f"r{r} {'x'.join(map(str, MORPH_BATCH))}"
-    work = (2 * nbytes(x), morph_ops(x.dtype, passes=2) * x.numel())
-    at_4k["open_close"] = row(time_pair(
-        f"open_close (open) {label}", lambda v: open_close_kernel(v, r, 0),
-        lambda v: open_close_plain(v, r, 0), (x,), card, work=work), *work)
-    fused = time_cuda(morph_open, x, r, iters=ITERS, card=card)
-    two = time_cuda(lambda v: morphology_kernel(morphology_kernel(v, r, 0),
-                                                r, 1), x, iters=ITERS,
-                    card=card)
-    print(f"phase 5 time morph_open {label} end to end: {fused.ms:.4f} ms "
-          f"(min {fused.ms_min:.4f}), erode then dilate as two morphology "
-          f"launches {two.ms:.4f} ms (min {two.ms_min:.4f}); the fused "
-          f"kernel {'is' if fused.ms < two.ms else 'is not'} faster, median "
-          f"of {ITERS} [{card}]")
-    xf = x.to(torch.float32)
-    time_pair(f"open_close (open) f32 {label}",
-              lambda v: open_close_kernel(v, r, 0),
-              lambda v: open_close_plain(v, r, 0), (xf,), card,
-              work=(2 * nbytes(xf), morph_ops(xf.dtype, passes=2) * xf.numel()))
-    time_pair(f"erode {label} end to end", lambda v: erode(v, r),
-              lambda v: morphology_plain(v, r, 0), (x,), card)
-    return at_4k
-
-
-def host_ms(fn, *args, calls: int = 20) -> float:
-    """Host-clock ms a call over back-to-back calls that end in a
-    synchronize: what a caller waits for, launch overhead included."""
-    fn(*args)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(calls):
-        fn(*args)
-    torch.cuda.synchronize()
-    return (time.perf_counter() - t0) / calls * 1e3
-
-
-def device_split(fn, *args, calls: int = 10) -> tuple:
-    """A torch.profiler trace of back-to-back calls: device busy ms a call,
-    the device's idle share of the traced span, the number of kernels a
-    call, and the five largest kernels' ms a call by name. A kernel that
-    starts before the one ahead of it ends (a dependent launch, waiting on
-    it) is counted from that end, so that overlapping spans count once."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn(*args)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn(*args)
-        torch.cuda.synchronize()
-    kern = sorted((e for e in prof.events()
-                   if e.device_type == DeviceType.CUDA),
-                  key=lambda e: e.time_range.start)
-    span = (max(e.time_range.end for e in kern)
-            - min(e.time_range.start for e in kern))
-    by_name, busy, done = {}, 0, kern[0].time_range.start
-    for e in kern:
-        own = max(0, e.time_range.end - max(e.time_range.start, done))
-        done = max(done, e.time_range.end)
-        busy += own
-        by_name[e.name] = by_name.get(e.name, 0) + own
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
-    return (busy / calls / 1e3, 1 - busy / span, len(kern) / calls,
-            [(name.removeprefix("void ").removeprefix(
-                "(anonymous namespace)::")[:48], t / calls / 1e3)
-             for name, t in top])
-
-
-def time_sharded(dev, card: str, batch: np.ndarray) -> dict:
-    """Phase 5 for the row-padded kernels at the blocks of the sharded
-    paths (a 4K shard over sp = 4), and the sharded paths against the
-    unsharded ops; returns the JSON rows' numbers."""
-    at = {}
-    h, w = SHAPES[0]
-    rows = h // 4
-    fp, _ = guide_pair((rows + 2 * REACH, w), SEED + 70, dev)
-    smooth = gaussian_ypadded_kernel(fp, RG, SIGMA)
-    conv = gauss_conv(RG, SIGMA, dev, pad_rows=False)
-    err = max_err(conv(fp), smooth)
-    print(f"phase 5 gaussian_ypadded vs its conv2d yardstick: {err:.3g}")
-    work = (nbytes(fp, smooth), gauss_ops(RG) * smooth.numel())
-    at["gaussian_ypadded"] = row(time_pair(
-        f"gaussian_ypadded r{RG} {tuple(fp.shape)} -> {tuple(smooth.shape)}",
-        lambda x: gaussian_ypadded_kernel(x, RG, SIGMA),
-        lambda x: gaussian_ypadded_plain(x, RG, SIGMA), (fp,), card, conv,
-        work), *work)
-    Ip = fp[RG:fp.shape[0] - RG].contiguous()
-    out = guided_ypadded_kernel(Ip, smooth, GF_R, GF_EPS)
-    work = (nbytes(Ip, smooth, out), guided_ops() * out.numel())
-    at["guided_ypadded"] = row(time_pair(
-        f"guided_ypadded r{GF_R} general {tuple(Ip.shape)} -> "
-        f"{tuple(out.shape)}",
-        lambda a, b: guided_ypadded_kernel(a, b, GF_R, GF_EPS),
-        lambda a, b: guided_ypadded_plain(a, b, GF_R, GF_EPS), (Ip, smooth),
-        card, work=work), *work)
-    time_pair(f"guided_ypadded r{GF_R} self {tuple(Ip.shape)}",
-              lambda a: guided_ypadded_kernel(a, a, GF_R, GF_EPS, True),
-              lambda a: guided_ypadded_plain(a, a, GF_R, GF_EPS, True),
-              (Ip,), card, work=(nbytes(Ip, out), guided_ops(2) * out.numel()))
-    # the JSON row: u8 erode r15, what stencil_sharded launches (no one
-    # PyTorch call computes it); f32 dilate against max_pool2d on a line of
-    # its own
-    r = MORPH_PATH_R
-    blk = torch.from_numpy(make_frame(rows + 2 * r, w, SEED + 71)).to(dev)
-    work = (blk.numel() + rows * w, morph_ops(blk.dtype) * rows * w)
-    at["morph_ypadded"] = row(time_pair(
-        f"morph_ypadded erode u8 r{r} {tuple(blk.shape)}",
-        lambda x: morph_ypadded_kernel(x, r, 0),
-        lambda x: morph_ypadded_plain(x, r, 0), (blk,), card, work=work),
-        *work)
-    fblk = blk.to(torch.float32)
-    dil = morph_ypadded_kernel(fblk, r, 1)
-    check(torch.equal(dil, max_pool(r, pad_rows=False)(fblk)),
-          "morph_ypadded f32 dilate equals max_pool2d")
-    time_pair(f"morph_ypadded dilate f32 r{r} {tuple(fblk.shape)}",
-              lambda x: morph_ypadded_kernel(x, r, 1),
-              lambda x: morph_ypadded_plain(x, r, 1), (fblk,), card,
-              max_pool(r, pad_rows=False),
-              (nbytes(fblk, dil), morph_ops(fblk.dtype) * dil.numel()))
-    img = torch.from_numpy(make_frame(h, w, SEED + 72)).to(dev)
-    geo, tables = front_at(img, TILES)
-    band = img[rows:2 * rows]
-    args = (band, tables, TILES, TILES, *geo, rows)
-    work = (2 * nbytes(band) + nbytes(tables), CLAHE_BLEND_OPS * band.numel())
-    at["clahe_band_map"] = row(time_pair(
-        f"clahe_band_map u8 {tuple(band.shape)} at y0 {rows}",
-        clahe_band_map, clahe_band_map_plain, args, card, work=work), *work)
-
-    mesh = meshes(dev)
-    for shape in (SHAPES[0], UHD8K):
-        frame = torch.from_numpy(make_frame(*shape, SEED + 73)).to(dev)
-        label = "x".join(map(str, shape))
-        op = enhance_sharded(mesh[(1, 4)], CLIP, TILES, RG, SIGMA, GF_R,
-                             GF_EPS)
-        sh = time_cuda(op, frame, iters=ITERS, card=card)
-        line = [f"enhance_sharded (1, 4) {sh.ms:.4f} ms (min {sh.ms_min:.4f})"]
-        staged = functools.partial(enhance, clip_limit=CLIP, tiles=TILES,
-                                   radius=RG, sigma=SIGMA, gf_radius=GF_R,
-                                   gf_eps=GF_EPS, impl="staged")
-        for impl in ("staged", "fused"):
-            t = time_cuda(enhance, frame, CLIP, TILES, RG, SIGMA, GF_R, GF_EPS,
-                          impl, iters=ITERS, card=card)
-            line.append(f"enhance {impl} {t.ms:.4f} ms (min {t.ms_min:.4f})")
-        print(f"phase 5 time {label}: {', '.join(line)}, median of {ITERS} "
-              f"[{card}]")
-        host = {name: host_ms(fn, frame) for name, fn in
-                (("enhance_sharded", op), ("enhance staged", staged))}
-        print(f"phase 5 host clock {label}, 20 calls back to back: "
-              + ", ".join(f"{k} {v:.4f} ms a call" for k, v in host.items())
-              + f" [{card}]")
-        for name, fn in (("enhance_sharded", op), ("enhance staged", staged)):
-            busy, idle, nk, top = device_split(fn, frame)
-            print(f"phase 5 profile {label} {name}, 10 calls: device busy "
-                  f"{busy:.4f} ms a call over {nk:.0f} kernels, idle share "
-                  f"{idle:.2%}; largest: "
-                  + "; ".join(f"{k} {v:.4f}" for k, v in top) + f" [{card}]")
-    frames = torch.from_numpy(batch_frames(MORPH_BATCH, SEED + 74)).to(dev)
-    f2 = frames.to(torch.float32) * (1.0 / 255.0)
-    label = "x".join(map(str, MORPH_BATCH))
-    for what, sharded, whole, x in (
-            (f"gaussian r{RG}", stencil_sharded(
-                lambda p: gaussian_ypadded(p, RG, SIGMA), RG, "reflect101",
-                mesh[(2, 4)]), lambda v: gaussian_kernel(v, RG, SIGMA), f2),
-            (f"erode u8 r{r}", stencil_sharded(
-                lambda p: morph_ypadded(p, r, 0), r, "replicate",
-                mesh[(2, 4)]), lambda v: morphology_kernel(v, r, 0), frames)):
-        a = time_cuda(sharded, x, iters=ITERS, card=card)
-        b = time_cuda(whole, x, iters=ITERS, card=card)
-        print(f"phase 5 time stencil_sharded {what} {label} (2, 4): "
-              f"{a.ms:.4f} ms (min {a.ms_min:.4f}), the unsharded kernel "
-              f"{b.ms:.4f} ms (min {b.ms_min:.4f}), median of {ITERS} "
-              f"[{card}]")
-    I, p = guide_pair((h, w), SEED + 75, dev)
-    a = time_cuda(guided_filter_sharded(mesh[(1, 4)], GF_R, GF_EPS), I, p,
-                  iters=ITERS, card=card)
-    b = time_cuda(guided_filter_kernel, I, p, GF_R, GF_EPS, iters=ITERS,
-                  card=card)
-    print(f"phase 5 time guided_filter_sharded r{GF_R} {h}x{w} (1, 4): "
-          f"{a.ms:.4f} ms (min {a.ms_min:.4f}), the unsharded kernel "
-          f"{b.ms:.4f} ms (min {b.ms_min:.4f}), median of {ITERS} [{card}]")
-    return at
-
-
 # phase 6: the CLI (python -m tpuimg_torch), colour, metrics, profiling and
 # the native frame stream. Each CLI call at 4K, the CLI's defaults: its
 # argv and the kernels it must launch.
@@ -2512,25 +1925,12 @@ def main() -> int:
     launches = {k: launches[k] + sharded[k] for k in launches}
     print(f"phase 4 took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    # the library yardsticks in full float32 (cuDNN convolutions take TF32
-    # by default)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    times = time_all(dev, card)
-    times.update(time_he_integral(dev, card, batch))
-    times.update(time_morph_tail(dev, card))
-    times.update(time_sharded(dev, card, batch))
-    time_redesigned(dev, card)
-    print(f"phase 5 took {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
     run_phase6(dev, card)
     print(f"phase 6 took {time.perf_counter() - t0:.1f} s")
 
-    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
     rows = [{"name": name, "route": "cuda", "source": src, "replaces": tpu,
-             "launches": launches[name], "max_abs_err": errs[name],
-             **dict(zip(keys, times[name]))}
-            for name, _, _, src, tpu in KERNELS]
+             "launches": launches[name], "max_abs_err": errs[name]}
+            for name, _, src, tpu in KERNELS]
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

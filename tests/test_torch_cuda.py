@@ -16,6 +16,7 @@ import pytest
 import torch
 
 import tpuimg_torch
+from tpuimg_torch import kernels
 from tpuimg_torch.core.validate import ParamError
 from tpuimg_torch.kernels import (
     GAUSS_MAX_RADIUS, GUIDED_SMEM_MAX_RADIUS, MAX_TAPS, TAIL_MAX_RADIUS,
@@ -110,16 +111,18 @@ def test_enhance_tail_shared_memory_limit_raises(card):
     f = torch.zeros((400, 400), device=card)
     img = torch.from_numpy(_frame((400, 400), 5)).to(card)
     geo, tables = _geometry_and_tables(img, 4, 4)
-    before = (enhance_tail.launches, enhance_tail_clahe.launches)
+    tails = ("tpuimg_enhance_tail", "tpuimg_enhance_tail_clahe")
+    before = _count(*tails)
     for r, rg in ((TAIL_MAX_RADIUS + 1, 2), (8, MAX_TAPS // 2 + 1)):
         with pytest.raises(ParamError):
             enhance_tail(f, rg, 5.0, r, 1e-3)
         with pytest.raises(ParamError):
             enhance_tail_clahe(img, tables, 4, 4, *geo, rg, 5.0, r, 1e-3)
-    assert (enhance_tail.launches, enhance_tail_clahe.launches) == before
-    scratch = enhance_tail.scratch_launches
+    assert _count(*tails) == before
+    assert load().tpuimg_enhance_tail_shared(MAX_TAPS // 2,
+                                             TAIL_MAX_RADIUS) == 0
     got = enhance_tail(f + 0.5, MAX_TAPS // 2, 5.0, TAIL_MAX_RADIUS, 1e-3)
-    assert enhance_tail.scratch_launches == scratch + 1
+    assert _count(*tails) == (before[0] + 1, before[1])
     assert float((got - 0.5).abs().max()) <= 1e-5
 
 
@@ -148,14 +151,14 @@ def test_enhance_tails_radius_range_unaligned(card, rg, r):
     ((270, 480), 8, 2, 8), ((301, 203), 4, 1, 2), ((512, 512), 16, 2, 4)])
 def test_enhance_on_card_matches_cpu(card, shape, tiles, radius, gf_radius):
     frame = _frame(shape, 3)
-    hist_before = tile_hist.launches
-    before = (tile_tables.launches, clahe_map.launches,
-              enhance_tail.launches)
+    fused = ("tpuimg_tile_tables", "tpuimg_clahe_map", "tpuimg_enhance_tail")
+    hist_before = kernels.launches["tpuimg_tile_hist"]
+    before = _count(*fused)
     got = enhance(torch.from_numpy(frame).to(card), 2.0, tiles, radius, 1.5,
                   gf_radius, 1e-3)
-    after = (tile_tables.launches, clahe_map.launches, enhance_tail.launches)
+    after = _count(*fused)
     assert all(a == b + 1 for a, b in zip(after, before))
-    assert tile_hist.launches == hist_before
+    assert kernels.launches["tpuimg_tile_hist"] == hist_before
     ref = enhance(torch.from_numpy(frame), 2.0, tiles, radius, 1.5,
                   gf_radius, 1e-3)
     assert got.dtype == torch.uint8 and got.shape == shape
@@ -169,9 +172,14 @@ def test_clahe_on_card_within_one_step_of_cpu(card):
     assert int((got.cpu().int() - ref.int()).abs().max()) <= 1
 
 
+def _count(*entries):
+    """The launches of each C entry so far in this process."""
+    return tuple(kernels.launches[e] for e in entries)
+
+
 def _launches():
-    return (gaussian_kernel.launches, guided_filter_kernel.launches,
-            guided_filter_kernel.twopass_launches)
+    return _count("tpuimg_gaussian", "tpuimg_guided_onepass",
+                  "tpuimg_guided_twopass")
 
 
 def test_unported_paths_raise_on_card(card):
@@ -515,9 +523,9 @@ def test_hist256_groups_packed_exact(card, shape, offset):
     pixels = torch.from_numpy(_frame((g * 4 * p4 + 4 * offset,), 31)).to(card)
     words = pixels.view(torch.int32)[offset:].reshape(g, p4)
     assert words.data_ptr() % 16 == 4 * offset
-    before = hist256_groups_packed.launches
+    before = kernels.launches["tpuimg_hist256_packed"]
     got = hist256_groups_packed(words)
-    assert hist256_groups_packed.launches == before + 1
+    assert kernels.launches["tpuimg_hist256_packed"] == before + 1
     assert got.dtype == torch.int32 and got.shape == (g, 256)
     assert torch.equal(got, hist256_groups_packed_plain(words))
     assert torch.equal(got, hist256_groups(
@@ -596,18 +604,18 @@ def test_integral_wraps(card, shape):
 
 def test_integral_other_dtypes_run_plain_on_card(card):
     g = np.random.default_rng(27)
-    before = integral_kernel.launches
+    before = kernels.launches["tpuimg_integral"]
     for dtype in (np.int8, np.int16, np.uint16, np.int32, bool):
         x = g.integers(-2 ** 31, 2 ** 31, (40, 50)).astype(dtype)
         got = tpuimg_torch.integral(torch.from_numpy(x).to(card))
         assert got.is_cuda and got.dtype == torch.int32
         assert torch.equal(got.cpu(), tpuimg_torch.integral(
             torch.from_numpy(x)))
-    assert integral_kernel.launches == before
+    assert kernels.launches["tpuimg_integral"] == before
 
 
 def _he_launches():
-    return hist256_groups.launches, lut_gather.launches
+    return _count("tpuimg_hist256", "tpuimg_lut_gather")
 
 
 @pytest.mark.parametrize("shape", [(1, 1), (16, 32), (270, 480),
@@ -731,11 +739,13 @@ MORPH_CASES = [((1, 1), 3), ((5, 6), 40), ((10, 200), 15), ((33, 1000), 7),
 def test_morphology_matches_plain(card, shape, radius, dtype):
     x = torch.from_numpy(_morph_frames(shape, dtype, 40)).to(card)
     for mode in (0, 1):
-        before = morphology_kernel.split_launches
+        before = kernels.launches["tpuimg_morphology"]
         got = morphology_kernel(x, radius, mode)
         _same_values(got, morphology_plain(x, radius, mode))
-        split = min(radius, max(shape[-2:]) - 1) > morph_max_radius(x.dtype)
-        assert morphology_kernel.split_launches == before + split
+        r = min(radius, max(shape[-2:]) - 1)
+        assert kernels.launches["tpuimg_morphology"] == before + 1
+        assert (morph_tile(r, x.element_size()) is None) == (
+            r > morph_max_radius(x.dtype))
 
 
 @pytest.mark.parametrize("dtype", ["uint8", "int32", "float32"])
@@ -749,16 +759,14 @@ def test_morphology_tile_ceiling(card, dtype):
         blk = torch.from_numpy(_morph_frames((5 + 2 * r, 261), dtype,
                                              47)).to(card)
         for mode in (0, 1):
-            before = (morphology_kernel.split_launches,
-                      morph_ypadded_kernel.split_launches)
+            entries = ("tpuimg_morphology", "tpuimg_morphology_ypadded")
+            before = _count(*entries)
             _same_values(morphology_kernel(x, r, mode),
                          morphology_plain(x, r, mode))
             _same_values(morph_ypadded_kernel(blk, r, mode),
                          morph_ypadded_plain(blk, r, mode))
-            split = r > top
-            assert (morphology_kernel.split_launches,
-                    morph_ypadded_kernel.split_launches) == (
-                before[0] + split, before[1] + split)
+            assert _count(*entries) == (before[0] + 1, before[1] + 1)
+            assert (morph_tile(r, x.element_size()) is None) == (r > top)
 
 
 def test_morph_tile_matches_the_c_planner(card):
@@ -803,11 +811,12 @@ def test_open_close_matches_plain(card, shape, radius, dtype):
     fused = open_close_tile(r, x.element_size()) is not None
     assert fused == (r <= open_close_max_radius(x.dtype))
     for mode in (0, 1):
-        before = (open_close_kernel.launches, morphology_kernel.launches)
+        entries = ("tpuimg_open_close", "tpuimg_morphology")
+        before = _count(*entries)
         got = open_close_kernel(x, radius, mode)
         _same_values(got, open_close_plain(x, radius, mode))
-        assert (open_close_kernel.launches, morphology_kernel.launches) == (
-            before[0] + fused, before[1] + 2 * (not fused))
+        assert _count(*entries) == (before[0] + fused,
+                                    before[1] + 2 * (not fused))
 
 
 @pytest.mark.parametrize("dtype", ["uint8", "float32"])
@@ -929,8 +938,8 @@ def test_enhance_fused1_on_card(card, shape, tiles):
     img = torch.from_numpy(frame).to(card)
 
     def counts():
-        return (tile_tables.launches, clahe_map.launches,
-                enhance_tail_clahe.launches)
+        return _count("tpuimg_tile_tables", "tpuimg_clahe_map",
+                      "tpuimg_enhance_tail_clahe")
 
     before = counts()
     got = enhance(img, tiles=tiles, impl="fused1")
@@ -973,11 +982,12 @@ def test_morph_ypadded_matches_plain(card, out_shape, radius, dtype):
     x = torch.from_numpy(_morph_frames((*lead, h + 2 * radius, w), dtype,
                                        41)).to(card)
     for mode in (0, 1):
-        before = morph_ypadded_kernel.split_launches
+        before = kernels.launches["tpuimg_morphology_ypadded"]
         got = morph_ypadded_kernel(x, radius, mode)
         assert got.shape == out_shape
         _same_values(got, morph_ypadded_plain(x, radius, mode))
-        assert morph_ypadded_kernel.split_launches - before == (
+        assert kernels.launches["tpuimg_morphology_ypadded"] == before + 1
+        assert (morph_tile(radius, x.element_size()) is None) == (
             radius > morph_max_radius(x.dtype))
 
 
@@ -993,13 +1003,13 @@ def test_guided_ypadded_matches_plain(card, out_shape, radius, self_guided):
     shape = (*lead, h + 4 * radius, w)
     I = torch.from_numpy(g.random(shape, dtype=np.float32)).to(card)
     p = torch.from_numpy(g.random(shape, dtype=np.float32)).to(card)
-    before = guided_ypadded_kernel.scratch_launches
+    before = kernels.launches["tpuimg_guided_onepass_ypadded_scratch"]
     got = guided_ypadded_kernel(I, p, radius, 1e-3, self_guided)
     ref = guided_ypadded_plain(I, p, radius, 1e-3, self_guided)
     assert got.shape == out_shape and bool(torch.isfinite(got).all())
     assert float((got - ref).abs().max()) <= 1e-4
-    assert guided_ypadded_kernel.scratch_launches - before == (
-        radius > GUIDED_SMEM_MAX_RADIUS)
+    assert kernels.launches["tpuimg_guided_onepass_ypadded_scratch"] - (
+        before) == (radius > GUIDED_SMEM_MAX_RADIUS)
 
 
 @pytest.mark.parametrize("self_guided", [False, True])
@@ -1079,19 +1089,27 @@ def _mesh(card, n_data, n_sp):
     return make_mesh(n_data, n_sp, devices=[card] * (n_data * n_sp))
 
 
-def test_sharded_paths_on_card(card):
+def test_sharded_paths_on_card(card, monkeypatch):
     """The sharded ops on a mesh of the card repeated against the unsharded
     ops on the card, through the row-padded kernels."""
     import functools
 
     from tpuimg_torch import parallel as tpar
+    from tpuimg_torch.kernels import lut
     from tpuimg_torch.ops.gaussian import gaussian_ypadded
     from tpuimg_torch.ops.morphology import morph_ypadded
 
     mesh = _mesh(card, 1, 4)
     img = torch.from_numpy(_frame((270, 480), 6)).to(card)
-    counts = (clahe_band_map.launches, gaussian_ypadded_kernel.launches,
-              guided_ypadded_kernel.launches)
+    entries = ("tpuimg_gaussian_ypadded", "tpuimg_guided_onepass_ypadded")
+    counts = _count(*entries)
+    bands = []
+
+    def band_map(*args, **kwargs):
+        bands.append(args[0].shape)
+        return clahe_band_map(*args, **kwargs)
+
+    monkeypatch.setattr(lut, "clahe_band_map", band_map)
     for frame in (img, img[:269].contiguous()):
         out = tpar.enhance_sharded(mesh, 2.0, 8, 2, 1.5, 8, 1e-3)(frame)
         ref = tpuimg_torch.enhance(frame, 2.0, 8, 2, 1.5, 8, 1e-3,
@@ -1099,8 +1117,8 @@ def test_sharded_paths_on_card(card):
         got = out.gather()
         assert got.is_cuda and got.shape == ref.shape
         assert int((got.int() - ref.int()).abs().max()) <= 1
-    assert (clahe_band_map.launches, gaussian_ypadded_kernel.launches,
-            guided_ypadded_kernel.launches) == tuple(c + 8 for c in counts)
+    assert _count(*entries) == tuple(c + 8 for c in counts)
+    assert len(bands) == 8  # clahe_band_map, once a shard
     mesh24 = _mesh(card, 2, 4)
     frames = torch.from_numpy(_frame((2, 64, 96), 7)).to(card)
     er = tpar.stencil_sharded(functools.partial(
@@ -1156,9 +1174,9 @@ INTEGRAL_BANDS = [(7, 17), (8, 3), (9, 1), (29, 4099), (15, 17), (16, 3),
 @pytest.mark.parametrize("shape", INTEGRAL_BANDS)
 def test_integral_band_scan_exact(card, shape):
     frame = _frame(shape, 31)
-    before = integral_kernel.launches
+    before = kernels.launches["tpuimg_integral"]
     got = integral_kernel(torch.from_numpy(frame).to(card))
-    assert integral_kernel.launches == before + 1
+    assert kernels.launches["tpuimg_integral"] == before + 1
     assert got.dtype == torch.int32 and got.shape == shape
     assert torch.equal(got, integral_plain(torch.from_numpy(frame).to(card)))
     assert np.array_equal(got.cpu().numpy(), _integral_numpy(frame))
@@ -1219,13 +1237,13 @@ def test_twopass_radii_match_plain(card, radius):
     I = torch.from_numpy(g.random((2, 150, 300), dtype=np.float32)).to(card)
     p = torch.from_numpy(g.random((2, 2, 150, 300),
                                   dtype=np.float32)).to(card)
-    before = guided_filter_kernel.twopass_launches
+    before = kernels.launches["tpuimg_guided_twopass"]
     for q in (p[0], p):
         got = guided_filter_kernel(I, q, radius, 1e-3, variant="twopass")
         assert got.shape == q.shape and bool(torch.isfinite(got).all())
         ref = guided_filter_plain(I, q, radius, 1e-3)
         assert float((got - ref).abs().max()) <= 1e-4
-    assert guided_filter_kernel.twopass_launches == before + 2
+    assert kernels.launches["tpuimg_guided_twopass"] == before + 2
 
 
 @pytest.mark.parametrize("shape,radius", [((1, 1), 1), ((1, 7), 2),
@@ -1246,10 +1264,10 @@ def test_twopass_small_frames_match_plain(card, shape, radius):
 
 def test_twopass_refuses_past_its_ceiling(card):
     f = torch.from_numpy(_frame((64, 96))).to(card).float() / 255
-    before = guided_filter_kernel.twopass_launches
+    before = kernels.launches["tpuimg_guided_twopass"]
     with pytest.raises(ParamError, match="radius <= 64"):
         guided_filter_kernel(f, f, 65, 1e-3, variant="twopass")
-    assert guided_filter_kernel.twopass_launches == before
+    assert kernels.launches["tpuimg_guided_twopass"] == before
 
 
 def _walker_cases(card):
@@ -1377,7 +1395,7 @@ def test_walker_planted_value_ypadded(card, radius, self_guided, value):
     scratch route (r 80), planted values as above at output rows 5, 32 and
     50."""
     I0, p0 = _planted_pair(card, 70 + 4 * radius)
-    before = guided_ypadded_kernel.scratch_launches
+    before = kernels.launches["tpuimg_guided_onepass_ypadded_scratch"]
     for plane in ("I",) if self_guided else ("I", "p"):
         for y, x in PLANT_AT:
             I, p = I0.clone(), p0.clone()
@@ -1386,8 +1404,8 @@ def test_walker_planted_value_ypadded(card, radius, self_guided, value):
             got = guided_ypadded_kernel(I, pp, radius, 1e-3, self_guided)
             ref = guided_ypadded_plain(I, pp, radius, 1e-3, self_guided)
             _planted_close(got, ref, y, x, radius)
-    assert (guided_ypadded_kernel.scratch_launches > before) == (
-        radius > GUIDED_SMEM_MAX_RADIUS)
+    assert (kernels.launches["tpuimg_guided_onepass_ypadded_scratch"]
+            > before) == (radius > GUIDED_SMEM_MAX_RADIUS)
 
 
 def test_walker_in_range_frames_keep_bits_across_segments(card):
@@ -1654,9 +1672,9 @@ def test_tile_hist_one_launch_no_memset(card):
         geo, _ = _geometry_and_tables(img, tiles, tiles)
         clusters.add(tile_hist_plan(tiles, tiles, geo[0], geo[1],
                                     sm_count(img.device))[0])
-        before = tile_hist.launches
+        before = kernels.launches["tpuimg_tile_hist"]
         names, calls = _kernels_of(tile_hist, img, tiles, tiles, *geo)
-        assert tile_hist.launches == before + calls
+        assert kernels.launches["tpuimg_tile_hist"] == before + calls
         assert len(names) == 1 and "tile_hist" in names[0], names
     assert {1, 8} <= clusters
 
@@ -1759,10 +1777,10 @@ def test_tile_tables_one_launch_no_torch_op(card):
         geo = _clahe_geometry(*shape, tiles, tiles)
         clusters.add(tile_hist_plan(tiles, tiles, geo[0], geo[1],
                                     sm_count(img.device))[0])
-        before = tile_tables.launches
+        before = kernels.launches["tpuimg_tile_tables"]
         names, calls = _kernels_of(tile_tables, img, tiles, tiles, *geo,
                                    *_clahe_scale(2.0, *geo[:2]))
-        assert tile_tables.launches == before + calls
+        assert kernels.launches["tpuimg_tile_tables"] == before + calls
         assert len(names) == 1 and "tile_hist" in names[0], names
     assert {1, 8} <= clusters
 
@@ -1783,9 +1801,9 @@ def test_enhance_4k_equals_tables_built_on_the_host(card, monkeypatch, impl):
                              th, tw)
 
     monkeypatch.setattr(histogram, "tile_tables", host_tables)
-    before = tile_hist.launches
+    before = kernels.launches["tpuimg_tile_hist"]
     want = enhance(img, impl=impl)
-    assert tile_hist.launches == before + 1
+    assert kernels.launches["tpuimg_tile_hist"] == before + 1
     assert torch.equal(got, want)
 
 
@@ -1850,9 +1868,9 @@ def test_lut_gather_one_launch_no_memset(card):
                      (lut_gather, (tables.view(torch.int32).reshape(-1)[:256],
                                    img)),
                      (lut_gather_frames, (tables, stack))):
-        before = lut_gather.launches
+        before = kernels.launches["tpuimg_lut_gather"]
         names, calls = _kernels_of(fn, *args)
-        assert lut_gather.launches == before + calls
+        assert kernels.launches["tpuimg_lut_gather"] == before + calls
         assert len(names) == 1 and "lut_gather" in names[0], names
 
 
@@ -2141,10 +2159,9 @@ def test_enhance_tail_u8_store_equals_to_u8(card, shape, rg, r):
     img = torch.from_numpy(_frame(shape, 130)).to(card)
     geo, tables = _geometry_and_tables(img, 8, 8)
     f = clahe_map(img, tables, 8, 8, *geo, out_f32=True, scale=INV_255)
-    before = (enhance_tail.launches, enhance_tail.u8_launches)
+    before = kernels.launches["tpuimg_enhance_tail"]
     got = enhance_tail(f, rg, 1.5, r, 1e-3, out_u8=True)
-    assert (enhance_tail.launches, enhance_tail.u8_launches) == (
-        before[0] + 1, before[1] + 1)
+    assert kernels.launches["tpuimg_enhance_tail"] == before + 1
     assert got.dtype == torch.uint8 and got.shape == shape
     assert torch.equal(got, _to_u8(enhance_tail(f, rg, 1.5, r, 1e-3)))
 
@@ -2153,11 +2170,10 @@ def test_enhance_tail_u8_store_equals_to_u8(card, shape, rg, r):
 def test_enhance_tail_clahe_u8_store_equals_to_u8(card, shape, rg, r):
     img = torch.from_numpy(_frame(shape, 131)).to(card)
     geo, tables = _geometry_and_tables(img, 8, 8)
-    before = (enhance_tail_clahe.launches, enhance_tail.u8_launches)
+    before = kernels.launches["tpuimg_enhance_tail_clahe"]
     got = enhance_tail_clahe(img, tables, 8, 8, *geo, rg, 1.5, r, 1e-3,
                              out_u8=True)
-    assert (enhance_tail_clahe.launches, enhance_tail.u8_launches) == (
-        before[0] + 1, before[1] + 1)
+    assert kernels.launches["tpuimg_enhance_tail_clahe"] == before + 1
     assert got.dtype == torch.uint8 and got.shape == shape
     assert torch.equal(got, _to_u8(enhance_tail_clahe(
         img, tables, 8, 8, *geo, rg, 1.5, r, 1e-3)))
@@ -2185,8 +2201,26 @@ def test_clahe_map_scale_is_the_blend_times_scale(card, shape, grid):
         clahe_map(img, tables, yt, xt, *geo, scale=INV_255)
 
 
+TAILS = ("tpuimg_enhance_tail", "tpuimg_enhance_tail_clahe")
+
+
+def _rounded_in_glue(monkeypatch) -> list:
+    """Record each call of the pipeline's _to_u8, the glue that rounds q
+    where no tail's store does."""
+    from tpuimg_torch import pipeline
+
+    rounded = []
+
+    def to_u8(q):
+        rounded.append(q.shape)
+        return _to_u8(q)
+
+    monkeypatch.setattr(pipeline, "_to_u8", to_u8)
+    return rounded
+
+
 @pytest.mark.parametrize("seed", [133, 134])
-def test_enhance_equals_the_composition_with_glue(card, seed):
+def test_enhance_equals_the_composition_with_glue(card, seed, monkeypatch):
     """enhance at 4K equals the composition that ran PyTorch glue between
     the kernels (the raw f32 blend, times INV_255, the f32 tail, _to_u8),
     bit for bit; fused1 equals it too. One tail launch a call stores u8."""
@@ -2196,23 +2230,27 @@ def test_enhance_equals_the_composition_with_glue(card, seed):
     tables, *geo = _clahe_front(img, 2.0, 8, 8)
     blend = clahe_map(img, tables, 8, 8, *geo, out_f32=True)
     want = _to_u8(enhance_tail(blend * INV_255, 2, 1.5, 8, 1e-3))
+    rounded = _rounded_in_glue(monkeypatch)
     for impl in ("fused", "fused1"):
-        before = enhance_tail.u8_launches
+        before = sum(_count(*TAILS))
         assert torch.equal(enhance(img, impl=impl), want), impl
-        assert enhance_tail.u8_launches == before + 1
+        assert sum(_count(*TAILS)) == before + 1 and rounded == []
 
 
-def test_u8_launches_count_the_fused_calls_only(card):
+def test_u8_launches_count_the_fused_calls_only(card, monkeypatch):
     """The fused paths above the gate store u8 in the tail; staged and
-    frames under the gate round q in _to_u8 and count nothing."""
+    frames under the gate launch no tail and round q in _to_u8."""
     big = torch.from_numpy(_frame((270, 480), 135)).to(card)
     small = torch.from_numpy(_frame((30, 40), 136)).to(card)
+    rounded = _rounded_in_glue(monkeypatch)
     for call, adds in ((lambda: enhance(big), 1),
                        (lambda: enhance(big, impl="fused1"), 1),
                        (lambda: enhance(big, impl="staged"), 0),
                        (lambda: enhance(small), 0),
                        (lambda: enhance(small, impl="fused1"), 0)):
-        before = enhance_tail.u8_launches
+        before = sum(_count(*TAILS))
+        rounded.clear()
         out = call()
         assert out.dtype == torch.uint8
-        assert enhance_tail.u8_launches == before + adds
+        assert sum(_count(*TAILS)) == before + adds
+        assert len(rounded) == 1 - adds

@@ -15,6 +15,7 @@ import torch
 
 import tpuimg
 import tpuimg_torch
+from tpuimg_torch import kernels
 from tpuimg.kernels.boxsum import guided_filter_pallas
 from tpuimg.kernels.sep_stencil import gaussian_pallas
 from tpuimg.ops.gaussian import gaussian_ypadded as jax_gaussian_ypadded
@@ -177,17 +178,17 @@ def test_enhance_tiny_frames_match_tpuimg(rng, impl, shape):
 
 def test_wrappers_take_plain_version_on_cpu(rng):
     """On a CPU tensor the new wrappers launch nothing."""
-    before = (gaussian_kernel.launches, guided_filter_kernel.launches,
-              guided_filter_kernel.twopass_launches)
+    entries = ("tpuimg_gaussian", "tpuimg_guided_onepass",
+               "tpuimg_guided_twopass")
+    before = [kernels.launches[e] for e in entries]
     f = torch.from_numpy(rng.random((40, 50), dtype=np.float32))
     tpuimg_torch.gaussian(f, 2, 1.5)
     tpuimg_torch.guided_filter(f, f, 4, 1e-3, border="reflect101")
     guided_filter_kernel(f, f.clone(), 4, 1e-3, variant="twopass")
     tpuimg_torch.enhance(torch.from_numpy(
         rng.integers(0, 256, (40, 50), dtype=np.uint8)), impl="staged")
-    after = (gaussian_kernel.launches, guided_filter_kernel.launches,
-             guided_filter_kernel.twopass_launches)
-    assert after == before == (0, 0, 0)
+    after = [kernels.launches[e] for e in entries]
+    assert after == before == [0, 0, 0]
 
 
 def test_guided_variant_is_checked(rng):

@@ -12,6 +12,7 @@ import torch
 
 import tpuimg
 import tpuimg_torch
+from tpuimg_torch import kernels
 from tpuimg.kernels.scan2d import integral_pallas
 from tpuimg.oracle.numpy_ref import integral_ref
 from tpuimg_torch.kernels.scan2d import integral_kernel, integral_plain
@@ -98,10 +99,10 @@ def test_same_typed_errors_as_tpuimg(case):
 def test_cpu_dispatch_launches_nothing_and_meta_raises(rng, monkeypatch):
     from tpuimg_torch.kernels import scan2d
 
-    before = integral_kernel.launches
+    before = kernels.launches["tpuimg_integral"]
     tpuimg_torch.integral(torch.from_numpy(
         rng.integers(0, 256, (2, 20, 30), dtype=np.uint8)))
-    assert integral_kernel.launches == before == 0
+    assert kernels.launches["tpuimg_integral"] == before == 0
     meta = torch.empty((64, 64), dtype=torch.uint8, device="meta")
     with monkeypatch.context() as m:
         m.setattr(scan2d, "integral_plain", lambda *a: 1 / 0)

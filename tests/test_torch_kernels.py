@@ -7,6 +7,10 @@ The CUDA kernels themselves run in chip_smoke.py and tests/test_torch_cuda.py
 on the card.
 """
 
+import collections
+import contextlib
+import types
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -21,7 +25,7 @@ from tpuimg.kernels.lut import clahe_map_full
 from tpuimg.oracle import clahe_ref
 from tpuimg.oracle.numpy_ref import clahe_tile_geometry, clahe_tile_hists_ref
 from tpuimg.ops.histogram import _clahe_front, _map_bank, _tile_coord_runs
-from tpuimg_torch import clahe, profiling
+from tpuimg_torch import clahe, kernels, profiling
 from tpuimg_torch.core.borders import pad_reflect101, reflect101_index
 from tpuimg_torch.kernels.boxsum import enhance_tail, enhance_tail_plain
 from tpuimg_torch.kernels.hist import (
@@ -148,7 +152,8 @@ def test_wrappers_take_plain_version_on_cpu(rng):
     """On a CPU tensor each wrapper returns its plain version's result and
     launches nothing."""
     img = torch.from_numpy(rng.integers(0, 256, (90, 110), dtype=np.uint8))
-    before = (tile_hist.launches, clahe_map.launches, enhance_tail.launches)
+    entries = ("tpuimg_tile_hist", "tpuimg_clahe_map", "tpuimg_enhance_tail")
+    before = [kernels.launches[e] for e in entries]
     geo = (8, 8, 12, 14, 3, 1)  # ytiles, xtiles, th, tw, pad_top, pad_left
     assert torch.equal(tile_hist(img, *geo), tile_hist_plain(img, *geo))
     tables = torch.from_numpy(rng.random((64, 256), dtype=np.float32) * 255)
@@ -157,7 +162,7 @@ def test_wrappers_take_plain_version_on_cpu(rng):
     f = torch.from_numpy(rng.random((90, 110), dtype=np.float32))
     assert torch.equal(enhance_tail(f, 2, 1.5, 8, 1e-3),
                        enhance_tail_plain(f, 2, 1.5, 8, 1e-3))
-    after = (tile_hist.launches, clahe_map.launches, enhance_tail.launches)
+    after = [kernels.launches[e] for e in entries]
     assert after == before
 
 
@@ -172,6 +177,46 @@ def test_wrappers_refuse_non_cuda_devices():
                   0, 0)
     with pytest.raises(ValueError, match="CUDA tensor"):
         enhance_tail(torch.empty((64, 64), device="meta"), 2, 1.5, 8, 1e-3)
+
+
+class _FakeLib:
+    """C entries that return cudaSuccess (tpuimg_a), then a CUDA error
+    (tpuimg_b), and the error-string query."""
+
+    def tpuimg_a(self, *args):
+        return 0
+
+    def tpuimg_b(self, *args):
+        return 700
+
+    def tpuimg_cuda_error_string(self, err):
+        return b"an illegal memory access was encountered"
+
+
+def test_launch_counts_each_entry_and_marks_its_first_span(monkeypatch):
+    """kernels.launch is the one record of launches: one count a call of
+    an entry, by entry, the span of its first call marked ``first``, and a
+    call that returns an error counted and raised."""
+    monkeypatch.setattr(kernels, "launches", collections.Counter())
+    monkeypatch.setattr(kernels, "load", lambda: _FakeLib())
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device: types.SimpleNamespace(cuda_stream=7))
+    cpu = torch.device("cpu")
+    with profiling.recording() as rec:
+        kernels.launch("tpuimg_a", cpu, 1)
+        kernels.launch("tpuimg_a", cpu, 2)
+        with pytest.raises(kernels.KernelLaunchError,
+                           match=r"tpuimg_b: CUDA error 700 \(an illegal"):
+            kernels.launch("tpuimg_b", cpu)
+        kernels.launch("tpuimg_a", cpu, 3)
+    assert kernels.launches == {"tpuimg_a": 3, "tpuimg_b": 1}
+    assert [(s.name, s.detail, s.first) for s in rec.spans] == [
+        ("kernels.launch", "tpuimg_a", True),
+        ("kernels.launch", "tpuimg_a", False),
+        ("kernels.launch", "tpuimg_b", True),
+        ("kernels.launch", "tpuimg_a", False)]
 
 
 def _clip_serial(hists, limit: int) -> list:
@@ -264,12 +309,12 @@ def test_tile_tables_refuses_other_devices():
     of tile_hist, so a CPU or meta tensor raises before any launch."""
     from tpuimg_torch.kernels.hist import tile_tables
 
-    before = tile_tables.launches
+    before = kernels.launches["tpuimg_tile_tables"]
     for dev in ("cpu", "meta"):
         img = torch.empty((64, 64), dtype=torch.uint8, device=dev)
         with pytest.raises(ValueError, match="CUDA tensor"):
             tile_tables(img, 4, 4, 16, 16, 0, 0, 10, 0.5)
-    assert tile_tables.launches == before
+    assert kernels.launches["tpuimg_tile_tables"] == before
 
 
 # the tile geometries of tests/test_torch_cuda.py::CLAHE_CASES, 4K and 1080p

@@ -17,6 +17,7 @@ import tpuimg
 import tpuimg_torch
 from tpuimg.kernels.sep_stencil import morph_pallas_ypadded, open_close_pallas
 from tpuimg.oracle import close_ref, dilate_ref, erode_ref, open_ref
+from tpuimg_torch import kernels
 from tpuimg_torch.kernels import SMEM_MAX_BYTES
 from tpuimg_torch.kernels.sep_stencil import (
     OPEN_CLOSE_PAIR_BYTES, OPEN_CLOSE_TILES, morph_max_radius, morph_smem,
@@ -191,13 +192,12 @@ def test_plain_versions_compose_and_pad(rng):
 
 
 def test_wrappers_take_plain_version_on_cpu(rng):
-    before = (morphology_kernel.launches, morphology_kernel.split_launches,
-              open_close_kernel.launches)
+    entries = ("tpuimg_morphology", "tpuimg_open_close")
+    before = [kernels.launches[e] for e in entries]
     x = torch.from_numpy(rng.integers(0, 256, (30, 40), dtype=np.uint8))
     for op in OPS:
         getattr(tpuimg_torch, op)(x, 3)
-    assert (morphology_kernel.launches, morphology_kernel.split_launches,
-            open_close_kernel.launches) == before == (0, 0, 0)
+    assert [kernels.launches[e] for e in entries] == before == [0, 0]
 
 
 def test_wrappers_raise_off_the_cpu(monkeypatch):

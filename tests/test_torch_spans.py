@@ -3,6 +3,7 @@ records nothing; on, the public entries record their steps as a tree; the
 launch and load spans; self time by layer; the clock pair; the spans in a
 written trace."""
 
+import collections
 import contextlib
 import glob
 import itertools
@@ -171,7 +172,7 @@ class _FakeLib:
 def test_launch_and_load_spans(monkeypatch):
     fake = _FakeLib()
     monkeypatch.setattr(kernels, "_lib", None)
-    monkeypatch.setattr(kernels, "_launched", set())
+    monkeypatch.setattr(kernels, "launches", collections.Counter())
     monkeypatch.setattr(kernels, "build", lambda: Path("libfake.so"))
     monkeypatch.setattr(kernels, "bind", lambda path: fake)
     monkeypatch.setattr(torch.cuda, "device",

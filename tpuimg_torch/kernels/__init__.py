@@ -18,6 +18,7 @@ raises.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import hashlib
@@ -117,7 +118,8 @@ _SIGNATURES = {
 }
 
 _lib = None
-_launched: set[str] = set()  # the C entries this process has launched
+# launches of each C entry in this process, by entry name
+launches: collections.Counter[str] = collections.Counter()
 
 
 class KernelBuildError(RuntimeError):
@@ -210,16 +212,12 @@ _QUERIES = {
 }
 
 
-def bind(path: Path, missing_ok: bool = False) -> ctypes.CDLL:
-    """Load a library built from csrc/ and declare its entries' types;
-    ``missing_ok`` skips the entries it lacks (a library of another
-    checkout, or of a few sources, as tools/stencil_ab.py loads)."""
+def bind(path: Path) -> ctypes.CDLL:
+    """Load a library built from csrc/ and declare its entries' types."""
     lib = ctypes.CDLL(str(path))
     entries = {name: (list(args), ctypes.c_int)
                for name, args in _SIGNATURES.items()}
     for name, (argtypes, restype) in {**entries, **_QUERIES}.items():
-        if missing_ok and not hasattr(lib, name):
-            continue
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = restype
@@ -239,17 +237,16 @@ def load() -> ctypes.CDLL:
 
 def launch(name: str, device: torch.device, *args) -> None:
     """Call C entry ``name`` with ``args`` plus ``device``'s current stream;
-    raise ``KernelLaunchError`` unless it returns cudaSuccess. The span
-    marks the process's first launch of ``name``, which loads its kernels
-    onto the card."""
-    first = name not in _launched
+    raise ``KernelLaunchError`` unless it returns cudaSuccess. Each call
+    counts one on ``launches[name]``; the span marks the process's first
+    launch of ``name``, which loads its kernels onto the card."""
+    first = launches[name] == 0
     with span("kernels.launch", "launch", name, first):
         lib = load()
         with torch.cuda.device(device):  # the tensor's card is the current one
             stream = torch.cuda.current_stream(device).cuda_stream
             err = getattr(lib, name)(*args, stream)
-    if first:
-        _launched.add(name)
+    launches[name] += 1
     if err != 0:
         msg = lib.tpuimg_cuda_error_string(err).decode()
         raise KernelLaunchError(f"{name}: CUDA error {err} ({msg})")

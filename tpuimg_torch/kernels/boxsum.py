@@ -23,7 +23,7 @@ once per pixel of a strip and its halo and p = gaussian(f) from a ring of f
 rows, on chip: gf radius <= TAIL_MAX_RADIUS, gaussian radius <= MAX_TAPS //
 2, each block's ring of p rows in a device-memory scratch this module
 allocates, and the whole workspace there past a block's shared memory (the
-scratch route, counted on ``scratch_launches``). At 4K, r8, rg2: 0.2918 ms
+scratch route). At 4K, r8, rg2: 0.2918 ms
 on an NVIDIA H100 80GB HBM3 at 700.00 W (chip_smoke.py; bound 0.0198 ms, by
 bytes; the gaussian then guided kernels 0.3160; the tile kernel it replaced
 took 0.9078). Its plain version is ``_tail_chain``'s algebra on the whole
@@ -32,7 +32,7 @@ columns, then along the rows), then the guided chain in valid mode, so it
 never pads again. With ``out_u8`` either tail returns the u8 frame that the
 enhance pipeline returns, ``q_to_u8(q)``, which the kernel computes in its
 store (1 byte a pixel written instead of 4, and no elementwise pass after
-it; counted on ``enhance_tail.u8_launches``).
+it).
 
 ``enhance_tail_clahe`` (csrc/enhance_tail_clahe.cu), the same tail with f =
 clahe_blend(img) / 255 computed inside the kernel (once per staged pixel),
@@ -156,18 +156,12 @@ def guided_filter_kernel(I, p, radius: int, eps: float,
         launch("tpuimg_guided_onepass", I.device, I.data_ptr(), n_i,
                p.data_ptr(), n, h, w, radius, eps, int(self_guided),
                q.data_ptr())
-        guided_filter_kernel.launches += 1
     else:
         a, b = torch.empty_like(p), torch.empty_like(p)
         launch("tpuimg_guided_twopass", I.device, I.data_ptr(), n_i,
                p.data_ptr(), n, h, w, radius, eps, a.data_ptr(), b.data_ptr(),
                q.data_ptr())
-        guided_filter_kernel.twopass_launches += 1
     return q
-
-
-guided_filter_kernel.launches = 0  # onepass launches
-guided_filter_kernel.twopass_launches = 0  # twopass launch pairs
 
 
 def guided_ypadded_plain(Ipad, ppad, radius: int, eps: float,
@@ -197,7 +191,7 @@ def guided_ypadded_kernel(Ipad, ppad, radius: int, eps: float,
     Ipad: float32 (..., H + 4r, W), H >= 1; ppad: of its shape, or with one
     more leading dim (CN1); ignored when ``self_guided``. Above
     GUIDED_SMEM_MAX_RADIUS the launch takes the scratch route (its workspace
-    in device memory), counted on ``scratch_launches`` too."""
+    in device memory), an entry of its own."""
     if Ipad.device.type == "cpu":
         return guided_ypadded_plain(Ipad, ppad, radius, eps, self_guided)
     p = _checked_pair(Ipad, ppad, self_guided)
@@ -222,13 +216,7 @@ def guided_ypadded_kernel(Ipad, ppad, radius: int, eps: float,
         scratch = torch.empty(floats, dtype=torch.float32, device=p.device)
         launch("tpuimg_guided_onepass_ypadded_scratch", Ipad.device, *args,
                scratch.data_ptr(), q.data_ptr())
-        guided_ypadded_kernel.scratch_launches += 1
-    guided_ypadded_kernel.launches += 1
     return q
-
-
-guided_ypadded_kernel.launches = 0
-guided_ypadded_kernel.scratch_launches = 0  # launches on the scratch route
 
 
 def q_to_u8(q):
@@ -295,8 +283,6 @@ def _tail_scratch(h: int, w: int, radius_g: int, radius: int, device):
     if floats < 0:
         raise RuntimeError(f"CUDA error {-floats - 2} sizing the tail's "
                            f"scratch")
-    if not lib.tpuimg_enhance_tail_shared(radius_g, radius):
-        enhance_tail.scratch_launches += 1
     return torch.empty(floats, dtype=torch.float32, device=device)
 
 
@@ -317,16 +303,7 @@ def enhance_tail(f, radius_g: int, sigma: float, radius: int, eps: float,
                       device=f.device)
     launch("tpuimg_enhance_tail", f.device, f.data_ptr(), h, w, tp, radius_g,
            radius, eps, scratch.data_ptr(), int(out_u8), out.data_ptr())
-    enhance_tail.launches += 1
-    enhance_tail.u8_launches += int(out_u8)
     return out
-
-
-enhance_tail.launches = 0
-# launches of either tail on the scratch route
-enhance_tail.scratch_launches = 0
-# launches of either tail that store u8
-enhance_tail.u8_launches = 0
 
 
 def enhance_tail_clahe_plain(img, tables, ytiles: int, xtiles: int, th: int,
@@ -365,9 +342,4 @@ def enhance_tail_clahe(img, tables, ytiles: int, xtiles: int, th: int,
            tables.data_ptr(), ytiles, xtiles, th, pad_top, pad_left, inv_tw,
            INV_255, tp, radius_g, radius, eps, scratch.data_ptr(),
            int(out_u8), out.data_ptr())
-    enhance_tail_clahe.launches += 1
-    enhance_tail.u8_launches += int(out_u8)
     return out
-
-
-enhance_tail_clahe.launches = 0

@@ -79,11 +79,7 @@ def hist256_groups(groups: torch.Tensor) -> torch.Tensor:
     ws, ints = _hist_workspace(groups.device, g)
     launch("tpuimg_hist256", groups.device, groups.data_ptr(), g, p, ws,
            ints, out.data_ptr())
-    hist256_groups.launches += 1
     return out
-
-
-hist256_groups.launches = 0
 
 
 def hist256_groups_packed_plain(words: torch.Tensor) -> torch.Tensor:
@@ -112,11 +108,7 @@ def hist256_groups_packed(words: torch.Tensor) -> torch.Tensor:
     ws, ints = _hist_workspace(words.device, g)
     launch("tpuimg_hist256_packed", words.device, words.data_ptr(), g, p4, ws,
            ints, out.data_ptr())
-    hist256_groups_packed.launches += 1
     return out
-
-
-hist256_groups_packed.launches = 0
 
 
 def hist256(img: torch.Tensor) -> torch.Tensor:
@@ -219,11 +211,7 @@ def tile_hist(img, ytiles: int, xtiles: int, th: int, tw: int, pad_top: int,
     out = torch.empty((ytiles * xtiles, 256), dtype=torch.int32,
                       device=img.device)
     launch("tpuimg_tile_hist", img.device, *args, out.data_ptr())
-    tile_hist.launches += 1
     return out
-
-
-tile_hist.launches = 0
 
 
 def tile_tables(img, ytiles: int, xtiles: int, th: int, tw: int,
@@ -240,8 +228,4 @@ def tile_tables(img, ytiles: int, xtiles: int, th: int, tw: int,
                       device=img.device)
     launch("tpuimg_tile_tables", img.device, *args, min(limit, th * tw), fr,
            out.data_ptr())
-    tile_tables.launches += 1
     return out
-
-
-tile_tables.launches = 0

@@ -12,7 +12,7 @@ y0 = 0, and may scale its float32 output in the kernel's store
 (``scale``): the enhance pipeline takes the blend times 1/255 from it.
 ``lut_gather`` and ``lut_gather_frames`` replace the TPU kernels of the
 same names (one table; one table per frame); both launch the one gather
-kernel and count on ``lut_gather.launches``.
+kernel.
 """
 
 from __future__ import annotations
@@ -107,13 +107,8 @@ def clahe_map(img, tables, ytiles: int, xtiles: int, th: int, tw: int,
     if img.device.type == "cpu":
         return clahe_map_plain(img, tables, ytiles, xtiles, th, tw, pad_top,
                                pad_left, out_f32, scale)
-    out = _map(img, tables, ytiles, xtiles, th, tw, pad_top, pad_left, 0,
-               out_f32, scale)
-    clahe_map.launches += 1
-    return out
-
-
-clahe_map.launches = 0
+    return _map(img, tables, ytiles, xtiles, th, tw, pad_top, pad_left, 0,
+                out_f32, scale)
 
 
 def clahe_band_map(img, tables, ytiles: int, xtiles: int, th: int, tw: int,
@@ -125,13 +120,8 @@ def clahe_band_map(img, tables, ytiles: int, xtiles: int, th: int, tw: int,
     if img.device.type == "cpu":
         return clahe_band_map_plain(img, tables, ytiles, xtiles, th, tw,
                                     pad_top, pad_left, y0, out_f32)
-    out = _map(img, tables, ytiles, xtiles, th, tw, pad_top, pad_left, y0,
-               out_f32)
-    clahe_band_map.launches += 1
-    return out
-
-
-clahe_band_map.launches = 0
+    return _map(img, tables, ytiles, xtiles, th, tw, pad_top, pad_left, y0,
+                out_f32)
 
 
 def _word_table(table):
@@ -192,7 +182,6 @@ def _gather(img, tables, tstride: int):
     launch("tpuimg_lut_gather", img.device, img.data_ptr(),
            img.numel() // frames, frames, words.data_ptr(), tstride,
            words.element_size(), blocks, per_block, out.data_ptr())
-    lut_gather.launches += 1
     return out.view(tables.dtype)
 
 
@@ -224,6 +213,3 @@ def lut_gather_frames(tables, imgs):
             f"{tuple(imgs.shape)} on {imgs.device} and "
             f"{tuple(tables.shape)} on {tables.device}")
     return _gather(imgs, tables, 256)
-
-
-lut_gather.launches = 0

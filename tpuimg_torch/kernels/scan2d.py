@@ -26,7 +26,7 @@ def integral_kernel(img):
     over all leading dims of a contiguous u8 (..., H, W) tensor: one C call
     of up to three launches (band sums, their scan down the bands, the band
     rows), which keeps its column sums in the output it overwrites, so the
-    wrapper allocates nothing else. Each call counts one on ``launches``."""
+    wrapper allocates nothing else."""
     if img.device.type == "cpu":
         return integral_plain(img)
     require_cuda_tensor(img, "img", torch.uint8, batched=True)
@@ -41,8 +41,4 @@ def integral_kernel(img):
             f"{frames} frames of {h}")
     launch("tpuimg_integral", img.device, img.data_ptr(), frames, h, w,
            out.data_ptr())
-    integral_kernel.launches += 1
     return out
-
-
-integral_kernel.launches = 0

@@ -109,12 +109,7 @@ def gaussian_kernel(img, radius: int, sigma: float):
     of shared memory."""
     if img.device.type == "cpu":
         return gaussian_plain(img, radius, sigma)
-    out = _gauss_launch("tpuimg_gaussian", img, radius, sigma, 0)
-    gaussian_kernel.launches += out.numel() > 0
-    return out
-
-
-gaussian_kernel.launches = 0
+    return _gauss_launch("tpuimg_gaussian", img, radius, sigma, 0)
 
 
 def gaussian_ypadded_kernel(p, radius: int, sigma: float):
@@ -123,13 +118,8 @@ def gaussian_ypadded_kernel(p, radius: int, sigma: float):
     ``p`` is float32 (..., H + 2r, W) with H >= 1."""
     if p.device.type == "cpu":
         return gaussian_ypadded_plain(p, radius, sigma)
-    out = _gauss_launch("tpuimg_gaussian_ypadded", p, radius, sigma,
-                        2 * radius)
-    gaussian_ypadded_kernel.launches += out.numel() > 0
-    return out
-
-
-gaussian_ypadded_kernel.launches = 0
+    return _gauss_launch("tpuimg_gaussian_ypadded", p, radius, sigma,
+                         2 * radius)
 
 
 def _extreme_pass(x, radius: int, dim: int, mode: int):
@@ -197,9 +187,8 @@ def morphology_kernel(img, radius: int, mode: int):
     the kernel over all leading dims: one launch for
     min(radius, max(H, W) - 1) <= morph_max_radius(dtype) (a larger radius
     reaches past every edge and clamps), over tiles of ``morph_tile``; two
-    above it, a row pass into a scratch frame and a column pass out of it.
-    ``launches`` counts the calls, ``split_launches`` those that took the
-    two-launch route."""
+    above it, a row pass into a scratch frame and a column pass out of it
+    (the two-launch route, where ``morph_tile`` is None)."""
     _check_morph(img, mode)
     if img.device.type == "cpu":
         return morphology_plain(img, radius, mode)
@@ -213,22 +202,15 @@ def morphology_kernel(img, radius: int, mode: int):
     launch("tpuimg_morphology", img.device, img.data_ptr(), n, h, w,
            MORPH_DTYPES[img.dtype], r, mode,
            None if scratch is None else scratch.data_ptr(), out.data_ptr())
-    morphology_kernel.launches += 1
-    morphology_kernel.split_launches += split
     return out
-
-
-morphology_kernel.launches = 0
-morphology_kernel.split_launches = 0
 
 
 def morph_ypadded_kernel(p, radius: int, mode: int):
     """``morph_ypadded_plain`` on a CPU tensor; on a CUDA tensor one call of
     the kernel over all leading dims: one launch for radius <=
     morph_max_radius(dtype), a row pass into a scratch block and a column
-    pass out of it above (counted on ``split_launches`` too). The radius is
-    the block's halo depth and is never shrunk to the frame. ``p`` is
-    (..., H + 2r, W) with H >= 1."""
+    pass out of it above. The radius is the block's halo depth and is never
+    shrunk to the frame. ``p`` is (..., H + 2r, W) with H >= 1."""
     _check_morph(p, mode)
     if p.device.type == "cpu":
         return morph_ypadded_plain(p, radius, mode)
@@ -242,13 +224,7 @@ def morph_ypadded_kernel(p, radius: int, mode: int):
     launch("tpuimg_morphology_ypadded", p.device, p.data_ptr(), n, h, w,
            MORPH_DTYPES[p.dtype], radius, mode,
            None if scratch is None else scratch.data_ptr(), out.data_ptr())
-    morph_ypadded_kernel.launches += 1
-    morph_ypadded_kernel.split_launches += split
     return out
-
-
-morph_ypadded_kernel.launches = 0
-morph_ypadded_kernel.split_launches = 0
 
 
 # the tiles of csrc/morphology.cu and csrc/open_close.cu, largest first, and
@@ -349,8 +325,7 @@ def open_close_kernel(img, radius: int, mode: int):
     the fused kernel over all leading dims, the stage-1 result kept in
     shared memory, for min(radius, max(H, W) - 1) <=
     open_close_max_radius(dtype), over tiles of ``open_close_tile``. Above
-    that the two stages are two ``morphology_kernel`` calls, which count on
-    ``morphology_kernel.launches`` and not on ``launches``."""
+    that the two stages are two ``morphology_kernel`` calls."""
     _check_morph(img, mode)
     if img.device.type == "cpu":
         return open_close_plain(img, radius, mode)
@@ -365,8 +340,4 @@ def open_close_kernel(img, radius: int, mode: int):
     out = torch.empty_like(img)
     launch("tpuimg_open_close", img.device, img.data_ptr(), n, h, w,
            MORPH_DTYPES[img.dtype], r, tile, mode, out.data_ptr())
-    open_close_kernel.launches += 1
     return out
-
-
-open_close_kernel.launches = 0

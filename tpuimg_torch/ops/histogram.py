@@ -201,12 +201,8 @@ def _clahe_front(img, clip_limit: float, xtiles: int, ytiles: int):
     return tables, th, tw, pad_top, pad_left
 
 
-def clahe(img, clip_limit: float = 1.0, xtiles: int = 8, ytiles: int = 8,
-          _out_f32: bool = False):
-    """CLAHE of a uint8 (H, W) image, matching Claher::run.
-
-    ``_out_f32`` (for the enhance pipeline): return the raw bilinear blend
-    in [0, 255] as float32 instead of truncating it to uint8."""
+def clahe(img, clip_limit: float = 1.0, xtiles: int = 8, ytiles: int = 8):
+    """CLAHE of a uint8 (H, W) image, matching Claher::run."""
     from tpuimg_torch.kernels.lut import clahe_map
 
     img = as_image(img).contiguous()
@@ -214,4 +210,4 @@ def clahe(img, clip_limit: float = 1.0, xtiles: int = 8, ytiles: int = 8,
         img, clip_limit, xtiles, ytiles)
     with span("clahe.map", "entry"):
         return clahe_map(img, tables, ytiles, xtiles, th, tw,
-                         pad_top, pad_left, out_f32=_out_f32)
+                         pad_top, pad_left)
