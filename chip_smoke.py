@@ -46,7 +46,7 @@ Phases, each printed on its own line:
    blend times 1/255 (the count of differing pixels printed), and within
    1e-4 of its plain version; both tails at gf r 1, 8, 16, 64 by gaussian
    r 0, 2, 16 at the three sizes and on frames just above enhance's gate
-   (the scratch route where the workspace passes shared memory), the same
+   (walk 1's scratch route where its rings pass shared memory), the same
    contracts; the row-padded kernels at the blocks of a 4K
    shard over sp = 4 (540, 541 of 3839 columns, and 1 output rows, with the
    enhance tail's 2*18 halo rows): gaussian_ypadded r2 bit for bit,
@@ -125,8 +125,8 @@ Phases, each printed on its own line:
    counted); max_abs_diff and max_abs_diff_loc on the card equal to NumPy
    (int32 above 2^24 with a tie, uint8 0 against 255); profiling.trace
    around one 4K enhance call in a fresh process (python3 chip_smoke.py
-   --profiling DIR runs it alone), its Chrome trace naming the enhance_tail
-   kernel once and holding the call's spans, its three kernel launches
+   --profiling DIR runs it alone), its Chrome trace naming the enhance
+   tail's two walk kernels and holding the call's spans, its three C calls
    among them; then, where cv2 or PIL can write PNGs, he and
    clahe on a 4K gray PNG, clahe on a 1080p colour PNG and morphology
    --color rgb|lab (rgb equal to erode of its channels), and, where the
@@ -1064,7 +1064,7 @@ def tail_sigma(rg: int) -> float:
 
 def check_tail_radii(dev, card: str, errs: dict) -> None:
     """Phase 3, both tails over their radius range (gf r TAIL_R by gaussian
-    r TAIL_RG, the scratch route where the workspace passes a block's shared
+    r TAIL_RG, walk 1's scratch route where its rings pass a block's shared
     memory) at the three sizes and on frames just above enhance's gate: the
     f32 tail within 1e-4 of its plain version, the fused1 tail within 5e-6
     of it on the card's own blend and within 1e-4 of its plain version."""
@@ -1641,7 +1641,8 @@ AUTOTESTS = [
 AUTOTEST_RUNS = 2
 STREAM_FRAMES = 16  # 1920x1080, stream's defaults
 FUSED = ("tile_tables", "clahe_map", "enhance_tail")
-# csrc/enhance_tail.cu's kernel in a trace: tail::tail_kernel<FrameSrc, ...>
+# csrc/enhance_tail.cu's two walks in a trace: tail::tail_kernel<FrameSrc,
+# ...>
 TAIL_KERNEL = ("tail_kernel", "FrameSrc")
 
 
@@ -1789,14 +1790,15 @@ def check_profiling(dev, card: str, tmp: str) -> None:
         if names:
             break
     tails = [n for n in names if all(k in n for k in TAIL_KERNEL)]
-    check(len(tails) == 1, f"the trace names the enhance_tail kernel once: "
+    check(len(tails) == 2, f"the trace names the enhance tail's two walks: "
           f"{names}")
     spans = [e["name"] for e in events if e.get("cat") == "tpuimg_span"]
     check(spans.count("pipeline.enhance") == 1
           and spans.count("kernels.launch") == 3,
           f"the trace holds one enhance call's spans: {spans}")
     print(f"phase 6 trace enhance 2160x3840: {os.path.basename(path)}, "
-          f"{len(names)} kernels, the tail as {tails[0][:60]}, {len(spans)} "
+          f"{len(names)} kernels, the tail as {tails[0][:60]} and "
+          f"{tails[1][:60]}, {len(spans)} "
           f"spans [{card}]")
 
 

@@ -126,12 +126,13 @@ def test_enhance_tail_shared_memory_limit_raises(card):
     assert float((got - 0.5).abs().max()) <= 1e-5
 
 
-@pytest.mark.parametrize("rg,r", [(0, 1), (2, 8), (16, 16), (2, 53), (2, 54),
+@pytest.mark.parametrize("rg,r", [(0, 1), (2, 8), (16, 16), (2, 44), (2, 45),
+                                  (16, 39), (16, 40), (2, 53), (2, 54),
                                   (16, 48), (16, 49), (0, 64), (16, 64)])
 def test_enhance_tails_radius_range_unaligned(card, rg, r):
     """Both tails on an unaligned 2161x3839 frame across the radius range,
-    either side of the shared-memory route's ceiling (r 53 / 54 at rg 2,
-    48 / 49 at rg 16), at the compile-time gaussian radius (2) and at
+    either side of walk 1's shared-memory route's ceiling (r 44 / 45 at rg
+    2, 39 / 40 at rg 16), at the compile-time gaussian radius (2) and at
     run-time ones: the f32 tail within 1e-4 of its plain version, the fused1
     tail within 5e-6 of it on the card's own blend."""
     frame = _frame((2161, 3839), 6)
@@ -1271,8 +1272,8 @@ def test_twopass_refuses_past_its_ceiling(card):
 
 
 def _walker_cases(card):
-    """The kernels built on the guided walker (walker.cuh), on seeded
-    inputs: (label, call)."""
+    """The guided walker's kernels (walker.cuh) and the tails' two strip
+    walks (enhance_tail.cuh), on seeded inputs: (label, call)."""
     g = np.random.default_rng(60)
     I = torch.from_numpy(g.random((300, 517), dtype=np.float32)).to(card)
     p = torch.from_numpy(g.random((300, 517), dtype=np.float32)).to(card)
@@ -1294,12 +1295,13 @@ def _walker_cases(card):
     ]
 
 
-# SHA-256 of each output's bytes (NVIDIA H100 80GB HBM3): the tails' and the
-# self-guided entries' from the kernels before the twopass redesign moved the
-# walker's grid planning; the general entries' from the walker whose running
-# sums are rebuilt where a term much larger than the sum leaves it (p
-# independent of I makes signed window sums of a that nearly cancel, and a
-# few of them are now summed directly)
+# SHA-256 of each output's bytes (NVIDIA H100 80GB HBM3): the self-guided
+# entries' from the kernels before the twopass redesign moved the walker's
+# grid planning; the general entries' from the walker whose running sums are
+# rebuilt where a term much larger than the sum leaves it (p independent of
+# I makes signed window sums of a that nearly cancel, and a few of them are
+# now summed directly); the tails' from their two strip walks, whose f32
+# sums along the rows run in 16- and 8-column parts of 128-column strips
 WALKER_DIGESTS = {
     "onepass general r8":
         "00ce25e51eceb6acc1838731aa182dbfb3c0965bb5471fa8618e3f30058ea2c8",
@@ -1310,17 +1312,17 @@ WALKER_DIGESTS = {
     "guided_ypadded self r65 (scratch route)":
         "0e456b5d0434c35ec7ecf7215b7ae6b9eff12793637ea89953c48e1032332a09",
     "enhance_tail rg2 r8":
-        "4c027606cf8901d38c939564ddfa847910bed3ea1588b12ee142ce81433337d3",
+        "747546e1c7f5efbd7213f03dc4f0da7cb0e6ca1587c82911367c5383627d3f7d",
     "enhance_tail_clahe rg2 r8":
-        "7dd89a2ce6bfd5b6dbde958857ef12e3a4545d1a3b6929c5edcfc40b7c5a9359",
+        "682087e3bce545f5e92d9ad297a11341de21718b8e580bdcc22eb2dfb73519a2",
 }
 
 
 def test_walker_outputs_match_recorded_digests(card):
     """The onepass entries and both tails give their recorded bits: the
-    tails and the self-guided entries as before the twopass walk came to
-    share the walker's grid planning and before the repair of its running
-    sums."""
+    self-guided entries as before the twopass walk came to share the
+    walker's grid planning and before the repair of its running sums, the
+    tails as their two strip walks sum."""
     import hashlib
 
     for label, call in _walker_cases(card):
@@ -2002,6 +2004,16 @@ def test_trace_on_card_names_the_enhance_tail_kernel(card, tmp_path):
     assert any("tail_kernel" in n and "FrameSrc" in n for n in names), names
 
 
+def test_trace_on_card_counts_two_tail_kernels_a_call(card):
+    """A traced enhance launches the tail's two walks, each a kernel whose
+    name holds "tail_kernel" (the substring bench_torch's tail_roofline
+    reads) and FrameSrc: exactly two such kernels a call."""
+    img = torch.from_numpy(_frame((540, 960), 99)).to(card)
+    names, _ = _kernels_of(enhance, img)
+    tails = [n for n in names if "tail_kernel" in n]
+    assert len(tails) == 2 and all("FrameSrc" in n for n in tails), names
+
+
 def test_trace_on_card_puts_each_launch_call_inside_its_span(card, tmp_path):
     import glob
     import json
@@ -2022,11 +2034,13 @@ def test_trace_on_card_puts_each_launch_call_inside_its_span(card, tmp_path):
              and e["name"].startswith("cudaLaunchKernel")]
     assert len(launches) == 3, launches
     # the spans are on the profiler's clock: each launch span holds the
-    # runtime call that launches its kernel
+    # runtime calls that launch its C entry's kernels, one but for the
+    # tail's two walks
     for span in launches:
         inside = [c for c in calls if span["ts"] <= c["ts"]
                   and c["ts"] + c["dur"] <= span["ts"] + span["dur"]]
-        assert len(inside) == 1, (span, calls)
+        walks = 2 if span["args"]["detail"] == "tpuimg_enhance_tail" else 1
+        assert len(inside) == walks, (span, calls)
 
 
 # -- enhance_host: host frames through the stream pool

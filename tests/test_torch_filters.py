@@ -16,14 +16,15 @@ import torch
 import tpuimg
 import tpuimg_torch
 from tpuimg_torch import kernels
-from tpuimg.kernels.boxsum import guided_filter_pallas
+from tpuimg.kernels.boxsum import enhance_tail_pallas, guided_filter_pallas
 from tpuimg.kernels.sep_stencil import gaussian_pallas
 from tpuimg.ops.gaussian import gaussian_ypadded as jax_gaussian_ypadded
 from tpuimg.pipeline import enhance as jax_enhance
-from tpuimg_torch.core.borders import reflect101_index
-from tpuimg_torch.kernels.boxsum import guided_filter_kernel
+from tpuimg_torch.core.borders import pad_reflect101, reflect101_index
+from tpuimg_torch.kernels.boxsum import (
+    enhance_tail_plain, guided_filter_kernel)
 from tpuimg_torch.kernels.sep_stencil import (
-    gaussian_kernel, gaussian_plain, gaussian_ypadded_plain, taps)
+    _sep_pass, gaussian_kernel, gaussian_plain, gaussian_ypadded_plain, taps)
 
 SHAPE = (70, 150)  # unaligned to every tile and lane width
 
@@ -280,12 +281,13 @@ def _keeps(leaving, total, most):
     return (leaving.abs() <= most * total.abs()) & (total.abs() <= F32_MAX)
 
 
-def _row_window_sums(src, r, length):
+def _row_window_sums(src, r, length, repair=True):
     """walker::row_window_sums on (..., parts, length + 2r) float32 rows:
     2r warm-up adds, then one add and one subtract a column, each sum
     (but the last) kept or rebuilt as the next window's warm-up (the
     careful pass, whose outputs the kernel's fast pass equals wherever it
-    keeps them)."""
+    keeps them); without ``repair`` (row_window_sums<false>) every sum is
+    kept."""
     s = torch.zeros(src.shape[:-1], dtype=torch.float32)
     for t in range(2 * r):
         s = s + src[..., t]
@@ -296,7 +298,7 @@ def _row_window_sums(src, r, length):
         leaving = src[..., c]
         s = s - leaving
         bad = ~_keeps(leaving, s, REBUILD_F32)
-        if c + 1 < length and bool(bad.any()):
+        if repair and c + 1 < length and bool(bad.any()):
             d = torch.zeros_like(s)
             for t in range(2 * r):
                 d = d + src[..., c + 1 + t]
@@ -304,7 +306,7 @@ def _row_window_sums(src, r, length):
     return torch.stack(out, -1)
 
 
-def _twopass_walk_sums(X, Y, r, seg_rows, products):
+def _twopass_walk_sums(X, Y, r, seg_rows, products, repair=True):
     """The window sums one launch of csrc/guided.cu's twopass walk takes of
     its planes (X, Y, and with ``products`` X*Y and X*X) of an (h, w)
     frame: segments of ``seg_rows`` rows, walked 8 extended rows
@@ -315,7 +317,8 @@ def _twopass_walk_sums(X, Y, r, seg_rows, products):
     step's sums taken again directly from their windows. Then along each
     row in f32, in parts of 128-column strips (walker::row_window_sums): 16
     columns a part for four planes, 8 for two (a step's 8 rows by its
-    planes by the parts make the block's 256 threads)."""
+    planes by the parts make the block's 256 threads). Without ``repair``
+    (the enhance tail's walks, csrc/enhance_tail.cuh) no sum is checked."""
     h, w = X.shape
     k, strip, length, step = 2 * r + 1, 128, 16 if products else 8, 8
     width = -(-w // strip) * strip
@@ -353,7 +356,7 @@ def _twopass_walk_sums(X, Y, r, seg_rows, products):
                     _keeps(lx * lx, f[3], REBUILD_F64) if products
                     else _keeps(lx, f[0], REBUILD_F64))
                 sums.append(f)
-            if not bool(kept.all()):
+            if repair and not bool(kept.all()):
                 for i, u in enumerate(range(s0, s0 + step)):
                     d = window(u)
                     sums[i] = torch.where(kept, sums[i], d.float())
@@ -362,7 +365,8 @@ def _twopass_walk_sums(X, Y, r, seg_rows, products):
                      if 2 * r <= u < n]
         cols = torch.stack(rows, 1)  # (planes, rows, width + 2r)
         parts = cols.unfold(-1, length + 2 * r, length)
-        out.append(_row_window_sums(parts, r, length).flatten(-2)[..., :w])
+        out.append(_row_window_sums(parts, r, length, repair)
+                   .flatten(-2)[..., :w])
     return torch.cat(out, 1)
 
 
@@ -402,6 +406,57 @@ def test_twopass_walk_model_matches_plain_and_pallas(rng, shape, radius):
         ref = guided_filter_pallas(I, p, radius, 1e-3, variant="twopass")
     else:
         ref = tpuimg.guided_filter(I, p, radius, 1e-3, border="reflect101")
+    assert _maxdiff(got, ref) <= 1e-4
+
+
+def _tail_walks_model(f, rg, sigma, r, eps, seg_ab, seg_q):
+    """csrc/enhance_tail.cuh's two walks on the CPU: p, the gaussian of the
+    reflect-101 extended f (down the columns, then along the rows, in the
+    plain version's symmetric form); walk 1's window sums of I = f, p, I*p
+    and I*I over segments of ``seg_ab`` rows, a and b (ab_of); walk 2's
+    window sums of a and b over segments of ``seg_q`` rows, q (q_of). Both
+    walks sum as twopass's launches do, without the repair (f in [0, 1])."""
+    k = 2 * r + 1
+    coef = float(np.float32(1.0 / (k * k)))
+    wts = taps(rg, sigma)
+    p = _sep_pass(_sep_pass(pad_reflect101(f, rg, rg), wts, 0), wts, 1)
+    si, sp, sip, sii = _twopass_walk_sums(f, p, r, seg_ab, True, repair=False)
+    imu, pmu, ipmu, iimu = si * coef, sp * coef, sip * coef, sii * coef
+    a = (ipmu - pmu * imu) / ((iimu - imu * imu) + eps)
+    b = pmu - a * imu
+    sa, sb = _twopass_walk_sums(a, b, r, seg_q, False, repair=False)
+    return (sa * coef) * f + sb * coef
+
+
+# (shape, r, rg): frames just above the callers' gate min(H, W) > 2(2r + rg)
+# (37x70: r 1 at every rg, r 2 and 8 at rg <= 2), and 300x517, whose
+# segments and 128-column strips end inside the frame, at every r by rg
+TAIL_WALK_CASES = (
+    [((37, 70), r, rg) for r, rg in ((1, 0), (1, 2), (1, 16), (2, 0), (2, 2),
+                                     (8, 0), (8, 2))]
+    + [((300, 517), r, rg) for r in (1, 2, 8, 20, 64) for rg in (0, 2, 16)])
+
+
+@pytest.mark.parametrize("shape,radius,radius_g", TAIL_WALK_CASES)
+def test_tail_walks_model_matches_plain_and_pallas(rng, shape, radius,
+                                                   radius_g):
+    """The enhance tail's two strip walks (csrc/enhance_tail.cuh: f64
+    running sums down the columns of each segment, f32 running sums along
+    16- and 8-column parts of the rows, a and b through device memory, no
+    repair) stay within tpuimg's 1e-4 contract of the plain version's
+    direct sums and of tpuimg's enhance_tail_pallas in interpret mode, at
+    every radius the tail takes, walk 1's and walk 2's segments cut apart
+    (their grids differ on the card)."""
+    f = rng.random(shape, dtype=np.float32)
+    sigma = 1.5 if radius_g <= 2 else 5.0
+    seg_ab, seg_q = max(32, 2 * radius), max(48, 2 * radius)
+    got = _tail_walks_model(torch.from_numpy(f), radius_g, sigma, radius,
+                            1e-3, seg_ab, seg_q).numpy()
+    assert got.dtype == np.float32 and np.isfinite(got).all()
+    plain = enhance_tail_plain(torch.from_numpy(f), radius_g, sigma, radius,
+                               1e-3).numpy()
+    assert _maxdiff(got, plain) <= 1e-4
+    ref = enhance_tail_pallas(f, radius_g, sigma, radius, 1e-3)
     assert _maxdiff(got, ref) <= 1e-4
 
 

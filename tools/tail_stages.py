@@ -1,14 +1,17 @@
-"""Where the enhance tail kernel's time goes, part by part, on the card.
+"""Where the enhance tail's time goes, walk by walk and part by part, on
+the card.
 
 Builds copies of ``tpuimg_torch/csrc/enhance_tail.cu`` and the headers it
-includes in which one part of the kernel is skipped (the walker's stages in
-``walker.cuh``, the producer's in ``enhance_tail.cuh``), times each copy at
-4K (r8, rg2, the enhance defaults, q stored as u8 as enhance stores it) with
-CUDA events, and prints the time each
-part adds: the full kernel's time less the time without it. The skipped
-copies compute garbage; only their times are read. The walker's stages run
-one after another between barriers, but the producer's parts share their
-phases with other threads' work, so the parts need not add up to the whole.
+includes in which one walk, or one part of a walk, is skipped (the stages
+of the two walks in ``enhance_tail.cuh``), times each copy at 4K (r8, rg2,
+the enhance defaults, q stored as u8 as enhance stores it) with CUDA events,
+and prints the two walks apart (the call with the other walk skipped), the
+time each part adds (the full call's time less the time without it), and
+the call on walk 1's scratch route, where the leaving rows' I and p live in
+a ring of device memory instead of shared memory. The skipped copies compute
+garbage; only their times are read. A walk's stages run one after another
+between barriers, but the copies share their phases with other work, so the
+parts need not add up to the whole.
 
 Run from the repository root on a CUDA card: ``python3 tools/tail_stages.py``.
 """
@@ -32,60 +35,72 @@ from tpuimg_torch.core.timing import card_label, time_cuda  # noqa: E402
 from tpuimg_torch.kernels import Taps  # noqa: E402
 from tpuimg_torch.kernels.sep_stencil import taps  # noqa: E402
 
-TAIL, WALK = "enhance_tail.cuh", "walker.cuh"
-# part -> the edits that skip it: (the file, the statement that opens it,
-# what replaces it)
-PARTS = {
-    "gaussian column pass (beside and after stage 4)": [(
-        TAIL, "    if (f0 < 0) f0 += g.lf;\n",
-        "    return;\n    if (f0 < 0) f0 += g.lf;\n")],
-    "gaussian row pass (in stage 1)": [(
-        TAIL, "      gauss_rows([&](int j, int d) { return t[j * g.tf + d]; }, pc);",
-        "      for (int j = 0; j < kRows; ++j) pc[j] = t[j * g.tf];")],
-    "f row copies (after stage 4)": [(
-        TAIL, "          for (int c = lane; c < g.tf; c += 32) {\n"
-        "            walker::cp_async4",
-        "          for (int c = lane; c < 0; c += 32) {\n"
-        "            walker::cp_async4")],
-    "p ring stores and copies": [
-        (TAIL, "    gp[ps * g.ti + c] = pe;",
-         "    if (ps < 0) gp[ps * g.ti + c] = pe;"),
-        (TAIL, "        for (int c = 4 * lane; c < g.ti; c += 128) {",
-         "        for (int c = 4 * lane; c < 0; c += 128) {")],
-    "stage 1 (vertical sums)": [(
-        WALK, "    for (int c = tid; c < ti; c += kWalkThreads) {",
-        "    if (false) for (int c = tid; c < ti; c += kWalkThreads) {")],
-    "stage 2 (row sums)": [(
-        WALK, "    {\n      const int m = tid % pairs_v",
-        "    if (false) {\n      const int m = tid % pairs_v")],
-    "stage 2 (a and b)": [(
-        WALK, "    {\n      const int u = s * kRows + warp;",
-        "    if (false) {\n      const int u = s * kRows + warp;")],
-    "stage 3 (row sums of a, b)": [(
-        WALK, "    {\n      const int m = tid % pairs_ab",
-        "    if (false) {\n      const int m = tid % pairs_ab")],
-    "stage 4 (column sums, q)": [(
-        WALK, "    if (tid < kStrip) {\n      const int x = x0 + tid;",
-        "    if (false) {\n      const int x = x0 + tid;")],
+TAIL = "enhance_tail.cuh"
+# each walk alone, the call with the other skipped: (the statement that
+# opens it, what replaces it)
+WALKS = {
+    "walk 1 (a and b)": [(
+        "  if (err != 0) return err;\n  return r <= kTpRingMaxRadius",
+        "  return err;\n  return r <= kTpRingMaxRadius")],
+    "walk 2 (q)": [(
+        "  int err;\n  if (ab == 0) {",
+        "  int err = 0;\n  if (false) if (ab == 0) {")],
 }
+# part -> the edits that skip it
+PARTS = {
+    "walk 1: f row copies (top of the step)": [(
+        "        fill(nrow, nslot);", "        (void)nslot;")],
+    "walk 1: gaussian column pass (stage 3)": [(
+        "    if (s + 1 < steps) column_pass(nb);",
+        "    if (false) column_pass(nb);")],
+    "walk 1: gaussian row pass (stage 1)": [(
+        "      gauss_rows<kRg>(\n          W, rg, [&](int i, int d) "
+        "{ return T[i * tf + c + rg + d]; }, pe);",
+        "      for (int i = 0; i < kK; ++i) pe[i] = T[i * tf + c + rg];")],
+    "walk 1: stage 1 (column sums)": [(
+        "    if (tid < ti) {\n      const int c = tid;",
+        "    if (false) {\n      const int c = tid;")],
+    "walk 1: stage 2 (row sums)": [(
+        "    {\n      constexpr int pairs = 4 * kK",
+        "    if (false) {\n      constexpr int pairs = 4 * kK")],
+    "walk 1: stage 3 (a and b)": [(
+        "    for (int e = 0; e < kK * kTpStrip / kTpThreads; ++e) {",
+        "    for (int e = 0; e < 0; ++e) {")],
+    "walk 2: a and b row copies": [(
+        "    if (s + 1 < steps) stage_in(s + 1, next);",
+        "    if (false) stage_in(s + 1, next);")],
+    "walk 2: stage 1 (column sums)": [(
+        "    if (tid < ti) {\n      const float* in = smem + tid + ra - r;",
+        "    if (false) {\n      const float* in = smem + tid + ra - r;")],
+    "walk 2: stage 2 (row sums)": [(
+        "    {\n      constexpr int pairs = 2 * kK",
+        "    if (false) {\n      constexpr int pairs = 2 * kK")],
+    "walk 2: stage 3 (I and q)": [(
+        "      walker::store_q(qz[", "      if (false) walker::store_q(qz[")],
+}
+# walk 1 on its scratch route at these radii
+SCRATCH = {"walk 1's scratch route": [(
+    "  return bytes + 4LL * kMaxTaps <= kMaxSmemBytes",
+    "  return false && bytes + 4LL * kMaxTaps <= kMaxSmemBytes")]}
 SHAPE, RG, SIGMA, R, EPS = (2160, 3840), 2, 1.5, 8, 1e-3
 
 
 def build(out: Path) -> dict:
     """A library for the full kernel and one for each part skipped."""
     procs = {}
-    for i, name in enumerate(["full kernel", *PARTS]):
+    edits = {**WALKS, **PARTS, **SCRATCH}
+    for i, name in enumerate(["full call", *edits]):
         d = out / f"v{i}"
         shutil.rmtree(d, ignore_errors=True)
         d.mkdir(parents=True)
         for src in kernels.CSRC.iterdir():
             if src.suffix in (".cu", ".cuh"):
                 (d / src.name).write_text(src.read_text())
-        for file, old, new in PARTS.get(name, []):
-            text = (d / file).read_text()
+        for old, new in edits.get(name, []):
+            text = (d / TAIL).read_text()
             if text.count(old) != 1:
-                raise SystemExit(f"{file} changed: no single {old.strip()!r}")
-            (d / file).write_text(text.replace(old, new))
+                raise SystemExit(f"{TAIL} changed: no single {old.strip()!r}")
+            (d / TAIL).write_text(text.replace(old, new))
         cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS, "-shared", "-o",
                str(d / "tail.so"), str(d / "enhance_tail.cu")]
         procs[name] = (d / "tail.so", subprocess.Popen(
@@ -121,23 +136,26 @@ def main() -> int:
     wts = taps(RG, SIGMA)
     tp.w[:len(wts)] = wts
 
-    floats = libs["full kernel"].tpuimg_enhance_tail_scratch_floats(
-        h, w, RG, R)
-    scratch = torch.empty(floats, dtype=torch.float32, device="cuda")
+    scratch = {name: torch.empty(
+        lib.tpuimg_enhance_tail_scratch_floats(h, w, RG, R),
+        dtype=torch.float32, device="cuda") for name, lib in libs.items()}
 
-    def call(lib):
-        err = lib.tpuimg_enhance_tail(
-            f.data_ptr(), h, w, tp, RG, R, EPS, scratch.data_ptr(), 1,
+    def call(name):
+        err = libs[name].tpuimg_enhance_tail(
+            f.data_ptr(), h, w, tp, RG, R, EPS, scratch[name].data_ptr(), 1,
             q.data_ptr(), torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f"CUDA error {err}")
 
-    ms = {name: time_cuda(call, lib, iters=30, card=card).ms
-          for name, lib in libs.items()}
-    full = ms["full kernel"]
-    parts = [f"{name} {full - ms[name]:.4f}" for name in PARTS]
-    print(f"enhance_tail {h}x{w} r{R} rg{RG}: full kernel {full:.4f} ms; each "
-          f"part adds " + ", ".join(parts) + f", median of 30 [{card}]")
+    ms = {name: time_cuda(call, name, iters=30, card=card).ms
+          for name in libs}
+    full = ms["full call"]
+    print(f"enhance_tail {h}x{w} r{R} rg{RG} u8, median of 30 [{card}]")
+    print(f"  full call {full:.4f} ms; alone: " + ", ".join(
+        f"{name} {ms[name]:.4f}" for name in WALKS))
+    print("  each part adds: " + ", ".join(
+        f"{name} {full - ms[name]:.4f}" for name in PARTS))
+    print("  " + ", ".join(f"{name} {ms[name]:.4f} ms" for name in SCRATCH))
     return 0
 
 

@@ -1,16 +1,17 @@
 // The enhance pipeline's tail on a float32 frame f:
-// q = guided(I=f, p=gaussian(f, rg), r, eps), in one launch.
+// q = guided(I=f, p=gaussian(f, rg), r, eps), in two launches of one call.
 //
 // Replaces tpuimg/kernels/boxsum.py::enhance_tail_pallas (:396; strip :335,
-// math _tail_chain :295). The kernel body (the guided strip walker with an
-// on-chip producer of I = f and p = gaussian(f)), its design and its bounds
-// are in enhance_tail.cuh, shared with the CLAHE-fused tail
-// (enhance_tail_clahe.cu); here its producer reads f from device memory,
-// once per pixel of a strip and its halo, rows copied by cp.async, and
-// writes q as float32 or, for enhance, as the u8 frame it returns. Bound
-// 0.0198 ms at 4K (bytes; 0.0124 with u8 q); 0.2918 ms on an NVIDIA H100
-// 80GB HBM3 at 700.00 W (chip_smoke.py), where the gaussian kernel then the
-// guided walker take 0.3160.
+// math _tail_chain :295). The kernel body (two strip walks of guided.cu's
+// twopass design: walk 1 makes I = f and p = gaussian(f) on chip and writes a
+// and b, walk 2 box-sums them and writes q), its design and its bounds are in
+// enhance_tail.cuh, shared with the CLAHE-fused tail
+// (enhance_tail_clahe.cu); here walk 1 reads f from device memory, once per
+// pixel of a strip and its halo, rows copied by cp.async, walk 2 reads f
+// again at the output pixels, and q is written as float32 or, for enhance, as
+// the u8 frame it returns. The function's bound is 0.0124 ms at 4K (f32 f
+// in, u8 q out), the design's own floor about 25 bytes a pixel (a and b
+// through device memory); times on the card in PERF.md §5 and §6.
 #include "enhance_tail.cuh"
 
 namespace {
@@ -29,12 +30,16 @@ struct FrameSrc {
   __device__ __forceinline__ float value(float v, int, int) const {
     return v;
   }
+  // rows that walk 1 may copy 16 bytes at a time
+  bool aligned(int w_) const {
+    return w_ % 4 == 0 && reinterpret_cast<uintptr_t>(f) % 16 == 0;
+  }
 };
 
 }  // namespace
 
 // f: (h, w) float32; taps.w[0 .. 2*rg]: the gaussian weights; scratch:
-// tpuimg_enhance_tail_scratch_floats(...) floats (null when 0); out: (h, w)
+// tpuimg_enhance_tail_scratch_floats(...) floats; out: (h, w)
 // uint8 when out_u8 (q stored as pipeline.py's _to_u8 rounds it), else
 // float32.
 extern "C" int tpuimg_enhance_tail(const float* f, int h, int w,
@@ -48,16 +53,16 @@ extern "C" int tpuimg_enhance_tail(const float* f, int h, int w,
                                static_cast<float*>(out), stream);
 }
 
-// The floats of device scratch either tail needs at these arguments (its p
-// rings, and on the scratch route its workspace), -1 for arguments the tail
-// refuses, or -2 - a CUDA error.
+// The floats of device scratch either tail needs at these arguments (the a
+// and b planes, and on walk 1's scratch route its rings of the leaving rows),
+// or -1 for arguments the tail refuses.
 extern "C" long long tpuimg_enhance_tail_scratch_floats(int h, int w, int rg,
                                                         int r) {
   return tail::scratch_floats(h, w, rg, r);
 }
 
-// 1 where either tail keeps its workspace in shared memory at these radii, 0
-// on the scratch route
+// 1 where either tail's walk 1 keeps the leaving rows' I and p in shared
+// memory at these radii, 0 on its scratch route (rings in device memory)
 extern "C" int tpuimg_enhance_tail_shared(int rg, int r) {
-  return tail::smem_bytes(rg, r) > 0 ? 1 : 0;
+  return tail::ring_bytes(rg, r) > 0 ? 1 : 0;
 }

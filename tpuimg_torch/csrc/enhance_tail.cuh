@@ -1,70 +1,83 @@
 // The enhance pipeline's tail: q = guided(I=f, p=gaussian(f, rg), r, eps),
-// reflect-101 borders, 1/ksz^2 normalisation, in one launch, templated on
-// the producer of f. enhance_tail.cu reads f from a float32 frame;
-// enhance_tail_clahe.cu computes it from the u8 frame through the CLAHE
-// blend. Both instantiate this one body, so their tail arithmetic is the
-// same code.
+// reflect-101 borders, 1/ksz^2 normalisation, in two launches of one C call,
+// templated on the producer of f. enhance_tail.cu reads f from a float32
+// frame; enhance_tail_clahe.cu computes it from the u8 frame through the
+// CLAHE blend. Both instantiate this one body, so their tail arithmetic is
+// the same code.
 //
 // The algebra is tpuimg/kernels/boxsum.py::_tail_chain's: on the frame
 // extended by reflect-101, smooth f with the separable gaussian (down the
 // columns, then along the rows, each in the symmetric form w[rg]*c +
 // sum w[rg - m]*(left + right)), take the four box sums of I = f, p, I*p and
 // I*I, form a and b, box-sum them and emit q. The smoothed frame never
-// reaches device memory.
+// reaches device memory; a and b do.
 //
-// Design on this card: the guided filter's strip walker (walker.cuh, the
-// body guided.cu's onepass entries run; its design in guided.cu's header),
-// with a producer that makes I and p on chip. What held the tile kernel it
-// replaces at 46x (fused) and 81x (fused1) its bound was on-chip work:
-// direct (2r + 1)-tap window sums in four stages (~250 shared loads a pixel
-// at r = 8), a 32x32 tile's (32 + 2(2r + rg))^2 halo re-staged per tile, the
-// gaussian run over 4x the tile, ~100 KB of shared memory a block, and in
-// fused1 the CLAHE blend evaluated ~4.5 times a pixel. Now, per step of the
-// walker (kRows walker rows):
-// - f is produced once per pixel of the strip and its halo (ti + 2rg
-//   columns), reflect-101 mapped, two steps ahead of the walker, into a ring
-//   of f rows (fr): a float frame's rows by cp.async, the CLAHE blend's from
-//   loads issued at the top of a step and turned into f after stage 4.
-// - the gaussian's column pass for the next step's rows (T) runs on the two
-//   warps that the walker's stage 4 leaves idle, beside it; its row pass runs
-//   in the walker's vertical pass, a thread a column, for all kRows rows
-//   before the running sums take the first. Both loop over the taps outside
-//   the rows, so that a tap's loads for every row are in flight together,
-//   and the enhance default's gaussian radius (kFixedRg = 2) has its tap
-//   loops unrolled at compile time: a run-time tap loop inside each row
-//   waits on every load (0.12 of 0.39 ms at 4K on an NVIDIA H100 80GB HBM3
-//   at 700.00 W, PERF.md).
-// - p enters the running sums there and goes into a ring of the last
-//   2r + 1 + kRows rows in device memory (the block's own slice of a
-//   scratch, 8 KB at r = 8, which stays in L2); the next step's leaving rows
-//   come back into shared memory by cp.async after stage 4. I at the leaving
-//   rows and at the output pixels is read from fr. No phase waits on device
-//   memory and the producer adds no barrier to the walker's five.
-// - the walker does the rest: f64 running column sums, f32 running row
-//   sums, a and b once a pixel, one wave of blocks.
-// Bound: the tail reads f (4 bytes a pixel as float32, 1 as fused1's u8
-// frame) and writes q (4 bytes as float32, 1 as the u8 frame that enhance
-// returns) and does a constant number of operations, so it is bound by
-// bytes: at 4K 0.0198 ms for 8 bytes a pixel, 0.0124 for 5 (f32 f and u8 q,
-// or fused1 with f32 q), 0.0050 for fused1's 2. Shared memory at
-// r = 8, rg = 2: 37,392 bytes; the launch bound (5 blocks an SM, 96
-// registers) holds 5, which times faster than 6 at 80 registers. The
-// shared-memory route takes a footprint up to 227 KB (r <= 53 at rg <= 2,
-// r <= 48 at rg = 16); past it the same body runs with its workspace in the
-// device-memory scratch too (tpuimg_enhance_tail_scratch_floats sizes it),
-// up to kTailMaxRadius = 64 and rg <= 16 (kMaxTaps).
-// Measured on an NVIDIA H100 80GB HBM3 at 700.00 W (chip_smoke.py), 4K,
-// r = 8, rg = 2: 0.2918 ms, fused1 0.3580 (the tile kernel 0.9078 and
-// 1.0073), where the gaussian kernel then the guided walker take 0.3160.
+// Design on this card: two strip walks of guided.cu's twopass design
+// (guided_twopass_kernel), the first with a producer that makes f and p on
+// chip. The onepass walker (walker.cuh) that the tail ran on before takes a
+// 64-column strip 4 rows a step on 128 threads through five dependent stages
+// between barriers, and that chain of latencies, not bytes, set its time
+// (0.2931 ms at 4K, 1.1485 ms at 8K, about 4% of the tail's byte bound).
+// The twopass walks take 128-column strips 8 rows a step on 256 threads with
+// three barriers a step, so each step's barriers, row warm-ups and halo
+// columns are paid over 4x the pixels; on the card twopass's two walks beat
+// the onepass walker by 29% on the guided filter alone, writing a and b to
+// device memory and reading them back.
+// - Walk 1 (kAB): a block walks a strip of kTpStrip = 128 output columns
+//   down one segment of rows, kTpRows = 8 rows a step. f is made once per
+//   pixel of the strip and its halo (128 + 2 round4(r + rg) columns,
+//   reflect-101 mapped) two steps ahead, into a ring of f rows in shared
+//   memory: a float frame's rows by cp.async (16 bytes a copy where the rows
+//   are aligned and the strip is inside the frame), the CLAHE blend's from
+//   loads issued at the top of a step and turned into f in its last stage.
+//   The gaussian's column pass for the next step's rows runs in the last
+//   stage (T), its row pass in stage 1, a thread a column, for all 8 rows
+//   before the running sums take the first; the enhance default rg = 2 runs
+//   an instance with its tap loops unrolled at compile time. Stage 1 keeps
+//   f64 running sums of I, p, I*p and I*I down each of the 128 + 2r columns
+//   (entering minus leaving), stage 2 takes the f32 window sums along the
+//   rows (walker::row_window_sums; f and p lie in [0, 1], so the repair is
+//   compiled out), stage 3 turns them into a and b (walker::ab_of) and
+//   writes both as f32 planes of the scratch (rows padded to 4 floats).
+// - The leaving rows: I comes from the f ring, which reaches 2r + 1 rows
+//   back; p from a ring of the last 2r + 1 rows of p in shared memory, each
+//   thread reading its column's leaving row before it writes the entering
+//   one into the same slot. The p ring takes (2r + 1)(128 + 2r) floats,
+//   9,792 bytes of walk 1's 75,744 at r = 8, rg = 2 (3 blocks an SM). Of
+//   the other places for p, a ring in device memory costs two L2 round
+//   trips a step (the whole call 0.3864 ms at 4K against 0.2008, walk 1's
+//   scratch route forced to r = 8), and recomputing it would run the
+//   gaussian again over the leaving rows' 2r + 1 + 2rg f rows, twice its
+//   work, with those rows kept in the f ring. Where the rings pass a block's
+//   shared memory (r > 44 at rg <= 2, r > 39 at rg = 16), the scratch route
+//   keeps I and p of the leaving rows in a per-block ring of the device
+//   scratch instead (2 (2r + 1)(128 + 2r) floats a block), and the f ring
+//   only the gaussian's rows.
+// - Walk 2 (!kAB): twopass's launch 2: window sums of a and b through the
+//   reflect-101 index (rows staged by cp.async into a ring up to r = 16, or
+//   entering and leaving rows into two buffers), I at the output pixels read
+//   at the top of the step (the f32 frame, or the CLAHE blend computed from
+//   the u8 frame) and q stored by walker::store_q: u8 on enhance's path.
+// Arithmetic: f32 a, b and q, f64 column sums, ab_of and q_of with every
+// multiply and add rounded on its own, the 1/ksz^2 coefficient; only the
+// order of the f32 sums along the rows differs from the onepass walker's.
+// Bound: f read twice (8 bytes a pixel as float32), a and b written and read
+// (16), q written (1 as u8): about 25 bytes a pixel, 0.062 ms at 4K; the
+// function itself needs 5 (f32 f, u8 q). gf r <= kTailMaxRadius = 64 (a
+// thread a column in stage 1: 128 + 2r <= 256), rg <= 16 (kMaxTaps).
+// Measured on an NVIDIA H100 80GB HBM3 at 700.00 W, r = 8, rg = 2, u8 q,
+// median of 30 events, against the onepass walker in the same call: 4K
+// 0.2045 ms (walk 1 0.1158, walk 2 0.0866 alone) against 0.2965, 8K 0.7885
+// against 1.1508; fused1 0.2744 and 1.0722 against 0.3691 and 1.4234
+// (PERF.md §6).
 #pragma once
 
 #include "walker.cuh"
 
 constexpr int kMaxTaps = 33;        // gaussian radius <= 16
-constexpr int kTailMaxRadius = 64;  // the guided frame entry's range
-constexpr long long kSmemPerSm = 233472;  // an H100 SM's shared memory
-// the enhance pipeline's default gaussian radius, which the shared-memory
-// route runs with its tap loops unrolled at compile time
+constexpr int kTailMaxRadius = 64;  // 128 + 2r columns, a thread each
+// the enhance pipeline's default gaussian radius, which walk 1 runs with its
+// tap loops unrolled at compile time
 constexpr int kFixedRg = 2;
 
 // the taps travel by value in the launch's parameter space: no device
@@ -75,362 +88,493 @@ struct Taps {
 
 namespace tail {
 
-using walker::kRows;
-using walker::kStrip;
-using walker::kWalkThreads;
+constexpr int kTpThreads = 256;
+constexpr int kTpStrip = 128;  // output columns of a block
+constexpr int kTpRows = 8;     // rows a step takes in: a warp each
+// the launch bounds: walk 1, 3 blocks an SM (80 registers a thread; its
+// shared memory at r = 8 holds 3), walk 2, 4 (64 registers), which timed 4%
+// under 3 on an NVIDIA H100 80GB HBM3 at 700.00 W (0.0864 against 0.0898 ms
+// at 4K)
+constexpr int kAbBlocks = 3;
+constexpr int kQBlocks = 4;
+// walk 2 keeps its staged rows of a and b for their 2r + 1 rows up to here
+constexpr int kTpRingMaxRadius = 16;
+// walk 1's scratch route plans its grid, and sizes its rings, for this many
+// resident blocks (2 an SM of an H100), so the scratch is known before the
+// launch
+constexpr long long kScratchSlots = 2 * 132LL;
 
-// The producer's shared layout in floats: the f ring, lf rows of tf columns:
-// from the rows whose I the step's q takes, 2r back, or its leaving rows, or
-// the gaussian's, to two steps ahead, a step more than they need, because
-// the step's last phase stores while it reads (ti = kStrip + 4r, tf = ti +
-// 2rg). The gaussian's column pass for a step (T, kRows rows of tf) and the p
-// of the step's leaving rows (kRows rows of ti, 16-byte aligned) live in the
-// walker's hab, which is free from stage 4 to the next step's stage 2. The p
-// ring (kr rows of ti) is the block's own slice of a device-memory scratch.
-struct TailGeom {
-  int ti, tf, lf, kr;
-  __host__ __device__ TailGeom(int rg, int r)
-      : ti(kStrip + 4 * r),
-        tf(kStrip + 4 * r + 2 * rg),
-        lf((2 * r + kRows > rg ? 2 * r + kRows : rg) + rg + 2 * kRows),
-        kr(2 * r + 1 + kRows) {}
-  __host__ __device__ long long floats() const {
-    return static_cast<long long>(lf) * tf;
-  }
-  __host__ __device__ long long ring() const {
-    return static_cast<long long>(kr) * ti;
+__host__ __device__ inline int round4(int x) { return (x + 3) & ~3; }
+
+// Walk 1's shared layout in floats: the f ring (lf rows of ts columns from
+// x0 - fa), T (the gaussian's column pass for a step: kTpRows rows of tf),
+// the p ring (kRing: k rows of ti), the step's column sums rounded to f32 (4
+// planes of kTpRows rows of ti + 1) and their window sums along the rows (4
+// planes of kTpRows rows of kTpStrip + 1). The f ring holds, during step s,
+// walk rows from s*kTpRows - k (leaving I; kRing) or from the gaussian's
+// first row to the rows copied for step s + 2.
+struct AbGeom {
+  int k, ti, tf, fa, ts, lf;
+  long long t, pr, vsum, hab, total;
+  __host__ __device__ AbGeom(int rg, int r, bool ring)
+      : k(2 * r + 1),
+        ti(kTpStrip + 2 * r),
+        tf(kTpStrip + 2 * r + 2 * rg),
+        fa(round4(r + rg)),
+        ts(kTpStrip + 2 * round4(r + rg)),
+        lf(3 * kTpRows + rg +
+           (ring ? (2 * r + 1 > rg - kTpRows ? 2 * r + 1 : rg - kTpRows)
+                 : (rg > kTpRows ? rg - kTpRows : 0))) {
+    t = static_cast<long long>(lf) * ts;
+    pr = t + static_cast<long long>(kTpRows) * tf;
+    vsum = pr + (ring ? static_cast<long long>(k) * ti : 0);
+    hab = vsum + 4LL * kTpRows * (ti + 1);
+    total = hab + 4LL * kTpRows * (kTpStrip + 1);
   }
 };
 
-__host__ __device__ inline walker::Workspace workspace(int rg, int r) {
-  return walker::workspace_of(r, false, TailGeom(rg, r).floats(), false);
+// Walk 2's shared layout in floats: the staged rows of a and b (a ring of
+// 2r + 1 + 2 kTpRows rows of each, or two buffers of the entering and
+// leaving rows of each), then the step's column sums and their window sums.
+struct QGeom {
+  int ra, ts, m;
+  long long vsum, hab, total;
+  __host__ __device__ QGeom(int r, bool ring)
+      : ra(round4(r)), ts(kTpStrip + 2 * round4(r)), m(2 * r + 1 + 2 * kTpRows) {
+    vsum = ring ? 2LL * m * ts : 2LL * 4 * kTpRows * ts;
+    hab = vsum + 2LL * kTpRows * (kTpStrip + 2 * r + 1);
+    total = hab + 2LL * kTpRows * (kTpStrip + 1);
+  }
+};
+
+// Both walks' arguments: the a and b planes (h rows of wp = round4(w)
+// floats) and, on walk 1's scratch route, the per-block rings after them.
+struct TailArgs {
+  Taps taps;
+  float* a;
+  float* b;
+  float* ring;
+  int h, w, wp, rg, r, seg_rows, aligned;
+  float eps;
+};
+
+// acc[i] = W[rg] x_i(0) + sum over m = 1 .. rg of W[rg - m] (x_i(-m) +
+// x_i(m)), in that order (the plain version's), for the kTpRows rows i at
+// once, x_i(d) = at(i, d): the taps outer, so that a tap's loads for every
+// row are in flight together; with rg fixed at compile time (kRg >= 0)
+// every load of every tap
+template <int kRg, class At>
+__device__ __forceinline__ void gauss_rows(const float* W, int rg, At at,
+                                           float* acc) {
+  const int n = kRg >= 0 ? kRg : rg;
+#pragma unroll
+  for (int i = 0; i < kTpRows; ++i) acc[i] = W[n] * at(i, 0);
+#pragma unroll
+  for (int m = 1; m <= n; ++m) {
+    const float wm = W[n - m];
+#pragma unroll
+    for (int i = 0; i < kTpRows; ++i) acc[i] += wm * (at(i, -m) + at(i, m));
+  }
 }
 
-// a block's floats of device scratch: the p ring, and on the scratch route
-// the walker's workspace before it
-template <bool kShared>
-__host__ __device__ inline long long block_floats(int rg, int r) {
-  return (kShared ? 0 : workspace(rg, r).total) + TailGeom(rg, r).ring();
-}
-
-// The walker's producer for the tail. Src gives f at an in-frame pixel in
-// two parts, so that a thread's loads are in flight while it does other
-// work: raw(y, x), the load, and value(raw, y, x), f; or, where
-// Src::kAsync, ptr(y, x), the float f, copied straight into the f ring with
-// cp.async. W: the 2rg + 1 taps in shared memory. kRg: the gaussian radius
-// fixed at compile time, or -1 (rg at run time).
-//
-// Rows run two steps ahead. A Src that computes f (the CLAHE blend) issues,
-// at the top of step s, the loads of one of step s + 2's new f rows a warp
-// (kHold a lane, held in registers through the step), and after stage 4
-// turns them into f in the f ring (the slot of a row the walker has left);
-// a Src that is a float frame has them copied there by cp.async after stage
-// 4 of step s, waited on before stage 4 of step s + 1, where they are first
-// read. The two warps that stage 4 leaves idle compute the gaussian down the
-// columns for step s + 1 into T beside it. So no phase waits on device
-// memory and the producer adds no barrier. The walker's vertical pass takes
-// I from the f ring and p, the gaussian along T's row, for all kRows rows
-// before its running sums, and stores p in the p ring; the p of the next
-// step's leaving rows comes back from the ring into shared memory by
-// cp.async after stage 4 (the scratch route reads the ring directly).
-template <class Src, bool kShared, int kRg>
-struct TailRows {
-  static constexpr bool kSelf = false;
-  static constexpr bool kCentre = true;
-  static constexpr bool kInRange = true;  // f and p in [0, 1]
-  static constexpr bool kAsync = Src::kAsync && kShared;
-  static constexpr int kHold = 4;  // loads a lane holds: rows of <= 128
+// Walk 1: a and b of the block's strip (blockIdx.x) over its segment
+// (blockIdx.y). Walk row u is extended row y0 - r + u; after row u a
+// column's sums cover rows u - 2r .. u, the window of output row
+// y0 + u - 2r. kRing: the leaving rows' I and p in shared memory, else in
+// the block's ring of the device scratch. kRg: rg fixed at compile time,
+// or -1.
+template <class Src, bool kRing, int kRg>
+__device__ __forceinline__ void walk_ab(const Src& src, const TailArgs& g,
+                                        float* smem) {
+  constexpr int kK = kTpRows;
+  constexpr int kHold = 4;  // loads a lane holds: a row's first 128 columns
   using Raw = typename Src::Raw;
-  Src src;
-  const float* W;
-  float* fr;   // f ring: walker row u in slot (u + rg) mod lf
-  float* T;    // the column pass of the next step's rows
-  float* lpb;  // p at this step's leaving rows (the shared-memory route)
-  float* gp;   // the p ring, device memory: walker row u in slot u mod kr
-  TailGeom g;
-  int e0, x0, h, w, r, rg;
-  int fb;  // f slot of this step's first walker row
-  int pb;  // p slot of this step's first walker row
-  Raw hold[kHold];
-  float ic[kRows], pc[kRows];  // I and p of the step's rows at a column
+  __shared__ float W[kMaxTaps];
+  const int h = g.h, w = g.w, r = g.r, rg = g.rg;
+  const AbGeom geo(rg, r, kRing);
+  const int k = geo.k, ti = geo.ti, tf = geo.tf, fa = geo.fa, ts = geo.ts;
+  const int lf = geo.lf;
+  float* fr = smem;
+  float* T = smem + geo.t;
+  float* pr = smem + geo.pr;
+  float* vsum = smem + geo.vsum;
+  float* hab = smem + geo.hab;
+  const int tip = ti + 1, tap = kTpStrip + 1;  // odd row strides
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const float coef = static_cast<float>(1.0 / (static_cast<double>(k) * k));
+  const int x0 = blockIdx.x * kTpStrip;
+  const int y0 = blockIdx.y * g.seg_rows;
+  const int y1 = min(y0 + g.seg_rows, h);
+  const int e0 = y0 - r;                // extended row of walk row 0
+  const int rows_in = y1 - y0 + 2 * r;  // rows the walk takes in
+  const int steps = (rows_in + kK - 1) / kK;
+  const bool wide = g.aligned && x0 - fa >= 0 && x0 + kTpStrip + fa <= w;
+  // the block's ring of I and p in the device scratch (k rows of ti each)
+  float* gr = kRing ? nullptr
+                    : g.ring + (static_cast<size_t>(blockIdx.y) * gridDim.x +
+                                blockIdx.x) * 2 * k * ti;
+  for (int i = tid; i < 2 * rg + 1; i += kTpThreads) W[i] = g.taps.w[i];
 
-  __device__ __forceinline__ int column_x(int c) const {
-    return reflect101_fast(x0 - 2 * r - rg + c, w);
-  }
-
-  // f at walker row u into f slot `slot`, a warp along the row, all of a
-  // lane's loads issued before the first store
-  __device__ __forceinline__ void fill(int u, int slot, int lane) const {
-    const int y = reflect101_fast(e0 + u, h);
-    for (int c0 = lane; c0 < g.tf; c0 += 32 * kHold) {
-      Raw v[kHold];
-#pragma unroll
-      for (int j = 0; j < kHold; ++j) {
-        const int c = c0 + 32 * j;
-        if (c < g.tf) v[j] = src.raw(y, column_x(c));
+  auto column_x = [&](int c) { return reflect101_fast(x0 - fa + c, w); };
+  // f of walk row t into f slot `slot`, a warp's lanes along the row: a
+  // float frame's by cp.async, a computed f with all of a lane's loads
+  // issued before the first store
+  auto fill = [&](int t, int slot) {
+    const int y = reflect101_fast(e0 + t, h);
+    float* dst = fr + slot * ts;
+    if constexpr (Src::kAsync) {
+      if (wide) {
+        for (int q = lane; q < ts / 4; q += 32) {
+          walker::cp_async16(dst + 4 * q, src.ptr(y, x0 - fa + 4 * q));
+        }
+      } else {
+        for (int c = lane; c < ts; c += 32) {
+          walker::cp_async4(dst + c, src.ptr(y, column_x(c)));
+        }
       }
+    } else {
+      for (int c0 = lane; c0 < ts; c0 += 32 * kHold) {
+        Raw v[kHold];
 #pragma unroll
-      for (int j = 0; j < kHold; ++j) {
-        const int c = c0 + 32 * j;
-        if (c < g.tf) fr[slot * g.tf + c] = src.value(v[j], y, column_x(c));
+        for (int j = 0; j < kHold; ++j) {
+          const int c = c0 + 32 * j;
+          if (c < ts) v[j] = src.raw(y, column_x(c));
+        }
+#pragma unroll
+        for (int j = 0; j < kHold; ++j) {
+          const int c = c0 + 32 * j;
+          if (c < ts) dst[c] = src.value(v[j], y, column_x(c));
+        }
       }
     }
-  }
-
-  // acc[i] = W[rg] x_i(0) + sum over m = 1 .. rg of W[rg - m] (x_i(-m) +
-  // x_i(m)), in that order (the plain version's), for the kRows rows i at
-  // once, x_i(d) = at(i, d): the taps outer, so that a tap's loads for every
-  // row are in flight together; with rg fixed at compile time (kRg >= 0)
-  // every load of every tap
-  template <class At>
-  __device__ __forceinline__ void gauss_rows(At at, float* acc) const {
-    const int n = kRg >= 0 ? kRg : rg;
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) acc[i] = W[n] * at(i, 0);
-#pragma unroll
-    for (int m = 1; m <= n; ++m) {
-      const float wm = W[n - m];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) acc[i] += wm * (at(i, -m) + at(i, m));
-    }
-  }
-
-  // T = the gaussian down the columns for walker rows u0 .. u0 + kRows - 1,
-  // whose f rows u0 - rg .. start at f slot f0: columns c0, c0 + stride, ...
-  __device__ __forceinline__ void column_pass(int f0, int c0,
-                                              int stride) const {
-    if (f0 < 0) f0 += g.lf;
-    if (f0 >= g.lf) f0 -= g.lf;
-    for (int c = c0; c < g.tf; c += stride) {
-      float acc[kRows];
-      gauss_rows(
+  };
+  // T = the gaussian down the columns for the step whose first walk row is
+  // in f slot fb: tf columns from ring column fa - r - rg
+  auto column_pass = [&](int fb) {
+    int f0 = fb - rg;
+    if (f0 < 0) f0 += lf;
+    const int off = fa - r - rg;
+    for (int c = tid; c < tf; c += kTpThreads) {
+      float acc[kK];
+      gauss_rows<kRg>(
+          W, rg,
           [&](int i, int d) {
             int sc = f0 + i + rg + d;  // in [0, 2 lf)
-            if (sc >= g.lf) sc -= g.lf;
-            return fr[sc * g.tf + c];
+            if (sc >= lf) sc -= lf;
+            return fr[sc * ts + c + off];
           },
           acc);
 #pragma unroll
-      for (int i = 0; i < kRows; ++i) T[i * g.tf + c] = acc[i];
+      for (int i = 0; i < kK; ++i) T[i * tf + c] = acc[i];
     }
-  }
+  };
 
-  // f for the first two steps (walker rows -rg .. 2 kRows - 1 + rg, in slots
-  // 0 ..), then T for the first
-  __device__ __forceinline__ void begin(int) {
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    for (int t = warp; t < 2 * rg + 2 * kRows; t += kWalkThreads / 32) {
-      fill(t - rg, t, lane);
+  // walk rows -rg .. 2 kK - 1 + rg (the first two steps' gaussians) in f
+  // slots 0 ..: walk row t in slot (t + rg) mod lf; then T of step 0
+  for (int j = warp; j < 2 * kK + 2 * rg; j += kTpThreads / 32) {
+    fill(j - rg, j);
+  }
+  walker::cp_async_commit();
+  walker::cp_async_wait_all();
+  __syncthreads();
+  column_pass(rg);
+
+  double v[4] = {0.0, 0.0, 0.0, 0.0};  // column tid's running sums
+  int fb = rg;  // f slot of the step's first walk row
+  int pb = 0;   // p ring slot of the step's first walk row: row u at u mod k
+  Raw hold[kHold];
+  for (int s = 0; s < steps; ++s) {
+    walker::cp_async_wait_all();
+    __syncthreads();
+    // step s + 2's new f rows, a warp each, into the slots of rows the walk
+    // has left: copies now, or (computed f) loads now and f in stage 3
+    const bool ahead = s + 2 < steps;
+    int nslot = fb + 2 * kK + rg + warp;
+    while (nslot >= lf) nslot -= lf;
+    const int nrow = (s + 2) * kK + rg + warp;
+    if (ahead) {
+      if constexpr (Src::kAsync) {
+        fill(nrow, nslot);
+      } else {
+        const int y = reflect101_fast(e0 + nrow, h);
+#pragma unroll
+        for (int j = 0; j < kHold; ++j) {
+          const int c = lane + 32 * j;
+          if (c < ts) hold[j] = src.raw(y, column_x(c));
+        }
+      }
+    }
+    walker::cp_async_commit();
+
+    // 1. I from the f ring and p, the gaussian along T's rows, for all the
+    //    step's rows; the leaving rows' I and p; running sums down each of
+    //    the ti columns
+    if (tid < ti) {
+      const int c = tid;
+      float ie[kK], pe[kK];
+#pragma unroll
+      for (int i = 0; i < kK; ++i) {
+        int fs = fb + i;
+        if (fs >= lf) fs -= lf;
+        ie[i] = fr[fs * ts + c + fa - r];
+      }
+      gauss_rows<kRg>(
+          W, rg, [&](int i, int d) { return T[i * tf + c + rg + d]; }, pe);
+#pragma unroll
+      for (int i = 0; i < kK; ++i) {
+        const int u = s * kK + i;
+        const bool full = u >= k;  // a row leaves the window
+        int ps = pb + i;  // (u - k) mod k = u mod k
+        while (ps >= k) ps -= k;
+        float li, lp;
+        if constexpr (kRing) {
+          int fs = fb + i - k;  // in (-lf, lf + kK)
+          if (fs < 0) fs += lf;
+          if (fs >= lf) fs -= lf;
+          li = full ? fr[fs * ts + c + fa - r] : 0.0f;
+          lp = full ? pr[ps * ti + c] : 0.0f;
+          pr[ps * ti + c] = pe[i];
+        } else {
+          float* gi = gr + ps * ti + c;
+          float* gp = gi + k * ti;
+          li = full ? *gi : 0.0f;
+          lp = full ? *gp : 0.0f;
+          *gi = ie[i];
+          *gp = pe[i];
+        }
+        // f32 values and their products are exact in f64
+        const double di = ie[i], dp = pe[i], dl = li, dq = lp;
+        v[0] += di - dl;
+        v[1] += dp - dq;
+        v[2] += di * dp - dl * dq;
+        v[3] += di * di - dl * dl;
+#pragma unroll
+        for (int pl = 0; pl < 4; ++pl) {
+          vsum[(pl * kK + i) * tip + c] = static_cast<float>(v[pl]);
+        }
+      }
     }
     __syncthreads();
-    column_pass(0, threadIdx.x, kWalkThreads);
-    fb = rg;
-    pb = 0;
-  }
 
-  // the row warp u_new(s) = (s + 2) kRows + rg + warp: step s + 2's new f
-  // rows, a warp each
-  __device__ __forceinline__ int new_row(int s) const {
-    return (s + 2) * kRows + rg + static_cast<int>(threadIdx.x >> 5);
-  }
+    // 2. window sums along the rows whose column window is full: a thread a
+    //    16-column part of a (plane, row) pair
+    {
+      constexpr int pairs = 4 * kK, len = kTpStrip / (kTpThreads / pairs);
+      const int m2 = tid % pairs, part = tid / pairs;  // m2 = plane*kK + row
+      const int u = s * kK + m2 % kK;
+      if (u >= 2 * r && u < rows_in) {
+        walker::row_window_sums<false>(vsum + m2 * tip, part * len,
+                                       (part + 1) * len, r, hab + m2 * tap);
+      }
+    }
+    __syncthreads();
 
-  // the f slot of new_row(s): a row the walker has left
-  __device__ __forceinline__ int new_slot() const {
-    const int slot = fb + 2 * kRows + rg + static_cast<int>(threadIdx.x >> 5);
-    return slot >= g.lf ? slot - g.lf : slot;
-  }
-
-  // wait for the p rows copied after the last step's stage 4 (the newest
-  // group, f rows, may stay in flight); issue the loads of this lane's first
-  // kHold columns of its new row
-  __device__ __forceinline__ void top(int s, int steps) {
-    if constexpr (kShared) walker::cp_async_wait_one();
-    if constexpr (!kAsync) {
-      if (s + 2 >= steps) return;
-      const int y = reflect101_fast(e0 + new_row(s), h);
-      const int lane = threadIdx.x & 31;
+    // 3. a and b, a warp along a row of the strip; T for the next step; the
+    //    computed f of step s + 2's new rows
 #pragma unroll
-      for (int j = 0; j < kHold; ++j) {
-        const int c = lane + 32 * j;
-        if (c < g.tf) hold[j] = src.raw(y, column_x(c));
-      }
+    for (int e = 0; e < kK * kTpStrip / kTpThreads; ++e) {
+      const int pix = tid + e * kTpThreads;
+      const int i = pix / kTpStrip, j = pix % kTpStrip;
+      const int u = s * kK + i, y = y0 + u - 2 * r, x = x0 + j;
+      if (u < 2 * r || y >= y1 || x >= w) continue;
+      const float* sums = hab + i * tap + j;  // plane pl at pl * kK * tap
+      float a, b;
+      walker::ab_of(sums[0], sums[kK * tap], sums[2 * kK * tap],
+                    sums[3 * kK * tap], coef, g.eps, &a, &b);
+      const size_t o = static_cast<size_t>(y) * g.wp + x;
+      g.a[o] = a;
+      g.b[o] = b;
     }
-  }
-
-  __device__ __forceinline__ int column(int c) const { return c; }
-
-  // I at walker row s*kRows + i - 2r, output column j, for q
-  __device__ __forceinline__ float centre(int, int i, int j) const {
-    int fs = fb + i - 2 * r;
-    if (fs < 0) fs += g.lf;
-    return fr[fs * g.tf + j + 2 * r + rg];
-  }
-
-  // p at row i of this step, column c: the gaussian along the row of T
-  __device__ __forceinline__ float row_gauss(int i, int c) const {
-    const float* t = T + i * g.tf + c + rg;
-    float acc = W[rg] * t[0];
-    for (int m = 1; m <= rg; ++m) acc += W[rg - m] * (t[-m] + t[m]);
-    return acc;
-  }
-
-  // I from the f ring; p copied from the p ring, or (r = 1, whose leaving
-  // row may be one this step takes in and has not yet put in the ring) from T
-  __device__ __forceinline__ void leaving(int, int i, int, int c, int base,
-                                          float& li, float& lp) const {
-    const int k = 2 * r + 1;
-    int fs = fb + i - k;
-    if (fs < 0) fs += g.lf;
-    li = fr[fs * g.tf + c + rg];
-    if (i >= k) {
-      lp = row_gauss(i - k, c);
-    } else if constexpr (kShared) {
-      lp = lpb[i * g.ti + c];
-    } else {
-      int ps = base + i + kRows;  // (u - k) mod kr
-      if (ps >= g.kr) ps -= g.kr;
-      lp = gp[ps * g.ti + c];
-    }
-  }
-
-  // I from the f ring and p, the gaussian along the row of T, for all the
-  // step's rows at the first (all loads before the running sums use one);
-  // p into the p ring
-  __device__ __forceinline__ void entering(int, int i, int, int c, int base,
-                                           float& ie, float& pe) {
-    if (i == 0) {
+    int nb = fb + kK;
+    if (nb >= lf) nb -= lf;
+    if (s + 1 < steps) column_pass(nb);
+    if constexpr (!Src::kAsync) {
+      if (ahead) {
+        const int y = reflect101_fast(e0 + nrow, h);
+        float* dst = fr + nslot * ts;
 #pragma unroll
-      for (int j = 0; j < kRows; ++j) {
-        int fs = fb + j;
-        if (fs >= g.lf) fs -= g.lf;
-        ic[j] = fr[fs * g.tf + c + rg];
-      }
-      const float* t = T + c + rg;
-      gauss_rows([&](int j, int d) { return t[j * g.tf + d]; }, pc);
-    }
-    ie = ic[i];
-    pe = pc[i];
-    int ps = base + i;
-    if (ps >= g.kr) ps -= g.kr;
-    gp[ps * g.ti + c] = pe;
-  }
-
-  // every thread: the f rows copied after the last step's stage 4 are in
-  // shared memory before the column pass reads them
-  __device__ __forceinline__ void before4(int, int) const {
-    if constexpr (kAsync) walker::cp_async_wait_all();
-  }
-
-  // on the two warps stage 4 leaves idle (threads kStrip ..), beside it: T
-  // for step s + 1, whose f rows are in the ring since before stage 4's
-  // barrier, every column (off the step's critical path while stage 4 takes
-  // longer than it)
-  __device__ __forceinline__ void spare(int s, int steps) const {
-    if (s + 1 < steps) {
-      column_pass(fb + kRows - rg, threadIdx.x - kStrip, kWalkThreads - kStrip);
-    }
-  }
-
-  // every thread: the new f row (a warp a row; a computed f from the held
-  // loads, and the row's columns past kHold a lane (tf > 128: r > 15 or
-  // wide gaussians) loaded now); then (shared-memory route) the copies of
-  // the next step's leaving p rows, a warp a row, and of a float frame's new
-  // f row, in two groups
-  __device__ __forceinline__ void late(int s, int steps) const {
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    if (!kAsync && s + 2 < steps) {
-      const int y = reflect101_fast(e0 + new_row(s), h);
-      float* dst = fr + new_slot() * g.tf;
-#pragma unroll
-      for (int j = 0; j < kHold; ++j) {
-        const int c = lane + 32 * j;
-        if (c < g.tf) dst[c] = src.value(hold[j], y, column_x(c));
-      }
-      for (int c = lane + 32 * kHold; c < g.tf; c += 32) {
-        dst[c] = src.value(src.raw(y, column_x(c)), y, column_x(c));
-      }
-    }
-    if constexpr (kShared) {
-      // row `warp` of step s + 1 leaves the window: walker row (s + 1) kRows
-      // + warp - k, p slot pb + 2 kRows + warp (mod kr); rows past k - 1
-      // come from T
-      const int u = (s + 1) * kRows + warp - (2 * r + 1);
-      if (s + 1 < steps && warp < 2 * r + 1 && u >= 0) {
-        int ps = pb + 2 * kRows + warp;
-        while (ps >= g.kr) ps -= g.kr;
-        const float* src_row = gp + ps * g.ti;
-        float* dst = lpb + warp * g.ti;
-        for (int c = 4 * lane; c < g.ti; c += 128) {
-          walker::cp_async16(dst + c, src_row + c);
+        for (int j = 0; j < kHold; ++j) {
+          const int c = lane + 32 * j;
+          if (c < ts) dst[c] = src.value(hold[j], y, column_x(c));
+        }
+        for (int c = lane + 32 * kHold; c < ts; c += 32) {
+          dst[c] = src.value(src.raw(y, column_x(c)), y, column_x(c));
         }
       }
-      walker::cp_async_commit();
-      if constexpr (kAsync) {
-        if (s + 2 < steps) {
-          const int y = reflect101_fast(e0 + new_row(s), h);
-          float* dst = fr + new_slot() * g.tf;
-          for (int c = lane; c < g.tf; c += 32) {
-            walker::cp_async4(dst + c, src.ptr(y, column_x(c)));
-          }
-        }
-      }
-      walker::cp_async_commit();
     }
+    fb = nb;
+    pb += kK;
+    while (pb >= k) pb -= k;
   }
-
-  __device__ __forceinline__ void advance() {
-    fb += kRows;
-    if (fb >= g.lf) fb -= g.lf;
-    pb += kRows;
-    if (pb >= g.kr) pb -= g.kr;
-  }
-};
-
-// kShared: the workspace in shared memory, or (the scratch route) in device
-// memory; either way scratch holds block_floats<kShared>(rg, r) floats a
-// block. The launch bound gives each thread 96 registers (5 blocks an SM);
-// the shared-memory footprint at r = 8 would allow 6 at 80 registers, which
-// timed 3% slower on an NVIDIA H100 80GB HBM3 at 700.00 W.
-constexpr int kTailBlocks = 5;
-
-// Out: the output's element type, float (q) or uint8_t (q as pipeline.py's
-// _to_u8 rounds it, walker.cuh's store_q)
-template <class Src, bool kShared, int kRg, class Out>
-__global__ void __launch_bounds__(kWalkThreads, kTailBlocks)
-tail_kernel(const Src src, int h, int w, const Taps taps, int rg, int r,
-            float eps, int seg_rows, float* __restrict__ scratch,
-            Out* __restrict__ q) {
-  extern __shared__ __align__(16) float smem[];
-  __shared__ float W[kMaxTaps];
-  const walker::Workspace wl = workspace(rg, r);
-  const TailGeom g(rg, r);
-  const size_t block =
-      (static_cast<size_t>(blockIdx.z) * gridDim.y + blockIdx.y) * gridDim.x +
-      blockIdx.x;
-  float* slice = scratch + block * block_floats<kShared>(rg, r);
-  float* ws = kShared ? smem : slice;
-  for (int i = threadIdx.x; i < 2 * rg + 1; i += kWalkThreads) {
-    W[i] = taps.w[i];
-  }
-  // p of the leaving rows after T in hab, at a 16-byte boundary
-  const long long lpb = (wl.hab + static_cast<long long>(kRows) * g.tf + 3) &
-                        ~3LL;
-  TailRows<Src, kShared, kRg> rows{src, W, ws + wl.prod, ws + wl.hab, ws + lpb,
-                              kShared ? slice : slice + wl.total, g,
-                              static_cast<int>(blockIdx.y) * seg_rows - 2 * r,
-                              static_cast<int>(blockIdx.x) * kStrip, h, w, r,
-                              rg, 0, 0, {}, {}, {}};
-  walker::walk_frame(rows, ws, wl, h, w, r, eps, seg_rows, q);
 }
 
-// The shared-memory route's bytes, or 0 when the workspace passes a block's
-// shared memory (the scratch route).
-inline size_t smem_bytes(int rg, int r) {
-  const long long bytes = workspace(rg, r).total * 4LL;
+// Walk 2: q of the block's strip over its segment from the window sums of a
+// and b (guided.cu's twopass launch 2, without the repair: a and b of f in
+// [0, 1]). kRing: the staged rows stay in a ring for their 2r + 1 rows (r <=
+// kTpRingMaxRadius), else a step's leaving rows are staged again.
+template <class Src, bool kRing, class Out>
+__device__ __forceinline__ void walk_q(const Src& src, const TailArgs& g,
+                                       float* smem, Out* __restrict__ qz) {
+  constexpr int kK = kTpRows;
+  constexpr int kOut = kK * kTpStrip / kTpThreads;  // outputs a thread
+  using Raw = typename Src::Raw;
+  const int h = g.h, w = g.w, wp = g.wp, r = g.r;
+  const QGeom geo(r, kRing);
+  const int k = 2 * r + 1, ti = kTpStrip + 2 * r;
+  const int ra = geo.ra, ts = geo.ts, m = geo.m, tb = 4 * kK * ts;
+  const int tip = ti + 1, tap = kTpStrip + 1;  // odd row strides
+  float* vsum = smem + geo.vsum;
+  float* hab = smem + geo.hab;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const float coef = static_cast<float>(1.0 / (static_cast<double>(k) * k));
+  const int x0 = blockIdx.x * kTpStrip;
+  const int y0 = blockIdx.y * g.seg_rows;
+  const int y1 = min(y0 + g.seg_rows, h);
+  const int e0 = y0 - r;                // extended row of walk row 0
+  const int rows_in = y1 - y0 + 2 * r;  // rows the walk takes in
+  const int steps = (rows_in + kK - 1) / kK;
+  // the a and b planes' rows are 16-byte aligned (wp = round4(w))
+  const bool wide = x0 - ra >= 0 && x0 + kTpStrip + ra <= w;
+
+  // walk row u of plane src_plane to dst: a warp's lanes along it
+  auto row_in = [&](const float* src_plane, int u, float* dst) {
+    const float* row =
+        src_plane + static_cast<size_t>(reflect101_fast(e0 + u, h)) * wp;
+    if (wide) {
+      for (int q = lane; q < ts / 4; q += 32) {
+        walker::cp_async16(dst + 4 * q, row + x0 - ra + 4 * q);
+      }
+    } else {
+      for (int c = lane; c < ts; c += 32) {
+        walker::cp_async4(dst + c, row + reflect101_fast(x0 - ra + c, w));
+      }
+    }
+  };
+  // the rows of step t (ring slots from `base`, or buffer t & 1): a warp a
+  // row
+  auto stage_in = [&](int t, int base) {
+    if constexpr (kRing) {
+      for (int j = warp; j < 2 * kK; j += kTpThreads / 32) {
+        const int i = j % kK;
+        int slot = base + i;
+        if (slot >= m) slot -= m;
+        row_in(j < kK ? g.a : g.b, t * kK + i,
+               smem + ((j < kK ? 0 : m) + slot) * ts);
+      }
+    } else {
+      float* buf = smem + (t & 1) * tb;
+      for (int j = warp; j < 4 * kK; j += kTpThreads / 32) {
+        const int i = j % kK, leaving = j / (2 * kK);
+        const int u = t * kK + i - (leaving ? k : 0);
+        if (u < 0) continue;  // before the walk: stage 1 takes 0
+        row_in((j / kK) & 1 ? g.b : g.a, u, buf + j * ts);
+      }
+    }
+    walker::cp_async_commit();
+  };
+
+  double v[2] = {0.0, 0.0};  // column tid's running sums of a and b
+  int base = 0;  // the ring slot of this step's first row
+  Raw hold[kOut];
+  stage_in(0, 0);
+  for (int s = 0; s < steps; ++s) {
+    walker::cp_async_wait_all();
+    __syncthreads();
+    // the next step's rows, over what the step before read, and I at this
+    // step's output pixels, read now and used in stage 3
+    int next = base + kK;
+    if (next >= m) next -= m;
+    if (s + 1 < steps) stage_in(s + 1, next);
+#pragma unroll
+    for (int e = 0; e < kOut; ++e) {
+      const int pix = tid + e * kTpThreads;
+      const int i = pix / kTpStrip, j = pix % kTpStrip;
+      const int u = s * kK + i, y = y0 + u - 2 * r, x = x0 + j;
+      if (u >= 2 * r && y < y1 && x < w) hold[e] = src.raw(y, x);
+    }
+
+    // 1. running sums down each input column
+    if (tid < ti) {
+      const float* in = smem + tid + ra - r;
+      const float* buf = in + (s & 1) * tb;
+#pragma unroll
+      for (int i = 0; i < kK; ++i) {
+        const float *ex, *ey, *lx, *ly;  // entering and leaving a and b
+        if constexpr (kRing) {
+          int slot = base + i;
+          if (slot >= m) slot -= m;
+          int old = slot - k;
+          if (old < 0) old += m;
+          ex = in + slot * ts;
+          ey = in + (m + slot) * ts;
+          lx = in + old * ts;
+          ly = in + (m + old) * ts;
+        } else {
+          ex = buf + i * ts;
+          ey = buf + (kK + i) * ts;
+          lx = buf + (2 * kK + i) * ts;
+          ly = buf + (3 * kK + i) * ts;
+        }
+        const bool full = s * kK + i >= k;  // a row leaves the window
+        const double dx = *ex, dy = *ey;
+        const double dlx = full ? *lx : 0.0f, dly = full ? *ly : 0.0f;
+        v[0] += dx - dlx;
+        v[1] += dy - dly;
+        vsum[i * tip + tid] = static_cast<float>(v[0]);
+        vsum[(kK + i) * tip + tid] = static_cast<float>(v[1]);
+      }
+    }
+    __syncthreads();
+
+    // 2. window sums along the rows whose column window is full: a thread an
+    //    8-column part of a (plane, row) pair
+    {
+      constexpr int pairs = 2 * kK, len = kTpStrip / (kTpThreads / pairs);
+      const int m2 = tid % pairs, part = tid / pairs;  // m2 = plane*kK + row
+      const int u = s * kK + m2 % kK;
+      if (u >= 2 * r && u < rows_in) {
+        walker::row_window_sums<false>(vsum + m2 * tip, part * len,
+                                       (part + 1) * len, r, hab + m2 * tap);
+      }
+    }
+    __syncthreads();
+
+    // 3. q, a warp along a row of the strip
+#pragma unroll
+    for (int e = 0; e < kOut; ++e) {
+      const int pix = tid + e * kTpThreads;
+      const int i = pix / kTpStrip, j = pix % kTpStrip;
+      const int u = s * kK + i, y = y0 + u - 2 * r, x = x0 + j;
+      if (u < 2 * r || y >= y1 || x >= w) continue;
+      const float* sums = hab + i * tap + j;
+      walker::store_q(qz[static_cast<size_t>(y) * w + x],
+                      walker::q_of(sums[0], sums[kK * tap],
+                                   src.value(hold[e], y, x), coef));
+    }
+    base = next;
+  }
+}
+
+// Walk 1 (kAB: a and b; Out unused) or walk 2 (q as Out: float32, or u8 as
+// pipeline.py's _to_u8 rounds it, walker.cuh's store_q) of the tail.
+template <class Src, bool kAB, bool kRing, int kRg, class Out>
+__global__ void __launch_bounds__(kTpThreads, kAB ? kAbBlocks : kQBlocks)
+tail_kernel(const Src src, const TailArgs g, Out* __restrict__ q) {
+  extern __shared__ __align__(16) float smem[];
+  if constexpr (kAB) {
+    walk_ab<Src, kRing, kRg>(src, g, smem);
+  } else {
+    walk_q<Src, kRing>(src, g, smem, q);
+  }
+}
+
+// Walk 1's shared-memory bytes with its rings in shared memory, or 0 where
+// they pass a block's (the scratch route).
+inline size_t ring_bytes(int rg, int r) {
+  const long long bytes = AbGeom(rg, r, true).total * 4LL;
   // the taps' static shared memory counts against the same ceiling
-  return bytes + 4LL * kMaxTaps <= kMaxSmemBytes
-             ? static_cast<size_t>(bytes)
-             : 0;
+  return bytes + 4LL * kMaxTaps <= kMaxSmemBytes ? static_cast<size_t>(bytes)
+                                                 : 0;
 }
 
 inline bool bad_args(int h, int w, int rg, int r) {
@@ -438,80 +582,79 @@ inline bool bad_args(int h, int w, int rg, int r) {
          h <= 2 * r + rg || w <= 2 * r + rg;
 }
 
-// The most blocks a launch at these arguments runs: the walker's grid at the
-// most blocks an SM could hold at the route's footprint (the occupancy the
-// launch finds is at most that), or at the scratch route's fixed wave.
-inline long long most_blocks(int h, int w, int rg, int r, long long* blocks) {
-  const size_t bytes = smem_bytes(rg, r);
-  long long slots = walker::kScratchSlots;
-  if (bytes > 0) {
-    int dev = 0, sms = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess) {
-      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    }
-    if (err != cudaSuccess) return static_cast<long long>(err);
-    // 1 KB of each block's shared memory is the system's; 16 blocks of 128
-    // threads fill an SM's 2048
-    const long long per_block = static_cast<long long>(bytes) + 4LL * kMaxTaps +
-                                1024;
-    slots = static_cast<long long>(sms) *
-            std::min(16LL, kSmemPerSm / per_block);
-  }
-  const walker::WalkGrid g = walker::walk_grid(1, h, w, r, bytes > 0, slots);
-  *blocks = static_cast<long long>(g.grid.x) * g.grid.y;
-  return 0;
+// Walk 1's grid on the scratch route, which sizes its rings
+inline walker::WalkGrid scratch_grid(int h, int w, int r) {
+  return walker::strip_grid(1, h, w, kTpStrip, 2 * r, 1, kScratchSlots);
 }
 
-// The floats of device scratch a launch at these arguments needs, -1 for
-// arguments the tail refuses, or -2 - the CUDA error that stopped the count.
+// The floats of device scratch a call at these arguments needs (the a and b
+// planes, and on walk 1's scratch route its rings), or -1 for arguments the
+// tail refuses.
 inline long long scratch_floats(int h, int w, int rg, int r) {
   if (bad_args(h, w, rg, r)) return -1;
-  long long blocks = 0;
-  const long long err = most_blocks(h, w, rg, r, &blocks);
-  if (err != 0) return -2 - err;
-  return blocks * (smem_bytes(rg, r) > 0 ? block_floats<true>(rg, r)
-                                         : block_floats<false>(rg, r));
+  const long long planes = 2LL * h * round4(w);
+  if (ring_bytes(rg, r) > 0) return planes;
+  const walker::WalkGrid g = scratch_grid(h, w, r);
+  return planes + static_cast<long long>(g.grid.x) * g.grid.y * 2 *
+                      (2LL * r + 1) * (kTpStrip + 2LL * r);
 }
 
-// One launch of tail_kernel<Src, kShared, kRg, Out> with the grid planned
-// for it.
-template <class Src, bool kShared, int kRg, class Out>
-int launch_as(const Src& src, size_t bytes, int h, int w, const Taps& taps,
-              int rg, int r, float eps, float* scratch, Out* out,
-              cudaStream_t stream) {
-  walker::WalkGrid g;
-  const int err = walker::plan_walk(tail_kernel<Src, kShared, kRg, Out>,
-                                    bytes, 1, h, w, r, &g);
-  if (err != 0) return err;
-  tail_kernel<Src, kShared, kRg, Out>
-      <<<g.grid, kWalkThreads, bytes, stream>>>(src, h, w, taps, rg, r, eps,
-                                                g.seg_rows, scratch, out);
+// One launch of tail_kernel<Src, kAB, kRing, kRg, Out> with `bytes` of
+// shared memory: one wave of the blocks the card holds at once, or on walk
+// 1's scratch route the grid its rings were sized for.
+template <class Src, bool kAB, bool kRing, int kRg, class Out>
+int launch_walk(const Src& src, TailArgs g, size_t bytes, Out* q,
+                cudaStream_t stream) {
+  auto kernel = tail_kernel<Src, kAB, kRing, kRg, Out>;
+  walker::WalkGrid wg;
+  if (kAB && !kRing) {
+    const cudaError_t err = walker::allow_smem(kernel, bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    wg = scratch_grid(g.h, g.w, g.r);
+  } else {
+    long long slots = 0;
+    const int err = walker::wave_slots(kernel, kTpThreads, bytes, &slots);
+    if (err != 0) return err;
+    wg = walker::strip_grid(1, g.h, g.w, kTpStrip, 2 * g.r, 1, slots);
+  }
+  g.seg_rows = wg.seg_rows;
+  kernel<<<wg.grid, kTpThreads, bytes, stream>>>(src, g, q);
   return static_cast<int>(cudaGetLastError());
 }
 
-// One launch of the tail on an (h, w) frame; taps.w[0 .. 2*rg] are the
-// gaussian weights; scratch: scratch_floats(...) floats; out: (h, w) float32
-// q, or u8 (store_q). Needs h, w > 2r + rg (the callers gate on min(h, w) >
-// 2*(2r + rg)). The shared-memory route at the enhance pipeline's default
-// gaussian radius runs the instance with that radius fixed at compile time.
+// The tail on an (h, w) frame: walk 1 then walk 2 on `stream`. taps.w[0 ..
+// 2*rg] are the gaussian weights; scratch: scratch_floats(...) floats; out:
+// (h, w) float32 q, or u8 (store_q). Needs h, w > 2r + rg (the callers gate
+// on min(h, w) > 2*(2r + rg)). At the enhance pipeline's default gaussian
+// radius walk 1 runs the instance with that radius fixed at compile time.
 template <class Src, class Out>
 int launch(const Src& src, int h, int w, const Taps& taps, int rg, int r,
            float eps, float* scratch, Out* out, cudaStream_t stream) {
   if (bad_args(h, w, rg, r) || scratch == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const size_t bytes = smem_bytes(rg, r);
-  if (bytes == 0) {
-    return launch_as<Src, false, -1>(src, 0, h, w, taps, rg, r, eps,
-                                     scratch, out, stream);
+  const int wp = round4(w);
+  const size_t plane = static_cast<size_t>(h) * wp;
+  const TailArgs g{taps,  scratch, scratch + plane, scratch + 2 * plane,
+                   h,     w,       wp,              rg,
+                   r,     0,       src.aligned(w),  eps};
+  float* none = nullptr;
+  const size_t ab = ring_bytes(rg, r);
+  int err;
+  if (ab == 0) {
+    err = launch_walk<Src, true, false, -1>(
+        src, g, AbGeom(rg, r, false).total * 4, none, stream);
+  } else if (rg == kFixedRg) {
+    err = launch_walk<Src, true, true, kFixedRg>(src, g, ab, none, stream);
+  } else {
+    err = launch_walk<Src, true, true, -1>(src, g, ab, none, stream);
   }
-  if (rg == kFixedRg) {
-    return launch_as<Src, true, kFixedRg>(src, bytes, h, w, taps, rg, r, eps,
-                                          scratch, out, stream);
-  }
-  return launch_as<Src, true, -1>(src, bytes, h, w, taps, rg, r, eps, scratch,
-                                  out, stream);
+  if (err != 0) return err;
+  return r <= kTpRingMaxRadius
+             ? launch_walk<Src, false, true, 0>(
+                   src, g, QGeom(r, true).total * 4, out, stream)
+             : launch_walk<Src, false, false, 0>(
+                   src, g, QGeom(r, false).total * 4, out, stream);
 }
 
 }  // namespace tail

@@ -1,6 +1,6 @@
 // The enhance pipeline's tail with the CLAHE mapping folded in:
 // q = guided(I=f, p=gaussian(f, rg), r, eps) with f = clahe_blend(img) / 255,
-// in one launch after the tile histograms (impl="fused1").
+// in one call (two launches) after the tile histograms (impl="fused1").
 //
 // Replaces tpuimg/kernels/boxsum.py::enhance_tail_clahe_pallas (:495; strip
 // _enhance_tail_clahe_strip :416, blend kernels/lut.py::make_blend_band
@@ -20,12 +20,11 @@
 // is common.cuh::clahe_blend and the tail enhance_tail.cuh::tail_kernel, the
 // same code as clahe_map.cu and enhance_tail.cu, so impl="fused1" gives
 // impl="fused"'s values. Bound: as enhance_tail.cu (bytes); the blend, an
-// IEEE division and four cached table reads, runs once per pixel of a strip
-// and its halo ((64 + 4r + 2rg) / 64 columns and (seg + 4r + 2rg) / seg rows
-// of the frame's: about 1.8 a pixel at 4K, r = 8, rg = 2), where the tile
-// design ran it about 4.5 times a pixel. 0.3580 ms at 4K on an NVIDIA H100
-// 80GB HBM3 at 700.00 W (chip_smoke.py; bound 0.0124 ms; the tile design
-// 1.0073).
+// IEEE division and four cached table reads, runs once per pixel of walk
+// 1's strips and their halo ((128 + 2 round4(r + rg)) / 128 columns and
+// (seg + 2r + 2rg) / seg rows of the frame's: about 1.3 a pixel at 4K, r =
+// 8, rg = 2) and once more per output pixel in walk 2. 4K, u8 q: 0.2744 ms
+// on an NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md §6; bound 0.0050 ms).
 #include "enhance_tail.cuh"
 
 namespace {
@@ -43,6 +42,7 @@ struct ClaheSrc {
   __device__ __forceinline__ float value(int v, int y, int x) const {
     return __fmul_rn(clahe_blend(g, v, y, x), scale);
   }
+  bool aligned(int) const { return false; }  // nothing is copied
 };
 
 }  // namespace

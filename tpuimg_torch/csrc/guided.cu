@@ -84,8 +84,9 @@
 //   or b nearly cancels.
 //
 // The walker's body (walker.cuh) is templated on the producer of its rows
-// of I and p; here GuidedRows reads them from device memory, and the enhance
-// tails (enhance_tail.cuh) produce them on chip from the frame.
+// of I and p; here GuidedRows reads them from device memory. The enhance
+// tails (enhance_tail.cuh) run two walks of the twopass design below, the
+// first with a producer that makes f and p on chip from the frame.
 //
 // Twopass, two strip walks (guided_twopass_kernel). The variant keeps a and
 // b in device memory by design, so its own floor is 32 bytes a pixel (I and

@@ -1,17 +1,19 @@
-// The guided-filter strip walker's body, shared by guided.cu's onepass
-// entries (frame and row-padded) and the enhance tails (enhance_tail.cuh).
-// The design and its bounds are described in guided.cu's header; this file
-// holds the body, templated on its row producer, so that each kernel differs
-// only in where its rows of I and p come from.
+// The guided-filter strip walker's body, run by guided.cu's onepass entries
+// (frame and row-padded), and the helpers that guided.cu's twopass walks and
+// the enhance tails' two walks (enhance_tail.cuh) share with it. The design
+// and its bounds are described in guided.cu's header; this file holds the
+// body, templated on its row producer, so that each kernel differs only in
+// where its rows of I and p come from. kInRange, kCentre, before4, spare
+// and late serve a producer that makes its rows on chip; guided.cu's
+// GuidedRows reads them and leaves them unset or empty.
 //
 // A producer (Prod) supplies, for walker row u (extended row e0 + u of the
 // block's segment), the values of I and p at strip column c, and does its
 // own staging around the walker's barriers:
 //   kSelf                    p is I (two of the four sums)
-//   kInRange                 its values lie in [0, 1] (the enhance tails,
-//                            whose f comes from a u8 frame), so the walker
-//                            leaves out the repair of its running sums;
-//                            otherwise it calls
+//   kInRange                 its values lie in [0, 1] (say, made from a u8
+//                            frame), so the walker leaves out the repair of
+//                            its running sums; otherwise it calls
 //   row(u, ctx, iu, pu)      I and p at walker row u, any row of the window
 //   kCentre                  the producer gives I at the output pixels
 //                            (centre(s, i, j): walker row s*kRows + i - 2r,

@@ -204,7 +204,7 @@ _QUERIES = {
     "tpuimg_cuda_error_string": ([_I], ctypes.c_char_p),
     # n, h, w, r, self_guided -> floats of scratch, or -1
     "tpuimg_guided_onepass_scratch_floats": ([_I] * 5, _L),
-    # h, w, rg, r -> floats of scratch, -1 (refused) or -2 - a CUDA error
+    # h, w, rg, r -> floats of scratch, or -1 (refused)
     "tpuimg_enhance_tail_scratch_floats": ([_I] * 4, _L),
     # rg, r -> 1 on the shared-memory route, 0 on the scratch route
     "tpuimg_enhance_tail_shared": ([_I] * 2, _I),

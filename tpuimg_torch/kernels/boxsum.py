@@ -17,16 +17,15 @@ scratch, the scratch route). Its plain version is tpuimg's XLA form of
 valid-window box sums, q on the block's centre.
 
 ``enhance_tail``, q = guided(I=f, p=gaussian(f)), replaces
-``enhance_tail_pallas``. Its kernel is the guided filter's strip walker
-(csrc/walker.cuh, the onepass kernel's body) with a producer that makes f
-once per pixel of a strip and its halo and p = gaussian(f) from a ring of f
-rows, on chip: gf radius <= TAIL_MAX_RADIUS, gaussian radius <= MAX_TAPS //
-2, each block's ring of p rows in a device-memory scratch this module
-allocates, and the whole workspace there past a block's shared memory (the
-scratch route). At 4K, r8, rg2: 0.2918 ms
-on an NVIDIA H100 80GB HBM3 at 700.00 W (chip_smoke.py; bound 0.0198 ms, by
-bytes; the gaussian then guided kernels 0.3160; the tile kernel it replaced
-took 0.9078). Its plain version is ``_tail_chain``'s algebra on the whole
+``enhance_tail_pallas``. Its kernel is two strip walks of the twopass
+kernel's design in one C call (csrc/enhance_tail.cuh): walk 1 makes f once
+per pixel of a strip and its halo and p = gaussian(f) from a ring of f rows,
+on chip, and writes a and b to a device-memory scratch this module
+allocates; walk 2 box-sums them and writes q. gf radius <= TAIL_MAX_RADIUS,
+gaussian radius <= MAX_TAPS // 2; past a block's shared memory walk 1 keeps
+the leaving rows' I and p in the scratch too (the scratch route). At 4K,
+r8, rg2, u8 q: 0.2045 ms on an NVIDIA H100 80GB HBM3 at 700.00 W (bound
+0.0124 ms, by bytes; PERF.md §6). Its plain version is ``_tail_chain``'s algebra on the whole
 frame: pad once by the total halo 2r + rg (reflect-101), smooth (down the
 columns, then along the rows), then the guided chain in valid mode, so it
 never pads again. With ``out_u8`` either tail returns the u8 frame that the
@@ -35,10 +34,11 @@ store (1 byte a pixel written instead of 4, and no elementwise pass after
 it).
 
 ``enhance_tail_clahe`` (csrc/enhance_tail_clahe.cu), the same tail with f =
-clahe_blend(img) / 255 computed inside the kernel (once per staged pixel),
-replaces ``enhance_tail_clahe_pallas`` (4K: 0.3580 ms, same card; bound
-0.0124 ms; the tile kernel took 1.0073). Its plain version is the f32 CLAHE
-blend times 1/255, then ``enhance_tail_plain``.
+clahe_blend(img) / 255 computed inside the kernels (once per staged pixel
+of walk 1 and per output pixel of walk 2), replaces
+``enhance_tail_clahe_pallas`` (4K, u8 q: 0.2744 ms, same card; bound
+0.0050 ms). Its plain version is the f32 CLAHE blend times 1/255,
+then ``enhance_tail_plain``.
 """
 
 from __future__ import annotations
@@ -273,16 +273,14 @@ def _tail_taps(h: int, w: int, radius_g: int, sigma: float, radius: int):
 
 
 def _tail_scratch(h: int, w: int, radius_g: int, radius: int, device):
-    """The device memory a tail launch needs: each block's ring of p rows,
-    and past a block's shared memory (the scratch route) its workspace."""
-    lib = load()
-    floats = lib.tpuimg_enhance_tail_scratch_floats(h, w, radius_g, radius)
-    if floats == -1:
+    """The device memory a tail call needs: the a and b planes, and past a
+    block's shared memory (the scratch route) walk 1's rings of the leaving
+    rows."""
+    floats = load().tpuimg_enhance_tail_scratch_floats(h, w, radius_g,
+                                                       radius)
+    if floats < 0:
         raise ParamError(f"the tail kernel refuses radius {radius}, gaussian "
                          f"radius {radius_g} on {h}x{w}")
-    if floats < 0:
-        raise RuntimeError(f"CUDA error {-floats - 2} sizing the tail's "
-                           f"scratch")
     return torch.empty(floats, dtype=torch.float32, device=device)
 
 
@@ -323,8 +321,8 @@ def enhance_tail_clahe(img, tables, ytiles: int, xtiles: int, th: int,
                        sigma: float, radius: int, eps: float,
                        out_u8: bool = False):
     """``enhance_tail_clahe_plain`` on a CPU tensor; on a CUDA tensor one
-    launch, the blend computed once per pixel of each strip and its halo and
-    never stored. Takes any tile grid; the limits and the output of
+    call of two launches, the blend computed in the kernels and never
+    stored. Takes any tile grid; the limits and the output of
     ``enhance_tail``."""
     if img.device.type == "cpu":
         q = enhance_tail_clahe_plain(img, tables, ytiles, xtiles, th, tw,
