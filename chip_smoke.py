@@ -19,7 +19,12 @@ Phases, each printed on its own line:
    (r 1, 2, 7, plus a batch of three 1080p frames and a 3x9 frame at r 4)
    equal to its plain version bit for bit; guided filter onepass (self-guided and general) and twopass
    (r 1, 8, 16, plus a 6x40 frame at r 8; twopass also at r 17 and 32 on
-   1080p and r 64 on 2161x3839 and 6x40) <= 1e-4 and finite; bit-exact:
+   1080p and r 64 on 2161x3839 and 6x40) <= 1e-4 and finite; guided_filter
+   at its default (shrink) border, one launch of the twopass kernel's shrink
+   entry a call and no other guided entry, <= 1e-4 of the plain shrink
+   chain: a 3-channel source by a 4K guide at r 15 (the guided-rgb-shrink-4k
+   cell), 2161x3839 r 16, self-guided 1080p r 1, a batch of two 540x1917
+   guides by 3 channels at r 8, and 20x24 r 15 and 5x7 r 16; bit-exact:
    hist256 at those sizes, at 4320x7680 and on a flat 4K frame,
    hist256_frames on 16 frames of 1080p and on 3 odd-sized frames,
    hist256_groups on (64, 8161) groups, hist256_groups_packed on a 4K
@@ -84,7 +89,8 @@ Phases, each printed on its own line:
    with impl="staged" and enhance on a 32x48 frame (under the tail kernel's
    gate; both: tile_tables, clahe_map, gaussian, guided), and
    the stand-alone filters (gaussian r2 at 1080p, guided r8 at 4K
-   self-guided, general, and twopass), hist_equalize at 4K (hist256,
+   self-guided, general, and twopass, and guided_filter at its default
+   border on a 3-channel source at 4K r 15), hist_equalize at 4K (hist256,
    lut_gather) and on 16 frames of 1080p (the same two kernels, frames
    form, one launch each), hist256_groups_packed on a 4K frame's words
    (equal to hist256 and NumPy's bincount), integral at 4K (integral), and
@@ -261,6 +267,8 @@ KERNELS = [  # name, its C entry, source, TPU kernel replaced
      "tpuimg/kernels/lut.py:502"),
     ("hist256_packed", "tpuimg_hist256_packed", "tpuimg_torch/csrc/hist256.cu",
      "tpuimg/kernels/hist.py:167"),
+    ("guided_twopass_shrink", "tpuimg_guided_twopass_shrink",
+     "tpuimg_torch/csrc/guided.cu", "no TPU kernel: tpuimg's XLA class path"),
 ]
 
 # the enhance tail's halo: 2*gf_radius + radius rows (enhance_sharded)
@@ -273,6 +281,14 @@ YPAD_MORPH_R = [1, 15]
 # its scratch route (past kernels.GUIDED_SMEM_MAX_RADIUS)
 YPAD_GUIDED_R = [20, 32, 64, 80]
 GF_R_LARGE = 20  # the sharded paths at a gf_radius past 16
+# guided_filter at its default (shrink) border: the guided-rgb-shrink-4k
+# cell's call (4K guide, 3-channel source, r 15), an unaligned frame,
+# self-guided, a batch, and frames with windows clamped at both ends
+# (min(H, W) <= 2r): (shape of I, channels of p or 0 for p of I's shape or
+# None for self-guided, radius)
+SHRINK_CASES = [((2160, 3840), 3, 15), ((2161, 3839), 0, 16),
+                ((1080, 1920), None, 1), ((2, 540, 1917), 3, 8),
+                ((20, 24), 3, 15), ((5, 7), 0, 16)]
 # values planted at one pixel of I or p of the guided filter's inputs, at an
 # inner pixel, on a 32-row segment boundary and 64-column strip edge, and on
 # a 128-column strip edge (the walkers' running sums must drop each with
@@ -444,6 +460,38 @@ def check_filter_kernels(dev, card: str, errs: dict) -> None:
         check(err <= 1e-4, f"guided_twopass {label}: {err} <= 1e-4")
         errs["guided_twopass"] = max(errs["guided_twopass"], err)
         print(f"phase 3 guided_twopass vs plain {label}: {err:.3g} [{card}]")
+
+
+def check_guided_shrink(dev, card: str, errs: dict) -> None:
+    """Phase 3, guided_filter at its default border (shrink) as a user
+    calls it: one launch of the twopass kernel's shrink entry a call and
+    no other guided entry, within 1e-4 of the plain shrink chain."""
+    guided = ("guided", "guided_twopass", "guided_ypadded",
+              "guided_twopass_shrink")
+    for shape, channels, r in SHRINK_CASES:
+        if channels:
+            I3, p = guide_pair((channels,) + shape, SEED + 30 + r, dev)
+            I = I3[0].contiguous()
+        else:
+            I, p = guide_pair(shape, SEED + 30 + r, dev)
+        self_g = channels is None
+        src = I if self_g else p
+        label = (f"guided_filter shrink {'x'.join(map(str, shape))} "
+                 f"{'self' if self_g else f'C{channels or 1}'} r{r}")
+        got, n = drive(label, ("guided_twopass_shrink",), guided_filter, I,
+                       src, r, GF_EPS)
+        ref = guided_filter_plain(I, src, r, GF_EPS, self_g, border="shrink")
+        err = max_err(got, ref)
+        check(got.shape == ref.shape and bool(torch.isfinite(got).all()),
+              f"{label} shape and finite")
+        check(pick(n, guided) == {**dict.fromkeys(guided, 0),
+                                  "guided_twopass_shrink": 1},
+              f"{label}: one launch of the shrink entry ({pick(n, guided)})")
+        check(err <= 1e-4, f"{label}: {err} <= 1e-4")
+        errs["guided_twopass_shrink"] = max(
+            errs.get("guided_twopass_shrink", 0.0), err)
+        print(f"phase 3 {label} vs plain: {err:.3g}, launches "
+              f"{n['guided_twopass_shrink']} [{card}]")
 
 
 def classes(x):
@@ -1351,20 +1399,29 @@ def run_main_paths(dev, card: str, batch: np.ndarray) -> dict:
         return (gaussian(f1080, 2, 1.5),
                 guided_filter(I, I, 8, GF_EPS, border="reflect101"),
                 guided_filter(I, p, 8, GF_EPS, border="reflect101"),
-                guided_filter_kernel(I, p, 8, GF_EPS, variant="twopass"))
+                guided_filter_kernel(I, p, 8, GF_EPS, variant="twopass"),
+                guided_filter(I, p3, 15, GF_EPS))
 
+    # the guided-rgb-shrink-4k cell's call: a 3-channel source by one guide
+    # at the default (shrink) border, r 15
+    _, p3 = guide_pair((3, h, w), SEED + 4, dev)
     outs, got = drive("the stand-alone filters",
-                      ("gaussian", "guided", "guided_twopass"), filters)
+                      ("gaussian", "guided", "guided_twopass",
+                       "guided_twopass_shrink"), filters)
     refs = (gaussian_plain(f1080, 2, 1.5),
             guided_filter_plain(I, I, 8, GF_EPS, True),
             guided_filter_plain(I, p, 8, GF_EPS),
-            guided_filter_plain(I, p, 8, GF_EPS))
+            guided_filter_plain(I, p, 8, GF_EPS),
+            guided_filter_plain(I, p3, 15, GF_EPS, border="shrink"))
     errs = [max_err(o, r) for o, r in zip(outs, refs)]
     check(errs[0] <= 1e-5, f"gaussian 1080p r2: {errs[0]} <= 1e-5")
-    check(max(errs[1:]) <= 1e-4, f"guided 4K r8: {errs[1:]} <= 1e-4")
+    check(max(errs[1:]) <= 1e-4, f"guided 4K: {errs[1:]} <= 1e-4")
+    check(got["guided_twopass_shrink"] == 1,
+          "guided 4K C3 r15 shrink: one launch of its entry")
     print(f"phase 4 stand-alone filters: launches {got}; gaussian 1080p r2 "
           f"{errs[0]:.3g}, guided 4K r8 self {errs[1]:.3g} general "
-          f"{errs[2]:.3g} twopass {errs[3]:.3g} [{card}]")
+          f"{errs[2]:.3g} twopass {errs[3]:.3g}, C3 r15 shrink "
+          f"{errs[4]:.3g} [{card}]")
     total = {k: total[k] + got[k] for k in total}
     he = run_he_integral_paths(dev, card, batch)
     morph = run_morph_paths(dev, card)
@@ -1634,7 +1691,7 @@ AUTOTESTS = [
     ("morph-autotest", ("morphology",), 0.0),
     ("clahe-autotest", ("tile_tables", "clahe_map"), 1.0),
     ("gaussian-autotest", ("gaussian",), 1e-5),
-    ("guided-autotest", ("guided",), 1e-4),
+    ("guided-autotest", ("guided", "guided_twopass_shrink"), 1e-4),
     ("enhance-autotest", ("tile_tables", "clahe_map", "enhance_tail"),
      2.0),
 ]
@@ -1908,6 +1965,7 @@ def main() -> int:
     batch = batch_frames(BATCH, SEED + 5)
     check_enhance_kernels(dev, card, errs)
     check_filter_kernels(dev, card, errs)
+    check_guided_shrink(dev, card, errs)
     check_he_kernels(dev, card, errs, batch)
     check_integral_kernel(dev, card, errs, batch)
     check_morph_kernels(dev, card, errs)

@@ -343,23 +343,32 @@ def test_guided_batches_and_cn1_in_one_launch(card):
 
 
 def test_guided_class_paths_run_plain_on_card(card):
-    """border="shrink" and radius > 16 are XLA in tpuimg and plain PyTorch
-    here, on the card, within 1e-3 / 1e-4 of the CPU run."""
+    """radius > 16 is XLA in tpuimg and plain PyTorch here at both borders,
+    on the card, within 1e-3 (shrink) / 1e-4 of the CPU run; border="shrink"
+    at r <= 16, XLA in tpuimg, launches the twopass kernel's shrink
+    instance, within 1e-4 of the CPU run."""
     g = np.random.default_rng(10)
     I = g.random((50, 70), dtype=np.float32)
     p = g.random((50, 70), dtype=np.float32)
     before = _launches()
+    shrink = kernels.launches["tpuimg_guided_twopass_shrink"]
     for kwargs, tol in (({}, 1e-3), ({"border": "reflect101"}, 1e-4)):
-        r = 20 if kwargs else 6
         got = tpuimg_torch.guided_filter(
-            torch.from_numpy(I).to(card), torch.from_numpy(p).to(card), r,
+            torch.from_numpy(I).to(card), torch.from_numpy(p).to(card), 20,
             1e-3, **kwargs)
         ref = tpuimg_torch.guided_filter(torch.from_numpy(I),
-                                         torch.from_numpy(p), r, 1e-3,
+                                         torch.from_numpy(p), 20, 1e-3,
                                          **kwargs)
         assert got.is_cuda
         assert float((got.cpu() - ref).abs().max()) <= tol
     assert _launches() == before
+    assert kernels.launches["tpuimg_guided_twopass_shrink"] == shrink
+    got = tpuimg_torch.guided_filter(torch.from_numpy(I).to(card),
+                                     torch.from_numpy(p).to(card), 6, 1e-3)
+    ref = tpuimg_torch.guided_filter(torch.from_numpy(I), torch.from_numpy(p),
+                                     6, 1e-3)
+    assert float((got.cpu() - ref).abs().max()) <= 1e-4
+    assert kernels.launches["tpuimg_guided_twopass_shrink"] == shrink + 1
 
 
 @pytest.mark.parametrize("shape,impl", [((270, 480), "staged"),
@@ -1261,6 +1270,97 @@ def test_twopass_small_frames_match_plain(card, shape, radius):
     assert bool(torch.isfinite(got).all())
     ref = guided_filter_plain(I, p, radius, 1e-3)
     assert float((got - ref).abs().max()) <= 1e-4
+
+
+def _rgb_shrink_reference(I, p, radius, eps=1e-3):
+    """The rgb shrink cell's plain float64 reference (bench_torch)."""
+    from bench_torch import harness
+
+    mod = harness.load_module(
+        harness.HERE / "configs" / "guided-rgb-shrink-4k.py")
+    cfg = {"params": {"radius": radius, "eps": eps}}
+    return mod.reference(cfg, I, p, torch.float64)
+
+
+def _shrink_both(I, p, radius, self_guided=False):
+    """The shrink kernel's q, checked against its plain version and the
+    float64 reference within 1e-4, and one C call of it counted."""
+    before = kernels.launches["tpuimg_guided_twopass_shrink"]
+    got = guided_filter_kernel(I, p, radius, 1e-3, self_guided=self_guided,
+                               border="shrink")
+    assert kernels.launches["tpuimg_guided_twopass_shrink"] == before + 1
+    assert got.shape == p.shape and bool(torch.isfinite(got).all())
+    plain = guided_filter_plain(I, p, radius, 1e-3, self_guided, "shrink")
+    assert float((got - plain).abs().max()) <= 1e-4
+    ref = _rgb_shrink_reference(I, p, radius)
+    assert float((got.double() - ref).abs().max()) <= 1e-4
+    return got
+
+
+def _rgb_pair(g, shape, channels=3):
+    p = np.clip(g.random(shape, dtype=np.float32)[None]
+                + 0.1 * g.standard_normal((channels,) + shape), 0,
+                1).astype(np.float32)
+    I = (0.299 * p[0] + 0.587 * p[1] + 0.114 * p[2]).astype(np.float32)
+    return I, p
+
+
+def test_shrink_4k_rgb_by_gray_runs_two_kernels_and_no_torch_kernel(card):
+    """The rgb shrink cell's call, tpuimg_torch.guided_filter(I, p, 15,
+    1e-3) at the default border on a 4K luma and its 3-channel source: one C
+    call, whose two kernels (the twopass walks' shrink instance) are all the
+    device work, within 1e-4 of the plain version and the float64
+    reference."""
+    I, p = (torch.from_numpy(x).to(card)
+            for x in _rgb_pair(np.random.default_rng(60), (2160, 3840)))
+    before = kernels.launches["tpuimg_guided_twopass_shrink"]
+    got = tpuimg_torch.guided_filter(I, p, 15, 1e-3)
+    assert kernels.launches["tpuimg_guided_twopass_shrink"] == before + 1
+    plain = guided_filter_plain(I, p, 15, 1e-3, border="shrink")
+    assert float((got - plain).abs().max()) <= 1e-4
+    ref = _rgb_shrink_reference(I, p, 15)
+    assert float((got.double() - ref).abs().max()) <= 1e-4
+    del plain, ref
+    names, _ = _kernels_of(tpuimg_torch.guided_filter, I, p, 15, 1e-3)
+    assert len(names) == 2, names
+    assert all("guided_twopass_kernel" in n for n in names), names
+
+
+@pytest.mark.parametrize("width", [7, 1917, 3839])
+def test_shrink_widths_match_plain_and_reference(card, width):
+    """Widths inside one 128-column strip, unaligned across many, and one
+    short of 4K, general and CN1, r 15."""
+    g = np.random.default_rng(61 + width)
+    I, p = (torch.from_numpy(x).to(card) for x in _rgb_pair(g, (96, width)))
+    _shrink_both(I, p, 15)
+    _shrink_both(I, p[1].contiguous(), 15)
+
+
+@pytest.mark.parametrize("shape,radius", [((1, 1), 1), ((5, 7), 15),
+                                          ((30, 200), 15), ((300, 31), 16),
+                                          ((7, 5), 64), ((40, 3), 8)])
+def test_shrink_small_frames_match_plain_and_reference(card, shape, radius):
+    """Frames with min(H, W) <= 2r: windows clamped at both ends; general,
+    self-guided and CN1."""
+    g = np.random.default_rng(70 + radius)
+    I, p = (torch.from_numpy(x).to(card) for x in _rgb_pair(g, shape))
+    _shrink_both(I, p, radius)
+    _shrink_both(I, I, radius, self_guided=True)
+    _shrink_both(I, p[0].contiguous(), radius)
+
+
+def test_shrink_batched_guides_match_plain_and_reference(card):
+    """A batch of guides, each with its own sources: I (2, H, W) and p (2,
+    H, W) or (3, 2, H, W)."""
+    g = np.random.default_rng(80)
+    I = torch.from_numpy(g.random((2, 150, 300), dtype=np.float32)).to(card)
+    p = torch.from_numpy(g.random((3, 2, 150, 300),
+                                  dtype=np.float32)).to(card)
+    for q in (p[0], p):
+        got = _shrink_both(I, q, 15)
+        one = guided_filter_kernel(I[1], q[..., 1, :, :].contiguous(), 15,
+                                   1e-3, border="shrink")
+        assert float((got[..., 1, :, :] - one).abs().max()) <= 1e-5
 
 
 def test_twopass_refuses_past_its_ceiling(card):

@@ -197,6 +197,11 @@ def test_guided_variant_is_checked(rng):
     with pytest.raises(tpuimg_torch.core.validate.ParamError,
                        match="variant"):
         guided_filter_kernel(f, f, 2, 1e-3, variant="threepass")
+    # the shrink border has a twopass kernel only
+    with pytest.raises(tpuimg_torch.core.validate.ParamError,
+                       match="variant at the shrink border"):
+        guided_filter_kernel(f, f, 2, 1e-3, variant="onepass",
+                             border="shrink")
 
 
 def _gauss_register_model(src, r, sigma, ypadded, kr, tw, th):
@@ -306,11 +311,13 @@ def _row_window_sums(src, r, length, repair=True):
     return torch.stack(out, -1)
 
 
-def _twopass_walk_sums(X, Y, r, seg_rows, products, repair=True):
+def _twopass_walk_sums(X, Y, r, seg_rows, products, repair=True,
+                       shrink=False):
     """The window sums one launch of csrc/guided.cu's twopass walk takes of
     its planes (X, Y, and with ``products`` X*Y and X*X) of an (h, w)
     frame: segments of ``seg_rows`` rows, walked 8 extended rows
-    (reflect-101) a step; down each input column an f64 running sum, the
+    (reflect-101; with ``shrink``, zero outside the frame) a step; down
+    each input column an f64 running sum, the
     entering row added and the one 2r + 1 rows up subtracted, rounded to f32
     once a row and checked on the planes of Y and X*X (of X and Y without
     ``products``); a column whose check fails at any row of a step has that
@@ -322,13 +329,23 @@ def _twopass_walk_sums(X, Y, r, seg_rows, products, repair=True):
     h, w = X.shape
     k, strip, length, step = 2 * r + 1, 128, 16 if products else 8, 8
     width = -(-w // strip) * strip
-    xs = torch.from_numpy(reflect101_index(np.arange(-r, width + r), w))
+
+    def index(i, n):
+        # the source row or column of each extended one; under shrink, one
+        # past the frame (a zero row or column appended) outside it
+        if shrink:
+            return torch.from_numpy(np.where((i >= 0) & (i < n), i, n))
+        return torch.from_numpy(reflect101_index(i, n))
+
+    if shrink:
+        X = torch.nn.functional.pad(X, (0, 1, 0, 1))
+        Y = torch.nn.functional.pad(Y, (0, 1, 0, 1))
+    xs = index(np.arange(-r, width + r), w)
     out = []
     for y0 in range(0, h, seg_rows):
         n = min(seg_rows, h - y0) + 2 * r
         n_pad = -(-n // step) * step  # a step's rows past the walk are read
-        ys = torch.from_numpy(reflect101_index(
-            np.arange(y0 - r, y0 - r + n_pad), h))
+        ys = index(np.arange(y0 - r, y0 - r + n_pad), h)
         xe, ye = X[ys][:, xs], Y[ys][:, xs]
 
         def terms(u):
@@ -370,17 +387,32 @@ def _twopass_walk_sums(X, Y, r, seg_rows, products, repair=True):
     return torch.cat(out, 1)
 
 
-def _twopass_model(I, p, r, eps, seg_rows):
+def _shrink_coef(h, w, r):
+    """The shrink instance's per-pixel coef: the f32 reciprocal of the
+    window's area inside the frame, cy(y) cx(x) from the per-axis counts."""
+    def counts(n):
+        i = np.arange(n)
+        return np.minimum(i + r, n - 1) - np.maximum(i - r, 0) + 1
+    area = counts(h)[:, None] * counts(w)[None, :]
+    return torch.from_numpy((1.0 / area.astype(np.float32)).astype(
+        np.float32))
+
+
+def _twopass_model(I, p, r, eps, seg_rows, shrink=False):
     """csrc/guided.cu's two walks on the CPU: a and b from launch 1's window
     sums (ab_of: each multiply and add rounded on its own, float32), then q
-    from launch 2's window sums of a and b (q_of)."""
+    from launch 2's window sums of a and b (q_of). ``shrink``: the shrink
+    instance, zero outside the frame and each sum scaled by its own
+    _shrink_coef."""
     k = 2 * r + 1
-    coef = float(np.float32(1.0 / (k * k)))
-    si, sp, sip, sii = _twopass_walk_sums(I, p, r, seg_rows, True)
+    coef = (_shrink_coef(*I.shape, r) if shrink
+            else float(np.float32(1.0 / (k * k))))
+    si, sp, sip, sii = _twopass_walk_sums(I, p, r, seg_rows, True,
+                                          shrink=shrink)
     imu, pmu, ipmu, iimu = si * coef, sp * coef, sip * coef, sii * coef
     a = (ipmu - pmu * imu) / ((iimu - imu * imu) + eps)
     b = pmu - a * imu
-    sa, sb = _twopass_walk_sums(a, b, r, seg_rows, False)
+    sa, sb = _twopass_walk_sums(a, b, r, seg_rows, False, shrink=shrink)
     return (sa * coef) * I + sb * coef
 
 
@@ -407,6 +439,47 @@ def test_twopass_walk_model_matches_plain_and_pallas(rng, shape, radius):
     else:
         ref = tpuimg.guided_filter(I, p, radius, 1e-3, border="reflect101")
     assert _maxdiff(got, ref) <= 1e-4
+
+
+def _rgb_shrink_config():
+    from bench_torch import harness
+
+    return harness.load_module(
+        harness.HERE / "configs" / "guided-rgb-shrink-4k.py")
+
+
+@pytest.mark.parametrize("shape", [(48, 64), (5, 7)])
+@pytest.mark.parametrize("radius", [1, 8, 15, 16])
+@pytest.mark.parametrize("form", ["general", "self", "cn1"])
+def test_twopass_shrink_model_matches_tpuimg_and_reference(rng, shape,
+                                                           radius, form):
+    """The twopass kernel's shrink instance (zero outside the frame, each
+    sum over its window's own area from the per-axis counts), summed as its
+    two walks sum, stays within 1e-4 of tpuimg's shrink guided filter (the
+    reference's class path, XLA on the CPU), of the rgb shrink cell's
+    float64 reference and of the wrapper's plain version, general,
+    self-guided and CN1, on frames where windows are clamped at both ends
+    (5x7 at every radius here)."""
+    I, p = _pair(rng, shape)
+    if form == "cn1":
+        p = np.clip(I + 0.1 * rng.standard_normal((3,) + shape), 0,
+                    1).astype(np.float32)
+    elif form == "self":
+        p = I
+    It, pt = torch.from_numpy(I), torch.from_numpy(p)
+    got = torch.stack([_twopass_model(It, pc, radius, 1e-3, 32, shrink=True)
+                       for pc in (pt if form == "cn1" else pt[None])])
+    got = got.reshape(p.shape).numpy()
+    assert got.dtype == np.float32 and np.isfinite(got).all()
+    ref = tpuimg.guided_filter(I, I if form == "self" else p, radius, 1e-3)
+    assert _maxdiff(got, ref) <= 1e-4
+    cfg = {"params": {"radius": radius, "eps": 1e-3}}
+    ref64 = _rgb_shrink_config().reference(cfg, It, pt, torch.float64)
+    assert _maxdiff(got, ref64.numpy()) <= 1e-4
+    plain = guided_filter_kernel(It, It if form == "self" else pt, radius,
+                                 1e-3, self_guided=form == "self",
+                                 border="shrink")
+    assert _maxdiff(got, plain.numpy()) <= 1e-4
 
 
 def _tail_walks_model(f, rg, sigma, r, eps, seg_ab, seg_q):

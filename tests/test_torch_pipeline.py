@@ -461,8 +461,9 @@ def test_unported_paths_raise_off_the_cpu(monkeypatch):
     """A tensor off the CPU never runs a kernel's plain version: the paths
     that need a kernel reach its wrapper, which refuses any tensor but a
     CUDA one. (A meta tensor stands in for a CUDA one; the checks look at
-    the device type.) The shrink border has no kernel in tpuimg either and
-    runs as plain PyTorch on the tensor's device."""
+    the device type.) The shrink border, XLA in tpuimg, takes the twopass
+    kernel's shrink instance too at radius <= 16; above it stays plain
+    PyTorch on the tensor's device."""
     from tpuimg_torch.kernels import boxsum, hist, lut, sep_stencil
 
     def must_not_run(*args, **kwargs):
@@ -490,8 +491,37 @@ def test_unported_paths_raise_off_the_cpu(monkeypatch):
     with pytest.raises(ValueError, match="must be a CUDA tensor"):
         tpuimg_torch.guided_filter(meta_f, meta_f[None].expand(3, 64, 64), 4,
                                    1e-3, border="reflect101")
-    shrink = tpuimg_torch.guided_filter(meta_f, meta_f, 4, 1e-3)
+    with pytest.raises(ValueError, match="must be a CUDA tensor"):
+        tpuimg_torch.guided_filter(meta_f, meta_f, 4, 1e-3)
+    with pytest.raises(ValueError, match="must be a CUDA tensor"):
+        tpuimg_torch.guided_filter(meta_f, meta_f[None].expand(3, 64, 64), 16,
+                                   1e-3)
+    shrink = tpuimg_torch.guided_filter(meta_f, meta_f, 17, 1e-3)
     assert shrink.device.type == "meta" and shrink.shape == (64, 64)
+
+
+def test_guided_filter_first_call_imports_no_sympy():
+    """The kernel route's CN1 branch broadcasts I over p's channels on
+    tuples: torch.broadcast_shapes's first call imports sympy, seconds of
+    every process's set-up."""
+    code = ("import sys, torch, tpuimg_torch; "
+            "q = tpuimg_torch.guided_filter(torch.rand(1, 20, 30), "
+            "torch.rand(3, 2, 20, 30), 3, 1e-3); "
+            "assert q.shape == (3, 2, 20, 30); "
+            "print('sympy' in sys.modules); "
+            "sys.exit(1 if 'sympy' in sys.modules else 0)")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = root
+    proc = subprocess.run([sys.executable, "-c", code], cwd=root, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_guided_sources_that_do_not_broadcast_are_a_shape_error():
+    I = torch.rand(2, 20, 30)
+    with pytest.raises(tv.ShapeError, match="broadcast"):
+        tpuimg_torch.guided_filter(I, torch.rand(3, 20, 30), 3, 1e-3)
 
 
 def test_import_pulls_in_no_jax_tpuimg_cv2_or_triton():

@@ -81,7 +81,7 @@ def test_enhance_records_one_root_a_call_with_its_steps(rng, impl):
 
 @pytest.mark.parametrize("border, steps", [
     ("reflect101", ["guided.prepare", "guided.kernel"]),
-    ("shrink", ["guided.prepare", "guided.chain"])])
+    ("shrink", ["guided.prepare", "guided.kernel"])])
 def test_guided_filter_records_its_root_and_steps(rng, border, steps):
     I = torch.from_numpy(rng.random((40, 56), dtype=np.float32))
     p = torch.from_numpy(rng.random((40, 56), dtype=np.float32))
@@ -94,6 +94,7 @@ def test_guided_filter_records_its_root_and_steps(rng, border, steps):
         "ops.guided_filter", "entry", None)
     assert [(s.name, s.parent, s.root) for s in rest] == [
         (n, root.id, root.id) for n in steps]
+    assert rest[-1].detail == border  # the kernel's span names the border
 
 
 def test_span_refuses_an_unknown_layer_while_recording():

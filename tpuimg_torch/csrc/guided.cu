@@ -1,10 +1,21 @@
-// Guided filter on batches of float32 frames, reflect-101 border, 1/ksz^2
-// normalisation (the reference's fused hGuidedFilter path), in two forms:
+// Guided filter on batches of float32 frames, in two forms, at two borders:
 //
 //   onepass: one launch. q never needs a and b in device memory.
 //   twopass: the reference's gCalcAB / gWeightByABm split. Launch 1 writes
 //            the per-pixel a and b to device memory, launch 2 box-sums them
-//            through the reflect-101 index and writes q.
+//            and writes q.
+//
+// Reflect-101 border, 1/ksz^2 normalisation (the reference's fused
+// hGuidedFilter path): both forms. Shrink border (the reference's class path,
+// GuidedFilter/guided_filter.cpp:28-66 with gIntegralToMean,
+// guided_filter_d.cu:241-270): twopass only (tpuimg_guided_twopass_shrink),
+// a compile-time parameter of its walks. Rows and columns outside the frame
+// add nothing to any window sum (of I, p, I*p and I*I, then of a and b, which
+// exist only inside the frame), and each mean is its window sum over the
+// window's true area cy(y) cx(x), cy(y) = min(y + r, h - 1) - max(y - r, 0)
+// + 1 (cx alike), taken per pixel as the f32 reciprocal of the area; inside
+// a frame's 2r-wide border that is the reflect-101 form's coef. So frames of
+// any size, windows clamped at both ends included, run the same code.
 //
 // Replaces tpuimg/kernels/boxsum.py::guided_filter_pallas (:632): variant
 // "onepass" (_guided_strip_onepass :193, pallas_calls :270 self-guided and
@@ -99,8 +110,11 @@
 // columns, f32 along the rows by walker::row_window_sums), a halo of r
 // columns and 2r rows a segment, segments sized to one wave
 // (walker::strip_grid): launch 1 writes a and b once per pixel, launch 2
-// reads them through the reflect-101 index and writes q. Shared memory
-// grows with r, not r^2: r <= kTwopassMaxRadius = 64.
+// reads them through the reflect-101 index (shrink: zero outside the frame)
+// and writes q. Shared memory grows with r, not r^2: r <= kTwopassMaxRadius =
+// 64. At 4K with three source channels by one guide, r 15, twopass took
+// 0.9897 ms and onepass 1.3187 on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md
+// section 6), so the shrink border runs on twopass.
 #include "walker.cuh"
 
 namespace {
@@ -323,9 +337,11 @@ struct Twopass {
 // three stages a step apart between single barriers measured slower: the
 // doubled column and window sums leave room for two blocks an SM, not
 // three). Both launches read through the reflect-101 index, so launch 2's
-// window sums of a and b are the plain version's box(a), box(b). aligned:
-// the rows of X, Y (and I) start 16-byte aligned.
-template <bool kAB, bool kRing>
+// window sums of a and b are the plain version's box(a), box(b). kShrink:
+// both read zero outside the frame instead (a row or column there staged as
+// zeros, not copied) and scale each output's sums by its own 1 / (cy cx).
+// aligned: the rows of X, Y (and I) start 16-byte aligned.
+template <bool kAB, bool kRing, bool kShrink>
 __global__ void __launch_bounds__(kTpThreads, 3)
 guided_twopass_kernel(const float* __restrict__ X, int n_x,
                       const float* __restrict__ Y,
@@ -364,11 +380,28 @@ guided_twopass_kernel(const float* __restrict__ X, int n_x,
     const float* Iz = kAB ? nullptr : I + static_cast<size_t>(z % n_i) * plane;
     // walk row u of X (or Y) to dst: a warp's lanes along it
     auto row_in = [&](const float* src_plane, int u, float* dst) {
+      if constexpr (kShrink) {
+        if (e0 + u < 0 || e0 + u >= h) {  // outside the frame: adds nothing
+          for (int c = lane; c < ts; c += 32) dst[c] = 0.0f;
+          return;
+        }
+      }
       const float* src =
-          src_plane + static_cast<size_t>(reflect101_fast(e0 + u, h)) * w;
+          src_plane +
+          static_cast<size_t>(kShrink ? e0 + u : reflect101_fast(e0 + u, h)) *
+              w;
       if (wide) {
         for (int q = lane; q < ts / 4; q += 32) {
           cp_async16(dst + 4 * q, src + x0 - ra + 4 * q);
+        }
+      } else if constexpr (kShrink) {
+        for (int c = lane; c < ts; c += 32) {
+          const int x = x0 - ra + c;
+          if (x >= 0 && x < w) {
+            cp_async4(dst + c, src + x);
+          } else {
+            dst[c] = 0.0f;
+          }
         }
       } else {
         for (int c = lane; c < ts; c += 32) {
@@ -480,7 +513,8 @@ guided_twopass_kernel(const float* __restrict__ X, int n_x,
         // summed again directly, its window read again from device memory,
         // oldest row first
         if (!kept) {
-          const int x = reflect101_fast(x0 - r + tid, w);
+          const int x =
+              kShrink ? x0 - r + tid : reflect101_fast(x0 - r + tid, w);
 #pragma unroll 1
           for (int i = 0; i < kK; ++i) {
             const int u = s * kK + i;
@@ -488,8 +522,14 @@ guided_twopass_kernel(const float* __restrict__ X, int n_x,
             for (int pl = 0; pl < np; ++pl) v[pl] = 0.0;
 #pragma unroll 1
             for (int t = max(0, u - 2 * r); t <= u; ++t) {
+              if constexpr (kShrink) {  // rows and columns outside add 0
+                if (e0 + t < 0 || e0 + t >= h || x < 0 || x >= w) continue;
+              }
               const size_t o =
-                  static_cast<size_t>(reflect101_fast(e0 + t, h)) * w + x;
+                  static_cast<size_t>(kShrink ? e0 + t
+                                              : reflect101_fast(e0 + t, h)) *
+                      w +
+                  x;
               const double tx = __ldg(Xz + o), ty = __ldg(Yz + o);
               v[0] += tx;
               v[1] += ty;
@@ -531,14 +571,20 @@ guided_twopass_kernel(const float* __restrict__ X, int n_x,
         const size_t o = static_cast<size_t>(z) * plane +
                          static_cast<size_t>(y) * w + x;
         const float* sums = hab + i * tap + j;  // plane pl at pl * kK * tap
+        float cf = coef;
+        if constexpr (kShrink) {  // 1 / the window's area inside the frame
+          const int cy = min(y + r, h - 1) - max(y - r, 0) + 1;
+          const int cx = min(x + r, w - 1) - max(x - r, 0) + 1;
+          cf = __frcp_rn(static_cast<float>(cy * cx));
+        }
         if constexpr (kAB) {
           float a, b;
           ab_of(sums[0], sums[kK * tap], sums[2 * kK * tap],
-                sums[3 * kK * tap], coef, eps, &a, &b);
+                sums[3 * kK * tap], cf, eps, &a, &b);
           out0[o] = a;
           out1[o] = b;
         } else {
-          out0[o] = q_of(sums[0], sums[kK * tap], gbuf[pix], coef);
+          out0[o] = q_of(sums[0], sums[kK * tap], gbuf[pix], cf);
         }
       }
       base = next;
@@ -547,12 +593,16 @@ guided_twopass_kernel(const float* __restrict__ X, int n_x,
   }
 }
 
-template <bool kAB, bool kRing>
+bool bad_frames(int n_i, int n, int h, int w) {
+  return n_i < 1 || n < 1 || n % n_i != 0 || h < 1 || w < 1;
+}
+
+template <bool kAB, bool kRing, bool kShrink>
 int launch_twopass_as(const float* X, int n_x, const float* Y,
                       const float* I, int n_i, int n, int h, int w, int r,
                       float eps, float* out0, float* out1,
                       cudaStream_t stream) {
-  auto kernel = guided_twopass_kernel<kAB, kRing>;
+  auto kernel = guided_twopass_kernel<kAB, kRing, kShrink>;
   const size_t bytes =
       static_cast<size_t>(Twopass<kAB, kRing>::floats(r)) * sizeof(float);
   long long slots = 0;
@@ -571,22 +621,35 @@ int launch_twopass_as(const float* X, int n_x, const float* Y,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool kAB>
+template <bool kAB, bool kShrink>
 int launch_twopass(const float* X, int n_x, const float* Y, const float* I,
                    int n_i, int n, int h, int w, int r, float eps,
                    float* out0, float* out1, cudaStream_t stream) {
   return r <= kTpRingMaxRadius
-             ? launch_twopass_as<kAB, true>(X, n_x, Y, I, n_i, n, h, w, r,
-                                            eps, out0, out1, stream)
-             : launch_twopass_as<kAB, false>(X, n_x, Y, I, n_i, n, h, w, r,
-                                             eps, out0, out1, stream);
+             ? launch_twopass_as<kAB, true, kShrink>(X, n_x, Y, I, n_i, n, h,
+                                                     w, r, eps, out0, out1,
+                                                     stream)
+             : launch_twopass_as<kAB, false, kShrink>(X, n_x, Y, I, n_i, n, h,
+                                                      w, r, eps, out0, out1,
+                                                      stream);
+}
+
+// Both launches of a twopass call, a and b through device memory.
+template <bool kShrink>
+int twopass(const float* I, int n_i, const float* p, int n, int h, int w,
+            int r, float eps, float* a, float* b, float* q,
+            cudaStream_t stream) {
+  if (bad_frames(n_i, n, h, w) || r < 1 || r > kTwopassMaxRadius) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int err = launch_twopass<true, kShrink>(I, n_i, p, nullptr, 1, n, h,
+                                                w, r, eps, a, b, stream);
+  if (err != 0) return err;
+  return launch_twopass<false, kShrink>(a, n, b, I, n_i, n, h, w, r, eps, q,
+                                        nullptr, stream);
 }
 
 // ---- launches --------------------------------------------------------------
-
-bool bad_frames(int n_i, int n, int h, int w) {
-  return n_i < 1 || n < 1 || n % n_i != 0 || h < 1 || w < 1;
-}
 
 template <bool kSelf, bool kYPadded, bool kShared>
 int launch_walk(const float* I, int n_i, const float* p, int n, int h, int w,
@@ -676,12 +739,15 @@ extern "C" int tpuimg_guided_twopass(const float* I, int n_i, const float* p,
                                      int n, int h, int w, int r, float eps,
                                      float* a, float* b, float* q,
                                      cudaStream_t stream) {
-  if (bad_frames(n_i, n, h, w) || r < 1 || r > kTwopassMaxRadius) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const int err = launch_twopass<true>(I, n_i, p, nullptr, 1, n, h, w, r, eps,
-                                       a, b, stream);
-  if (err != 0) return err;
-  return launch_twopass<false>(a, n, b, I, n_i, n, h, w, r, eps, q, nullptr,
-                               stream);
+  return twopass<false>(I, n_i, p, n, h, w, r, eps, a, b, q, stream);
+}
+
+// As tpuimg_guided_twopass at the shrink border: windows clamped to the
+// frame, each mean over its true area.
+extern "C" int tpuimg_guided_twopass_shrink(const float* I, int n_i,
+                                            const float* p, int n, int h,
+                                            int w, int r, float eps, float* a,
+                                            float* b, float* q,
+                                            cudaStream_t stream) {
+  return twopass<true>(I, n_i, p, n, h, w, r, eps, a, b, q, stream);
 }

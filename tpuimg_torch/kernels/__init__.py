@@ -93,8 +93,10 @@ _SIGNATURES = {
     # I, n_i, p, n, h, w, r, eps, self_guided, scratch, q, stream
     "tpuimg_guided_onepass_ypadded_scratch": (_P, _I, _P, _I, _I, _I, _I, _F,
                                               _I, _P, _P, _P),
-    # I, n_i, p, n, h, w, r, eps, a, b, q, stream
+    # I, n_i, p, n, h, w, r, eps, a, b, q, stream (shrink: the shrink border)
     "tpuimg_guided_twopass": (_P, _I, _P, _I, _I, _I, _I, _F, _P, _P, _P, _P),
+    "tpuimg_guided_twopass_shrink": (_P, _I, _P, _I, _I, _I, _I, _F, _P, _P,
+                                     _P, _P),
     # x, groups, p, ws, ws_ints, out, stream
     "tpuimg_hist256": (_P, _I, _L, _P, _L, _P, _P),
     "tpuimg_hist256_packed": (_P, _I, _L, _P, _L, _P, _P),

@@ -5,7 +5,11 @@ and their plain PyTorch versions.
 ``guided_filter_kernel`` replaces ``tpuimg/kernels/boxsum.py::
 guided_filter_pallas`` (variants "onepass" and "twopass"); its plain version
 is tpuimg's reflect-101 chain with direct window sums: box means of I, p,
-I*p and I*I, then a and b, then q = mean_a*I + mean_b.
+I*p and I*I, then a and b, then q = mean_a*I + mean_b. At the shrink border
+(the reference's class path, which tpuimg computes in XLA) it runs the
+twopass kernel's shrink instance, and its plain version is the same chain
+with ``box_mean_shrink``: windows clamped to the frame, each mean over its
+true area.
 
 ``guided_ypadded_kernel`` (the onepass kernel's row-padded entry) replaces
 ``guided_pallas_ypadded``: I and p blocks whose rows already carry 2r halo
@@ -48,7 +52,7 @@ import functools
 import numpy as np
 import torch
 
-from tpuimg_torch.core.borders import pad_reflect101
+from tpuimg_torch.core.borders import REFLECT101, SHRINK, pad_reflect101
 from tpuimg_torch.core.validate import ParamError
 from tpuimg_torch.kernels import (
     GUIDED_SMEM_MAX_RADIUS, GUIDED_TWOPASS_MAX_RADIUS, MAX_TAPS,
@@ -65,6 +69,9 @@ VARIANTS = ("onepass", "twopass")
 # the radius each variant of guided_filter_kernel takes on the card
 GUIDED_MAX_RADIUS = {"onepass": GUIDED_SMEM_MAX_RADIUS,
                      "twopass": GUIDED_TWOPASS_MAX_RADIUS}
+# the variants with a kernel at each border, the default first: the shrink
+# border has twopass alone, the faster at 4K (csrc/guided.cu's header)
+BORDER_VARIANTS = {REFLECT101: VARIANTS, SHRINK: ("twopass",)}
 
 
 def window_sum(x, ksz: int, dim: int):
@@ -86,6 +93,34 @@ def box_mean(x, radius: int):
     return s * (1.0 / (ksz * ksz))
 
 
+def cumsum0(x, dim: int):
+    """Inclusive cumsum along ``dim`` with a leading zero."""
+    zero = torch.zeros_like(x.narrow(dim, 0, 1))
+    return torch.cat([zero, torch.cumsum(x, dim)], dim)
+
+
+def _axis_counts(n: int, radius: int, device):
+    """The rows (or columns) of each position's window inside the frame."""
+    idx = torch.arange(n, device=device)
+    return (torch.clamp(idx + 1 + radius, max=n)
+            - torch.clamp(idx - radius, min=0))
+
+
+def box_mean_shrink(x, radius: int):
+    """Shrink-window box mean (gIntegralToMean): zero padding, cumsum window
+    sums along the rows, then the columns, divided by the true area."""
+    h, w = x.shape[-2], x.shape[-1]
+    ksz = 2 * radius + 1
+    xp = torch.nn.functional.pad(x, (radius, radius, radius, radius))
+    c = cumsum0(xp, -1)
+    rows = c[..., ksz:ksz + w] - c[..., :w]
+    c2 = cumsum0(rows, -2)
+    s = c2[..., ksz:ksz + h, :] - c2[..., :h, :]
+    area = (_axis_counts(h, radius, x.device)[:, None]
+            * _axis_counts(w, radius, x.device)[None, :]).to(x.dtype)
+    return s / area
+
+
 def guided_ab(I, p, eps: float, box, self_guided: bool = False):
     """a and b from the box means of I, p, I*p and I*I. ``p`` may carry one
     more leading dim than ``I`` (C channels guided by one I, broadcast).
@@ -105,10 +140,12 @@ def guided_chain(I, p, eps: float, box, self_guided: bool = False):
 
 
 def guided_filter_plain(I, p, radius: int, eps: float,
-                        self_guided: bool = False):
-    """The guided filter of float32 (..., H, W) frames, reflect-101 border,
-    1/ksz^2 normalisation (both kernel variants compute this)."""
-    return guided_chain(I, p, eps, functools.partial(box_mean, radius=radius),
+                        self_guided: bool = False, border: str = REFLECT101):
+    """The guided filter of float32 (..., H, W) frames: reflect-101 border,
+    1/ksz^2 normalisation (both kernel variants compute this), or the shrink
+    border (``box_mean_shrink``, the twopass kernel's shrink instance)."""
+    box = box_mean_shrink if border == SHRINK else box_mean
+    return guided_chain(I, p, eps, functools.partial(box, radius=radius),
                         self_guided)
 
 
@@ -128,20 +165,29 @@ def _checked_pair(I, p, self_guided: bool):
 
 
 def guided_filter_kernel(I, p, radius: int, eps: float,
-                         variant: str = "onepass", self_guided: bool = False):
+                         variant: str | None = None,
+                         self_guided: bool = False, border: str = REFLECT101):
     """``guided_filter_plain`` on a CPU tensor; on a CUDA tensor one launch
     (onepass) or one pair of launches (twopass) over all frames.
 
     I: float32 (..., H, W). p: float32 of I's shape, or with one more leading
     dim of C channels that share the guide (CN1). ``self_guided``: p is I,
     the onepass kernel's two-sum form (twopass always takes the four sums).
-    Takes radius <= GUIDED_MAX_RADIUS[variant] on the card (64 for both).
-    Twopass writes a and b to device memory the wrapper allocates and
-    reads them back in its second launch."""
-    if variant not in VARIANTS:
-        raise ParamError(f"variant must be one of {VARIANTS}, got {variant!r}")
+    ``variant``: one of BORDER_VARIANTS[border], by default its first
+    (onepass at reflect-101, twopass at shrink). Takes radius <=
+    GUIDED_MAX_RADIUS[variant] on the card (64 for both). Twopass writes a
+    and b to device memory the wrapper allocates and reads them back in its
+    second launch."""
+    if border not in BORDER_VARIANTS:
+        raise ParamError(f"border must be one of {list(BORDER_VARIANTS)}, "
+                         f"got {border!r}")
+    variants = BORDER_VARIANTS[border]
+    variant = variants[0] if variant is None else variant
+    if variant not in variants:
+        raise ParamError(f"variant at the {border} border must be one of "
+                         f"{variants}, got {variant!r}")
     if I.device.type == "cpu":
-        return guided_filter_plain(I, p, radius, eps, self_guided)
+        return guided_filter_plain(I, p, radius, eps, self_guided, border)
     p = _checked_pair(I, p, self_guided)
     if radius > GUIDED_MAX_RADIUS[variant]:
         raise ParamError(
@@ -158,9 +204,10 @@ def guided_filter_kernel(I, p, radius: int, eps: float,
                q.data_ptr())
     else:
         a, b = torch.empty_like(p), torch.empty_like(p)
-        launch("tpuimg_guided_twopass", I.device, I.data_ptr(), n_i,
-               p.data_ptr(), n, h, w, radius, eps, a.data_ptr(), b.data_ptr(),
-               q.data_ptr())
+        entry = ("tpuimg_guided_twopass_shrink" if border == SHRINK
+                 else "tpuimg_guided_twopass")
+        launch(entry, I.device, I.data_ptr(), n_i, p.data_ptr(), n, h, w,
+               radius, eps, a.data_ptr(), b.data_ptr(), q.data_ptr())
     return q
 
 

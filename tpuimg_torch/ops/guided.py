@@ -1,15 +1,19 @@
 """Box filter + guided filter (port of ``tpuimg.ops.guided``).
 
 ``guided_filter`` follows tpuimg's dispatch (``tpuimg/ops/guided.py``
-``_guided_filter_impl``): border="reflect101" with radius <= 16 runs the
+``_guided_filter_impl``) for border="reflect101": radius <= 16 runs the
 guided-filter kernel (kernels/boxsum.py, csrc/guided.cu) on a CUDA tensor,
 in one launch for every batch and for the C-channel (CN1) form, at any frame
-size; its plain version on a CPU tensor. What tpuimg computes in XLA outside
-any Pallas kernel stays plain PyTorch on the tensor's device, as here:
-radius > 16 (the reflect-101 chain, window sums as direct adds up to r = 5
-and cumsum differences above), and border="shrink", the reference class
-path (gIntegralToMean: windows clamped to the image, normalised by their
-true area), which is also ``box_filter``'s default.
+size; its plain version on a CPU tensor. border="shrink", the default and
+the reference class path (gIntegralToMean: windows clamped to the image,
+normalised by their true area), which tpuimg computes in XLA, takes the same
+route at radius <= 16: the twopass kernel's shrink instance on a CUDA
+tensor (one pair of launches for every batch and the CN1 form, at any frame
+size), its plain version (the chain with shrink box means) on a CPU tensor.
+Radius > 16 stays plain PyTorch on the tensor's device at both borders, as
+tpuimg's XLA: the reflect-101 chain (window sums as direct adds up to r = 5
+and cumsum differences above) or the shrink chain. ``box_filter`` (shrink
+by default) is plain PyTorch on the tensor's device.
 
 ``guided_ypadded``, the per-shard op of ``parallel.guided_filter_sharded``
 and ``enhance_sharded``, runs the onepass kernel's row-padded entry at any
@@ -29,7 +33,8 @@ from tpuimg_torch.core.validate import (
     ParamError, ShapeError, check_image, check_positive, check_radius,
     check_ypadded_rows)
 from tpuimg_torch.kernels.boxsum import (
-    guided_chain, guided_filter_kernel, guided_ypadded_kernel, window_sum)
+    box_mean_shrink, cumsum0, guided_chain, guided_filter_kernel,
+    guided_ypadded_kernel, window_sum)
 from tpuimg_torch.profiling import span
 
 _FLOAT_IN = [torch.float32, torch.float64, torch.uint8]
@@ -44,12 +49,6 @@ _DIRECT_MAX_RADIUS = 5
 _PALLAS_MAX_RADIUS = 16
 
 
-def _cumsum0(x, dim: int):
-    """Inclusive cumsum along ``dim`` with a leading zero."""
-    zero = torch.zeros_like(x.narrow(dim, 0, 1))
-    return torch.cat([zero, torch.cumsum(x, dim)], dim)
-
-
 def _window(xp, radius: int, dim: int):
     """tpuimg's ``_window_sum`` along ``dim`` of ``xp``, already padded by
     the radius there: direct adds up to r = 5, cumsum differences above."""
@@ -57,7 +56,7 @@ def _window(xp, radius: int, dim: int):
     if radius <= _DIRECT_MAX_RADIUS:
         return window_sum(xp, ksz, dim)
     n = xp.shape[dim] - 2 * radius
-    c = _cumsum0(xp, dim)
+    c = cumsum0(xp, dim)
     return c.narrow(dim, ksz, n) - c.narrow(dim, 0, n)
 
 
@@ -70,30 +69,21 @@ def _box_reflect(x, radius: int):
         1.0 / (ksz * ksz))
 
 
-def _axis_counts(n: int, radius: int, device):
-    idx = torch.arange(n, device=device)
-    return (torch.clamp(idx + 1 + radius, max=n)
-            - torch.clamp(idx - radius, min=0))
-
-
-def _box_shrink(x, radius: int):
-    """Shrink-window box mean (gIntegralToMean): zero padding, cumsum window
-    sums along the rows, then the columns, divided by the true area."""
-    h, w = x.shape[-2], x.shape[-1]
-    ksz = 2 * radius + 1
-    xp = torch.nn.functional.pad(x, (radius, radius, radius, radius))
-    c = _cumsum0(xp, -1)
-    rows = c[..., ksz:ksz + w] - c[..., :w]
-    c2 = _cumsum0(rows, -2)
-    s = c2[..., ksz:ksz + h, :] - c2[..., :h, :]
-    area = (_axis_counts(h, radius, x.device)[:, None]
-            * _axis_counts(w, radius, x.device)[None, :]).to(x.dtype)
-    return s / area
+def _broadcast(a: tuple, b: tuple) -> tuple:
+    """``torch.broadcast_shapes`` of two shapes of one length, on tuples:
+    its first call in a process imports sympy, about 3 s of set-up."""
+    out = []
+    for x, y in zip(a, b):
+        if x != y and 1 not in (x, y):
+            raise ShapeError(f"guide I {tuple(a)} and source p {tuple(b)} "
+                             f"do not broadcast")
+        out.append(y if x == 1 else x)
+    return tuple(out)
 
 
 def _box(border: str, radius: int):
     if border == SHRINK:
-        return functools.partial(_box_shrink, radius=radius)
+        return functools.partial(box_mean_shrink, radius=radius)
     if border == REFLECT101:
         return functools.partial(_box_reflect, radius=radius)
     raise ParamError(
@@ -166,17 +156,18 @@ def guided_filter(I, p, radius: int, eps: float, border: str = SHRINK):
             box = _box(border, radius)
             I = I.to(torch.float32)
             p = I if self_guided else p.to(torch.float32)
-            kernel = border != SHRINK and radius <= _PALLAS_MAX_RADIUS
+            kernel = radius <= _PALLAS_MAX_RADIUS
             if kernel and self_guided:
                 I = p = I.contiguous()
             elif kernel:  # the kernel takes I's frames, C times over in p
                 lead = p.shape[:p.ndim - I.ndim]
-                shape = torch.broadcast_shapes(I.shape, p.shape[len(lead):])
+                shape = _broadcast(I.shape, p.shape[len(lead):])
                 I = I.expand(shape).contiguous()
                 p = p.expand(lead + shape).contiguous()
         if not kernel:
             with span("guided.chain", "glue"):
                 return guided_chain(I, p, eps, box, self_guided)
-        with span("guided.kernel", "entry"):
+        with span("guided.kernel", "entry", border):
             return guided_filter_kernel(I, p, radius, eps,
-                                        self_guided=self_guided)
+                                        self_guided=self_guided,
+                                        border=border)
