@@ -269,6 +269,10 @@ KERNELS = [  # name, its C entry, source, TPU kernel replaced
      "tpuimg/kernels/hist.py:167"),
     ("guided_twopass_shrink", "tpuimg_guided_twopass_shrink",
      "tpuimg_torch/csrc/guided.cu", "no TPU kernel: tpuimg's XLA class path"),
+    # enhance's fused chain from its plan: the tile, mapping and tail
+    # kernels above, queued by one C call
+    ("enhance_run", "tpuimg_enhance_run", "tpuimg_torch/csrc/enhance_plan.cu",
+     "no TPU kernel: tpuimg/pipeline.py's fused chain in one C call"),
 ]
 
 # the enhance tail's halo: 2*gf_radius + radius rows (enhance_sharded)
@@ -399,13 +403,26 @@ def check_enhance_kernels(dev, card: str, errs: dict) -> None:
         tail_err = max_err(got, enhance_tail_plain(*args["enhance_tail"]))
         check(bool(torch.isfinite(got).all()), f"enhance_tail {h}x{w} finite")
         check(tail_err <= 1e-4, f"enhance_tail {h}x{w}: {tail_err} <= 1e-4")
+        # enhance's plan (one C call) against its wrappers' composition
+        tables = tile_tables(*args["tile_tables"])
+        f = clahe_map(img, tables, TILES, TILES, *args["tile_hist"][3:],
+                      out_f32=True, scale=INV_255)
+        want = enhance_tail(f, RG, SIGMA, GF_R, GF_EPS, out_u8=True)
+        run_err = 0.0
+        for impl in ("fused", "fused1"):
+            got = enhance(img, CLIP, TILES, RG, SIGMA, GF_R, GF_EPS, impl)
+            run_err = max(run_err, max_err(got, want))
+            check(torch.equal(got, want), f"enhance {impl} {h}x{w}: the "
+                  f"plan's C call equals the wrappers bit for bit")
         torch.cuda.synchronize()
         print(f"phase 3 kernels vs plain {h}x{w}: tile_hist exact, "
               f"tile_tables exact, clahe_map f32 {map_err:.3g} u8 {step} "
-              f"step, enhance_tail {tail_err:.3g} [{card}]")
+              f"step, enhance_tail {tail_err:.3g}; enhance's plan equals "
+              f"the wrappers [{card}]")
         for name, err in (("tile_hist", hist_err),
                           ("tile_tables", tables_err), ("clahe_map", map_err),
-                          ("enhance_tail", tail_err)):
+                          ("enhance_tail", tail_err),
+                          ("enhance_run", run_err)):
             errs[name] = max(errs.get(name, 0.0), err)
 
 
@@ -1357,10 +1374,8 @@ def run_main_paths(dev, card: str, batch: np.ndarray) -> dict:
     h, w = SHAPES[0]
     outs = {}
     for label, shape, impl, expected in (
-            (f"enhance {h}x{w} fused", (h, w), "fused",
-             clahe_kernels + ("enhance_tail",)),
-            (f"enhance {h}x{w} fused1", (h, w), "fused1",
-             ("tile_tables", "enhance_tail_clahe")),
+            (f"enhance {h}x{w} fused", (h, w), "fused", ("enhance_run",)),
+            (f"enhance {h}x{w} fused1", (h, w), "fused1", ("enhance_run",)),
             (f"enhance {h}x{w} staged", (h, w), "staged",
              clahe_kernels + ("gaussian", "guided")),
             (f"enhance {SMALL[0]}x{SMALL[1]} fused", SMALL, "fused",
@@ -1370,8 +1385,11 @@ def run_main_paths(dev, card: str, batch: np.ndarray) -> dict:
         out, got = drive(label, expected, enhance, img, CLIP,
                          TILES, RG, SIGMA, GF_R, GF_EPS, impl)
         print(f"phase 4 {label}: launches {got} [{card}]")
-        check(got["tile_hist"] == 0 and got["tile_tables"] == 1,
-              f"{label}: the tables leave one tile kernel launch")
+        planned = expected == ("enhance_run",)
+        check(got["tile_hist"] == 0 and got["enhance_run"] == planned
+              and got["tile_tables"] == (not planned),
+              f"{label}: the tables leave one tile kernel launch, in the "
+              f"plan's C call above the gate")
         check_enhance_out(label, out, img, frame, impl, card)
         outs[(shape, impl)] = out
         total = {k: total[k] + got[k] for k in total}
@@ -1671,8 +1689,7 @@ def pick(got: dict, names) -> dict:
 # argv and the kernels it must launch.
 CLI_RUNS = [
     (["enhance", "--nreps", "5"],
-     ("tile_tables", "clahe_map", "enhance_tail", "enhance_tail_clahe",
-      "gaussian", "guided")),
+     ("enhance_run", "tile_tables", "clahe_map", "gaussian", "guided")),
     (["gaussian", "3840", "2160", "1", "1.0", "5"], ("gaussian",)),
     (["integral", "--nreps", "5"], ("integral",)),
     (["guided", "--nreps", "5"], ("guided", "guided_twopass")),
@@ -1692,12 +1709,11 @@ AUTOTESTS = [
     ("clahe-autotest", ("tile_tables", "clahe_map"), 1.0),
     ("gaussian-autotest", ("gaussian",), 1e-5),
     ("guided-autotest", ("guided", "guided_twopass_shrink"), 1e-4),
-    ("enhance-autotest", ("tile_tables", "clahe_map", "enhance_tail"),
-     2.0),
+    ("enhance-autotest", ("enhance_run",), 2.0),
 ]
 AUTOTEST_RUNS = 2
 STREAM_FRAMES = 16  # 1920x1080, stream's defaults
-FUSED = ("tile_tables", "clahe_map", "enhance_tail")
+FUSED = ("enhance_run",)
 # csrc/enhance_tail.cu's two walks in a trace: tail::tail_kernel<FrameSrc,
 # ...>
 TAIL_KERNEL = ("tail_kernel", "FrameSrc")
@@ -1851,8 +1867,9 @@ def check_profiling(dev, card: str, tmp: str) -> None:
           f"{names}")
     spans = [e["name"] for e in events if e.get("cat") == "tpuimg_span"]
     check(spans.count("pipeline.enhance") == 1
-          and spans.count("kernels.launch") == 3,
-          f"the trace holds one enhance call's spans: {spans}")
+          and spans.count("kernels.launch") == 1 and len(names) == 4,
+          f"the trace holds one enhance call's spans, one launch of its "
+          f"plan's 4 kernels: {spans}, {names}")
     print(f"phase 6 trace enhance 2160x3840: {os.path.basename(path)}, "
           f"{len(names)} kernels, the tail as {tails[0][:60]} and "
           f"{tails[1][:60]}, {len(spans)} "

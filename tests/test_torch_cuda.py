@@ -152,13 +152,11 @@ def test_enhance_tails_radius_range_unaligned(card, rg, r):
     ((270, 480), 8, 2, 8), ((301, 203), 4, 1, 2), ((512, 512), 16, 2, 4)])
 def test_enhance_on_card_matches_cpu(card, shape, tiles, radius, gf_radius):
     frame = _frame(shape, 3)
-    fused = ("tpuimg_tile_tables", "tpuimg_clahe_map", "tpuimg_enhance_tail")
     hist_before = kernels.launches["tpuimg_tile_hist"]
-    before = _count(*fused)
+    before = _count(*PLAN_ENTRIES)
     got = enhance(torch.from_numpy(frame).to(card), 2.0, tiles, radius, 1.5,
                   gf_radius, 1e-3)
-    after = _count(*fused)
-    assert all(a == b + 1 for a, b in zip(after, before))
+    assert _count(*PLAN_ENTRIES) == (before[0] + 1, *before[1:])
     assert kernels.launches["tpuimg_tile_hist"] == hist_before
     ref = enhance(torch.from_numpy(frame), 2.0, tiles, radius, 1.5,
                   gf_radius, 1e-3)
@@ -176,6 +174,11 @@ def test_clahe_on_card_within_one_step_of_cpu(card):
 def _count(*entries):
     """The launches of each C entry so far in this process."""
     return tuple(kernels.launches[e] for e in entries)
+
+
+# enhance's plan's C call first, then the wrappers' entries it replaces
+PLAN_ENTRIES = ("tpuimg_enhance_run", "tpuimg_tile_tables", "tpuimg_clahe_map",
+                "tpuimg_enhance_tail", "tpuimg_enhance_tail_clahe")
 
 
 def _launches():
@@ -941,21 +944,22 @@ def test_enhance_tail_clahe_checks_its_inputs(card):
                                          ((512, 512), 16), ((301, 203), 4),
                                          ((36, 60), 2)])
 def test_enhance_fused1_on_card(card, shape, tiles):
-    """Above the gate: tile_tables and enhance_tail_clahe, no clahe_map,
-    the values of impl="fused"; at or under it (36 <= 2*(2*8 + 2)) the
-    fused composition. Within 1 step of the CPU run."""
+    """Above the gate: the plan's one C call (the tile kernel and the
+    CLAHE-fused tail's walks, no clahe_map), the values of impl="fused"; at
+    or under it (36 <= 2*(2*8 + 2)) the fused composition, tile_tables and
+    clahe_map. Within 1 step of the CPU run."""
     frame = _frame(shape, 47)
     img = torch.from_numpy(frame).to(card)
 
     def counts():
-        return _count("tpuimg_tile_tables", "tpuimg_clahe_map",
-                      "tpuimg_enhance_tail_clahe")
+        return _count("tpuimg_enhance_run", "tpuimg_tile_tables",
+                      "tpuimg_clahe_map", "tpuimg_enhance_tail_clahe")
 
     before = counts()
     got = enhance(img, tiles=tiles, impl="fused1")
     gated = min(shape) > 36
-    assert counts() == (before[0] + 1, before[1] + (not gated),
-                        before[2] + gated)
+    assert counts() == (before[0] + gated, before[1] + (not gated),
+                        before[2] + (not gated), before[3])
     assert got.dtype == torch.uint8 and got.shape == shape
     fused = enhance(img, tiles=tiles)
     assert int((got.int() - fused.int()).abs().max()) <= 1
@@ -1889,9 +1893,10 @@ def test_tile_tables_one_launch_no_torch_op(card):
 
 @pytest.mark.parametrize("impl", ["fused", "fused1", "staged"])
 def test_enhance_4k_equals_tables_built_on_the_host(card, monkeypatch, impl):
-    """enhance at 4K with the tables from the tile kernel equals the same
-    call with the tables built the old way, tile_hist then _clahe_tables,
-    bit for bit."""
+    """enhance at 4K with the tables from the tile kernel (the plan's C
+    call on the fused paths) equals the same chain with the tables built
+    the old way, tile_hist then _clahe_tables, bit for bit: staged through
+    enhance, the fused paths through their wrappers."""
     from tpuimg_torch.ops import histogram
 
     img = torch.from_numpy(_frame((2160, 3840), 86)).to(card)
@@ -1904,18 +1909,32 @@ def test_enhance_4k_equals_tables_built_on_the_host(card, monkeypatch, impl):
 
     monkeypatch.setattr(histogram, "tile_tables", host_tables)
     before = kernels.launches["tpuimg_tile_hist"]
-    want = enhance(img, impl=impl)
+    if impl == "staged":
+        want = enhance(img, impl=impl)
+    else:
+        tables, *geo = histogram._clahe_front(img, 2.0, 8, 8)
+        if impl == "fused":
+            f = clahe_map(img, tables, 8, 8, *geo, out_f32=True,
+                          scale=INV_255)
+            want = enhance_tail(f, 2, 1.5, 8, 1e-3, out_u8=True)
+        else:
+            want = enhance_tail_clahe(img, tables, 8, 8, *geo, 2, 1.5, 8,
+                                      1e-3, out_u8=True)
     assert kernels.launches["tpuimg_tile_hist"] == before + 1
     assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("impl", ["fused", "fused1", "staged"])
 def test_enhance_spans_on_card_leave_out_the_host_tables(card, impl):
-    """On the card enhance's steps are the CPU run's without clahe.tables,
-    and clahe.hist holds the one launch of tpuimg_tile_tables."""
+    """On the card no step of enhance builds the tables on the host (the
+    CPU run's clahe.tables): staged's steps are the CPU run's without it,
+    clahe.hist holding the one launch of tpuimg_tile_tables; a fused call
+    of a planned shape is one launch of tpuimg_enhance_run, which builds
+    them in its tile kernel."""
     from tpuimg_torch import profiling
 
     frame = _frame((270, 480), 87)
+    enhance(torch.from_numpy(frame).to(card), impl=impl)  # makes the plan
     spans = {}
     for dev in ("cpu", card):
         with profiling.recording() as rec:
@@ -1925,6 +1944,11 @@ def test_enhance_spans_on_card_leave_out_the_host_tables(card, impl):
                 for sp in spans.values())
     assert spans["cpu"][0].name == spans[card][0].name == "pipeline.enhance"
     assert "clahe.tables" in [s.name for s in cpu]
+    assert "clahe.tables" not in [s.name for s in spans[card]]
+    if impl != "staged":
+        assert [(s.name, s.detail) for s in gpu] == [
+            ("kernels.launch", "tpuimg_enhance_run")]
+        return
     assert [s.name for s in gpu] == [
         s.name for s in cpu if s.name != "clahe.tables"]
     (hist,) = [s for s in gpu if s.name == "clahe.hist"]
@@ -2132,15 +2156,15 @@ def test_trace_on_card_puts_each_launch_call_inside_its_span(card, tmp_path):
                 and e["name"] == "kernels.launch"]
     calls = [e for e in events if e.get("cat") == "cuda_runtime"
              and e["name"].startswith("cudaLaunchKernel")]
-    assert len(launches) == 3, launches
-    # the spans are on the profiler's clock: each launch span holds the
-    # runtime calls that launch its C entry's kernels, one but for the
-    # tail's two walks
-    for span in launches:
-        inside = [c for c in calls if span["ts"] <= c["ts"]
-                  and c["ts"] + c["dur"] <= span["ts"] + span["dur"]]
-        walks = 2 if span["args"]["detail"] == "tpuimg_enhance_tail" else 1
-        assert len(inside) == walks, (span, calls)
+    assert len(launches) == 1, launches
+    # the spans are on the profiler's clock: the launch span of the plan's
+    # C entry holds the runtime calls that launch its 4 kernels (the tile
+    # kernel, the mapping, the tail's two walks)
+    (span,) = launches
+    assert span["args"]["detail"] == "tpuimg_enhance_run"
+    inside = [c for c in calls if span["ts"] <= c["ts"]
+              and c["ts"] + c["dur"] <= span["ts"] + span["dur"]]
+    assert len(inside) == 4, (span, calls)
 
 
 # -- enhance_host: host frames through the stream pool
@@ -2337,7 +2361,8 @@ def _rounded_in_glue(monkeypatch) -> list:
 def test_enhance_equals_the_composition_with_glue(card, seed, monkeypatch):
     """enhance at 4K equals the composition that ran PyTorch glue between
     the kernels (the raw f32 blend, times INV_255, the f32 tail, _to_u8),
-    bit for bit; fused1 equals it too. One tail launch a call stores u8."""
+    bit for bit; fused1 equals it too. One launch of the plan's C call a
+    call stores u8, no tail wrapper's."""
     from tpuimg_torch.ops.histogram import _clahe_front
 
     img = torch.from_numpy(_frame((2160, 3840), seed)).to(card)
@@ -2346,14 +2371,16 @@ def test_enhance_equals_the_composition_with_glue(card, seed, monkeypatch):
     want = _to_u8(enhance_tail(blend * INV_255, 2, 1.5, 8, 1e-3))
     rounded = _rounded_in_glue(monkeypatch)
     for impl in ("fused", "fused1"):
-        before = sum(_count(*TAILS))
+        before = _count("tpuimg_enhance_run", *TAILS)
         assert torch.equal(enhance(img, impl=impl), want), impl
-        assert sum(_count(*TAILS)) == before + 1 and rounded == []
+        assert _count("tpuimg_enhance_run", *TAILS) == (
+            before[0] + 1, *before[1:]) and rounded == []
 
 
 def test_u8_launches_count_the_fused_calls_only(card, monkeypatch):
-    """The fused paths above the gate store u8 in the tail; staged and
-    frames under the gate launch no tail and round q in _to_u8."""
+    """The fused paths above the gate store u8 in the tail (the plan's C
+    call); staged and frames under the gate launch no tail and round q in
+    _to_u8."""
     big = torch.from_numpy(_frame((270, 480), 135)).to(card)
     small = torch.from_numpy(_frame((30, 40), 136)).to(card)
     rounded = _rounded_in_glue(monkeypatch)
@@ -2362,9 +2389,109 @@ def test_u8_launches_count_the_fused_calls_only(card, monkeypatch):
                        (lambda: enhance(big, impl="staged"), 0),
                        (lambda: enhance(small), 0),
                        (lambda: enhance(small, impl="fused1"), 0)):
-        before = sum(_count(*TAILS))
+        before = sum(_count("tpuimg_enhance_run", *TAILS))
         rounded.clear()
         out = call()
         assert out.dtype == torch.uint8
-        assert sum(_count(*TAILS)) == before + adds
+        assert sum(_count("tpuimg_enhance_run", *TAILS)) == before + adds
         assert len(rounded) == 1 - adds
+
+
+# ---- enhance's plan: one C call a frame ------------------------------------
+
+
+def _composed(img, clip=2.0, tiles=8, radius=2, gf_radius=8):
+    """enhance's fused chain as its three wrappers compose it: tile_tables,
+    clahe_map storing the blend times INV_255, the tail storing u8 q."""
+    geo = _clahe_geometry(*img.shape, tiles, tiles)
+    tables = tile_tables(img, tiles, tiles, *geo,
+                         *_clahe_scale(clip, *geo[:2]))
+    f = clahe_map(img, tables, tiles, tiles, *geo, out_f32=True,
+                  scale=INV_255)
+    return enhance_tail(f, radius, 1.5, gf_radius, 1e-3, out_u8=True)
+
+
+def _planned(img, impl, **params):
+    """enhance(img) on its plan: one launch of tpuimg_enhance_run and none
+    of the wrappers' entries."""
+    before = _count(*PLAN_ENTRIES)
+    got = enhance(img, impl=impl, **params)
+    assert _count(*PLAN_ENTRIES) == (before[0] + 1, *before[1:])
+    return got
+
+
+@pytest.mark.parametrize("impl", ["fused", "fused1"])
+@pytest.mark.parametrize("shape", [(2160, 3840), (4320, 7680), (2161, 3839)])
+def test_enhance_plan_equals_the_wrappers(card, shape, impl):
+    img = torch.from_numpy(_frame(shape, 140)).to(card)
+    want = _composed(img)
+    for _ in range(2):  # the call that makes the plan, and one reusing it
+        assert torch.equal(_planned(img, impl), want)
+
+
+@pytest.mark.parametrize("impl", ["fused", "fused1"])
+@pytest.mark.parametrize("clip", [0.01, 2.0, 40.0])
+@pytest.mark.parametrize("tiles", [4, 8, 16])
+def test_enhance_plan_tile_grids_and_clip_limits(card, tiles, clip, impl):
+    img = torch.from_numpy(_frame((1080, 1920), 141)).to(card)
+    got = _planned(img, impl, clip_limit=clip, tiles=tiles)
+    assert torch.equal(got, _composed(img, clip, tiles))
+
+
+@pytest.mark.parametrize("impl", ["fused", "fused1"])
+@pytest.mark.parametrize("gf_radius", [8, 54, 60])
+def test_enhance_plan_guided_radii(card, gf_radius, impl):
+    """gf r 54 and 60 put walk 1 on its scratch route (rings in the
+    workspace)."""
+    img = torch.from_numpy(_frame((540, 960), 142)).to(card)
+    assert load().tpuimg_enhance_tail_shared(2, gf_radius) == (gf_radius < 45)
+    got = _planned(img, impl, gf_radius=gf_radius)
+    assert torch.equal(got, _composed(img, gf_radius=gf_radius))
+
+
+def test_enhance_plan_on_four_streams_at_once(card):
+    """Frames on 4 streams at once, as enhance_host's pool runs them, each
+    with its own workspace from its stream: each equals the composition."""
+    frames = [torch.from_numpy(_frame((2160, 3840), 143 + i)).to(card)
+              for i in range(8)]
+    want = [_composed(f) for f in frames]
+    streams = [torch.cuda.Stream() for _ in range(4)]
+    torch.cuda.synchronize()
+    outs = []
+    for i, f in enumerate(frames):
+        with torch.cuda.stream(streams[i % 4]):
+            outs.append(_planned(f, "fused" if i % 2 else "fused1"))
+    torch.cuda.synchronize()
+    for got, ref in zip(outs, want):
+        assert torch.equal(got, ref)
+
+
+def test_enhance_plan_after_calls_that_lower_a_kernel_ceiling(card):
+    """The shared-memory ceiling of a kernel is the card's, one for every
+    caller: a stand-alone tail call at a smaller radius, and a plan made
+    at one, set it below what a plan at r 8 launches with. That plan's
+    next call raises it again and equals the composition."""
+    from tpuimg_torch import pipeline
+
+    img = torch.from_numpy(_frame((540, 960), 150)).to(card)
+    want = {r: _composed(img, gf_radius=r) for r in (8, 2)}
+    built = pipeline.plans["built"]
+    for impl in ("fused", "fused1"):
+        assert torch.equal(_planned(img, impl), want[8])
+        f = torch.rand((300, 300), device=card)
+        enhance_tail(f, 2, 1.5, 2, 1e-3)  # the same walk 1 instance, smaller
+        assert torch.equal(_planned(img, impl), want[8])
+        assert torch.equal(_planned(img, impl, gf_radius=2), want[2])
+        assert torch.equal(_planned(img, impl), want[8])
+    assert pipeline.plans["built"] - built <= 4
+
+
+def test_enhance_plan_is_built_once_a_key(card):
+    from tpuimg_torch import pipeline
+
+    img = torch.from_numpy(_frame((300, 517), 151)).to(card)
+    before = dict(pipeline.plans)
+    for _ in range(3):
+        enhance(img, clip_limit=3.25)
+    assert pipeline.plans["built"] == before.get("built", 0) + 1
+    assert pipeline.plans["reused"] == before.get("reused", 0) + 2

@@ -9,7 +9,6 @@ on the card.
 
 import collections
 import contextlib
-import types
 
 import jax.numpy as jnp
 import numpy as np
@@ -201,8 +200,8 @@ def test_launch_counts_each_entry_and_marks_its_first_span(monkeypatch):
     monkeypatch.setattr(kernels, "load", lambda: _FakeLib())
     monkeypatch.setattr(torch.cuda, "device",
                         lambda device: contextlib.nullcontext())
-    monkeypatch.setattr(torch.cuda, "current_stream",
-                        lambda device: types.SimpleNamespace(cuda_stream=7))
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: None)
+    monkeypatch.setattr(kernels, "_stream", lambda index: 7)
     cpu = torch.device("cpu")
     with profiling.recording() as rec:
         kernels.launch("tpuimg_a", cpu, 1)

@@ -9,7 +9,6 @@ import glob
 import itertools
 import json
 import os
-import types
 from pathlib import Path
 
 import numpy as np
@@ -178,8 +177,8 @@ def test_launch_and_load_spans(monkeypatch):
     monkeypatch.setattr(kernels, "bind", lambda path: fake)
     monkeypatch.setattr(torch.cuda, "device",
                         lambda device: contextlib.nullcontext())
-    monkeypatch.setattr(torch.cuda, "current_stream",
-                        lambda device: types.SimpleNamespace(cuda_stream=7))
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: None)
+    monkeypatch.setattr(kernels, "_stream", lambda index: 7)
     with profiling.recording() as rec:
         for _ in range(2):
             kernels.launch("tpuimg_fake", torch.device("cpu"), 1, 2)

@@ -40,11 +40,11 @@ TAIL = "enhance_tail.cuh"
 # opens it, what replaces it)
 WALKS = {
     "walk 1 (a and b)": [(
-        "  if (err != 0) return err;\n  return r <= kTpRingMaxRadius",
-        "  return err;\n  return r <= kTpRingMaxRadius")],
+        "  if (err != 0) return err;\n  return p.walk2.route",
+        "  return err;\n  return p.walk2.route")],
     "walk 2 (q)": [(
-        "  int err;\n  if (ab == 0) {",
-        "  int err = 0;\n  if (false) if (ab == 0) {")],
+        "  int err;\n  switch (p.walk1.route) {",
+        "  int err = 0;\n  if (false) switch (p.walk1.route) {")],
 }
 # part -> the edits that skip it
 PARTS = {

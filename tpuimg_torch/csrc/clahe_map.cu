@@ -45,6 +45,7 @@
 #include <cmath>
 
 #include "common.cuh"
+#include "enhance_plan.cuh"
 
 namespace {
 
@@ -209,14 +210,17 @@ clahe_map_kernel(const uint8_t* __restrict__ img, int h, int w, int y0,
   }
 }
 
+// The configure half of a launch of clahe_map_kernel<kOutF32, kStaged> with
+// `bytes` of shared memory: one wave, the spans of a row times as many runs
+// of rows as fill it, each run at least kMinWarpRows rows a warp.
 template <bool kOutF32, bool kStaged>
-int launch_map(const uint8_t* img, int h, int w, int y0, const ClaheGeom& g,
-               float scale, size_t bytes, void* out, cudaStream_t stream) {
+int configure_map(int h, int w, size_t bytes, Launch* c) {
   auto kernel = clahe_map_kernel<kOutF32, kStaged>;
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes));
+  smem_ceiling_set();
   if (err == cudaSuccess) err = cudaGetDevice(&dev);
   if (err == cudaSuccess) {
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -226,21 +230,64 @@ int launch_map(const uint8_t* img, int h, int w, int y0, const ClaheGeom& g,
                                                         kThreads, bytes);
   }
   if (err != cudaSuccess) return static_cast<int>(err);
-  // one wave: the spans of a row times as many runs of rows as fill it,
-  // each run at least kMinWarpRows rows a warp
   const long long spans = (w + kSpan - 1) / kSpan;
   const long long slots = std::max(1LL, static_cast<long long>(sms) * per_sm);
   const long long runs = std::max(1LL, slots / spans);
   const int rows = static_cast<int>(
       std::max<long long>((h + runs - 1) / runs, kMinWarpRows * kWarps));
-  const dim3 grid(static_cast<unsigned>(spans),
-                  static_cast<unsigned>((h + rows - 1) / rows));
-  kernel<<<grid, kThreads, bytes, stream>>>(img, h, w, y0, g, scale, rows,
-                                            out);
+  *c = {reinterpret_cast<const void*>(kernel),
+        dim3(static_cast<unsigned>(spans),
+             static_cast<unsigned>((h + rows - 1) / rows)),
+        rows, static_cast<int>(bytes), 2 * kOutF32 + kStaged};
+  return 0;
+}
+
+// The launch half: the configured grid, no CUDA query.
+template <bool kOutF32, bool kStaged>
+int launch_map(const Launch& c, const uint8_t* img, int h, int w, int y0,
+               const ClaheGeom& g, float scale, void* out,
+               cudaStream_t stream) {
+  clahe_map_kernel<kOutF32, kStaged><<<c.grid, kThreads, c.bytes, stream>>>(
+      img, h, w, y0, g, scale, c.rows, out);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
+
+// The mapping's launch on (h, w) rows of a frame tiled xtiles across with
+// the host's f32 1/tw: the staged instance where its span's tables fit
+// kMaxStagedBytes, the instance that gathers from device memory past it.
+int clahe_map_configure(int h, int w, int xtiles, float inv_tw, bool out_f32,
+                        Launch* c) {
+  if (h < 1 || w < 1 || xtiles < 1 || !(inv_tw > 0.0f)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t bytes =
+      static_cast<size_t>(tile_cols(std::min(kSpan, w), xtiles, inv_tw)) *
+      256 * sizeof(float4);
+  if (bytes <= kMaxStagedBytes) {
+    return out_f32 ? configure_map<true, true>(h, w, bytes, c)
+                   : configure_map<false, true>(h, w, bytes, c);
+  }
+  return out_f32 ? configure_map<true, false>(h, w, 0, c)
+                 : configure_map<false, false>(h, w, 0, c);
+}
+
+int clahe_map_launch(const Launch& c, const uint8_t* img, int h, int w,
+                     int y0, const ClaheGeom& g, float scale, void* out,
+                     cudaStream_t stream) {
+  switch (c.route) {  // 2 * kOutF32 + kStaged (configure_map)
+    case 3:
+      return launch_map<true, true>(c, img, h, w, y0, g, scale, out, stream);
+    case 2:
+      return launch_map<true, false>(c, img, h, w, y0, g, scale, out, stream);
+    case 1:
+      return launch_map<false, true>(c, img, h, w, y0, g, scale, out, stream);
+    default:
+      return launch_map<false, false>(c, img, h, w, y0, g, scale, out,
+                                      stream);
+  }
+}
 
 // img: the (h, w) rows [y0, y0 + h) of a frame whose tile grid the other
 // arguments describe; out is (h, w) float32 when out_f32, the blend times
@@ -255,20 +302,11 @@ extern "C" int tpuimg_clahe_map(const uint8_t* img, int h, int w, int y0,
       !(inv_tw > 0.0f)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  Launch c;
+  const int err = clahe_map_configure(h, w, xtiles, inv_tw, out_f32 != 0, &c);
+  if (err != 0) return err;
   const ClaheGeom g{tables, ytiles, xtiles, static_cast<float>(th),
                     static_cast<float>(pad_top), static_cast<float>(pad_left),
                     inv_tw};
-  const size_t bytes =
-      static_cast<size_t>(tile_cols(std::min(kSpan, w), xtiles, inv_tw)) *
-      256 * sizeof(float4);
-  if (bytes <= kMaxStagedBytes) {
-    return out_f32 ? launch_map<true, true>(img, h, w, y0, g, scale, bytes,
-                                            out, stream)
-                   : launch_map<false, true>(img, h, w, y0, g, scale, bytes,
-                                             out, stream);
-  }
-  return out_f32 ? launch_map<true, false>(img, h, w, y0, g, scale, 0, out,
-                                           stream)
-                 : launch_map<false, false>(img, h, w, y0, g, scale, 0, out,
-                                            stream);
+  return clahe_map_launch(c, img, h, w, y0, g, scale, out, stream);
 }

@@ -53,6 +53,18 @@ extern "C" int tpuimg_enhance_tail(const float* f, int h, int w,
                                static_cast<float*>(out), stream);
 }
 
+// The tail of an enhance plan (enhance_plan.cu): f the plan's blend, u8 q.
+int enhance_tail_configure(int h, int w, int rg, int r, TailPlan* p) {
+  return tail::configure<FrameSrc, uint8_t>(h, w, rg, r, p);
+}
+
+int enhance_tail_launch(const TailPlan& p, const float* f, int h, int w,
+                        const Taps& taps, int rg, int r, float eps,
+                        float* scratch, uint8_t* out, cudaStream_t stream) {
+  return tail::run(p, FrameSrc{f, w}, h, w, taps, rg, r, eps, scratch, out,
+                   stream);
+}
+
 // The floats of device scratch either tail needs at these arguments (the a
 // and b planes, and on walk 1's scratch route its rings of the leaving rows),
 // or -1 for arguments the tail refuses.

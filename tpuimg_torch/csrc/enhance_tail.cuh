@@ -72,19 +72,13 @@
 // (PERF.md §6).
 #pragma once
 
+#include "enhance_plan.cuh"
 #include "walker.cuh"
 
-constexpr int kMaxTaps = 33;        // gaussian radius <= 16
 constexpr int kTailMaxRadius = 64;  // 128 + 2r columns, a thread each
 // the enhance pipeline's default gaussian radius, which walk 1 runs with its
 // tap loops unrolled at compile time
 constexpr int kFixedRg = 2;
-
-// the taps travel by value in the launch's parameter space: no device
-// buffer, no host-to-device copy before the launch
-struct Taps {
-  float w[kMaxTaps];
-};
 
 namespace tail {
 
@@ -599,37 +593,82 @@ inline long long scratch_floats(int h, int w, int rg, int r) {
                       (2LL * r + 1) * (kTpStrip + 2LL * r);
 }
 
-// One launch of tail_kernel<Src, kAB, kRing, kRg, Out> with `bytes` of
-// shared memory: one wave of the blocks the card holds at once, or on walk
-// 1's scratch route the grid its rings were sized for.
+// Walk 1's instances, as Launch::route numbers them: its rings in the device
+// scratch, or in shared memory at the compile-time gaussian radius or at any
+// (walk 2's: 1 with its rows staged in a ring, 0 without)
+constexpr int kScratchRoute = 0;
+constexpr int kFixedRgRing = 1;
+constexpr int kAnyRgRing = 2;
+
+// The configure half of a launch of tail_kernel<Src, kAB, kRing, kRg, Out>
+// with `bytes` of shared memory: one wave of the blocks the card holds at
+// once, or on walk 1's scratch route the grid its rings were sized for.
 template <class Src, bool kAB, bool kRing, int kRg, class Out>
-int launch_walk(const Src& src, TailArgs g, size_t bytes, Out* q,
-                cudaStream_t stream) {
+int configure_walk(int h, int w, int r, size_t bytes, int route, Launch* c) {
   auto kernel = tail_kernel<Src, kAB, kRing, kRg, Out>;
   walker::WalkGrid wg;
   if (kAB && !kRing) {
     const cudaError_t err = walker::allow_smem(kernel, bytes);
+    smem_ceiling_set();
     if (err != cudaSuccess) return static_cast<int>(err);
-    wg = scratch_grid(g.h, g.w, g.r);
+    wg = scratch_grid(h, w, r);
   } else {
     long long slots = 0;
     const int err = walker::wave_slots(kernel, kTpThreads, bytes, &slots);
+    smem_ceiling_set();
     if (err != 0) return err;
-    wg = walker::strip_grid(1, g.h, g.w, kTpStrip, 2 * g.r, 1, slots);
+    wg = walker::strip_grid(1, h, w, kTpStrip, 2 * r, 1, slots);
   }
-  g.seg_rows = wg.seg_rows;
-  kernel<<<wg.grid, kTpThreads, bytes, stream>>>(src, g, q);
+  *c = {reinterpret_cast<const void*>(kernel), wg.grid, wg.seg_rows,
+        static_cast<int>(bytes), route};
+  return 0;
+}
+
+// The launch half: the configured grid, no CUDA query.
+template <class Src, bool kAB, bool kRing, int kRg, class Out>
+int launch_walk(const Src& src, TailArgs g, const Launch& c, Out* q,
+                cudaStream_t stream) {
+  g.seg_rows = c.rows;
+  tail_kernel<Src, kAB, kRing, kRg, Out>
+      <<<c.grid, kTpThreads, c.bytes, stream>>>(src, g, q);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The tail on an (h, w) frame: walk 1 then walk 2 on `stream`. taps.w[0 ..
-// 2*rg] are the gaussian weights; scratch: scratch_floats(...) floats; out:
-// (h, w) float32 q, or u8 (store_q). Needs h, w > 2r + rg (the callers gate
-// on min(h, w) > 2*(2r + rg)). At the enhance pipeline's default gaussian
-// radius walk 1 runs the instance with that radius fixed at compile time.
+// Both walks' instances and launches on an (h, w) frame at these radii. At
+// the enhance pipeline's default gaussian radius walk 1 runs the instance
+// with that radius fixed at compile time.
 template <class Src, class Out>
-int launch(const Src& src, int h, int w, const Taps& taps, int rg, int r,
-           float eps, float* scratch, Out* out, cudaStream_t stream) {
+int configure(int h, int w, int rg, int r, TailPlan* p) {
+  if (bad_args(h, w, rg, r)) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t ab = ring_bytes(rg, r);
+  int err;
+  if (ab == 0) {
+    err = configure_walk<Src, true, false, -1, float>(
+        h, w, r, AbGeom(rg, r, false).total * 4, kScratchRoute, &p->walk1);
+  } else if (rg == kFixedRg) {
+    err = configure_walk<Src, true, true, kFixedRg, float>(
+        h, w, r, ab, kFixedRgRing, &p->walk1);
+  } else {
+    err = configure_walk<Src, true, true, -1, float>(h, w, r, ab, kAnyRgRing,
+                                                     &p->walk1);
+  }
+  if (err != 0) return err;
+  if (r <= kTpRingMaxRadius) {
+    return configure_walk<Src, false, true, 0, Out>(
+        h, w, r, QGeom(r, true).total * 4, 1, &p->walk2);
+  }
+  return configure_walk<Src, false, false, 0, Out>(
+      h, w, r, QGeom(r, false).total * 4, 0, &p->walk2);
+}
+
+// The tail on an (h, w) frame as `p` configured it: walk 1 then walk 2 on
+// `stream`. taps.w[0 .. 2*rg] are the gaussian weights; scratch:
+// scratch_floats(...) floats; out: (h, w) float32 q, or u8 (store_q). Needs
+// h, w > 2r + rg (the callers gate on min(h, w) > 2*(2r + rg)).
+template <class Src, class Out>
+int run(const TailPlan& p, const Src& src, int h, int w, const Taps& taps,
+        int rg, int r, float eps, float* scratch, Out* out,
+        cudaStream_t stream) {
   if (bad_args(h, w, rg, r) || scratch == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -639,22 +678,36 @@ int launch(const Src& src, int h, int w, const Taps& taps, int rg, int r,
                    h,     w,       wp,              rg,
                    r,     0,       src.aligned(w),  eps};
   float* none = nullptr;
-  const size_t ab = ring_bytes(rg, r);
   int err;
-  if (ab == 0) {
-    err = launch_walk<Src, true, false, -1>(
-        src, g, AbGeom(rg, r, false).total * 4, none, stream);
-  } else if (rg == kFixedRg) {
-    err = launch_walk<Src, true, true, kFixedRg>(src, g, ab, none, stream);
-  } else {
-    err = launch_walk<Src, true, true, -1>(src, g, ab, none, stream);
+  switch (p.walk1.route) {
+    case kScratchRoute:
+      err = launch_walk<Src, true, false, -1>(src, g, p.walk1, none, stream);
+      break;
+    case kFixedRgRing:
+      err = launch_walk<Src, true, true, kFixedRg>(src, g, p.walk1, none,
+                                                   stream);
+      break;
+    default:
+      err = launch_walk<Src, true, true, -1>(src, g, p.walk1, none, stream);
   }
   if (err != 0) return err;
-  return r <= kTpRingMaxRadius
-             ? launch_walk<Src, false, true, 0>(
-                   src, g, QGeom(r, true).total * 4, out, stream)
-             : launch_walk<Src, false, false, 0>(
-                   src, g, QGeom(r, false).total * 4, out, stream);
+  return p.walk2.route
+             ? launch_walk<Src, false, true, 0>(src, g, p.walk2, out, stream)
+             : launch_walk<Src, false, false, 0>(src, g, p.walk2, out,
+                                                 stream);
+}
+
+// The stand-alone entries' call: configure, then run.
+template <class Src, class Out>
+int launch(const Src& src, int h, int w, const Taps& taps, int rg, int r,
+           float eps, float* scratch, Out* out, cudaStream_t stream) {
+  if (bad_args(h, w, rg, r) || scratch == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  TailPlan p;
+  const int err = configure<Src, Out>(h, w, rg, r, &p);
+  if (err != 0) return err;
+  return run(p, src, h, w, taps, rg, r, eps, scratch, out, stream);
 }
 
 }  // namespace tail

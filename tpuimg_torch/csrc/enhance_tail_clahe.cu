@@ -66,3 +66,17 @@ extern "C" int tpuimg_enhance_tail_clahe(const uint8_t* img, int h, int w,
                 : tail::launch(src, h, w, taps, rg, r, eps, scratch,
                                static_cast<float*>(out), stream);
 }
+
+// The tail of an enhance plan with impl="fused1" (enhance_plan.cu): u8 q.
+int enhance_tail_clahe_configure(int h, int w, int rg, int r, TailPlan* p) {
+  return tail::configure<ClaheSrc, uint8_t>(h, w, rg, r, p);
+}
+
+int enhance_tail_clahe_launch(const TailPlan& p, const uint8_t* img, int h,
+                              int w, const ClaheGeom& g, float scale,
+                              const Taps& taps, int rg, int r, float eps,
+                              float* scratch, uint8_t* out,
+                              cudaStream_t stream) {
+  return tail::run(p, ClaheSrc{img, w, g, scale}, h, w, taps, rg, r, eps,
+                   scratch, out, stream);
+}

@@ -13,7 +13,8 @@ the plain PyTorch versions.
 Each wrapper (kernels/hist.py, lut.py, sep_stencil.py, boxsum.py,
 scan2d.py) takes its plain version for a CPU tensor only. For a CUDA tensor
 it launches its kernel on the current stream, without synchronising, or
-raises.
+raises. ``enhance_plan.py`` launches ``enhance``'s fused chain on a card as
+one C call a frame, from a plan made once per shape and parameters.
 """
 
 from __future__ import annotations
@@ -39,7 +40,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                   ctypes.c_float)
-MAX_TAPS = 33  # csrc/enhance_tail.cuh kMaxTaps
+MAX_TAPS = 33  # csrc/enhance_plan.cuh kMaxTaps
 TAIL_MAX_RADIUS = 64  # csrc/enhance_tail.cuh kTailMaxRadius
 GAUSS_MAX_RADIUS = 96  # csrc/gaussian.cu kGaussMaxRadius
 # a block's shared memory on the card (227 KB), the kernels' ceiling
@@ -55,7 +56,7 @@ HIST_SPLIT_MAX_GROUPS = 1024
 
 
 class Taps(ctypes.Structure):
-    """csrc/enhance_tail.cuh ``Taps``: gaussian weights passed by value."""
+    """csrc/enhance_plan.cuh ``Taps``: gaussian weights passed by value."""
 
     _fields_ = [("w", ctypes.c_float * MAX_TAPS)]
 
@@ -117,6 +118,8 @@ _SIGNATURES = {
     # scale, taps, rg, r, eps, scratch, out_u8, out, stream
     "tpuimg_enhance_tail_clahe": (_P, _I, _I, _P, _I, _I, _I, _I, _I, _F, _F,
                                   Taps, _I, _I, _F, _P, _I, _P, _P),
+    # plan, img, workspace, out, stream (kernels/enhance_plan.py)
+    "tpuimg_enhance_run": (_P, _P, _P, _P, _P),
 }
 
 _lib = None
@@ -210,7 +213,13 @@ _QUERIES = {
     "tpuimg_enhance_tail_scratch_floats": ([_I] * 4, _L),
     # rg, r -> 1 on the shared-memory route, 0 on the scratch route
     "tpuimg_enhance_tail_shared": ([_I] * 2, _I),
-
+    # -> bytes of an enhance plan
+    "tpuimg_enhance_plan_bytes": ([], _L),
+    # fused1, h, w, ytiles, xtiles, th, tw, pad_top, pad_left, cluster, rows,
+    # limit, fr, inv_tw, scale, taps, rg, r, eps, tables_at, blend_at,
+    # scratch_at, plan -> a CUDA error code (kernels/enhance_plan.py)
+    "tpuimg_enhance_plan": ([_I] * 12 + [_F] * 3 + [Taps, _I, _I, _F]
+                            + [_L] * 3 + [_P], _I),
 }
 
 
@@ -237,20 +246,30 @@ def load() -> ctypes.CDLL:
     return _lib
 
 
+def _stream(index: int) -> int:
+    """The handle of card ``index``'s current stream."""
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
 def launch(name: str, device: torch.device, *args) -> None:
-    """Call C entry ``name`` with ``args`` plus ``device``'s current stream;
-    raise ``KernelLaunchError`` unless it returns cudaSuccess. Each call
-    counts one on ``launches[name]``; the span marks the process's first
-    launch of ``name``, which loads its kernels onto the card."""
+    """Call C entry ``name`` with ``args`` plus ``device``'s current stream,
+    with ``device`` (the current card where it has no index) the current
+    card; raise ``KernelLaunchError`` unless it returns cudaSuccess. Each
+    call counts one on ``launches[name]``; the span marks the process's
+    first launch of ``name``, which loads its kernels onto the card."""
     first = launches[name] == 0
     with span("kernels.launch", "launch", name, first):
-        lib = load()
-        with torch.cuda.device(device):  # the tensor's card is the current one
-            stream = torch.cuda.current_stream(device).cuda_stream
-            err = getattr(lib, name)(*args, stream)
+        fn = getattr(load(), name)
+        current = torch.cuda.current_device()
+        index = current if device.index is None else device.index
+        if index == current:
+            err = fn(*args, _stream(index))
+        else:
+            with torch.cuda.device(index):
+                err = fn(*args, _stream(index))
     launches[name] += 1
     if err != 0:
-        msg = lib.tpuimg_cuda_error_string(err).decode()
+        msg = load().tpuimg_cuda_error_string(err).decode()
         raise KernelLaunchError(f"{name}: CUDA error {err} ({msg})")
 
 

@@ -57,7 +57,8 @@ from tpuimg_torch.core.validate import ParamError
 from tpuimg_torch.kernels import (
     GUIDED_SMEM_MAX_RADIUS, GUIDED_TWOPASS_MAX_RADIUS, MAX_TAPS,
     TAIL_MAX_RADIUS, Taps, launch, load, require_cuda_tensor)
-from tpuimg_torch.kernels.lut import check_clahe_args, clahe_map_plain
+from tpuimg_torch.kernels.lut import (
+    check_clahe_args, clahe_map_plain, inv_tile_width)
 from tpuimg_torch.kernels.sep_stencil import _sep_pass, taps
 
 # the f32 factor that takes the CLAHE blend to the tail's f, applied in the
@@ -319,16 +320,22 @@ def _tail_taps(h: int, w: int, radius_g: int, sigma: float, radius: int):
     return tp
 
 
-def _tail_scratch(h: int, w: int, radius_g: int, radius: int, device):
-    """The device memory a tail call needs: the a and b planes, and past a
-    block's shared memory (the scratch route) walk 1's rings of the leaving
-    rows."""
+def _tail_scratch_floats(h: int, w: int, radius_g: int, radius: int) -> int:
+    """The floats of device memory a tail call needs: the a and b planes,
+    and past a block's shared memory (the scratch route) walk 1's rings of
+    the leaving rows."""
     floats = load().tpuimg_enhance_tail_scratch_floats(h, w, radius_g,
                                                        radius)
     if floats < 0:
         raise ParamError(f"the tail kernel refuses radius {radius}, gaussian "
                          f"radius {radius_g} on {h}x{w}")
-    return torch.empty(floats, dtype=torch.float32, device=device)
+    return floats
+
+
+def _tail_scratch(h: int, w: int, radius_g: int, radius: int, device):
+    """A tail call's scratch on ``device``."""
+    return torch.empty(_tail_scratch_floats(h, w, radius_g, radius),
+                       dtype=torch.float32, device=device)
 
 
 def enhance_tail(f, radius_g: int, sigma: float, radius: int, eps: float,
@@ -382,9 +389,8 @@ def enhance_tail_clahe(img, tables, ytiles: int, xtiles: int, th: int,
     scratch = _tail_scratch(h, w, radius_g, radius, img.device)
     out = torch.empty((h, w), dtype=torch.uint8 if out_u8 else torch.float32,
                       device=img.device)
-    inv_tw = float(np.float32(1.0) / np.float32(tw))
     launch("tpuimg_enhance_tail_clahe", img.device, img.data_ptr(), h, w,
-           tables.data_ptr(), ytiles, xtiles, th, pad_top, pad_left, inv_tw,
-           INV_255, tp, radius_g, radius, eps, scratch.data_ptr(),
-           int(out_u8), out.data_ptr())
+           tables.data_ptr(), ytiles, xtiles, th, pad_top, pad_left,
+           inv_tile_width(tw), INV_255, tp, radius_g, radius, eps,
+           scratch.data_ptr(), int(out_u8), out.data_ptr())
     return out

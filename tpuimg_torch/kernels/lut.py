@@ -77,6 +77,12 @@ def check_clahe_args(img, tables, ytiles: int, xtiles: int, th: int,
             f"[{y0}, {y0 + h}) of width {w}")
 
 
+def inv_tile_width(tw: int) -> float:
+    """The host's f32 1/tw, by which the blend kernels multiply a column
+    (clahe_map.cu, enhance_tail_clahe.cu)."""
+    return float(np.float32(1.0) / np.float32(tw))
+
+
 def _map(img, tables, ytiles: int, xtiles: int, th: int, tw: int,
          pad_top: int, pad_left: int, y0: int, out_f32: bool,
          scale: float = 1.0):
@@ -87,10 +93,9 @@ def _map(img, tables, ytiles: int, xtiles: int, th: int, tw: int,
     h, w = img.shape
     out = torch.empty((h, w), dtype=torch.float32 if out_f32 else torch.uint8,
                       device=img.device)
-    inv_tw = float(np.float32(1.0) / np.float32(tw))
     launch("tpuimg_clahe_map", img.device, img.data_ptr(), h, w, y0,
-           tables.data_ptr(), ytiles, xtiles, th, pad_top, pad_left, inv_tw,
-           int(out_f32), scale, out.data_ptr())
+           tables.data_ptr(), ytiles, xtiles, th, pad_top, pad_left,
+           inv_tile_width(tw), int(out_f32), scale, out.data_ptr())
     return out
 
 

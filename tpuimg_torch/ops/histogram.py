@@ -173,11 +173,9 @@ def _clahe_tables(hists, clip_limit: float, th: int, tw: int):
     return torch.cumsum(hists, dim=-1).to(torch.float32) * fr
 
 
-def _clahe_front(img, clip_limit: float, xtiles: int, ytiles: int):
-    """Validated CLAHE front end: per-tile clipped tables + mapping geometry.
-
-    Returns (tables (ytiles*xtiles, 256) f32, th, tw, pad_top, pad_left),
-    as ``tpuimg.ops.histogram._clahe_front`` does."""
+def _clahe_checks(img, clip_limit: float, xtiles: int, ytiles: int):
+    """CLAHE's checks of the frame and the parameters, then its geometry
+    (th, tw, pad_top, pad_left)."""
     check_image(img, "img", dtypes=[torch.uint8])
     check_radius(xtiles, name="xtiles")
     check_radius(ytiles, name="ytiles")
@@ -187,7 +185,15 @@ def _clahe_front(img, clip_limit: float, xtiles: int, ytiles: int):
             f"clahe operates on a single (H, W) image, got shape "
             f"{tuple(img.shape)}; call it once per frame for a batch"
         )
-    th, tw, pad_top, pad_left = _clahe_geometry(*img.shape, xtiles, ytiles)
+    return _clahe_geometry(*img.shape, xtiles, ytiles)
+
+
+def _clahe_front(img, clip_limit: float, xtiles: int, ytiles: int):
+    """Validated CLAHE front end: per-tile clipped tables + mapping geometry.
+
+    Returns (tables (ytiles*xtiles, 256) f32, th, tw, pad_top, pad_left),
+    as ``tpuimg.ops.histogram._clahe_front`` does."""
+    th, tw, pad_top, pad_left = _clahe_checks(img, clip_limit, xtiles, ytiles)
     if img.device.type != "cpu":
         # the kernel sees whole tiles: the tables leave its launch
         with span("clahe.hist", "entry"):

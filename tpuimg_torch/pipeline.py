@@ -24,9 +24,21 @@ does.
 impl="staged" composes the public ops with a u8 round trip between CLAHE and
 the tail: on a CUDA tensor the two CLAHE kernels, then the gaussian and
 guided-filter kernels.
+
+On a u8 (H, W) CUDA frame above the gate, "fused" and "fused1" run from a
+plan (kernels/enhance_plan.py), made on the first call of its card, frame
+shape and parameters and kept in a small cache: the checks, the geometry
+and the kernels' grids are worked out once, and each call is two
+allocations and one C call that queues the chain's kernels (the same
+kernels, in the same order, as the wrappers compose below). ``plans``
+counts the plans built and the calls that reused one. Every other call, a
+CPU tensor's included, composes the wrappers.
 """
 
 from __future__ import annotations
+
+import collections
+import threading
 
 import torch
 
@@ -35,11 +47,20 @@ from tpuimg_torch.core.validate import (
     check_impl, check_positive, check_radius)
 from tpuimg_torch.kernels.boxsum import (
     INV_255, enhance_tail, enhance_tail_clahe, q_to_u8)
+from tpuimg_torch.kernels.enhance_plan import EnhancePlan
 from tpuimg_torch.kernels.lut import clahe_map
 from tpuimg_torch.ops.gaussian import gaussian
 from tpuimg_torch.ops.guided import guided_filter
-from tpuimg_torch.ops.histogram import _clahe_front, clahe
+from tpuimg_torch.ops.histogram import _clahe_checks, _clahe_front, clahe
 from tpuimg_torch.profiling import span
+
+# plans kept; past this many the least recently used is dropped
+PLAN_CACHE_SIZE = 64
+_PLANS: collections.OrderedDict = collections.OrderedDict()
+# "built": plans made; "reused": calls that ran a plan made before
+plans: collections.Counter[str] = collections.Counter()
+# held while _PLANS and plans change: callers on several threads share them
+_PLANS_LOCK = threading.Lock()
 
 
 def _to_u8(q):
@@ -48,6 +69,50 @@ def _to_u8(q):
     the sharded path."""
     with span("enhance.to_u8", "glue"):
         return q_to_u8(q)
+
+
+def _tail_fits(h: int, w: int, radius: int, gf_radius: int) -> bool:
+    """The tail kernels' gate, the JAX package's."""
+    return min(h, w) > 2 * (2 * gf_radius + radius)
+
+
+def _plan(img, clip_limit, tiles, radius, sigma, gf_radius, gf_eps, impl):
+    """The plan of a fused call on a u8 (H, W) CUDA frame, or None for a
+    frame under the tail's gate. A parameter that fails a check raises what
+    the composed path raises, before any launch."""
+    params = (clip_limit, tiles, radius, sigma, gf_radius, gf_eps)
+    # the types too: 8 and 8.0, or 1 and True, are equal keys that the
+    # checks tell apart
+    key = (img.get_device(), img.shape, impl, params,
+           tuple(map(type, params)))
+    with _PLANS_LOCK:
+        try:
+            plan = _PLANS.get(key)
+        except TypeError:  # an unhashable parameter: the checks refuse it
+            plan = key = None
+        if plan is not None:
+            _PLANS.move_to_end(key)
+            plans["reused"] += 1
+    if plan is not None:
+        return plan
+    h, w = img.shape
+    geometry = _clahe_checks(img, clip_limit, tiles, tiles)
+    check_radius(radius)
+    check_radius(gf_radius)
+    check_positive(gf_eps, "eps")
+    if not _tail_fits(h, w, radius, gf_radius):
+        return None
+    with span("enhance.plan", "entry"):
+        plan = EnhancePlan(img.device, h, w, geometry, clip_limit, tiles,
+                           radius, sigma, gf_radius, gf_eps,
+                           impl == "fused1")
+    with _PLANS_LOCK:
+        plans["built"] += 1
+        if key is not None:
+            _PLANS[key] = plan
+            if len(_PLANS) > PLAN_CACHE_SIZE:
+                _PLANS.popitem(last=False)
+    return plan
 
 
 def enhance(
@@ -65,6 +130,12 @@ def enhance(
     with span("pipeline.enhance", "entry"):
         check_impl(impl, allowed=("fused", "staged", "fused1"))
         img = as_image(img)
+        if (impl != "staged" and img.is_cuda and img.dtype == torch.uint8
+                and img.ndim == 2):
+            plan = _plan(img, clip_limit, tiles, radius, sigma, gf_radius,
+                         gf_eps, impl)
+            if plan is not None:
+                return plan.run(img.contiguous())
         if impl == "staged":
             eq = clahe(img, clip_limit, tiles, tiles)
             with span("enhance.scale", "glue"):
@@ -80,7 +151,7 @@ def enhance(
         check_radius(radius)
         check_radius(gf_radius)
         check_positive(gf_eps, "eps")
-        tail_fits = min(img.shape) > 2 * (2 * gf_radius + radius)
+        tail_fits = _tail_fits(*img.shape, radius, gf_radius)
         if impl == "fused1" and tail_fits:
             with span("enhance.tail", "entry"):
                 return enhance_tail_clahe(img, tables, tiles, tiles, *geo,
