@@ -647,6 +647,37 @@ def test_hist_equalize_on_card_matches_numpy(card, shape):
                        tpuimg_torch.hist_equalize(torch.from_numpy(frame)))
 
 
+@pytest.mark.parametrize("shape", [(16, 1080, 1920), (1080, 1920)])
+def test_hist_equalize_spans_its_two_launches(card, shape):
+    """A call records one root ``ops.hist_equalize`` with one
+    ``kernels.launch`` of each kernel inside its wrapper's span, and counts
+    one launch of each C entry; the output is the one recording off
+    gives."""
+    from tpuimg_torch import profiling
+
+    img = torch.from_numpy(_frame(shape, 31)).to(card)
+    off = tpuimg_torch.hist_equalize(img)
+    calls = 2
+    before = _he_launches()
+    with profiling.recording() as rec:
+        outs = [tpuimg_torch.hist_equalize(img) for _ in range(calls)]
+    assert _he_launches() == (before[0] + calls, before[1] + calls)
+    assert all(torch.equal(out, off) for out in outs)
+    sp = rec.spans
+    roots = [s for s in sp if s.parent is None]
+    assert [r.name for r in roots] == ["ops.hist_equalize"] * calls
+    names = {s.id: s.name for s in sp}
+    for root in roots:
+        tree = [s for s in sp if s.root == root.id and s is not root]
+        assert [(s.name, names[s.parent], s.layer, s.detail)
+                for s in tree] == [
+            ("he.hist", "ops.hist_equalize", "entry", None),
+            ("kernels.launch", "he.hist", "launch", "tpuimg_hist256"),
+            ("he.tables", "ops.hist_equalize", "glue", None),
+            ("he.map", "ops.hist_equalize", "entry", None),
+            ("kernels.launch", "he.map", "launch", "tpuimg_lut_gather")]
+
+
 def test_hist_equalize_flat_and_8k(card):
     """A flat frame maps to 255 (min before rounding); an 8K frame has more
     than 2^24 pixels, so its cdf rounds on the way to float32."""

@@ -194,6 +194,43 @@ def test_tables_round_cdf_above_2_24(rng):
     np.testing.assert_array_equal(got, np.asarray(xla))
 
 
+def _exact_tables(frames):
+    """The published rule from its definition, frame by frame: an integer
+    histogram, the inclusive cdf, rint(min(255, cdf * 256 / N)) from the
+    float64 quotient (exact here: a quotient that is not a tie lies at
+    least 1/N from one), halves to even."""
+    n = frames[0].size
+    cdf = np.stack([np.cumsum(np.bincount(f.ravel(), minlength=256))
+                    for f in frames])
+    return np.rint(np.minimum(255.0, cdf * 256.0 / n)).astype(np.uint8)
+
+
+@pytest.mark.parametrize("shape", [(3, 72, 96), (2, 1080, 1920)])
+def test_batched_hist_equalize_equals_the_definition(shape):
+    """A seeded stack, each frame by its own table, equal everywhere."""
+    frames = np.random.default_rng(24 + shape[0]).integers(
+        0, 256, shape, dtype=np.uint8)
+    got = tpuimg_torch.hist_equalize(torch.from_numpy(frames)).numpy()
+    tables = _exact_tables(frames)
+    want = np.stack([t[f] for t, f in zip(tables, frames)])
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("n", [16 * 32, 72 * 96, 1080 * 1920])
+def test_tables_equal_the_exact_quotient_at_every_cdf(n):
+    """Every cdf value from 0 to N through ``_he_tables`` (the f32 cdf
+    times the f32 of 256/N, min 255, halves to even) against the float64
+    rint(min(255, cdf * 256 / N)): equal at each, the ties included (N =
+    512 makes every odd cdf one). Histograms of rows of 256 consecutive
+    cdf values, the last row held at N."""
+    rows = -(-(n + 1) // 256)
+    cdf = np.minimum(np.arange(rows * 256), n).reshape(rows, 256)
+    hists = np.diff(cdf, axis=1, prepend=0).astype(np.int32)
+    got = _he_tables(torch.from_numpy(hists), n).numpy()
+    want = np.rint(np.minimum(255.0, cdf * 256.0 / n)).astype(np.uint8)
+    np.testing.assert_array_equal(got, want)
+
+
 def test_bincount256_and_apply_lut_match_tpuimg(rng):
     x = rng.integers(0, 256, (3, 40, 50), dtype=np.uint8)
     for per_leading in (False, True):

@@ -16,7 +16,8 @@ import pytest
 import torch
 
 from bench_torch import spans as bench_spans
-from tpuimg_torch import enhance, guided_filter, kernels, profiling
+from tpuimg_torch import (
+    enhance, guided_filter, hist_equalize, kernels, profiling)
 
 # the fused paths above the tail's gate scale the blend in clahe_map's store
 # and round q in the tail's: no enhance.scale or enhance.to_u8 glue
@@ -94,6 +95,28 @@ def test_guided_filter_records_its_root_and_steps(rng, border, steps):
     assert [(s.name, s.parent, s.root) for s in rest] == [
         (n, root.id, root.id) for n in steps]
     assert rest[-1].detail == border  # the kernel's span names the border
+
+
+@pytest.mark.parametrize("shape", [(40, 56), (3, 40, 56)])
+def test_hist_equalize_records_its_root_and_steps(rng, shape):
+    """One root ``ops.hist_equalize`` a call, a frame or a stack, with the
+    histogram, the table glue and the mapping inside it; the output is the
+    one recording off gives."""
+    img = torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8))
+    off = hist_equalize(img)
+    assert profiling.span("ops.hist_equalize", "entry") is profiling._NULL
+    with profiling.recording() as rec:
+        on = hist_equalize(img)
+    assert torch.equal(on, off)
+    root, *rest = rec.spans
+    assert (root.name, root.layer, root.parent) == (
+        "ops.hist_equalize", "entry", None)
+    assert [(s.name, s.layer, s.parent, s.root) for s in rest] == [
+        ("he.hist", "entry", root.id, root.id),
+        ("he.tables", "glue", root.id, root.id),
+        ("he.map", "entry", root.id, root.id)]
+    for s in rest:
+        assert root.start_ns <= s.start_ns <= s.end_ns <= root.end_ns
 
 
 def test_span_refuses_an_unknown_layer_while_recording():

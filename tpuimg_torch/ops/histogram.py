@@ -74,15 +74,25 @@ def hist_equalize(img):
     last x-block of each row band (KNOWN_DIVERGENCES.md section 1)."""
     from tpuimg_torch.kernels.lut import lut_gather, lut_gather_frames
 
-    img = as_image(img)
-    check_image(img, "img", dtypes=[torch.uint8])
-    img = img.contiguous()
-    if img.ndim > 2:
-        h, w = img.shape[-2:]
-        flat = img.reshape(-1, h, w)
-        tables = _he_tables(hist256_frames(flat), h * w)
-        return lut_gather_frames(tables, flat).reshape(img.shape)
-    return lut_gather(_he_tables(hist256(img), img.numel()), img)
+    with span("ops.hist_equalize", "entry"):
+        img = as_image(img)
+        check_image(img, "img", dtypes=[torch.uint8])
+        img = img.contiguous()
+        if img.ndim > 2:
+            h, w = img.shape[-2:]
+            flat = img.reshape(-1, h, w)
+            with span("he.hist", "entry"):
+                hists = hist256_frames(flat)
+            with span("he.tables", "glue"):
+                tables = _he_tables(hists, h * w)
+            with span("he.map", "entry"):
+                return lut_gather_frames(tables, flat).reshape(img.shape)
+        with span("he.hist", "entry"):
+            hists = hist256(img)
+        with span("he.tables", "glue"):
+            table = _he_tables(hists, img.numel())
+        with span("he.map", "entry"):
+            return lut_gather(table, img)
 
 
 def _clip_redistribute(hists, limit: int):
