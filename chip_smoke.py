@@ -27,10 +27,11 @@ Phases, each printed on its own line:
    guides by 3 channels at r 8, and 20x24 r 15 and 5x7 r 16; bit-exact:
    hist256 at those sizes, at 4320x7680 and on a flat 4K frame,
    hist256_frames on 16 frames of 1080p and on 3 odd-sized frames,
-   hist256_groups on (64, 8161) groups, hist256_groups_packed on a 4K
-   frame seen as (2160, 960) int32 words and on (64, 2041) random words
-   with top bits set, lut_gather with u8, int32 and
-   float32 tables (compared as int32 bits), lut_gather_frames on 16 frames
+   he_tables (hist256's launch ending in HE's tables) on those stacks and
+   a flat 4K frame, hist256_groups on (64, 8161) groups,
+   hist256_groups_packed on a 4K frame seen as (2160, 960) int32 words and
+   on (64, 2041) random words with top bits set, lut_gather with u8, int32
+   and float32 tables (compared as int32 bits), lut_gather_frames on 16 frames
    of 1080p, integral at 4K, 2161x3839, on three and on 16 1080p frames
    and on an all-255 4320x7680 frame whose sums wrap, each also on its
    mirror image in the next call and at a storage offset of 3 bytes;
@@ -90,10 +91,11 @@ Phases, each printed on its own line:
    gate; both: tile_tables, clahe_map, gaussian, guided), and
    the stand-alone filters (gaussian r2 at 1080p, guided r8 at 4K
    self-guided, general, and twopass, and guided_filter at its default
-   border on a 3-channel source at 4K r 15), hist_equalize at 4K (hist256,
-   lut_gather) and on 16 frames of 1080p (the same two kernels, frames
-   form, one launch each), hist256_groups_packed on a 4K frame's words
-   (equal to hist256 and NumPy's bincount), integral at 4K (integral), and
+   border on a 3-channel source at 4K r 15), hist_equalize at 4K
+   (he_tables, lut_gather) and on 16 frames of 1080p (the same two
+   kernels, frames form, one launch each), hist256_groups_packed on a 4K
+   frame's words (equal to hist256 and NumPy's bincount), integral at 4K
+   (integral), and
    erode, dilate
    (one morphology launch each), morph_open and morph_close (one
    open_close launch each) at r15 on two 4K u8 frames (the JAX package's
@@ -172,9 +174,9 @@ from tpuimg_torch.kernels.boxsum import (
     enhance_tail_plain, guided_filter_kernel, guided_filter_plain,
     guided_ypadded_kernel, guided_ypadded_plain)
 from tpuimg_torch.kernels.hist import (
-    hist256, hist256_frames, hist256_groups, hist256_groups_packed,
-    hist256_groups_packed_plain, hist256_groups_plain, tile_hist,
-    tile_hist_plain, tile_tables)
+    he_tables_frames, hist256, hist256_frames, hist256_groups,
+    hist256_groups_packed, hist256_groups_packed_plain, hist256_groups_plain,
+    tile_hist, tile_hist_plain, tile_tables)
 from tpuimg_torch.kernels.lut import (
     clahe_band_map, clahe_band_map_plain, clahe_map, clahe_map_plain,
     lut_gather, lut_gather_frames, lut_gather_frames_plain, lut_gather_plain)
@@ -273,6 +275,10 @@ KERNELS = [  # name, its C entry, source, TPU kernel replaced
     # kernels above, queued by one C call
     ("enhance_run", "tpuimg_enhance_run", "tpuimg_torch/csrc/enhance_plan.cu",
      "no TPU kernel: tpuimg/pipeline.py's fused chain in one C call"),
+    # hist256's launch ending in HE's tables: hist_equalize on the card
+    ("he_tables", "tpuimg_he_tables", "tpuimg_torch/csrc/hist256.cu",
+     "tpuimg/kernels/hist.py:145 and the table glue after it "
+     "(tpuimg/ops/histogram.py:138)"),
 ]
 
 # the enhance tail's halo: 2*gf_radius + radius rows (enhance_sharded)
@@ -926,6 +932,18 @@ def check_he_kernels(dev, card: str, errs: dict, batch: np.ndarray) -> None:
           lut_gather_frames_plain(tables, stack), errs, "lut_gather")
     print(f"phase 3 hist256_groups 64x8161 and lut_gather_frames "
           f"{'x'.join(map(str, BATCH))} vs plain: exact [{card}]")
+    # HE's tables from the histogram launch: the cell's stack (split groups,
+    # the last block builds each table), a flat 4K frame (every entry from
+    # 77 on is 255) and odd-sized frames (bases off alignment)
+    flat = torch.full((1,) + SHAPES[0], 77, dtype=torch.uint8, device=dev)
+    for fr in (stack, flat, odd):
+        label = "x".join(map(str, fr.shape))
+        want = _he_tables(hist256_groups_plain(fr), fr[0].numel())
+        exact(f"he_tables {label}", he_tables_frames(fr), want, errs,
+              "he_tables")
+        print(f"phase 3 he_tables vs plain {label}: exact [{card}]")
+    check(bool((he_tables_frames(flat)[0, 77:] == 255).all()),
+          "he_tables of a flat frame: 255 from its value on")
 
 
 def check_integral_kernel(dev, card: str, errs: dict,
@@ -1481,7 +1499,7 @@ def run_he_integral_paths(dev, card: str, batch: np.ndarray) -> dict:
     total = dict.fromkeys(counts(), 0)
     h, w = SHAPES[0]
     frame = make_frame(h, w, SEED + 4)
-    he = ("hist256", "lut_gather")
+    he = ("he_tables", "lut_gather")
     for label, expected, fn, arr in (
             (f"hist_equalize {h}x{w}", he, hist_equalize, frame),
             (f"hist_equalize {'x'.join(map(str, BATCH))}", he, hist_equalize,
@@ -1704,7 +1722,7 @@ CLI_RUNS = [
 # 1e-4 on the reflect-101 path, 1e-3 on the shrink and CN1 class paths)
 AUTOTESTS = [
     ("integral-autotest", ("integral",), 0.0),
-    ("he-autotest", ("hist256", "lut_gather"), 0.0),
+    ("he-autotest", ("he_tables", "lut_gather"), 0.0),
     ("morph-autotest", ("morphology",), 0.0),
     ("clahe-autotest", ("tile_tables", "clahe_map"), 1.0),
     ("gaussian-autotest", ("gaussian",), 1e-5),
@@ -1893,7 +1911,7 @@ def check_io_commands(dev, card: str, have: dict, tmp: str) -> None:
         imwrite(color, np.stack([make_frame(1080, 1920, SEED + 25 + c)
                                  for c in range(3)], axis=-1))
         drive_cli(card, ["he", gray, "--nreps", "5"],
-                  ("hist256", "lut_gather"), "he gray 2160x3840")
+                  ("he_tables", "lut_gather"), "he gray 2160x3840")
         drive_cli(card, ["clahe", gray, "--nreps", "5"], ("tile_tables",
                                                          "clahe_map"),
                   "clahe gray 2160x3840")

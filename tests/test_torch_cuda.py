@@ -26,9 +26,9 @@ from tpuimg_torch.kernels.boxsum import (
     enhance_tail_plain, guided_filter_kernel, guided_filter_plain,
     guided_ypadded_kernel, guided_ypadded_plain)
 from tpuimg_torch.kernels.hist import (
-    hist256, hist256_frames, hist256_groups, hist256_groups_packed,
-    hist256_groups_packed_plain, hist256_groups_plain, tile_hist,
-    tile_hist_plain, tile_tables)
+    he_tables, he_tables_frames, hist256, hist256_frames, hist256_groups,
+    hist256_groups_packed, hist256_groups_packed_plain, hist256_groups_plain,
+    tile_hist, tile_hist_plain, tile_tables)
 from tpuimg_torch.kernels.lut import (
     clahe_band_map, clahe_band_map_plain, clahe_map, clahe_map_plain,
     lut_gather, lut_gather_frames, lut_gather_frames_plain, lut_gather_plain)
@@ -40,7 +40,7 @@ from tpuimg_torch.kernels.sep_stencil import (
     open_close_kernel, open_close_max_radius, open_close_plain,
     open_close_tile)
 from tpuimg_torch.ops.histogram import (
-    _blend_to_u8, _clahe_geometry, _clahe_scale, _clahe_tables)
+    _blend_to_u8, _clahe_geometry, _clahe_scale, _clahe_tables, _he_tables)
 from tpuimg_torch.pipeline import _to_u8, enhance
 
 pytestmark = pytest.mark.cuda
@@ -628,7 +628,7 @@ def test_integral_other_dtypes_run_plain_on_card(card):
 
 
 def _he_launches():
-    return _count("tpuimg_hist256", "tpuimg_lut_gather")
+    return _count("tpuimg_he_tables", "tpuimg_lut_gather")
 
 
 @pytest.mark.parametrize("shape", [(1, 1), (16, 32), (270, 480),
@@ -651,17 +651,20 @@ def test_hist_equalize_on_card_matches_numpy(card, shape):
 def test_hist_equalize_spans_its_two_launches(card, shape):
     """A call records one root ``ops.hist_equalize`` with one
     ``kernels.launch`` of each kernel inside its wrapper's span, and counts
-    one launch of each C entry; the output is the one recording off
-    gives."""
+    one launch of each C entry; the output is the one recording off gives.
+    The tables leave the histogram kernel's launch: no ``he.tables`` glue
+    on the card, and no launch of the histogram entry."""
     from tpuimg_torch import profiling
 
     img = torch.from_numpy(_frame(shape, 31)).to(card)
     off = tpuimg_torch.hist_equalize(img)
     calls = 2
     before = _he_launches()
+    hists = kernels.launches["tpuimg_hist256"]
     with profiling.recording() as rec:
         outs = [tpuimg_torch.hist_equalize(img) for _ in range(calls)]
     assert _he_launches() == (before[0] + calls, before[1] + calls)
+    assert kernels.launches["tpuimg_hist256"] == hists
     assert all(torch.equal(out, off) for out in outs)
     sp = rec.spans
     roots = [s for s in sp if s.parent is None]
@@ -672,8 +675,7 @@ def test_hist_equalize_spans_its_two_launches(card, shape):
         assert [(s.name, names[s.parent], s.layer, s.detail)
                 for s in tree] == [
             ("he.hist", "ops.hist_equalize", "entry", None),
-            ("kernels.launch", "he.hist", "launch", "tpuimg_hist256"),
-            ("he.tables", "ops.hist_equalize", "glue", None),
+            ("kernels.launch", "he.hist", "launch", "tpuimg_he_tables"),
             ("he.map", "ops.hist_equalize", "entry", None),
             ("kernels.launch", "he.map", "launch", "tpuimg_lut_gather")]
 
@@ -692,7 +694,7 @@ def test_bincount256_and_apply_lut_use_the_kernels(card):
     from tpuimg_torch.ops.histogram import apply_lut, bincount256
 
     frames = torch.from_numpy(_frame((3, 50, 70), 30)).to(card)
-    before = _he_launches()
+    before = _count("tpuimg_hist256", "tpuimg_lut_gather")
     assert torch.equal(bincount256(frames),
                        hist256_groups_plain(frames.reshape(1, -1))[0])
     assert torch.equal(bincount256(frames, per_leading=True),
@@ -701,7 +703,8 @@ def test_bincount256_and_apply_lut_use_the_kernels(card):
     got = apply_lut(table, frames)
     assert got.shape == frames.shape and got.dtype == torch.float32
     assert torch.equal(got, frames.float() * 0.5)
-    assert _he_launches() == (before[0] + 2, before[1] + 1)
+    assert _count("tpuimg_hist256", "tpuimg_lut_gather") == (
+        before[0] + 2, before[1] + 1)
 
 
 def test_slice3_wrappers_check_their_inputs(card):
@@ -1700,6 +1703,92 @@ def test_hist256_groups_64x8161_and_8k(card, offset):
     img = _unaligned((4320, 7680), offset, 76, card)
     assert torch.equal(hist256(img),
                        hist256_groups_plain(img.reshape(1, -1))[0])
+
+
+def _tie_frame(seed):
+    """A (1024, 2048) frame, N = 2^21, whose first bins hold 2^12 pixels
+    each: its cdf * 256 / N runs 0.5, 1, 1.5, 2, 2.5, ..., halves that
+    round to even both ways."""
+    g = np.random.default_rng(seed)
+    n = 1024 * 2048
+    counts = np.full(8, 4096)
+    rest = g.integers(0, 248, n - counts.sum()) + 8
+    pixels = np.concatenate([np.repeat(np.arange(8), counts), rest])
+    return g.permutation(pixels).astype(np.uint8).reshape(1, 1024, 2048)
+
+
+# (shape, storage offset, seed): one block a frame (P of 3,000 bytes), the
+# HE cell's 16 1080p frames and one 4K frame (split over blocks, the last
+# builds the table), more groups than the workspace takes (a block each),
+# a stack 3 bytes past alignment, and cdfs on halves over split blocks
+HE_TABLE_CASES = [((1, 50, 60), 0, 81), ((3, 50, 60), 0, 82),
+                  ((16, 1080, 1920), 0, 83), ((1, 2160, 3840), 0, 84),
+                  ((1100, 17, 31), 0, 85), ((16, 108, 192), 3, 86),
+                  ("ties", 0, 87)]
+
+
+@pytest.mark.parametrize("shape,offset,seed", HE_TABLE_CASES)
+def test_he_tables_exact(card, shape, offset, seed):
+    """The histogram launch that ends in HE's tables equals the plain
+    rule on the plain histograms bit for bit, at every grid form, and a
+    second call gives the same tables: every call leaves the workspace
+    zeroed. One launch of its entry a call, none of the histogram's."""
+    from tpuimg_torch.kernels import hist as khist
+
+    if shape == "ties":
+        frames = torch.from_numpy(_tie_frame(seed)).to(card)
+    else:
+        frames = _unaligned(shape, offset, seed, card)
+    groups = frames.reshape(frames.shape[0], -1)
+    want = _he_tables(hist256_groups_plain(groups), groups.shape[1])
+    before = _count("tpuimg_he_tables", "tpuimg_hist256")
+    got = he_tables(groups)
+    again = he_tables_frames(frames)
+    assert _count("tpuimg_he_tables", "tpuimg_hist256") == (
+        before[0] + 2, before[1])
+    assert got.dtype == torch.uint8 and got.shape == (frames.shape[0], 256)
+    assert torch.equal(got, want) and torch.equal(again, want)
+    torch.cuda.synchronize()
+    for ws in khist._WORKSPACES.values():
+        assert int(ws.abs().sum()) == 0
+    if shape == "ties":
+        assert got[0, :8].tolist() == [0, 1, 2, 2, 2, 3, 4, 4]
+
+
+@pytest.mark.parametrize("value", [0, 77, 255])
+def test_he_tables_flat_frames(card, value):
+    """A frame of one value: every entry below it 0, from it on 255 (cdf
+    * factor = 256, min before rounding), over many blocks and over one."""
+    want = torch.zeros(256, dtype=torch.uint8)
+    want[value:] = 255
+    for shape in ((1, 2160, 3840), (16, 270, 480), (1, 40, 50)):
+        x = torch.full(shape, value, dtype=torch.uint8, device=card)
+        got = he_tables_frames(x).cpu()
+        assert bool((got == want).all()), (shape, got)
+
+
+def test_he_tables_one_launch_no_memset(card):
+    """Each call is one kernel on the card and nothing else, at every
+    grid form."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    frames = [torch.from_numpy(_frame(s, 88)).to(card)
+              for s in ((1, 2160, 3840), (16, 1080, 1920), (1100, 17, 31))]
+    for x in frames:
+        he_tables_frames(x)
+    torch.cuda.synchronize()
+    for x in frames:
+        for _ in range(3):  # the profiler now and then catches no kernel
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                he_tables_frames(x)
+                torch.cuda.synchronize()
+            names = [e.name for e in prof.events()
+                     if e.device_type == DeviceType.CUDA]
+            if names:
+                break
+        assert len(names) == 1 and "hist256" in names[0], names
 
 
 # ---- the tile histograms (tile_hist.cu) and the gather (lut_gather.cu) -----

@@ -27,8 +27,8 @@ from tpuimg.oracle.numpy_ref import hist_equalize_ref
 from tpuimg.ops.histogram import apply_lut as jax_apply_lut
 from tpuimg.ops.histogram import bincount256 as jax_bincount256
 from tpuimg_torch.kernels.hist import (
-    hist256, hist256_frames, hist256_groups, hist256_groups_packed,
-    hist256_groups_plain)
+    he_tables, he_tables_frames, hist256, hist256_frames, hist256_groups,
+    hist256_groups_packed, hist256_groups_plain)
 from tpuimg_torch.kernels.lut import (
     LUT_BLOCKS_PER_SM, LUT_CHUNK, LUT_ITER_CHUNKS, lut_gather,
     lut_gather_frames, lut_gather_frames_plain, lut_gather_plain,
@@ -266,14 +266,44 @@ def test_same_typed_errors_as_tpuimg(case):
 
 
 def test_wrappers_take_plain_version_on_cpu(rng):
-    entries = ("tpuimg_hist256", "tpuimg_lut_gather")
+    entries = ("tpuimg_hist256", "tpuimg_he_tables", "tpuimg_lut_gather")
     before = [kernels.launches[e] for e in entries]
     img = torch.from_numpy(rng.integers(0, 256, (2, 30, 40), dtype=np.uint8))
     tpuimg_torch.hist_equalize(img)
     tpuimg_torch.hist_equalize(img[0])
     bincount256(img, per_leading=True)
     apply_lut(torch.arange(256, dtype=torch.int32), img)
-    assert [kernels.launches[e] for e in entries] == before == [0, 0]
+    he_tables(img.reshape(2, -1))
+    he_tables_frames(img)
+    assert [kernels.launches[e] for e in entries] == before == [0, 0, 0]
+
+
+@pytest.mark.parametrize("shape", [(1, 1, 1), (1, 16, 32), (3, 41, 67),
+                                   (2, 1080, 1920)])
+def test_he_tables_take_plain_version_on_cpu(shape):
+    """On a CPU tensor ``he_tables`` and ``he_tables_frames`` are the
+    plain rule on the plain histograms (the definition too), launch
+    nothing, and ``hist_equalize`` still builds its tables in ``he.tables``
+    between the histogram and the mapping."""
+    from tpuimg_torch import profiling
+
+    frames = np.random.default_rng(25 + shape[1]).integers(
+        0, 256, shape, dtype=np.uint8)
+    x = torch.from_numpy(frames)
+    groups = x.reshape(shape[0], -1)
+    want = _he_tables(hist256_groups_plain(groups), groups.shape[1])
+    before = kernels.launches["tpuimg_he_tables"]
+    got = he_tables(groups)
+    assert got.dtype == torch.uint8 and got.shape == (shape[0], 256)
+    assert torch.equal(got, want)
+    assert torch.equal(he_tables_frames(x), want)
+    assert kernels.launches["tpuimg_he_tables"] == before == 0
+    np.testing.assert_array_equal(got.numpy(), _exact_tables(frames))
+    for img in (x, x[0]):
+        with profiling.recording() as rec:
+            tpuimg_torch.hist_equalize(img)
+        assert [s.name for s in rec.spans] == [
+            "ops.hist_equalize", "he.hist", "he.tables", "he.map"]
 
 
 def test_wrappers_refuse_non_cuda_devices(monkeypatch):
@@ -295,6 +325,8 @@ def test_wrappers_refuse_non_cuda_devices(monkeypatch):
     table = torch.empty(256, dtype=torch.uint8, device="meta")
     for call in (lambda: hist256_groups(img),
                  lambda: hist256_groups_packed(words),
+                 lambda: he_tables(img),
+                 lambda: he_tables_frames(img[None]),
                  lambda: lut_gather(table, img),
                  lambda: lut_gather_frames(table[None], img[None]),
                  lambda: tpuimg_torch.hist_equalize(img),

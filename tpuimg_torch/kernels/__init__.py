@@ -101,6 +101,8 @@ _SIGNATURES = {
     # x, groups, p, ws, ws_ints, out, stream
     "tpuimg_hist256": (_P, _I, _L, _P, _L, _P, _P),
     "tpuimg_hist256_packed": (_P, _I, _L, _P, _L, _P, _P),
+    # x, groups, p, ws, ws_ints, factor, tables, stream
+    "tpuimg_he_tables": (_P, _I, _L, _P, _L, _F, _P, _P),
     # img, n, frames, tables, tstride, elem_bytes, blocks, per_block, out,
     # stream
     "tpuimg_lut_gather": (_P, _L, _I, _P, _I, _I, _I, _L, _P, _P),

@@ -16,11 +16,17 @@ same kernel body reading int32 words of four packed pixels, replaces
 ``hist256_groups_pallas_packed``. Each call of the group kernel is one
 launch: no memset, its output written whole, its cross-block sums through a
 workspace of this (device, stream) that every call leaves zeroed
-(``_hist_workspace``).
+(``_hist_workspace``). ``he_tables`` (and ``he_tables_frames``, a stack) is
+the same launch ending in HE's u8 tables instead of the histograms: the
+block that holds a group's final counts scans them and writes
+rint(min(255, cdf * he_factor(P))), bit for bit
+``ops/histogram.py::_he_tables`` of the histograms, which is its plain
+version.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from tpuimg_torch.core.borders import reflect101_index
@@ -121,6 +127,45 @@ def hist256_frames(frames: torch.Tensor) -> torch.Tensor:
     """Per-frame histograms of a contiguous u8 (B, H, W) stack: (B, 256)
     int32. The stack is already B groups of H*W bytes."""
     return hist256_groups(frames.reshape(frames.shape[0], -1))
+
+
+def he_factor(pixels: int) -> float:
+    """HE's table scale: the host's float32 of the float64 quotient 256 /
+    N (hist_equalization.cpp:58), which the cdf is multiplied by."""
+    return float(np.float32(256.0 / pixels))
+
+
+def he_tables_plain(groups: torch.Tensor) -> torch.Tensor:
+    """HE's tables of u8 (G, P) groups: ``_he_tables`` of their plain
+    histograms, (G, 256) u8."""
+    # ops/histogram.py imports this module
+    from tpuimg_torch.ops.histogram import _he_tables
+
+    return _he_tables(hist256_groups_plain(groups), groups.shape[1])
+
+
+def he_tables(groups: torch.Tensor) -> torch.Tensor:
+    """``he_tables_plain`` of a u8 (G, P) tensor on the CPU; on the card
+    one launch of the group kernel that ends in the tables, with no
+    histogram left in device memory."""
+    if groups.device.type == "cpu":
+        return he_tables_plain(groups)
+    require_cuda_tensor(groups, "groups", torch.uint8)
+    g, p = groups.shape
+    factor = he_factor(p)  # p = 0 raises, as the plain version does
+    out = torch.empty((g, 256), dtype=torch.uint8, device=groups.device)
+    if g == 0:
+        return out
+    ws, ints = _hist_workspace(groups.device, g)
+    launch("tpuimg_he_tables", groups.device, groups.data_ptr(), g, p, ws,
+           ints, factor, out.data_ptr())
+    return out
+
+
+def he_tables_frames(frames: torch.Tensor) -> torch.Tensor:
+    """HE's table of each frame of a contiguous u8 (B, H, W) stack:
+    (B, 256) u8."""
+    return he_tables(frames.reshape(frames.shape[0], -1))
 
 
 def tile_hist_plain(img, ytiles: int, xtiles: int, th: int, tw: int,

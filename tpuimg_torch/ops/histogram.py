@@ -2,10 +2,13 @@
 ``tpuimg.ops.histogram``).
 
 ``hist_equalize`` is the reference's gCalcHistUnroll8 -> gCalcHeTable ->
-gMapping: the histogram and the table lookup are CUDA kernels
-(kernels/hist.py, kernels/lut.py) on a CUDA tensor, one launch each for a
-frame or a whole batch; the 256-entry table build stays plain PyTorch on the
-tensor's device, as it stays XLA glue in the JAX package.
+gMapping. On a CUDA tensor it is two kernel launches for a frame or a whole
+batch: the histogram kernel ending in the 256-entry tables
+(kernels/hist.py::he_tables, the block that holds a frame's final counts
+builds its table) and the table lookup (kernels/lut.py). On a CPU tensor,
+and for the sharded path's summed partial histograms
+(parallel/sharding.py), the tables are plain PyTorch (``_he_tables``), as
+they are XLA glue in the JAX package.
 
 CLAHE is the chain gCalcTileHistsUnroll -> gClipLimit -> gCreateTable ->
 gInterpolateMappingUnroll (Claher::run). On a CUDA tensor the per-tile
@@ -28,7 +31,8 @@ from tpuimg_torch.core.layout import cdiv
 from tpuimg_torch.core.validate import (
     ParamError, ShapeError, check_image, check_positive, check_radius)
 from tpuimg_torch.kernels.hist import (
-    hist256, hist256_frames, hist256_groups, tile_hist, tile_tables)
+    he_factor, he_tables_frames, hist256, hist256_frames, hist256_groups,
+    tile_hist, tile_tables)
 from tpuimg_torch.profiling import span
 
 
@@ -61,9 +65,9 @@ def _he_tables(hists, pixels: int):
     quotient (hist_equalization.cpp:58), multiplied, never divided by; the
     cdf rounds to float32 to nearest even above 2^24; min comes before the
     half-to-even rounding, so cdf * factor = 256 gives 255."""
-    factor = float(np.float32(256.0 / pixels))
     cdf = torch.cumsum(hists, dim=-1).to(torch.float32)
-    return torch.round(torch.clamp(cdf * factor, max=255.0)).to(torch.uint8)
+    return torch.round(torch.clamp(cdf * he_factor(pixels),
+                                   max=255.0)).to(torch.uint8)
 
 
 def hist_equalize(img):
@@ -78,21 +82,21 @@ def hist_equalize(img):
         img = as_image(img)
         check_image(img, "img", dtypes=[torch.uint8])
         img = img.contiguous()
-        if img.ndim > 2:
-            h, w = img.shape[-2:]
-            flat = img.reshape(-1, h, w)
+        h, w = img.shape[-2:]
+        flat = img.reshape(-1, h, w)
+        if img.device.type != "cpu":
+            # the kernel that counts a frame also builds its table
+            with span("he.hist", "entry"):
+                tables = he_tables_frames(flat)
+        else:
             with span("he.hist", "entry"):
                 hists = hist256_frames(flat)
             with span("he.tables", "glue"):
                 tables = _he_tables(hists, h * w)
-            with span("he.map", "entry"):
-                return lut_gather_frames(tables, flat).reshape(img.shape)
-        with span("he.hist", "entry"):
-            hists = hist256(img)
-        with span("he.tables", "glue"):
-            table = _he_tables(hists, img.numel())
         with span("he.map", "entry"):
-            return lut_gather(table, img)
+            if img.ndim > 2:
+                return lut_gather_frames(tables, flat).reshape(img.shape)
+            return lut_gather(tables[0], img)
 
 
 def _clip_redistribute(hists, limit: int):
