@@ -11,6 +11,8 @@ Every test needs a CUDA card and skips without one. On the card, run
 use and the card's machine need not have).
 """
 
+import statistics
+
 import numpy as np
 import pytest
 import torch
@@ -2329,20 +2331,17 @@ def test_enhance_host_64_frames_4_in_flight_equal_enhance(card):
 
 def test_enhance_host_pageable_numpy_and_pinned_agree(card):
     """A pageable CPU tensor and a NumPy array are staged into pinned
-    memory and give the pinned input's frame; the counters count each
-    copy."""
+    memory and give the pinned input's frame; the counter counts each
+    staging."""
     from tpuimg_torch.host import enhance_host
 
     frame = _frame((2160, 3840), 121)
     n = frame.size
-    before = (enhance_host.uploaded_bytes, enhance_host.downloaded_bytes,
-              enhance_host.staged_bytes)
+    before = enhance_host.staged_bytes
     outs = [enhance_host(x) for x in (torch.from_numpy(frame).pin_memory(),
                                       torch.from_numpy(frame), frame)]
     torch.cuda.synchronize()
-    assert (enhance_host.uploaded_bytes - before[0],
-            enhance_host.downloaded_bytes - before[1],
-            enhance_host.staged_bytes - before[2]) == (3 * n, 3 * n, 2 * n)
+    assert enhance_host.staged_bytes - before == 2 * n
     want = enhance(torch.from_numpy(frame).to(card)).cpu()
     for out in outs:
         assert torch.equal(out, want)
@@ -2398,6 +2397,107 @@ def test_enhance_host_spans_stage_on_the_card(card):
     assert [(s.name, s.layer) for s in rec.spans if s.parent == root.id] == [
         ("host.stage", "transfer"), ("host.upload", "transfer"),
         ("pipeline.enhance", "entry"), ("host.download", "transfer")]
+
+
+# ---- device spans: the card's work on the spans' clock ---------------------
+
+DEVICE_SPANS = ("kernels.launch", "host.upload", "host.download")
+
+
+def test_device_spans_put_the_cards_work_on_the_spans_clock(card):
+    """Under recording(device=True), HE of 16 1080p frames, enhance at 4K
+    and enhance_host at 4K give one interval a device span (each launch and
+    copy), none ending before its span began less clock_error_ns; HE's two
+    intervals, queued behind a wait on the card, follow it and each other
+    and add up to its device time by events; a second stretch of the same
+    size makes no new event."""
+    from tpuimg_torch import profiling
+    from tpuimg_torch.core.timing import time_cuda
+    from tpuimg_torch.host import enhance_host
+
+    stack = torch.from_numpy(_frame((16, 1080, 1920), 140)).to(card)
+    frame = torch.from_numpy(_frame((2160, 3840), 141))
+    up, pinned = frame.to(card), frame.pin_memory()
+
+    def calls(n):  # 6 device spans a round
+        for _ in range(n):
+            tpuimg_torch.hist_equalize(stack)
+            enhance(up)
+            enhance_host(pinned)
+
+    calls(1)
+    torch.cuda.synchronize()
+    made = []
+    for _ in range(2):
+        with profiling.recording(device=True) as rec:
+            calls(50)  # more device spans than a pool makes ahead
+        torch.cuda.synchronize()
+        ivs = rec.intervals()
+        spans = {s.id: s for s in rec.spans}
+        assert sorted(iv.span for iv in ivs) == sorted(
+            s.id for s in spans.values() if s.name in DEVICE_SPANS)
+        assert len(ivs) == 300
+        err = rec.clock_error_ns
+        assert 0 <= err < 1_000_000
+        for iv in ivs:
+            assert iv.end_ns >= spans[iv.span].start_ns - err
+            assert spans[iv.span].start_ns - err <= iv.start_ns <= iv.end_ns
+        made.append(profiling._POOLS[torch.cuda.current_device()].made)
+    assert made[1] == made[0]
+
+    timed = [time_cuda(tpuimg_torch.hist_equalize, stack).ms
+             for _ in range(2)]
+    torch.cuda.synchronize()
+    with profiling.recording(device=True) as rec:
+        with profiling.span("test.wait", "glue", device=card) as s:
+            s.queue()
+            torch.cuda._sleep(50_000_000)  # ~30 ms: HE queues behind it
+        tpuimg_torch.hist_equalize(stack)
+    torch.cuda.synchronize()
+    wait, *he = rec.intervals()
+    assert [rec.spans[i].detail for i in range(len(rec.spans))
+            if rec.spans[i].name == "kernels.launch"] == [
+        "tpuimg_he_tables", "tpuimg_lut_gather"]
+    # each starts as the work ahead of it on the stream ends
+    assert 0 <= he[0].start_ns - wait.end_ns <= 10_000, (he, wait)
+    assert 0 <= he[1].start_ns - he[0].end_ns <= 10_000, he
+    he_ms = sum(iv.end_ns - iv.start_ns for iv in he) * 1e-6
+    for ms in timed:
+        assert abs(he_ms - ms) <= 0.25 * ms, (he_ms, timed)
+
+
+def test_device_spans_on_an_idle_card_time_hes_kernels(card):
+    """On an idle card, nothing queued ahead, HE's two intervals a call
+    hold its kernels: their sum is no less than its device time by events
+    queued behind a wait (``time_cuda``), and longer by the host's
+    submission of each launch; trimmed to the launches' times when queued
+    (``bench_torch.intervals``), the sum is within 25% of it."""
+    from bench_torch import intervals
+    from bench_torch import spans as bench_spans
+    from tpuimg_torch import profiling
+    from tpuimg_torch.core.timing import time_cuda
+
+    stack = torch.from_numpy(_frame((16, 1080, 1920), 142)).to(card)
+    timed = [time_cuda(tpuimg_torch.hist_equalize, stack).ms
+             for _ in range(2)]
+    queued = intervals.calibrate(profiling, tpuimg_torch.hist_equalize,
+                                 [(stack,)], card)
+    assert set(queued) == {"tpuimg_he_tables", "tpuimg_lut_gather"}
+    raw, cut = [], []
+    for _ in range(21):
+        torch.cuda.synchronize()
+        with profiling.recording(device=True) as rec:
+            tpuimg_torch.hist_equalize(stack)
+        torch.cuda.synchronize()
+        ivs = rec.intervals()
+        assert len(ivs) == 2
+        raw.append(sum(iv.end_ns - iv.start_ns for iv in ivs) * 1e-6)
+        cut.append(sum(iv[4] - iv[3] for iv in intervals.trim(
+            ivs, bench_spans.spans_of(rec), queued)) * 1e-6)
+    raw_ms, cut_ms = statistics.median(raw), statistics.median(cut)
+    for ms in timed:
+        assert raw_ms >= 0.95 * ms, (raw_ms, timed, queued)
+        assert abs(cut_ms - ms) <= 0.25 * ms, (cut_ms, raw_ms, timed, queued)
 
 
 # ---- enhance's scaling and rounding in the kernels' stores -----------------

@@ -690,11 +690,8 @@ def cmd_stream(args):
         native.write_png(  # output is PNG regardless of input ext
             os.path.join(args.out, base + ".png"), _host(pres))
 
-    def moved():
-        return (enhance_host.uploaded_bytes, enhance_host.downloaded_bytes,
-                enhance_host.staged_bytes)
-
-    before = moved()
+    staged = enhance_host.staged_bytes
+    moved = 0  # bytes each way: enhance_host's output is its frame's size
     cuda = args.device.type == "cuda"
     t0 = time.perf_counter()
     n = 0
@@ -703,6 +700,7 @@ def cmd_stream(args):
                             threads=args.threads) as fs:
         for idx, frame in fs:
             result = submit(frame)
+            moved += frame.nbytes
             done = None
             if cuda:
                 done = torch.cuda.Event()
@@ -718,9 +716,9 @@ def cmd_stream(args):
     print(f"processed {n} frames ({args.width}x{args.height}, op={args.op}) "
           f"in {dt:.2f}s = {n / dt:.2f} fps end-to-end [{args.card}]")
     if args.op == "enhance":
-        up, down, staged = (a - b for a, b in zip(moved(), before))
-        print(f"moved {up} B to the device and {down} B back; {staged} B "
-              f"staged into pinned memory on the host")
+        print(f"moved {moved} B to the device and {moved} B back; "
+              f"{enhance_host.staged_bytes - staged} B staged into pinned "
+              f"memory on the host")
     return True
 
 

@@ -113,6 +113,7 @@ def enhance_host(
     with span("host.enhance", "entry"):
         target = _target(device)
         cuda = target.type == "cuda"
+        card = target if cuda else None  # the copies' device spans
         src = _host_frame(frame)
         if cuda and not src.is_pinned():
             with span("host.stage", "transfer"):
@@ -127,26 +128,24 @@ def enhance_host(
                 pool = _POOLS[target.index] = _Pool(target)
             stream, done = pool.next()
         with torch.cuda.stream(stream) if cuda else contextlib.nullcontext():
-            with span("host.upload", "transfer"):
+            with span("host.upload", "transfer", device=card) as s:
                 up = torch.empty(src.shape, dtype=torch.uint8, device=target)
+                s.queue()
                 up.copy_(src, non_blocking=True)
             out = enhance(up, clip_limit, tiles, radius, sigma, gf_radius,
                           gf_eps, impl)
-            with span("host.download", "transfer"):
+            with span("host.download", "transfer", device=card) as s:
                 back = torch.empty(out.shape, dtype=torch.uint8,
                                    pin_memory=cuda)
+                s.queue()
                 back.copy_(out, non_blocking=True)
             if cuda:
                 done.record(stream)
         if cuda:
             torch.cuda.current_stream(target).wait_event(done)
-        enhance_host.uploaded_bytes += src.numel()
-        enhance_host.downloaded_bytes += back.numel()
         return back
 
 
-# bytes copied to the device, back to the host, and on the host into pinned
-# memory, over every call
-enhance_host.uploaded_bytes = 0
-enhance_host.downloaded_bytes = 0
+# bytes of pageable frames copied on the host into pinned memory, over every
+# call: the slow path, where the caller's frames are not pinned
 enhance_host.staged_bytes = 0

@@ -258,16 +258,19 @@ def launch(name: str, device: torch.device, *args) -> None:
     with ``device`` (the current card where it has no index) the current
     card; raise ``KernelLaunchError`` unless it returns cudaSuccess. Each
     call counts one on ``launches[name]``; the span marks the process's
-    first launch of ``name``, which loads its kernels onto the card."""
+    first launch of ``name``, which loads its kernels onto the card, and is
+    a device span of ``device`` queued at the C call."""
     first = launches[name] == 0
-    with span("kernels.launch", "launch", name, first):
+    with span("kernels.launch", "launch", name, first, device) as s:
         fn = getattr(load(), name)
         current = torch.cuda.current_device()
         index = current if device.index is None else device.index
         if index == current:
+            s.queue()
             err = fn(*args, _stream(index))
         else:
             with torch.cuda.device(index):
+                s.queue()
                 err = fn(*args, _stream(index))
     launches[name] += 1
     if err != 0:
