@@ -91,7 +91,10 @@ Phases, each printed on its own line:
    gate; both: tile_tables, clahe_map, gaussian, guided), and
    the stand-alone filters (gaussian r2 at 1080p, guided r8 at 4K
    self-guided, general, and twopass, and guided_filter at its default
-   border on a 3-channel source at 4K r 15), hist_equalize at 4K
+   border on a 3-channel source at 4K r 15; that call also timed as one
+   call and as three calls of one channel, the call by event pairs and
+   each of its two launches by the profiler, the two within 1e-5),
+   hist_equalize at 4K
    (he_tables, lut_gather) and on 16 frames of 1080p (the same two
    kernels, frames form, one launch each), hist256_groups_packed on a 4K
    frame's words (equal to hist256 and NumPy's bincount), integral at 4K
@@ -515,6 +518,64 @@ def check_guided_shrink(dev, card: str, errs: dict) -> None:
             errs.get("guided_twopass_shrink", 0.0), err)
         print(f"phase 3 {label} vs plain: {err:.3g}, launches "
               f"{n['guided_twopass_shrink']} [{card}]")
+
+
+def twopass_launch_ms(fn, calls: int = 20) -> tuple:
+    """Device ms a call of fn() in the twopass kernel's first and second
+    launches (template argument kAB true, false), from the profiler's kernel
+    records over ``calls`` calls: both launches are one C call, which no
+    event pair can split. The profiler loses kernel records now and then
+    (PERF.md section 6), so a trace missing either launch is taken again,
+    up to three times."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        us = {True: 0.0, False: 0.0}
+        for e in prof.events():
+            if (e.device_type == DeviceType.CUDA
+                    and "guided_twopass_kernel<" in e.name):
+                first = "guided_twopass_kernel<true" in e.name
+                us[first] += e.time_range.end - e.time_range.start
+        if us[True] and us[False]:
+            break
+    check(us[True] > 0 and us[False] > 0,
+          f"a trace of {calls} twopass calls holds both launches: {us}")
+    return us[True] / calls * 1e-3, us[False] / calls * 1e-3
+
+
+def time_shrink_channels(dev, card: str) -> None:
+    """Phase 4, the guided-rgb-shrink-4k cell's call two ways: the 3
+    channels in one call and in three calls of one channel, equal within
+    1e-5; the call by event pairs (time_cuda), each launch by the
+    profiler."""
+    _, p3 = guide_pair((3, 2160, 3840), SEED + 4, dev)
+    I = (0.299 * p3[0] + 0.587 * p3[1] + 0.114 * p3[2]).contiguous()
+    planes = [p3[c].contiguous() for c in range(3)]
+
+    def one_call():
+        return guided_filter(I, p3, 15, GF_EPS)
+
+    def a_call_a_channel():
+        return [guided_filter(I, pc, 15, GF_EPS) for pc in planes]
+
+    diff = max_err(one_call(), torch.stack(a_call_a_channel()))
+    check(diff <= 1e-5, f"guided 4K C3 r15 shrink, one call vs a call a "
+          f"channel: {diff} <= 1e-5")
+    for label, fn in (("one call", one_call),
+                      ("a call a channel x3", a_call_a_channel)):
+        ms = time_cuda(fn, card=card).ms
+        l1, l2 = twopass_launch_ms(fn)
+        print(f"phase 4 guided 4K C3 r15 shrink {label}: {ms:.4f} ms "
+              f"(event pairs), launch 1 {l1:.4f} ms, launch 2 {l2:.4f} ms "
+              f"(profiler); the two {diff:.3g} apart [{card}]")
 
 
 def classes(x):
@@ -1459,6 +1520,7 @@ def run_main_paths(dev, card: str, batch: np.ndarray) -> dict:
           f"{errs[2]:.3g} twopass {errs[3]:.3g}, C3 r15 shrink "
           f"{errs[4]:.3g} [{card}]")
     total = {k: total[k] + got[k] for k in total}
+    time_shrink_channels(dev, card)
     he = run_he_integral_paths(dev, card, batch)
     morph = run_morph_paths(dev, card)
     return {k: total[k] + he[k] + morph[k] for k in total}

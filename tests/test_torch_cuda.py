@@ -11,7 +11,11 @@ Every test needs a CUDA card and skips without one. On the card, run
 use and the card's machine need not have).
 """
 
+import json
+import os
 import statistics
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -1361,7 +1365,17 @@ def test_shrink_4k_rgb_by_gray_runs_two_kernels_and_no_torch_kernel(card):
     ref = _rgb_shrink_reference(I, p, 15)
     assert float((got.double() - ref).abs().max()) <= 1e-4
     del plain, ref
-    names, _ = _kernels_of(tpuimg_torch.guided_filter, I, p, 15, 1e-3)
+    # a walk a plane either way: the 3 channels' segments spread over
+    # several waves, a channel's alone over one
+    ones = torch.stack([tpuimg_torch.guided_filter(I, pc.contiguous(), 15,
+                                                   1e-3) for pc in p])
+    assert float((got - ones).abs().max()) <= 1e-5
+    assert _queued_by(tpuimg_torch.guided_filter, I, p, 15,
+                      1e-3) == ["launch"] * 2
+    names = _kernels_in_a_fresh_process(
+        "p = torch.rand((3, 2160, 3840), device=card)\n"
+        "I = (0.299 * p[0] + 0.587 * p[1] + 0.114 * p[2]).contiguous()",
+        "tpuimg_torch.guided_filter(I, p, 15, 1e-3)")
     assert len(names) == 2, names
     assert all("guided_twopass_kernel" in n for n in names), names
 
@@ -1401,6 +1415,71 @@ def test_shrink_batched_guides_match_plain_and_reference(card):
         one = guided_filter_kernel(I[1], q[..., 1, :, :].contiguous(), 15,
                                    1e-3, border="shrink")
         assert float((got[..., 1, :, :] - one).abs().max()) <= 1e-5
+
+
+# the guided kernels' contract with their plain chain, by border
+_CONTRACT = {"reflect101": 1e-4, "shrink": 1e-3}
+
+
+def _channels(g, shape, channels):
+    """A guide and ``channels`` noisy copies of it as p, on the CPU."""
+    I = g.random(shape, dtype=np.float32)
+    p = np.clip(I + 0.1 * g.standard_normal((channels,) + shape), 0,
+                1).astype(np.float32)
+    return torch.from_numpy(I), torch.from_numpy(p)
+
+
+def _one_call_and_a_call_a_channel(I, p, radius, border):
+    """The twopass kernel's q of p's channels in one call and in one call a
+    channel."""
+    got = guided_filter_kernel(I, p, radius, 1e-3, variant="twopass",
+                               border=border)
+    ones = [guided_filter_kernel(I, pc.contiguous(), radius, 1e-3,
+                                 variant="twopass", border=border)
+            for pc in p]
+    return got, torch.stack(ones)
+
+
+@pytest.mark.parametrize("radius", [1, 15, 16, 17, 64])
+@pytest.mark.parametrize("width", [7, 1917, 3839])
+@pytest.mark.parametrize("channels", [2, 3, 4, 5])
+@pytest.mark.parametrize("border", ["shrink", "reflect101"])
+def test_twopass_channels_match_separate_calls(card, border, channels,
+                                               width, radius):
+    """One call of C channels by one guide equals C calls of one channel
+    each: within 1e-5 at 600 rows, where the call's segments may spread
+    over more waves than a channel's alone and so start at other rows, bit
+    for bit on frames one segment high (30 rows); and within the border's
+    contract of the plain chain: 1e-4 at reflect-101, 1e-3 at the shrink
+    border (the reference's class path; at r 1 the walks read up to 1.3e-4
+    there, a 2x2 to 3x3 window's variance in f32). r 17 and 64 take the
+    row-buffer route, the others the ring."""
+    g = np.random.default_rng(90 + 7 * channels + radius)
+    for rows in (600, 30):
+        I, p = (x.to(card) for x in _channels(g, (rows, width), channels))
+        got, ones = _one_call_and_a_call_a_channel(I, p, radius, border)
+        assert got.shape == p.shape and bool(torch.isfinite(got).all())
+        if rows == 30:
+            assert torch.equal(got, ones)
+        else:
+            assert float((got - ones).abs().max()) <= 1e-5
+        plain = guided_filter_plain(I, p, radius, 1e-3, border=border)
+        assert float((got - plain).abs().max()) <= _CONTRACT[border]
+
+
+@pytest.mark.parametrize("radius", [1, 15, 17])
+@pytest.mark.parametrize("border", ["shrink", "reflect101"])
+def test_twopass_batched_guides_match_separate_calls(card, border, radius):
+    """A batch of guides, each with 3 channels: I (2, H, W), p (3, 2, H,
+    W), channel c of guide j in p[c, j]; one call equals a call a channel
+    of both guides within 1e-5, and the plain chain within the border's
+    contract."""
+    g = np.random.default_rng(100 + radius)
+    I, p = (x.to(card) for x in _channels(g, (2, 150, 300), 3))
+    got, ones = _one_call_and_a_call_a_channel(I, p, radius, border)
+    assert float((got - ones).abs().max()) <= 1e-5
+    plain = guided_filter_plain(I, p, radius, 1e-3, border=border)
+    assert float((got - plain).abs().max()) <= _CONTRACT[border]
 
 
 def test_twopass_refuses_past_its_ceiling(card):
@@ -1638,23 +1717,13 @@ def test_clahe_map_4k_matches_recorded_digests(card, what):
 def test_hist256_one_launch_no_memset(card):
     """Each call is one kernel on the card and nothing else, at every grid:
     one block a group, and several with the workspace."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     frames = [torch.from_numpy(_frame(s, 73)).to(card).reshape(g, -1)
               for s, g in (((2160, 3840), 1), ((64, 8161), 64),
                            ((16, 108, 192), 16))]
     for x in frames:
-        hist256_groups(x)
-    torch.cuda.synchronize()
-    for x in frames:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            hist256_groups(x)
-            torch.cuda.synchronize()
-        names = [e.name for e in prof.events()
-                 if e.device_type == DeviceType.CUDA]
-        assert len(names) == 1 and "hist256" in names[0], names
+        before = kernels.launches["tpuimg_hist256"]
+        assert _queued_by(hist256_groups, x) == ["launch"]
+        assert kernels.launches["tpuimg_hist256"] == before + 2
 
 
 def test_hist256_two_streams_at_once(card):
@@ -1772,49 +1841,78 @@ def test_he_tables_flat_frames(card, value):
 def test_he_tables_one_launch_no_memset(card):
     """Each call is one kernel on the card and nothing else, at every
     grid form."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     frames = [torch.from_numpy(_frame(s, 88)).to(card)
               for s in ((1, 2160, 3840), (16, 1080, 1920), (1100, 17, 31))]
     for x in frames:
-        he_tables_frames(x)
-    torch.cuda.synchronize()
-    for x in frames:
-        for _ in range(3):  # the profiler now and then catches no kernel
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                he_tables_frames(x)
-                torch.cuda.synchronize()
-            names = [e.name for e in prof.events()
-                     if e.device_type == DeviceType.CUDA]
-            if names:
-                break
-        assert len(names) == 1 and "hist256" in names[0], names
+        before = kernels.launches["tpuimg_he_tables"]
+        assert _queued_by(he_tables_frames, x) == ["launch"]
+        assert kernels.launches["tpuimg_he_tables"] == before + 2
 
 
 # ---- the tile histograms (tile_hist.cu) and the gather (lut_gather.cu) -----
 
-def _kernels_of(fn, *args):
-    """(names, calls): the CUDA kernels one call of fn(*args) runs, by the
-    profiler (a memset shows as one), and how many calls were made: a
-    warm-up, then one a trace. A trace that caught no kernel at all (the
-    profiler drops one now and then) is taken again, up to three times."""
+# The one-kernel checks read the profiler's records of the runtime calls
+# that queue device work, which carry the host's clock: in a process that
+# has already run much device work the profiler loses most kernel records of
+# a short trace, whatever its margins, but never these (PERF.md section 6).
+_QUEUES = (("launch", ("cudaLaunchKernel", "cuLaunchKernel")),
+           ("memset", ("cudaMemset", "cuMemset")),
+           ("copy", ("cudaMemcpy", "cuMemcpy")))
+
+
+def _queued_by(fn, *args):
+    """What one call of fn(*args) queues on the card, after a warm-up call
+    (two calls in all): "launch", "memset" or "copy" for each runtime call
+    that queues device work, in order."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn(*args)
     torch.cuda.synchronize()
-    for calls in range(2, 5):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            fn(*args)
-            torch.cuda.synchronize()
-        names = [e.name for e in prof.events()
-                 if e.device_type == DeviceType.CUDA]
-        if names:
-            break
-    return names, calls
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn(*args)
+        torch.cuda.synchronize()
+    return [kind for e in prof.events() if e.device_type == DeviceType.CPU
+            for kind, names in _QUEUES if e.name.startswith(names)]
+
+
+def _in_a_fresh_process(script):
+    """Run ``script`` in a fresh Python process at the repository's root,
+    after ``import json, torch`` and with ``card`` the card, and return the
+    JSON its last line prints. No device work comes before it there, so
+    the profiler keeps every kernel record of a short trace."""
+    head = "import json, torch\ncard = torch.device('cuda')\n"
+    done = subprocess.run(
+        [sys.executable, "-c", head + script], capture_output=True,
+        text=True, timeout=300,
+        cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    assert done.returncode == 0, done.stderr[-4000:]
+    return json.loads(done.stdout.splitlines()[-1])
+
+
+_KERNELS = """
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+import tpuimg_torch
+from tpuimg_torch.pipeline import enhance
+{setup}
+def call():
+    {call}
+call()
+torch.cuda.synchronize()
+with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    call()
+    torch.cuda.synchronize()
+print(json.dumps([e.name for e in prof.events()
+                  if e.device_type == DeviceType.CUDA]))
+"""
+
+
+def _kernels_in_a_fresh_process(setup, call):
+    """The names of the CUDA kernels that the statement ``call`` runs (after
+    ``setup``), by the profiler in a fresh process, after a warm-up call."""
+    return _in_a_fresh_process(_KERNELS.format(setup=setup, call=call))
 
 
 def _tile_hist_both(img, yt, xt):
@@ -1901,9 +1999,8 @@ def test_tile_hist_one_launch_no_memset(card):
         clusters.add(tile_hist_plan(tiles, tiles, geo[0], geo[1],
                                     sm_count(img.device))[0])
         before = kernels.launches["tpuimg_tile_hist"]
-        names, calls = _kernels_of(tile_hist, img, tiles, tiles, *geo)
-        assert kernels.launches["tpuimg_tile_hist"] == before + calls
-        assert len(names) == 1 and "tile_hist" in names[0], names
+        assert _queued_by(tile_hist, img, tiles, tiles, *geo) == ["launch"]
+        assert kernels.launches["tpuimg_tile_hist"] == before + 2
     assert {1, 8} <= clusters
 
 
@@ -2006,10 +2103,9 @@ def test_tile_tables_one_launch_no_torch_op(card):
         clusters.add(tile_hist_plan(tiles, tiles, geo[0], geo[1],
                                     sm_count(img.device))[0])
         before = kernels.launches["tpuimg_tile_tables"]
-        names, calls = _kernels_of(tile_tables, img, tiles, tiles, *geo,
-                                   *_clahe_scale(2.0, *geo[:2]))
-        assert kernels.launches["tpuimg_tile_tables"] == before + calls
-        assert len(names) == 1 and "tile_hist" in names[0], names
+        assert _queued_by(tile_tables, img, tiles, tiles, *geo,
+                          *_clahe_scale(2.0, *geo[:2])) == ["launch"]
+        assert kernels.launches["tpuimg_tile_tables"] == before + 2
     assert {1, 8} <= clusters
 
 
@@ -2117,9 +2213,8 @@ def test_lut_gather_one_launch_no_memset(card):
                                    img)),
                      (lut_gather_frames, (tables, stack))):
         before = kernels.launches["tpuimg_lut_gather"]
-        names, calls = _kernels_of(fn, *args)
-        assert kernels.launches["tpuimg_lut_gather"] == before + calls
-        assert len(names) == 1 and "lut_gather" in names[0], names
+        assert _queued_by(fn, *args) == ["launch"]
+        assert kernels.launches["tpuimg_lut_gather"] == before + 2
 
 
 def test_lut_gather_two_streams_at_once(card):
@@ -2234,18 +2329,18 @@ def test_frame_stream_into_enhance_on_card(card, tmp_path):
 
 
 def test_trace_on_card_names_the_enhance_tail_kernel(card, tmp_path):
-    import glob
-    import json
-
-    from tpuimg_torch.profiling import trace
-
-    img = torch.from_numpy(_frame((540, 960), 98)).to(card)
-    with trace(str(tmp_path)):
-        enhance(img)
-    (path,) = glob.glob(str(tmp_path / "*.pt.trace.json"))
-    with open(path) as f:
-        names = [e.get("name", "") for e in json.load(f)["traceEvents"]
-                 if e.get("cat") == "kernel"]
+    names = _in_a_fresh_process(f"""
+import glob
+from tpuimg_torch.pipeline import enhance
+from tpuimg_torch.profiling import trace
+img = torch.randint(0, 256, (540, 960), dtype=torch.uint8, device=card)
+with trace({str(tmp_path)!r}):
+    enhance(img)
+(path,) = glob.glob({str(tmp_path / "*.pt.trace.json")!r})
+with open(path) as f:
+    print(json.dumps([e.get("name", "") for e in json.load(f)["traceEvents"]
+                      if e.get("cat") == "kernel"]))
+""")
     # csrc/enhance_tail.cu instantiates tail::tail_kernel with its FrameSrc
     assert any("tail_kernel" in n and "FrameSrc" in n for n in names), names
 
@@ -2254,8 +2349,9 @@ def test_trace_on_card_counts_two_tail_kernels_a_call(card):
     """A traced enhance launches the tail's two walks, each a kernel whose
     name holds "tail_kernel" (the substring bench_torch's tail_roofline
     reads) and FrameSrc: exactly two such kernels a call."""
-    img = torch.from_numpy(_frame((540, 960), 99)).to(card)
-    names, _ = _kernels_of(enhance, img)
+    names = _kernels_in_a_fresh_process(
+        "img = torch.randint(0, 256, (540, 960), dtype=torch.uint8, "
+        "device=card)", "enhance(img)")
     tails = [n for n in names if "tail_kernel" in n]
     assert len(tails) == 2 and all("FrameSrc" in n for n in tails), names
 
@@ -2715,3 +2811,4 @@ def test_enhance_plan_is_built_once_a_key(card):
         enhance(img, clip_limit=3.25)
     assert pipeline.plans["built"] == before.get("built", 0) + 1
     assert pipeline.plans["reused"] == before.get("reused", 0) + 2
+

@@ -108,8 +108,8 @@
 // (32 + 2r)^2 halo staged again for every tile (r <= 16). Each launch is now
 // a walk down 128-column strips with running window sums (f64 down the
 // columns, f32 along the rows by walker::row_window_sums), a halo of r
-// columns and 2r rows a segment, segments sized to one wave
-// (walker::strip_grid): launch 1 writes a and b once per pixel, launch 2
+// columns and 2r rows a segment, segments sized to one wave or to a few
+// (twopass_grid): launch 1 writes a and b once per pixel, launch 2
 // reads them through the reflect-101 index (shrink: zero outside the frame)
 // and writes q. Shared memory grows with r, not r^2: r <= kTwopassMaxRadius =
 // 64. At 4K with three source channels by one guide, r 15, twopass took
@@ -277,6 +277,8 @@ constexpr int kTpStrip = 128;  // output columns of a block
 constexpr int kTpRows = 8;     // rows a step takes in
 // the radii whose staged rows stay in a ring for their 2r + 1 rows
 constexpr int kTpRingMaxRadius = 16;
+// the most waves a launch's segments are spread over (twopass_grid)
+constexpr int kTpMaxWaves = 8;
 
 // Launch 1 (kAB): inputs X = I, Y = p; window sums of I, p, I*p and I*I;
 // writes a and b. Launch 2: inputs X = a, Y = b; window sums of a and b;
@@ -597,6 +599,35 @@ bool bad_frames(int n_i, int n, int h, int w) {
   return n_i < 1 || n < 1 || n % n_i != 0 || h < 1 || w < 1;
 }
 
+// A launch's grid: walker::strip_grid's segments for one wave of `slots`
+// blocks or for a few, whichever walks the fewest rows a slot. A block's
+// time goes with the rows it walks, its segment's and the 2r above them, so
+// w waves of segments cost w (seg_rows + 2r) a frame. One wave leaves slots
+// empty where the walks do not divide them: at 4K r 15 by three planes it
+// holds 2 segments a plane, 180 blocks of 264 (1,110 rows a slot), and three
+// waves hold 8, 720 blocks (900 rows). There the call took 0.81 ms against
+// 1.06 (launch 1 0.41 against 0.54, launch 2 0.39 against 0.52) and three
+// one-plane calls 0.87, on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md
+// section 6).
+walker::WalkGrid twopass_grid(int n, int h, int w, int r, long long slots) {
+  walker::WalkGrid best{};
+  long long least = 0;
+  for (int waves = 1; waves <= kTpMaxWaves; ++waves) {
+    const walker::WalkGrid g = walker::strip_grid(n, h, w, kTpStrip, 2 * r,
+                                                  65535, waves * slots);
+    const long long blocks =
+        static_cast<long long>(g.grid.x) * g.grid.y * g.grid.z;
+    const long long rows = (blocks + slots - 1) / slots *
+                           ((n + g.grid.z - 1) / g.grid.z) *
+                           (g.seg_rows + 2 * r);
+    if (waves == 1 || rows < least) {
+      best = g;
+      least = rows;
+    }
+  }
+  return best;
+}
+
 template <bool kAB, bool kRing, bool kShrink>
 int launch_twopass_as(const float* X, int n_x, const float* Y,
                       const float* I, int n_i, int n, int h, int w, int r,
@@ -608,8 +639,7 @@ int launch_twopass_as(const float* X, int n_x, const float* Y,
   long long slots = 0;
   const int err = walker::wave_slots(kernel, kTpThreads, bytes, &slots);
   if (err != 0) return err;
-  const walker::WalkGrid g =
-      walker::strip_grid(n, h, w, kTpStrip, 2 * r, 65535, slots);
+  const walker::WalkGrid g = twopass_grid(n, h, w, r, slots);
   auto a16 = [](const float* ptr) {
     return reinterpret_cast<uintptr_t>(ptr) % 16 == 0;
   };
