@@ -882,6 +882,33 @@ def test_open_close_batch_over_grid_z(card, dtype):
                      open_close_plain(x, 2, mode))
 
 
+@pytest.mark.parametrize("frames", ["scenes", "noise"])
+def test_morph_open_4k_pair_matches_the_cell_reference(card, frames):
+    """The morph-open-4k-b2 cell's call: ``morph_open`` of a (2, 2160, 3840)
+    u8 stack at r 15 equals the cell's plain reference (pooling windows in
+    float64) bit for bit, in one launch of open_close.cu and none of
+    morphology.cu; a radius past ``open_close_max_radius`` takes two
+    morphology launches and equals it too."""
+    from bench_torch import harness
+
+    mod = harness.load_module(harness.HERE / "configs"
+                              / "morph-open-4k-b2.py")
+    if frames == "scenes":
+        cfg = {"ring": 1, "batch": 2, "height": 2160, "width": 3840}
+        x = mod.make_args(cfg, 2**31 + 5, card)[0][0]
+    else:
+        x = torch.from_numpy(_frame((2, 2160, 3840), 52)).to(card)
+    entries = ("tpuimg_open_close", "tpuimg_morphology")
+    for radius, launches in ((15, (1, 0)),
+                             (open_close_max_radius(torch.uint8) + 1, (0, 2))):
+        before = _count(*entries)
+        got = tpuimg_torch.morph_open(x, radius)
+        assert _count(*entries) == (before[0] + launches[0],
+                                    before[1] + launches[1])
+        want = mod.reference({"params": {"radius": radius}}, x, torch.float64)
+        assert got.dtype == torch.uint8 and torch.equal(got, want)
+
+
 @pytest.mark.parametrize("seed", range(8))
 def test_random_shapes_morphology_match_plain(card, seed):
     """autoTestDemo-style: a random frame size, batch, dtype and radius per

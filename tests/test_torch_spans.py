@@ -1,7 +1,7 @@
 """The span recorder of tpuimg_torch.profiling, on CPU tensors: off it
-records nothing; on, the public entries record their steps as a tree; the
-launch and load spans; self time by layer; the clock pair; the spans in a
-written trace."""
+records nothing; on, the public entries (morphology's too) record their
+steps as a tree; the launch and load spans; self time by layer; the clock
+pair; the spans in a written trace."""
 
 import collections
 import contextlib
@@ -16,8 +16,10 @@ import pytest
 import torch
 
 from bench_torch import spans as bench_spans
+import tpuimg_torch
 from tpuimg_torch import (
     enhance, guided_filter, hist_equalize, kernels, profiling)
+from tpuimg_torch.ops.morphology import morph_ypadded
 
 # the fused paths above the tail's gate scale the blend in clahe_map's store
 # and round q in the tail's: no enhance.scale or enhance.to_u8 glue
@@ -117,6 +119,39 @@ def test_hist_equalize_records_its_root_and_steps(rng, shape):
         ("he.map", "entry", root.id, root.id)]
     for s in rest:
         assert root.start_ns <= s.start_ns <= s.end_ns <= root.end_ns
+
+
+MORPH_ROOTS = {"erode": "ops.erode", "dilate": "ops.dilate",
+               "morph_open": "ops.morph_open",
+               "morph_close": "ops.morph_close", "morph_ypadded": None}
+
+
+@pytest.mark.parametrize("op", list(MORPH_ROOTS))
+def test_morphology_records_its_root_and_kernel(rng, op):
+    """Each public morphology op records one root of its own name with one
+    ``morph.kernel`` inside it; ``morph_ypadded``, the per-shard op, records
+    its ``morph.kernel`` alone, inside its caller's root. Recording off, the
+    spans are the shared do-nothing object and record nothing; the output
+    is the one recording off gives."""
+    img = torch.from_numpy(rng.integers(0, 256, (2, 40, 56), dtype=np.uint8))
+    fn, args = ((morph_ypadded, (img, 3, 0)) if op == "morph_ypadded"
+                else (getattr(tpuimg_torch, op), (img, 3)))
+    root_name = MORPH_ROOTS[op] or "caller"
+    off = fn(*args)
+    for name in (root_name, "morph.kernel"):
+        assert profiling.span(name, "entry") is profiling._NULL
+    with profiling.recording() as rec:
+        with (profiling.span(root_name, "entry") if op == "morph_ypadded"
+              else contextlib.nullcontext()):
+            on = fn(*args)
+    assert torch.equal(on, off)
+    root, *rest = rec.spans
+    assert (root.name, root.layer, root.parent) == (root_name, "entry", None)
+    assert [(s.name, s.layer, s.parent, s.root) for s in rest] == [
+        ("morph.kernel", "entry", root.id, root.id)]
+    assert root.start_ns <= rest[0].start_ns <= rest[0].end_ns <= root.end_ns
+    fn(*args)
+    assert len(rec.spans) == 2 and profiling._recorder is None
 
 
 def test_span_refuses_an_unknown_layer_while_recording():

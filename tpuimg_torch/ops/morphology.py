@@ -14,6 +14,12 @@ int64 as int32; other dtypes raise ``DTypeError``.
 ``morph_ypadded``, the per-shard op of ``parallel.stencil_sharded``, runs
 the morphology kernel's row-padded entry on a block whose rows already carry
 the radius of halo rows.
+
+Each public op records a root span of its own name (``ops.erode``,
+``ops.dilate``, ``ops.morph_open``, ``ops.morph_close``) with a
+``morph.kernel`` span around its kernel wrapper inside it;
+``morph_ypadded`` records the ``morph.kernel`` span alone, so that it adds
+no root inside a sharded call.
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ from tpuimg_torch.core.validate import (
     check_image, check_radius, check_ypadded_rows)
 from tpuimg_torch.kernels.sep_stencil import (
     MORPH_DTYPES, morph_ypadded_kernel, morphology_kernel, open_close_kernel)
+from tpuimg_torch.profiling import span
 
 # what JAX without x64 narrows an array to, as tpuimg receives it
 _NARROW = {torch.float64: torch.float32, torch.int64: torch.int32}
@@ -38,24 +45,33 @@ def _prepared(img, radius: int):
     return img.contiguous()
 
 
+def _op(name: str, kernel, img, radius: int, mode: int):
+    """The public op ``name``: its root span, the checks, then ``kernel``
+    in a ``morph.kernel`` span."""
+    with span(name, "entry"):
+        img = _prepared(img, radius)
+        with span("morph.kernel", "entry"):
+            return kernel(img, radius, mode)
+
+
 def erode(img, radius: int):
     """Min over a (2r+1)^2 square, replicate border."""
-    return morphology_kernel(_prepared(img, radius), radius, 0)
+    return _op("ops.erode", morphology_kernel, img, radius, 0)
 
 
 def dilate(img, radius: int):
     """Max over a (2r+1)^2 square, replicate border."""
-    return morphology_kernel(_prepared(img, radius), radius, 1)
+    return _op("ops.dilate", morphology_kernel, img, radius, 1)
 
 
 def morph_open(img, radius: int):
     """Erode, then dilate (square, replicate border)."""
-    return open_close_kernel(_prepared(img, radius), radius, 0)
+    return _op("ops.morph_open", open_close_kernel, img, radius, 0)
 
 
 def morph_close(img, radius: int):
     """Dilate, then erode (square, replicate border)."""
-    return open_close_kernel(_prepared(img, radius), radius, 1)
+    return _op("ops.morph_close", open_close_kernel, img, radius, 1)
 
 
 def morph_ypadded(p, radius: int, mode: int):
@@ -64,4 +80,5 @@ def morph_ypadded(p, radius: int, mode: int):
     (..., H, W); x is replicate in the kernel."""
     p = _prepared(p, radius)
     check_ypadded_rows(p, radius, "2*radius")
-    return morph_ypadded_kernel(p, radius, mode)
+    with span("morph.kernel", "entry"):
+        return morph_ypadded_kernel(p, radius, mode)

@@ -5,10 +5,11 @@ The reference's observability is cudaEvent timers plus "GPU time by
 nsight/nvprof" (Histogram/main.cpp:151; SURVEY.md §5). Here:
 
 - ``span(name, layer)``: a context manager around a step of the program.
-  ``enhance``, ``guided_filter`` and ``hist_equalize`` open one around each
-  call and one around each step inside it (a kernel wrapper, the PyTorch
-  glue between kernels); ``kernels.launch`` opens one around each launch,
-  and ``kernels.load`` around building and loading the library. While nothing
+  ``enhance``, ``guided_filter``, ``hist_equalize``, ``erode``, ``dilate``,
+  ``morph_open`` and ``morph_close`` open one around each call and one
+  around each step inside it (a kernel wrapper, the PyTorch glue between
+  kernels); ``kernels.launch`` opens one around each launch, and
+  ``kernels.load`` around building and loading the library. While nothing
   records, it returns one shared object that does nothing: it reads no
   clock and allocates nothing.
 - ``recording()``: records every span opened in its block, in memory, as
@@ -40,7 +41,8 @@ library) and ``transfer`` (``enhance_host``'s copies between the host and
 the device: staging into pinned memory, the copy up, the copy down). A span
 opened while no other is open in its thread is a root: a call into the
 program (``host.enhance``, ``pipeline.enhance``, ``ops.guided_filter``,
-``ops.hist_equalize``; the steps of other entries show as roots of their
+``ops.hist_equalize``, ``ops.erode``, ``ops.dilate``, ``ops.morph_open``,
+``ops.morph_close``; the steps of other entries show as roots of their
 own). The spans inside it share its id as ``root``.
 """
 
